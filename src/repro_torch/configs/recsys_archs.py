@@ -1,0 +1,82 @@
+"""The DLRM recsys workloads (copies of ``repro.configs.recsys_archs``).
+
+``dlrm-ctr`` is the Criteo-like DLRM at its published widths; its 26 tables
+pack into 57,012,000 rows of dim 128, a 29.19 GB f32 master that fits one
+80 GB card. The other configs are the CPU-runnable bench cells.
+"""
+from .base import RecsysModelConfig, SparseTableConfig
+
+# DLRM-style CTR: criteo-like multi-table one-hot + bagged features.
+DLRM_CTR = RecsysModelConfig(
+    name="dlrm-ctr", backbone="dlrm",
+    tables=tuple(
+        SparseTableConfig(f"cat_{i}", vocab_size=v, dim=128)
+        for i, v in enumerate(
+            [40_000_000, 10_000_000, 5_000_000, 1_000_000] + [100_000] * 10 + [1000] * 12
+        )
+    ),
+    d_model=128, n_layers=0, n_heads=1, d_ff=512, seq_len=1,
+    num_dense_features=13,
+)
+
+# Routing-dominated bench cell: trivial dense net, wide multi-hot bags.
+DLRM_ROUTING = RecsysModelConfig(
+    name="dlrm-routing", backbone="dlrm",
+    tables=(
+        SparseTableConfig("items", vocab_size=400_000, dim=64, bag_size=8),
+        SparseTableConfig("users", vocab_size=100_000, dim=64, bag_size=4),
+        SparseTableConfig("context", vocab_size=10_000, dim=64, bag_size=4),
+    ),
+    d_model=32, n_layers=0, n_heads=1, d_ff=64, seq_len=1,
+    num_dense_features=4,
+)
+
+# Cache-dominated bench cell: steep zipf (a=2.5) key stream.
+DLRM_CACHED = RecsysModelConfig(
+    name="dlrm-cached", backbone="dlrm",
+    tables=(
+        SparseTableConfig("items", vocab_size=100_000, dim=64, bag_size=8),
+        SparseTableConfig("users", vocab_size=25_000, dim=64, bag_size=4),
+        SparseTableConfig("context", vocab_size=10_000, dim=64, bag_size=4),
+    ),
+    d_model=32, n_layers=0, n_heads=1, d_ff=64, seq_len=1,
+    num_dense_features=4,
+    zipf_a=2.5,
+)
+
+# Drifting-vocabulary bench cell: the zipf head rotates every step.
+DLRM_DRIFT = RecsysModelConfig(
+    name="dlrm-drift", backbone="dlrm",
+    tables=(
+        SparseTableConfig("items", vocab_size=10_000, dim=64, bag_size=8),
+        SparseTableConfig("users", vocab_size=4_000, dim=64, bag_size=4),
+    ),
+    d_model=32, n_layers=0, n_heads=1, d_ff=64, seq_len=1,
+    num_dense_features=4,
+    zipf_a=2.0,
+    drift_keys_per_step=96,
+)
+
+# Growing-vocabulary bench cell: the live key prefix widens every step.
+DLRM_GROWTH = RecsysModelConfig(
+    name="dlrm-growth", backbone="dlrm",
+    tables=(
+        SparseTableConfig("items", vocab_size=10_000, dim=64, bag_size=8),
+        SparseTableConfig("users", vocab_size=4_000, dim=64, bag_size=4),
+    ),
+    d_model=32, n_layers=0, n_heads=1, d_ff=64, seq_len=1,
+    num_dense_features=4,
+    zipf_a=1.6,
+    growth_keys_per_step=256, growth_base_keys=1024,
+)
+
+DLRM_REDUCED = RecsysModelConfig(
+    name="dlrm-reduced", backbone="dlrm",
+    tables=(
+        SparseTableConfig("cat_a", vocab_size=2048, dim=16),
+        SparseTableConfig("cat_b", vocab_size=512, dim=16),
+        SparseTableConfig("cat_c", vocab_size=128, dim=16, bag_size=3),
+    ),
+    d_model=16, n_layers=0, n_heads=1, d_ff=64, seq_len=1,
+    num_dense_features=8,
+)

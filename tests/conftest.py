@@ -17,6 +17,10 @@ def pytest_configure(config):
         "markers",
         "multidev: multi-device scenario sweep; skipped unless "
         "REPRO_MULTIDEV=1 (run by CI's multidev job)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (hand-written CUDA kernels); skips "
+        "without one")
 
 
 def pytest_collection_modifyitems(config, items):
