@@ -1,12 +1,14 @@
-"""The Session facade, serving subset: one front door to the recsys
-serving path.
+"""The Session facade: one front door to training and serving a recsys
+workload (``repro.api.session``, device tier, one card).
 
     from repro_torch.api import Session
 
-    sess = Session.from_arch("dlrm-ctr")          # runs on cuda
-    report = sess.serve_embeddings(head="dlrm", max_batch=512,
-                                   num_requests=4096, check_exact=True)
+    sess = Session.from_arch("dlrm-ctr", mode="nestpipe", global_batch=8192,
+                             bucket_slack=1.5)         # runs on cuda
+    report = sess.train(8)
     print(report.summary)
+    served = sess.serve_embeddings(head="dlrm", max_batch=512,
+                                   num_requests=4096, check_exact=True)
 
 ``device`` defaults to ``cuda`` and raises without a GPU; pass
 ``device="cpu"`` for the plain PyTorch path.
@@ -14,18 +16,33 @@ serving path.
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..configs.base import NestPipeConfig
-from ..core.embedding.table import EmbeddingTableState, init_table_state
-from ..launch.build import Workload, resolve
+from ..configs.base import NestPipeConfig, OptimizerConfig
+from ..core.dbp.pipeline import PipelineStats
+from ..core.embedding.table import EmbeddingTableState
+from ..launch.build import RECSYS_GLOBAL_BATCH, Workload, resolve
 from ..models.dlrm import DLRM
-from ..utils import resolve_device
-from .strategies import InferenceStrategy
+from ..train.state import TrainState
+from ..utils import resolve_device, same_device
+from .strategies import get_strategy
+from .streams import resolve_stream
+
+
+@dataclass
+class TrainReport:
+    """What a train run produced: final state + pipeline statistics."""
+
+    state: TrainState
+    stats: PipelineStats
+    wall_s: float
+    stragglers: int
+    summary: Dict[str, Any] = field(default_factory=dict)
 
 
 @dataclass
@@ -38,73 +55,165 @@ class EmbedServeReport:
 
 
 class Session:
-    """A serving session over one resolved recsys workload.
+    """A training/serving session over one resolved recsys workload.
 
-    The session owns the workload and the weights: the DLRM dense model and
-    the master table, drawn on the device from ``seed`` on first use, or
-    set by :meth:`ingest` (e.g. weights carried across from the JAX package
-    by ``repro_torch.convert``).
+    The session owns the workload, the execution strategy and the train
+    state (dense params, optimizer state, master table, step): drawn on the
+    device from ``seed`` on first use, replaced by :meth:`ingest` (weights
+    from elsewhere, fresh optimizer state) or by assigning ``state`` (e.g.
+    a JAX train state carried over by ``repro_torch.convert``). Training
+    updates the master in place; serving reads the current weights.
     """
 
-    def __init__(self, workload: Workload, *, seed: int = 0,
-                 reduced: bool = False):
+    def __init__(self, workload: Workload, *, opt_cfg: Optional[OptimizerConfig] = None,
+                 seed: int = 0, strategy=None, reduced: bool = False):
         self.workload = workload
-        self.seed = seed
+        self.strategy = strategy or get_strategy(workload.mode)
+        self.opt_cfg = opt_cfg or OptimizerConfig()
+        self.seed = seed  # draws the weights and the data stream
         self.reduced = reduced
         self.device = workload.device
+        self._fns = None
+        self._optimizer = None
+        self._state: Optional[TrainState] = None
         self._model: Optional[DLRM] = None
-        self._table: Optional[EmbeddingTableState] = None
+        self._model_of: Optional[Dict[str, torch.Tensor]] = None
 
     @classmethod
     def from_arch(
         cls,
         arch: str,
         *,
+        mode: str = "nestpipe",
         reduced: bool = False,
+        global_batch: Optional[int] = None,
+        n_micro: int = 4,
+        clustering: str = "keycentric",
         bucket_slack: float = 4.0,
         store: str = "auto",
+        prefetch_ahead: int = 1,
         npcfg: Optional[NestPipeConfig] = None,
+        opt_cfg: Optional[OptimizerConfig] = None,
+        lr: Optional[float] = None,
         seed: int = 0,
         device: Optional[str | torch.device] = None,
     ) -> "Session":
-        """Resolve a registry arch into a ready session on ``device``."""
+        """Resolve a registry arch into a ready session on ``device``.
+
+        ``mode`` names a registered strategy (``nestpipe | async | serial |
+        serve``). ``global_batch`` is the training batch (default 65,536,
+        the JAX package's recsys batch), split into ``n_micro`` FWP
+        micro-batches. ``bucket_slack`` sizes the routing buffers (C and K):
+        4.0 only pads them on one shard, 1.5 is the ``NestPipeConfig``
+        default. ``prefetch_ahead`` is the DBP lookahead depth k."""
+        strategy = get_strategy(mode)  # fail fast on unknown modes
         device = resolve_device(device)
-        npcfg = npcfg or NestPipeConfig(bucket_slack=bucket_slack)
+        npcfg = npcfg or NestPipeConfig(fwp_microbatches=n_micro,
+                                        bucket_slack=bucket_slack,
+                                        clustering=clustering)
+        overlay = {}
         if store != "auto":
-            npcfg = dataclasses.replace(npcfg, store=store)
-        wl = resolve(arch, device=device, npcfg=npcfg, reduced=reduced)
-        return cls(wl, seed=seed, reduced=reduced)
+            overlay["store"] = store
+        if prefetch_ahead != 1:
+            overlay["prefetch_ahead"] = prefetch_ahead
+        if overlay:
+            npcfg = dataclasses.replace(npcfg, **overlay)
+        npcfg = strategy.configure(npcfg)
+        wl = resolve(arch, device=device, mode=mode, npcfg=npcfg, reduced=reduced,
+                     global_batch=global_batch or RECSYS_GLOBAL_BATCH)
+        if lr is not None:
+            opt_cfg = dataclasses.replace(opt_cfg or OptimizerConfig(), lr=lr)
+        return cls(wl, opt_cfg=opt_cfg, seed=seed, strategy=strategy,
+                   reduced=reduced)
 
     # ------------------------------------------------------------------
-    # weights
+    # state
     # ------------------------------------------------------------------
 
-    def weights(self) -> Tuple[DLRM, EmbeddingTableState]:
-        """The (model, table) this session serves; a fresh init from
-        ``seed`` on first use."""
-        if self._model is None:
+    @property
+    def fns(self):
+        if self._fns is None:
+            self._fns, self._optimizer = self.workload.step_fns(self.opt_cfg)
+        return self._fns
+
+    @property
+    def optimizer(self):
+        self.fns  # build the (fns, optimizer) pair lazily together
+        return self._optimizer
+
+    @property
+    def state(self) -> TrainState:
+        """The train state; a fresh init from ``seed`` on first use."""
+        if self._state is None:
             g = torch.Generator(self.device).manual_seed(self.seed)
-            self._model = DLRM(self.workload.cfg, device=self.device, generator=g)
-            self._table = init_table_state(self.workload.spec,
-                                           device=self.device, generator=g)
-        return self._model, self._table
+            self._state = self.workload.init_state(g, self.optimizer)
+        return self._state
 
-    def ingest(self, params: Mapping[str, torch.Tensor],
-               table: EmbeddingTableState) -> None:
-        """Serve these weights in place of the fresh init: ``params`` is a
-        DLRM state dict, ``table`` the master (see ``repro_torch.convert``)."""
+    @state.setter
+    def state(self, value: TrainState) -> None:
+        self._check_table(value.table)
+        self._state = value
+
+    def _check_table(self, table: EmbeddingTableState) -> None:
         spec = self.workload.spec
         if tuple(table.rows.shape) != (spec.padded_rows, spec.dim):
             raise ValueError(f"table shape {tuple(table.rows.shape)} != "
                              f"({spec.padded_rows}, {spec.dim})")
-        if table.rows.device != self.device:
+        if not same_device(table.rows.device, self.device):
             raise ValueError(f"table on {table.rows.device}, session on "
                              f"{self.device}")
-        g = torch.Generator(self.device).manual_seed(self.seed)
-        model = DLRM(self.workload.cfg, device=self.device, generator=g)
-        model.load_state_dict({k: torch.as_tensor(v, device=self.device)
-                               for k, v in params.items()})
-        self._model, self._table = model, table
+
+    def weights(self) -> Tuple[DLRM, EmbeddingTableState]:
+        """The (model, table) the session serves: the current state's dense
+        params in a DLRM module, and its master table (not copied)."""
+        state = self.state
+        if self._model is None or self._model_of is not state.dense:
+            g = torch.Generator(self.device).manual_seed(self.seed)
+            model = DLRM(self.workload.cfg, device=self.device, generator=g)
+            model.load_state_dict(state.dense)
+            self._model, self._model_of = model, state.dense
+        return self._model, state.table
+
+    def ingest(self, params: Mapping[str, torch.Tensor],
+               table: EmbeddingTableState) -> None:
+        """Use these weights in place of the fresh init, with a fresh
+        optimizer state at step 0: ``params`` is a DLRM state dict,
+        ``table`` the master (see ``repro_torch.convert``)."""
+        self._check_table(table)
+        dense = {k: torch.as_tensor(v, device=self.device).detach()
+                 for k, v in params.items()}
+        self._state = TrainState(
+            dense, self.optimizer.init(dense), table,
+            torch.zeros((), dtype=torch.int32, device=self.device))
+
+    # ------------------------------------------------------------------
+    # train
+    # ------------------------------------------------------------------
+
+    def train(self, steps: int) -> TrainReport:
+        """Run ``steps`` training steps from the current state. The stream
+        starts at batch index ``state.step``. The master table is updated
+        in place; ``self.state`` is rebound to the returned state."""
+        start = int(self.state.step)
+        stream = resolve_stream(self.workload, self.seed, start_step=start)
+        driver = self.strategy.build_driver(self.fns, stream, self.workload)
+        t0 = time.perf_counter()
+        state, stats = driver.run(self.state, max(int(steps), 0))
+        wall = time.perf_counter() - t0
+        self._state = state
+        summary = stats.summary()
+        gb = self.workload.global_batch
+        summary.update({
+            "arch": self.workload.arch.name,
+            "mode": self.strategy.name,
+            "global_batch": gb,
+            "n_micro": self.workload.n_micro,
+            "device": str(self.device),
+            "wall_s": wall,
+            "qps": gb * len(stats.step_times) / max(wall, 1e-9),
+        })
+        return TrainReport(state=state, stats=stats, wall_s=wall,
+                           stragglers=len(stats.straggler_steps), summary=summary)
 
     # ------------------------------------------------------------------
     # serve
@@ -126,8 +235,9 @@ class Session:
         """Serve a zipf embedding-request stream (the recsys serving path).
 
         Resolves a serve-shaped workload under the ``serve`` strategy
-        (``fwp_microbatches=1``), ingests the
-        session's master table into the store tier, freezes it behind a
+        (``fwp_microbatches=1``), ingests the session's current master
+        table (trained, if the session trained; the serve workload has the
+        same table spec) into the store tier, freezes it behind a
         :class:`~repro_torch.serve.FrozenStoreView`, and pumps
         ``num_requests`` synthetic zipf requests through a window-coalescing
         :class:`~repro_torch.serve.ServeRouter`.
@@ -142,13 +252,13 @@ class Session:
             synthetic_requests
 
         seed = self.seed if seed is None else seed
-        strategy = InferenceStrategy()
+        strategy = get_strategy("serve")
         npcfg = self.workload.npcfg
         if store is not None and store != "auto":
             npcfg = dataclasses.replace(npcfg, store=store)
         npcfg = strategy.configure(npcfg)
-        wl = resolve(self.workload.arch.name, device=self.device, npcfg=npcfg,
-                     reduced=self.reduced, global_batch=max_batch)
+        wl = resolve(self.workload.arch.name, device=self.device, mode="serve",
+                     npcfg=npcfg, reduced=self.reduced, global_batch=max_batch)
         model, table = self.weights()
 
         view = strategy.build_view(wl, table)

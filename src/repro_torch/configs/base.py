@@ -1,5 +1,6 @@
-"""Config dataclasses for the recsys models and the NestPipe switches the
-serving path reads (field-for-field copies of ``repro.configs.base``)."""
+"""Config dataclasses for the recsys models, the NestPipe switches the
+serving and training paths read, and the optimizer (field-for-field copies
+of ``repro.configs.base``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -50,12 +51,33 @@ class RecsysModelConfig:
 
 @dataclass(frozen=True)
 class NestPipeConfig:
-    """The NestPipe switches the serving path reads."""
+    """The NestPipe switches the serving path and the DBP driver read."""
 
     fwp_microbatches: int = 4  # N; 1 disables FWP
+    clustering: str = "keycentric"  # "keycentric" | "none"
     # Fixed-capacity routing knobs (static shapes).
     unique_capacity_factor: float = 1.0  # U_max = ceil(L * factor)
     bucket_slack: float = 1.5  # C = ceil(U_max / S * slack)
     # Embedding storage tier: "auto" resolves to "device"; "host" and
     # "cached" are not ported yet (core/store/base.py raises).
     store: str = "auto"
+    # DBP lookahead depth k: the Prefetcher routes and retrieves step t+k
+    # while step t computes (k=1 is the paper's dual-buffer setting).
+    prefetch_ahead: int = 1
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"  # dense optimizer
+    lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip: float = 1.0
+    # Sparse (embedding) optimizer — rowwise to bound state size.
+    sparse_name: str = "rowwise_adagrad"
+    sparse_lr: float = 0.05
+    sparse_eps: float = 1e-8
+    # Moment dtype policy: "f32" always; params bf16 + no master copy for huge archs.
+    master_copy: bool = True

@@ -9,6 +9,8 @@ from .base import (
     resolve_store,
 )
 from .device import DeviceStore
+from .prefetch import PrefetchEntry, Prefetcher
 
 __all__ = ["STAGE_TIMER_KEYS", "STORES", "FetchPlan", "StageTimers",
-           "build_store", "placeholder_table", "resolve_store", "DeviceStore"]
+           "build_store", "placeholder_table", "resolve_store", "DeviceStore",
+           "PrefetchEntry", "Prefetcher"]

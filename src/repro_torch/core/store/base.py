@@ -3,6 +3,8 @@
 ``plan(keys)``        DBP stage 3: route a window.
 ``retrieve(plan)``    DBP stage 4a: master rows -> a fresh
                       :class:`~repro_torch.core.embedding.engine.DualBuffer`.
+``commit(buffer, plan)``  DBP stage 5'': write the updated buffer back
+                      into the master (in place on the device tier).
 
 Only the device tier (master in device memory) is ported; the host and
 cached tiers come later (``ROADMAP.md``, port Queue 1) and raise here.

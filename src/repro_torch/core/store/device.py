@@ -1,8 +1,9 @@
 """DeviceStore: the master table in device memory, the trivial fetch plan.
 
-Routing and retrieval are the engine's ops, called directly (step
-functions come with training). ``plan`` never touches the host
-(``host_keys is None``).
+Routing, retrieval and the commit are the engine's ops, called directly.
+``plan`` never touches the host (``host_keys is None``); ``commit`` writes
+the updated buffer back into the master in place (JAX donates the table
+to its commit jit for the same effect).
 """
 from __future__ import annotations
 
@@ -64,6 +65,13 @@ class DeviceStore:
     def retrieve(self, plan: FetchPlan) -> DualBuffer:
         with self.stage_timers.timed("retrieve_ms"):
             return self.engine.retrieve(self.table, plan.window)
+
+    def commit(self, buffer: DualBuffer, plan: Optional[FetchPlan] = None) -> None:
+        """DBP stage 5'': the in-place master write-back of ``buffer``. A
+        retrieve queued before this reads the master as it was: the gather
+        copies into a fresh tensor ahead of this scatter on the stream."""
+        with self.stage_timers.timed("commit_ms"):
+            self.table = self.engine.writeback(self.table, buffer)
 
     # -- metrics ---------------------------------------------------------
 

@@ -19,11 +19,12 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("embedding_gather",)
+SOURCES = ("embedding_gather", "segment_rowsum", "buffer_sync",
+           "embedding_scatter")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -90,3 +91,13 @@ def load(name: str) -> ctypes.CDLL:
             if lib is None:
                 lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def function(name: str, symbol: str, argtypes: Sequence) -> Callable[..., int]:
+    """``symbol`` of ``csrc/<name>.cu`` with its C signature declared: every
+    pointer and the stream as ``c_void_p``, sizes as ``c_int64``; it returns
+    the CUDA error code of its launch."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn

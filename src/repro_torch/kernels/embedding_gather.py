@@ -28,12 +28,9 @@ _fn = None
 def _kernel():
     global _fn
     if _fn is None:
-        fn = build.load("embedding_gather").repro_embedding_gather_f32
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        _fn = build.function("embedding_gather", "repro_embedding_gather_f32",
+                             [p, i64, i64, p, i64, p, p])
     return _fn
 
 

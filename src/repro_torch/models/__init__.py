@@ -1,4 +1,11 @@
-"""Models: the DLRM dense head."""
-from .dlrm import DLRM, dlrm_forward, num_feature_slots, pool_tables
+"""Models: the DLRM dense head and its loss."""
+from .dlrm import (
+    DLRM,
+    dlrm_forward,
+    make_dlrm_loss_fn,
+    num_feature_slots,
+    pool_tables,
+)
 
-__all__ = ["DLRM", "dlrm_forward", "num_feature_slots", "pool_tables"]
+__all__ = ["DLRM", "dlrm_forward", "make_dlrm_loss_fn", "num_feature_slots",
+           "pool_tables"]

@@ -38,3 +38,16 @@ def resolve_device(device: Optional[str | torch.device] = None) -> torch.device:
                 "pass device='cpu' to run the plain PyTorch path")
         device = "cuda"
     return torch.device(device)
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one: ``cuda`` (no index) names the current
+    CUDA device, so it equals ``cuda:0`` when that is current."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.index is None or b.index is None:
+        current = torch.cuda.current_device() if a.type == "cuda" else None
+        return (a.index if a.index is not None else current) == \
+            (b.index if b.index is not None else current)
+    return a.index == b.index

@@ -120,3 +120,16 @@ def test_init_table_state_is_seeded_and_in_place():
     assert a.rows.shape == (ts.padded_rows, ts.dim) and a.rows.dtype == torch.float32
     assert torch.equal(a.rows, b.rows) and not a.accum.any()
     assert 0.008 < float(a.rows.std()) < 0.012
+
+
+def test_same_device_names_one_device_two_ways():
+    from repro_torch.utils import same_device
+
+    assert same_device("cpu", torch.device("cpu"))
+    assert not same_device("cpu", "cuda:0")
+    assert not same_device("cuda:0", "cuda:1")
+
+
+def test_optimizer_config_equals_jax_field_for_field():
+    t, j = tbase.OptimizerConfig(), jbase.OptimizerConfig()
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
