@@ -27,21 +27,46 @@ hand-written kernel on it against its plain PyTorch version:
    counted (and the four gathers of one serving window timed first);
 7. consistency at the reduced ``dlrm-ctr``: nestpipe = serial = the naive
    reference trainer within 1e-5 over 6 steps, and async diverges;
-8. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
+8. HSTU kernel edges: the ``hstu_attention`` forward and backward kernels
+   against their plain versions at T in {1, 33, 256, 1024}, (dqk, dv) in
+   {(128, 128), (16, 8), (48, 96)}, causal and not, on strided q, k, v
+   (column slices of one (..., 2dqk + 2dv) tensor, as the layer makes
+   them), within 1e-5 of each output's sum of magnitudes plus 1e-7, and the
+   same bits on two runs;
+9. full-width HSTU training: ``hstu-industrial`` at every published width
+   (d_model 1024, 4 layers, 8 heads, T = 1024, dim 512, bf16 lookups) with
+   each vocabulary divided by 6.25 to fit one card (a 49.48 GB master,
+   ``HSTU_INDUSTRIAL_ONE_CARD``), hand-assembled and run through
+   ``Session.from_workload`` with ``mode="nestpipe"``, batch 256, N = 4,
+   ``bucket_slack=1.5``: one warm-up step, two steps whose kernel calls
+   are captured (the first ``hstu_attention`` forward and backward, and
+   the embedding kernels' calls as in phase 4), the embedding kernels'
+   calls checked and timed as in phase 4, then ``train(6)`` with every
+   launch counted; finite losses, no routing overflow, peak memory,
+   samples/s, tokens/s, step p50 and p99 (``--profile``: the device idle
+   share over 2 more steps); then, with the session released, the captured
+   attention calls checked against the plain versions and timed beside
+   their FP32 bound;
+10. consistency at ``hstu-reduced``: nestpipe = serial = the reference
+   trainer over 6 steps, and async diverges, at the configuration's own
+   step sizes and at the smaller ones of the CPU parity tests;
+11. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
 
 Every phase prints one JSON line. Nothing is caught: any failure exits
 non-zero. Run from the repo root: ``python3 chip_smoke.py`` (``--profile``
 adds a host breakdown and a ``torch.profiler`` pass over 4 training steps
-and over the serving path).
+and over the serving path, and one over 2 HSTU steps).
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
 import sys
 import time
+import weakref
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -55,6 +80,18 @@ MAX_BATCH = 512
 N_REQUESTS = 4096
 TIMED_RUNS = 30
 CONSISTENCY_STEPS = 6
+HSTU_BATCH = 256  # the per-worker share of the 65,536 recsys batch over 256 workers
+HSTU_STEPS = 6
+# HSTU's kernels against their plain versions: within HSTU_RTOL of each
+# output's sum of magnitudes (ref.hstu_attention_magnitudes) plus HSTU_ATOL;
+# the two add the same terms in different orders.
+HSTU_RTOL, HSTU_ATOL = 1e-5, 1e-7
+# hstu-reduced consistency runs twice: at the configuration's own step sizes
+# and at the rowwise-Adagrad step and AdamW eps of the CPU parity tests,
+# where rounding does not grow (tests/test_torch_train.py says why). Both
+# hold rows and dense params within 1e-5 and the adagrad accumulator within
+# 1e-4 of 1 + accum.
+HSTU_SMALL_STEPS = {"sparse_lr": 0.002, "adam_eps": 1e-6}
 KERNELS = {  # name -> (source, the Pallas kernel it replaces)
     "embedding_gather": ("src/repro_torch/csrc/embedding_gather.cu",
                          "src/repro/kernels/embedding_gather.py:35"),
@@ -65,6 +102,11 @@ KERNELS = {  # name -> (source, the Pallas kernel it replaces)
     # no Pallas kernel: the XLA scatter of EmbeddingEngine.writeback
     "embedding_scatter": ("src/repro_torch/csrc/embedding_scatter.cu",
                           "src/repro/core/embedding/engine.py:510"),
+    # the TPU kernel is forward only; JAX differentiates the layer's jnp form
+    "hstu_attention_fwd": ("src/repro_torch/csrc/hstu_attention.cu",
+                           "src/repro/kernels/hstu_attention.py:56"),
+    "hstu_attention_bwd": ("src/repro_torch/csrc/hstu_attention.cu",
+                           "src/repro/kernels/hstu_attention.py:56"),
 }
 
 
@@ -84,6 +126,33 @@ def peak_bytes_per_s(name: str) -> float:
             return 3.9e12
         return 3.35e12  # SXM, "NVIDIA H100 80GB HBM3"
     raise SystemExit(f"chip_smoke: no bandwidth figure for {name!r}")
+
+
+def peak_flops_fp32(torch, name: str) -> float:
+    """The f32 CUDA-core peak: SMs x 128 lanes x 2 operations (an FMA) x
+    the maximum SM clock nvidia-smi reports."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * 128 * 2 * mhz * 1e6
+
+
+def tf32_flops(name: str) -> float:
+    """Dense TF32 tensor-core peak (NVIDIA data sheets, SXM parts)."""
+    if "H100" in name or "H200" in name:
+        return 495e12
+    raise SystemExit(f"chip_smoke: no TF32 figure for {name!r}")
+
+
+def hstu_work(q, dv, causal):
+    """(forward, backward) operations of ``hstu_attention`` for these
+    inputs: per unmasked (query, key) pair, 2 dqk + 2 dv forward (the score
+    and the weighted sum) and 2 (3 dqk + 2 dv) backward (the score again,
+    dA, dV, dQ, dK)."""
+    b, t, h, dqk = q.shape
+    pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+    return pairs * 2 * (dqk + dv), pairs * 2 * (3 * dqk + 2 * dv)
 
 
 def time_ms(torch, fn, flush) -> float:
@@ -154,6 +223,8 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.api import InferenceStrategy, Session, resolve_stream
+    from repro_torch.configs import ArchSpec, NestPipeConfig, OptimizerConfig, get_arch
+    from repro_torch.configs.recsys_archs import HSTU_INDUSTRIAL_ONE_CARD, HSTU_ROW_CUT
     from repro_torch.core.consistency import build_reference_step
     from repro_torch.core.embedding.engine import LookupPlan
     from repro_torch.core.embedding.routing import SENTINEL, sorted_lookup
@@ -162,8 +233,9 @@ def main() -> int:
     from repro_torch.kernels import buffer_sync as bs
     from repro_torch.kernels import embedding_gather as eg
     from repro_torch.kernels import embedding_scatter as es
+    from repro_torch.kernels import hstu_attention as ha
     from repro_torch.kernels import segment_rowsum as sr
-    from repro_torch.launch.build import resolve
+    from repro_torch.launch.build import assemble_workload, make_loss_fn, resolve
     from repro_torch.models.dlrm import make_dlrm_loss_fn
     from repro_torch.serve import synthetic_requests
     from repro_torch.train import clone_state, constant_lr
@@ -175,9 +247,12 @@ def main() -> int:
     def reset_counts():
         for m in mods.values():
             m.launches = 0
+        ha.launches_fwd = ha.launches_bwd = 0
 
     def counts():
-        return {k: m.launches for k, m in mods.items()}
+        return {**{k: m.launches for k, m in mods.items()},
+                "hstu_attention_fwd": ha.launches_fwd,
+                "hstu_attention_bwd": ha.launches_bwd}
 
     # -- 1. environment ---------------------------------------------------
     smi = subprocess.run(
@@ -276,6 +351,11 @@ def main() -> int:
             edge.append(f"gather D={d},n={n}")
         check_gather(f"misaligned D={d}", misaligned(t), randint(-2, 1002, 513))
         edge.append(f"gather D={d},misaligned")
+        # bf16 rows: the lookups of a model that computes in bf16 (HSTU)
+        check_gather(f"bf16 D={d}", t.to(torch.bfloat16), randint(-2, 1002, 777))
+        check_gather(f"bf16 misaligned D={d}", misaligned(t.to(torch.bfloat16)),
+                     randint(-2, 1002, 513))
+        edge.append(f"gather bf16 D={d},aligned and misaligned")
         for n, s in ((0, 7), (300, 1), (2000, 64), (2000, 700)):
             ids = randint(0, s, n)  # unsorted, with repeats
             if n:
@@ -320,9 +400,10 @@ def main() -> int:
             edge.append(f"embedding_scatter D={d},R={r},n={n}")
     torch.cuda.synchronize()
     emit("kernel_edges", cases=edge, max_abs_err=worst,
-         exact="bit-exact, except segment_rowsum on normal grads against the "
-               "card's atomic index_add_: within 1e-6 of each output's sum of "
-               "magnitudes + 1e-6 (bit-exact against the CPU plain version)")
+         exact="bit-exact (gathers in f32 and bf16), except segment_rowsum on "
+               "normal grads against the card's atomic index_add_: within 1e-6 "
+               "of each output's sum of magnitudes + 1e-6 (bit-exact against "
+               "the CPU plain version)")
 
     # -- 4. the full-width training session -------------------------------
     sess = Session.from_arch(ARCH, mode="nestpipe", global_batch=TRAIN_BATCH,
@@ -344,121 +425,144 @@ def main() -> int:
     sess.train(1)
     torch.cuda.synchronize()
 
-    # two steps with every kernel call's inputs captured (the first call of
-    # each kind per step); the master is kept by reference, not copied
-    captured = {"gather": [], "segment": [], "sync": [], "scatter": []}
-    real = {k: getattr(dispatch, k) for k in
-            ("gather_rows", "segment_rowsum", "buffer_sync", "scatter_rows")}
-    master = state.table
+    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)  # evicts the L2 (time_ms)
 
-    def keep(t):
-        return t if t.data_ptr() in (master.rows.data_ptr(),
-                                     master.accum.data_ptr()) else t.clone()
+    def capture_calls(sess):
+        """Two training steps with the inputs of the first calls of each
+        kind kept: the gathers retrieve 0, retrieve 1 (queued ahead of
+        window 0) and window 0's three per micro-batch; the segment sums of
+        window 0's micro-batches and its window-to-buffer sum; one
+        buffer_sync and one write-back. The master is kept by reference,
+        every other tensor copied once (the micro-batches of a window read
+        one buffer)."""
+        captured = {"gather": [], "segment": [], "sync": [], "scatter": []}
+        limits = {"gather": 14, "segment": 5, "sync": 1, "scatter": 1}
+        real = {k: getattr(dispatch, k) for k in
+                ("gather_rows", "segment_rowsum", "buffer_sync", "scatter_rows")}
+        master = sess.state.table
+        copies = {}  # id(tensor) -> (weak reference to it, its copy)
 
-    def capture(kind, fn, limit):
-        def run(*a):
-            if len(captured[kind]) < limit:
-                captured[kind].append(tuple(keep(x) if torch.is_tensor(x) else x
-                                            for x in a))
-            return fn(*a)
-        return run
+        def keep(t):
+            if t.data_ptr() in (master.rows.data_ptr(), master.accum.data_ptr()):
+                return t
+            hit = copies.get(id(t))
+            if hit is None or hit[0]() is not t:
+                hit = copies[id(t)] = (weakref.ref(t), t.clone())
+            return hit[1]
 
-    # gathers: retrieve 0, retrieve 1 (queued ahead of window 0), then
-    # window 0's 3 per micro-batch
-    dispatch.gather_rows = capture("gather", real["gather_rows"], 14)
-    dispatch.segment_rowsum = capture("segment", real["segment_rowsum"], 5)
-    dispatch.buffer_sync = capture("sync", real["buffer_sync"], 1)
-    dispatch.scatter_rows = capture("scatter", real["scatter_rows"], 1)
-    try:
-        sess.train(2)
-    finally:
-        for k, fn in real.items():
-            setattr(dispatch, k, fn)
-    torch.cuda.synchronize()
-    master = sess.state.table
-    if [len(v) for v in captured.values()] != [14, 5, 1, 1]:
-        raise SystemExit(f"capture saw {[len(v) for v in captured.values()]} calls")
-    captured["gather"] = captured["gather"][:1] + captured["gather"][2:]
+        def capture(kind, fn):
+            def run(*a):
+                if len(captured[kind]) < limits[kind]:
+                    captured[kind].append(tuple(keep(x) if torch.is_tensor(x) else x
+                                                for x in a))
+                return fn(*a)
+            return run
 
-    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)
-    shapes = {k: [] for k in mods}
+        dispatch.gather_rows = capture("gather", real["gather_rows"])
+        dispatch.segment_rowsum = capture("segment", real["segment_rowsum"])
+        dispatch.buffer_sync = capture("sync", real["buffer_sync"])
+        dispatch.scatter_rows = capture("scatter", real["scatter_rows"])
+        try:
+            sess.train(2)
+        finally:
+            for k, fn in real.items():
+                setattr(dispatch, k, fn)
+        torch.cuda.synchronize()
+        if [len(v) for v in captured.values()] != list(limits.values()):
+            raise SystemExit(f"capture saw {[len(v) for v in captured.values()]} calls")
+        captured["gather"] = captured["gather"][:1] + captured["gather"][2:]
+        return captured
 
-    def timed(kernel, label, nbytes, fn, plain, library, **extra):
-        row = {"kernel": kernel, "call": label, **extra, "bytes": nbytes,
-               "ms": time_ms(torch, fn, flush),
-               "plain_ms": time_ms(torch, plain, flush),
-               "library_ms": time_ms(torch, library, flush) if library else None,
-               "bound_ms": nbytes / peak * 1e3}
-        shapes[kernel].append(row)
-        emit("kernel_shape", path="train", **row)
+    def check_and_time(path, captured, master):
+        """Every captured call checked against its plain version (as at the
+        edges) and timed beside the plain version, one PyTorch library call
+        where there is one, and its bandwidth bound; one kernel_shape line
+        each. Returns the rows by kernel."""
+        shapes = {k: [] for k in mods}
 
-    gather_labels = ["retrieve"] + [f"mb{i}-{part}" for i in range(N_MICRO)
-                                    for part in ("serve", "assemble-1", "assemble-2")]
-    for label, (src, idx) in zip(gather_labels, captured["gather"]):
-        check_gather(label, src, idx)
-        lib_idx = idx.clamp(0, src.shape[0] - 1).long()
-        timed("embedding_gather", label, gather_bytes(torch, src, idx),
-              lambda: eg.embedding_gather(src, idx),
-              lambda: ref.gather_rows_ref(src, idx),
-              lambda: torch.index_select(src, 0, lib_idx),
-              src_rows=src.shape[0], n=idx.numel(), dim=src.shape[1])
+        def timed(kernel, label, nbytes, fn, plain, library, **extra):
+            row = {"kernel": kernel, "call": label, **extra, "bytes": nbytes,
+                   "ms": time_ms(torch, fn, flush),
+                   "plain_ms": time_ms(torch, plain, flush),
+                   "library_ms": time_ms(torch, library, flush) if library else None,
+                   "bound_ms": nbytes / peak * 1e3}
+            shapes[kernel].append(row)
+            emit("kernel_shape", path=path, **row)
 
-    seg_labels = [f"grads_to_owner-mb{i}" for i in range(N_MICRO)] + ["window-to-buffer"]
-    for label, (grads, ids, segments) in zip(seg_labels, captured["segment"]):
-        check_segment(label, grads, ids, segments, integer=False)
-        integral = torch.randint(-8, 8, grads.shape, device=dev, generator=g,
-                                 dtype=torch.float32)
-        check_segment(label + "-integer", integral, ids, segments, integer=True)
-        kept = (ids >= 0) & (ids < segments)
-        lib_ids, lib_grads = ids[kept].long(), grads[kept]
-        run_counts = torch.bincount(lib_ids, minlength=segments)
-        timed("segment_rowsum", label, segment_bytes(grads, ids, segments),
-              lambda: sr.segment_rowsum(grads, ids, segments),
-              lambda: ref.segment_rowsum_ref(grads, ids, segments),
-              lambda: torch.zeros((segments, grads.shape[1]), device=dev)
-              .index_add_(0, lib_ids, lib_grads),
-              L=ids.numel(), S=segments, dim=grads.shape[1],
-              in_range=lib_ids.numel(), longest_run=int(run_counts.max()),
-              library_call="index_add_ of the in-range rows only, "
-              "selected beforehand")
+        gather_labels = ["retrieve"] + [f"mb{i}-{part}" for i in range(N_MICRO)
+                                        for part in ("serve", "assemble-1", "assemble-2")]
+        for label, (src, idx) in zip(gather_labels, captured["gather"]):
+            check_gather(label, src, idx)
+            lib_idx = idx.clamp(0, src.shape[0] - 1).long()
+            timed("embedding_gather", label, gather_bytes(torch, src, idx),
+                  lambda: eg.embedding_gather(src, idx),
+                  lambda: ref.gather_rows_ref(src, idx),
+                  lambda: torch.index_select(src, 0, lib_idx),
+                  src_rows=src.shape[0], n=idx.numel(), dim=src.shape[1],
+                  dtype=str(src.dtype).removeprefix("torch."))
 
-    (act, aa, pre, pa, src), = captured["sync"]
-    check_sync("sync", act, aa, pre, pa, src)
-    timed("buffer_sync", "sync", sync_bytes(act, pre, src),
-          lambda: bs.buffer_sync(act, aa, pre, pa, src),
-          lambda: ref.buffer_sync_ref(act, aa, pre, pa, src), None,
-          Ka=act.shape[0], Kp=pre.shape[0], dim=pre.shape[1],
-          hits=int((src < act.shape[0]).sum()))
+        seg_labels = [f"grads_to_owner-mb{i}" for i in range(N_MICRO)] + ["window-to-buffer"]
+        for label, (grads, ids, segments) in zip(seg_labels, captured["segment"]):
+            check_segment(label, grads, ids, segments, integer=False)
+            integral = torch.randint(-8, 8, grads.shape, device=dev, generator=g,
+                                     dtype=torch.float32)
+            check_segment(label + "-integer", integral, ids, segments, integer=True)
+            del integral
+            kept = (ids >= 0) & (ids < segments)
+            lib_ids, lib_grads = ids[kept].long(), grads[kept]
+            run_counts = torch.bincount(lib_ids, minlength=segments)
+            timed("segment_rowsum", label, segment_bytes(grads, ids, segments),
+                  lambda: sr.segment_rowsum(grads, ids, segments),
+                  lambda: ref.segment_rowsum_ref(grads, ids, segments),
+                  lambda: torch.zeros((segments, grads.shape[1]), device=dev)
+                  .index_add_(0, lib_ids, lib_grads),
+                  L=ids.numel(), S=segments, dim=grads.shape[1],
+                  in_range=lib_ids.numel(), longest_run=int(run_counts.max()),
+                  library_call="index_add_ of the in-range rows only, "
+                  "selected beforehand")
+            del lib_ids, lib_grads
 
-    (_, _, idx, rows, accum), = captured["scatter"]
-    # correctness at this call's n and D on a K-row stand-in (the write
-    # pattern of the real master cannot be compared against a copy of it)
-    valid = (idx >= 0) & (idx < master.rows.shape[0])
-    k = idx.numel()
-    proxy_idx = torch.where(valid, torch.randperm(k, device=dev, generator=g)
-                            .to(torch.int32), k + 7)
-    check_scatter("writeback-standin", torch.randn((k, rows.shape[1]), device=dev),
-                  torch.rand(k, device=dev), proxy_idx, rows, accum)
-    # timing on the real master, writing back the rows it holds now: the
-    # write is real and leaves the master unchanged
-    cur_rows = ref.gather_rows_ref(master.rows, idx)
-    cur_acc = torch.where(valid, master.accum[idx.clamp(0, master.rows.shape[0] - 1)
-                                             .long()], 0.0)
-    lib_dst = idx[valid].long()
-    lib_rows = cur_rows[valid]
-    timed("embedding_scatter", "writeback", scatter_bytes(master.rows, idx),
-          lambda: es.embedding_scatter(master.rows, master.accum, idx, cur_rows,
-                                       cur_acc),
-          lambda: ref.embedding_scatter_ref(master.rows, master.accum, idx,
-                                            cur_rows, cur_acc),
-          lambda: master.rows.index_copy_(0, lib_dst, lib_rows),
-          table_rows=master.rows.shape[0], n=k, valid=int(valid.sum()),
-          dim=rows.shape[1], library_call="index_copy_ of the rows only, "
-          "valid indices selected beforehand")
-    if not torch.equal(ref.gather_rows_ref(master.rows, idx), cur_rows):
-        raise SystemExit("the write-back timing changed the master")
-    del captured, cur_rows, cur_acc, lib_rows
-    torch.cuda.synchronize()
+        (act, aa, pre, pa, src), = captured["sync"]
+        check_sync("sync", act, aa, pre, pa, src)
+        timed("buffer_sync", "sync", sync_bytes(act, pre, src),
+              lambda: bs.buffer_sync(act, aa, pre, pa, src),
+              lambda: ref.buffer_sync_ref(act, aa, pre, pa, src), None,
+              Ka=act.shape[0], Kp=pre.shape[0], dim=pre.shape[1],
+              hits=int((src < act.shape[0]).sum()))
+
+        (_, _, idx, rows, accum), = captured["scatter"]
+        # correctness at this call's n and D on a K-row stand-in (the write
+        # pattern of the real master cannot be compared against a copy of it)
+        valid = (idx >= 0) & (idx < master.rows.shape[0])
+        k = idx.numel()
+        proxy_idx = torch.where(valid, torch.randperm(k, device=dev, generator=g)
+                                .to(torch.int32), k + 7)
+        check_scatter("writeback-standin", torch.randn((k, rows.shape[1]), device=dev),
+                      torch.rand(k, device=dev), proxy_idx, rows, accum)
+        # timing on the real master, writing back the rows it holds now: the
+        # write is real and leaves the master unchanged
+        cur_rows = ref.gather_rows_ref(master.rows, idx)
+        cur_acc = torch.where(valid, master.accum[idx.clamp(0, master.rows.shape[0] - 1)
+                                                 .long()], 0.0)
+        lib_dst = idx[valid].long()
+        lib_rows = cur_rows[valid]
+        timed("embedding_scatter", "writeback", scatter_bytes(master.rows, idx),
+              lambda: es.embedding_scatter(master.rows, master.accum, idx, cur_rows,
+                                           cur_acc),
+              lambda: ref.embedding_scatter_ref(master.rows, master.accum, idx,
+                                                cur_rows, cur_acc),
+              lambda: master.rows.index_copy_(0, lib_dst, lib_rows),
+              table_rows=master.rows.shape[0], n=k, valid=int(valid.sum()),
+              dim=rows.shape[1], library_call="index_copy_ of the rows only, "
+              "valid indices selected beforehand")
+        if not torch.equal(ref.gather_rows_ref(master.rows, idx), cur_rows):
+            raise SystemExit(f"the write-back timing changed the {path} master")
+        torch.cuda.synchronize()
+        return shapes
+
+    shapes = check_and_time("dlrm_train", capture_calls(sess), sess.state.table)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- 5. main path: training --------------------------------------------
     # rows of the first counted window, before and after
@@ -502,7 +606,8 @@ def main() -> int:
         raise SystemExit(f"only {changed:.4f} of window 0's sampled rows changed")
     want = {"embedding_gather": (1 + 3 * N_MICRO) * TRAIN_STEPS,
             "segment_rowsum": (N_MICRO + 1) * TRAIN_STEPS,
-            "buffer_sync": TRAIN_STEPS - 1, "embedding_scatter": TRAIN_STEPS}
+            "buffer_sync": TRAIN_STEPS - 1, "embedding_scatter": TRAIN_STEPS,
+            "hstu_attention_fwd": 0, "hstu_attention_bwd": 0}
     if train_launches != want:
         raise SystemExit(f"training launches {train_launches} != {want}")
 
@@ -593,8 +698,7 @@ def main() -> int:
                 torch, lambda: torch.index_select(src, 0, lib_idx), flush),
             "bound_ms": nbytes / peak * 1e3,
         })
-        emit("kernel_shape", path="serve", **serve_shapes[-1])
-    del flush
+        emit("kernel_shape", path="dlrm_serve", **serve_shapes[-1])
 
     # one unchecked warm-up pass, then the counted one
     sess.serve_embeddings(num_requests=2 * MAX_BATCH, max_batch=MAX_BATCH,
@@ -635,7 +739,7 @@ def main() -> int:
             torch.cuda.synchronize()
             span = time.perf_counter() - t0
         emit_profile(prof, "serve_profile", span, requests=N_REQUESTS)
-    del sess, model, table, master, state, rep, srep
+    del sess, model, table, state, rep, srep
 
     # -- 7. consistency at the reduced size ---------------------------------
     kw = dict(reduced=True, global_batch=32, n_micro=N_MICRO, seed=1)
@@ -673,27 +777,324 @@ def main() -> int:
     if gaps["async"] <= 1e-6:
         raise SystemExit(f"async did not diverge from the reference: {gaps}")
 
-    # -- 8. kernels line and the result ------------------------------------
+    del base, init, finals, ref_state, stream
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 8. HSTU attention kernels against their plain versions -----------
+    hworst = {"hstu_attention_fwd": 0.0, "hstu_attention_bwd": 0.0}
+
+    def check_hstu(label, q, k, v, do, causal=True, chunk=None, backward=True):
+        """Kernel forward (and backward) against the plain versions, within
+        HSTU_RTOL of each output's sum of magnitudes + HSTU_ATOL, and the
+        same bits on a second run; compared ``chunk`` batch rows at a
+        time."""
+        out = ha.hstu_attention_fwd(q, k, v, causal)
+        grads = ha.hstu_attention_bwd(q, k, v, do, causal) if backward else ()
+        if not (torch.equal(out, ha.hstu_attention_fwd(q, k, v, causal)) and all(
+                torch.equal(a, b) for a, b in
+                zip(grads, ha.hstu_attention_bwd(q, k, v, do, causal)))):
+            raise SystemExit(f"hstu_attention is not deterministic at {label}")
+        step = chunk or q.shape[0]
+        for b0 in range(0, q.shape[0], step):
+            sl = slice(b0, b0 + step)
+            qs, ks, vs, dos = q[sl], k[sl], v[sl], do[sl]
+            out_mag, grad_mags = ref.hstu_attention_magnitudes(qs, ks, vs, dos, causal)
+            pairs = [("hstu_attention_fwd", out[sl], ref.hstu_attention_ref(qs, ks, vs, causal),
+                      out_mag)]
+            if backward:
+                pairs += [("hstu_attention_bwd", g_[sl], w_, m_) for g_, w_, m_ in zip(
+                    grads, ref.hstu_attention_bwd_ref(qs, ks, vs, dos, causal), grad_mags)]
+            for kname, got, want, mag in pairs:
+                err = (got - want).abs()
+                if not bool((err <= HSTU_RTOL * mag + HSTU_ATOL).all()):
+                    raise SystemExit(f"{kname} beyond its bound at {label}: "
+                                     f"{float(err.max())}")
+                hworst[kname] = max(hworst[kname], float(err.max()))
+            del pairs, out_mag, grad_mags
+
+    def hstu_inputs(b, t, h, dqk, dv, strided=True):
+        if strided:  # the layer's q, k, v: column slices of one tensor
+            mixed = torch.empty((b, t, h, 2 * dqk + 2 * dv), device=dev).normal_(generator=g)
+            _, v, q, k = torch.split(mixed, [dv, dv, dqk, dqk], dim=-1)
+        else:
+            q, k = (torch.empty((b, t, h, dqk), device=dev).normal_(generator=g)
+                    for _ in range(2))
+            v = torch.empty((b, t, h, dv), device=dev).normal_(generator=g)
+        return q, k, v, torch.empty((b, t, h, dv), device=dev).normal_(generator=g)
+
+    hedge = []
+    for t in (1, 33, 256, 1024):
+        for dqk, dv in ((128, 128), (16, 8), (48, 96)):
+            for causal in (True, False):
+                check_hstu(f"T={t} dqk={dqk} dv={dv} causal={causal}",
+                           *hstu_inputs(2, t, 2, dqk, dv), causal=causal)
+                hedge.append(f"T={t},dqk={dqk},dv={dv},causal={causal},strided")
+        check_hstu(f"T={t} contiguous", *hstu_inputs(2, t, 2, 128, 128, strided=False))
+        hedge.append(f"T={t},dqk=dv=128,contiguous")
+    torch.cuda.synchronize()
+    emit("hstu_kernel_edges", cases=hedge, max_abs_err=dict(hworst),
+         tolerance=f"|kernel - plain| <= {HSTU_RTOL} x each output's sum of "
+                   f"magnitudes + {HSTU_ATOL}; the same bits on two runs")
+
+    # -- 9. full-width HSTU training -----------------------------------------
+    hcfg = HSTU_INDUSTRIAL_ONE_CARD
+    harch = ArchSpec("hstu-industrial", "recsys", hcfg,
+                     get_arch("hstu-industrial").reduced)
+    hwl = assemble_workload(harch, hcfg, device=dev, mode="nestpipe",
+                            npcfg=NestPipeConfig(fwp_microbatches=N_MICRO,
+                                                 bucket_slack=SLACK),
+                            global_batch=HSTU_BATCH)
+    hsess = Session.from_workload(hwl, seed=0)
+    hdims = hwl.engine.dims(hwl.batch_shapes["keys"][0][1:], N_MICRO)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hrows = hsess.state.table.rows
+    torch.cuda.synchronize()
+    emit("hstu_init", seconds=round(time.perf_counter() - t0, 3),
+         config={k: getattr(hcfg, k) for k in ("d_model", "n_layers", "n_heads",
+                                               "seq_len", "compute_dtype")},
+         tables={t.name: t.vocab_size for t in hcfg.tables},
+         table_rows=hrows.shape[0], dim=hrows.shape[1],
+         table_gb=round(hrows.numel() * 4 / 1e9, 3),
+         dense_params=sum(p.numel() for p in hsess.state.dense.values()),
+         dims={"L": hdims.l_local, "U": hdims.u_max, "C": hdims.cap,
+               "K": hdims.buffer_cap, "N": hdims.n_micro},
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del hrows
+    hsess.train(1)  # unchecked warm-up step
+    torch.cuda.synchronize()
+
+    # two steps with the first call of each kernel kept: the attention
+    # forward and backward (copies with the same strides; every call
+    # counted) and, as on the DLRM path, the embedding kernels' calls
+    seen = {"fwd": 0, "bwd": 0}
+    kept = {}
+    real_fwd, real_bwd = ha.hstu_attention_fwd, ha.hstu_attention_bwd
+
+    def strided_copies(*xs):
+        """Copies that keep each view's strides: q, k and v are column
+        slices of one tensor, whose storage is copied once."""
+        storages = {}
+        out = []
+        for x in xs:
+            st = x.untyped_storage()
+            if st.data_ptr() not in storages:
+                storages[st.data_ptr()] = st.clone()
+            out.append(torch.empty(0, dtype=x.dtype, device=x.device).set_(
+                storages[st.data_ptr()], x.storage_offset(), x.size(), x.stride()))
+        return out
+
+    def fwd_spy(q, k, v, causal=True):
+        seen["fwd"] += 1
+        if "fwd" not in kept:
+            kept["fwd"] = (*strided_copies(q, k, v), causal)
+        return real_fwd(q, k, v, causal)
+
+    def bwd_spy(q, k, v, do, causal=True):
+        seen["bwd"] += 1
+        if "bwd" not in kept:
+            kept["bwd"] = (*strided_copies(q, k, v), do.clone(), causal)
+        return real_bwd(q, k, v, do, causal)
+
+    ha.hstu_attention_fwd, ha.hstu_attention_bwd = fwd_spy, bwd_spy
+    try:
+        hcaptured = capture_calls(hsess)
+    finally:
+        ha.hstu_attention_fwd, ha.hstu_attention_bwd = real_fwd, real_bwd
+    n_layers = hcfg.n_layers
+    if seen != {"fwd": 2 * 2 * n_layers * N_MICRO, "bwd": 2 * n_layers * N_MICRO}:
+        raise SystemExit(f"two HSTU steps made {seen} attention calls")
+    # the embedding kernels at this path's shapes (D = 512, K = 393,216 rows,
+    # f32 retrieve and buffer rows, bf16 assembly), while the master lives
+    hshapes = check_and_time("hstu_train", hcaptured, hsess.state.table)
+    del hcaptured
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    hrep = hsess.train(HSTU_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hstu_launches = counts()
+    s = hrep.summary
+    samples_per_s = HSTU_BATCH * HSTU_STEPS / wall
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emit("hstu_train", arch=f"hstu-industrial (vocabularies / {HSTU_ROW_CUT:g})",
+         mode="nestpipe",
+         global_batch=HSTU_BATCH, n_micro=N_MICRO, bucket_slack=SLACK,
+         steps=HSTU_STEPS, losses=hrep.stats.losses, overflow_max=s["overflow_max"],
+         samples_per_s=samples_per_s, tokens_per_s=samples_per_s * hcfg.seq_len,
+         wall_s=wall, step_ms=[x * 1e3 for x in hrep.stats.step_times],
+         step_p50_ms=s["p50_step_s"] * 1e3, step_p99_ms=s["p99_step_s"] * 1e3,
+         mean_input_wait_ms=s["mean_input_wait_s"] * 1e3,
+         stage_host_ms={k: s[k] for k in ("plan_ms", "retrieve_ms", "commit_ms")},
+         launches=hstu_launches, max_memory_allocated_gb=peak_gb,
+         device_memory_gb=torch.cuda.get_device_properties(0).total_memory / 1e9)
+    if not all(np.isfinite(hrep.stats.losses)) or len(hrep.stats.losses) != HSTU_STEPS:
+        raise SystemExit(f"HSTU losses are not {HSTU_STEPS} finite values")
+    if s["overflow_max"] != 0:
+        raise SystemExit(f"HSTU routing overflowed: {s['overflow_max']}")
+    if peak_gb * 1e9 >= torch.cuda.get_device_properties(0).total_memory:
+        raise SystemExit(f"HSTU peak memory {peak_gb} GB does not fit the card")
+    hstu_want = {"embedding_gather": (1 + 3 * N_MICRO) * HSTU_STEPS,
+                 "segment_rowsum": (N_MICRO + 1) * HSTU_STEPS,
+                 "buffer_sync": HSTU_STEPS - 1, "embedding_scatter": HSTU_STEPS,
+                 # each layer's forward runs again in the backward (per-layer remat)
+                 "hstu_attention_fwd": 2 * n_layers * N_MICRO * HSTU_STEPS,
+                 "hstu_attention_bwd": n_layers * N_MICRO * HSTU_STEPS}
+    if hstu_launches != hstu_want:
+        raise SystemExit(f"HSTU launches {hstu_launches} != {hstu_want}")
+
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            hsess.train(2)
+            torch.cuda.synchronize()
+            span = time.perf_counter() - t0
+        emit_profile(prof, "hstu_train_profile", span, steps=2)
+        del prof
+    del hsess, hwl, hrep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the captured main-path calls, on the card alone now: checked and timed
+    peak_fp32 = peak_flops_fp32(torch, name)
+    hrows_out = {}
+    q, k, v, causal = kept["fwd"]
+    check_hstu("main-path forward call", q, k, v, torch.zeros_like(v), causal, chunk=16,
+               backward=False)
+    fwd_ops, _ = hstu_work(q, v.shape[-1], causal)
+    fwd_bytes = 4 * (q.numel() + k.numel() + 2 * v.numel())  # q, k, v read; out written
+    hrows_out["hstu_attention_fwd"] = {
+        "ms": time_ms(torch, lambda: ha.hstu_attention_fwd(q, k, v, causal), flush),
+        "plain_ms": time_ms(torch, lambda: ref.hstu_attention_ref(q, k, v, causal), flush),
+        "operations": fwd_ops, "bytes": fwd_bytes}
+    q, k, v, do, causal = kept["bwd"]
+    check_hstu("main-path backward call", q, k, v, do, causal, chunk=16)
+    _, bwd_ops = hstu_work(q, v.shape[-1], causal)
+    # q, k, v, dO read; dq, dk, dv written
+    bwd_bytes = 4 * (2 * (q.numel() + k.numel() + v.numel()) + do.numel())
+    hrows_out["hstu_attention_bwd"] = {
+        "ms": time_ms(torch, lambda: ha.hstu_attention_bwd(q, k, v, do, causal), flush),
+        "plain_ms": time_ms(torch, lambda: ref.hstu_attention_bwd_ref(q, k, v, do, causal),
+                            flush),
+        "operations": bwd_ops, "bytes": bwd_bytes}
+    for kname, row in hrows_out.items():
+        by_ops = row["operations"] / peak_fp32 * 1e3
+        by_bytes = row["bytes"] / peak * 1e3
+        row.update(shape=list(q.shape), dv=v.shape[-1], causal=causal,
+                   bound_ms=max(by_ops, by_bytes),
+                   bound_by="operations" if by_ops >= by_bytes else "bytes",
+                   peak_fp32_flops=peak_fp32, achieved_tflops=row["operations"]
+                   / row["ms"] / 1e9, tf32x3_bound_ms=row["operations"] * 3
+                   / tf32_flops(name) * 1e3, library_ms=None)
+        emit("kernel_shape", path="hstu_train", kernel=kname, **row)
+    del kept, q, k, v, do, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 10. consistency at hstu-reduced -------------------------------------
+    def hstu_gaps(sparse_lr=None, adam_eps=None):
+        """Per mode, the gap to the reference trainer after
+        CONSISTENCY_STEPS steps from one state, at the configuration's own
+        step sizes unless ``sparse_lr`` and ``adam_eps`` are given."""
+        opt_cfg = OptimizerConfig() if adam_eps is None else OptimizerConfig(eps=adam_eps)
+        kw = dict(reduced=True, global_batch=16, n_micro=N_MICRO, seed=1, opt_cfg=opt_cfg)
+        runs = {}
+        for mode in ("nestpipe", "serial", "async"):
+            runs[mode] = Session.from_arch("hstu-industrial", mode=mode, **kw)
+            if sparse_lr is not None:
+                runs[mode].workload.engine.sparse_lr = sparse_lr
+        first = runs["nestpipe"]
+        init = clone_state(first.state)
+        finals = {}
+        for mode, run in runs.items():
+            run.state = clone_state(init)
+            finals[mode] = run.train(CONSISTENCY_STEPS)
+        rwl = first.workload
+        ref_step = build_reference_step(make_loss_fn(rwl.cfg), first.optimizer,
+                                        constant_lr(first.opt_cfg.lr, dev), N_MICRO,
+                                        sparse_lr=rwl.engine.sparse_lr)
+        transform = make_cluster_transform(N_MICRO, rwl.npcfg.clustering)
+        stream = resolve_stream(rwl, first.seed)
+        ref_state = clone_state(init)
+        with torch.no_grad():
+            for _ in range(CONSISTENCY_STEPS):
+                b = transform(next(stream))
+                ref_state, _ = ref_step(ref_state, stage_to_device({"keys": b["keys"]}, dev))
+
+        def two(a, b):
+            parts = [a.table.rows - b.table.rows] + [a.dense[k] - b.dense[k] for k in a.dense]
+            accum = (a.table.accum - b.table.accum).abs() / (1 + b.table.accum.abs())
+            return {"rows_dense": max(float(x.abs().max()) for x in parts),
+                    "accum_rel": float(accum.max())}
+
+        gaps = {mode: two(r.state, ref_state) for mode, r in finals.items()}
+        gaps["nestpipe_vs_serial"] = two(finals["nestpipe"].state, finals["serial"].state)
+        return {"sparse_lr": rwl.engine.sparse_lr, "adam_eps": first.opt_cfg.eps,
+                "max_diff_to_reference": gaps,
+                "losses": {m: r.stats.losses for m, r in finals.items()}}
+
+    hstu_runs = {"default_step_sizes": hstu_gaps(),
+                 "small_step_sizes": hstu_gaps(**HSTU_SMALL_STEPS)}
+    emit("hstu_consistency", arch="hstu-industrial (reduced)", steps=CONSISTENCY_STEPS,
+         **hstu_runs, bounds="rows and dense within 1e-5, accum within 1e-4 of "
+         "1 + accum; async more than 1e-6 from the reference")
+    for label, run in hstu_runs.items():
+        hgaps = run["max_diff_to_reference"]
+        for key in ("nestpipe", "serial", "nestpipe_vs_serial"):
+            if hgaps[key]["rows_dense"] > 1e-5 or hgaps[key]["accum_rel"] > 1e-4:
+                raise SystemExit(f"HSTU {key} differs from the reference at the "
+                                 f"{label}: {hgaps}")
+        if hgaps["async"]["rows_dense"] <= 1e-6:
+            raise SystemExit(f"HSTU async did not diverge at the {label}: {hgaps}")
+
+    # -- 11. kernels line and the result -----------------------------------
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
-        rows = shapes[kname]
-        launched = train_launches[kname] + serve_launches[kname]
-        if train_launches[kname] == 0:
-            raise SystemExit(f"{kname} was not launched on the training path")
-        entry = {
-            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launched,
-            "launches_by_path": {"train": train_launches[kname],
-                                 "serve": serve_launches[kname]},
-            "max_abs_err": worst[kname],
-            "ms": sum(x["ms"] for x in rows),
-            "plain_ms": sum(x["plain_ms"] for x in rows),
-            "bound_ms": sum(x["bound_ms"] for x in rows),
-            "bound_by": "bytes",
-            "library_ms": (None if any(x["library_ms"] is None for x in rows)
-                           else sum(x["library_ms"] for x in rows)),
-            "per_train_step_of": [x["call"] for x in rows],
-        }
+        by_path = {"dlrm_train": train_launches[kname],
+                   "dlrm_serve": serve_launches[kname],
+                   "hstu_train": hstu_launches[kname]}
+        if kname in hrows_out:
+            row = hrows_out[kname]
+            entry = {
+                "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "max_abs_err": hworst[kname], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": None,
+                "ms_of": "one call at the main-path shape " + str(row["shape"]),
+                "calls_per_step": hstu_want[kname] // HSTU_STEPS,
+                "tf32x3_bound_ms": row["tf32x3_bound_ms"],
+            }
+        else:
+            rows = shapes[kname]
+            entry = {
+                "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "max_abs_err": worst[kname],
+                "ms": sum(x["ms"] for x in rows),
+                "plain_ms": sum(x["plain_ms"] for x in rows),
+                "bound_ms": sum(x["bound_ms"] for x in rows),
+                "bound_by": "bytes",
+                "library_ms": (None if any(x["library_ms"] is None for x in rows)
+                               else sum(x["library_ms"] for x in rows)),
+                "ms_of": "one dlrm-ctr training step: " + ", ".join(x["call"] for x in rows),
+                "hstu_train_step": {
+                    **{k: (None if any(x[k] is None for x in hshapes[kname])
+                           else sum(x[k] for x in hshapes[kname]))
+                       for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+                    "calls": [x["call"] for x in hshapes[kname]]},
+            }
+            if train_launches[kname] == 0:
+                raise SystemExit(f"{kname} was not launched on the DLRM training path")
+        if hstu_launches[kname] == 0:
+            raise SystemExit(f"{kname} was not launched on the HSTU training path")
         if kname == "embedding_gather":
             if serve_launches[kname] == 0:
                 raise SystemExit("embedding_gather was not launched on the serving path")
@@ -709,19 +1110,32 @@ def main() -> int:
 
 
 def emit_profile(prof, phase, span, **fields):
-    """Device busy time and idle share of a profiled span, and its top ops."""
+    """Device busy time and idle share of a profiled span, and its top
+    kernels and host ops. Busy time is the union of the intervals of the
+    profiler's device-side events (kernels, copies, sets); an operator that
+    launched a kernel carries the kernel's time too and is not counted
+    again."""
+    from torch.autograd import DeviceType
+
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type != DeviceType.CPU):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
     events = prof.key_averages()
-    device_us = sum(e.self_device_time_total for e in events)
-    host_ops_us = sum(e.self_cpu_time_total for e in events)
-    by_device = sorted(events, key=lambda e: -e.self_device_time_total)
-    by_host = sorted(events, key=lambda e: -e.self_cpu_time_total)
-    emit(phase, **fields, wall_ms=span * 1e3, device_busy_ms=device_us / 1e3,
-         device_idle_share=1 - device_us / 1e3 / (span * 1e3),
-         host_torch_ops_ms=host_ops_us / 1e3,
+    device = sorted((e for e in events if e.device_type != DeviceType.CPU),
+                    key=lambda e: -e.self_device_time_total)
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
+    emit(phase, **fields, wall_ms=span * 1e3, device_busy_ms=busy_us / 1e3,
+         device_idle_share=1 - busy_us / 1e3 / (span * 1e3),
+         device_kernels_ms=sum(e.self_device_time_total for e in device) / 1e3,
+         host_torch_ops_ms=sum(e.self_cpu_time_total for e in host) / 1e3,
          top_device=[{"name": e.key[:70], "count": e.count,
-                      "ms": e.self_device_time_total / 1e3} for e in by_device[:12]],
+                      "ms": e.self_device_time_total / 1e3} for e in device[:12]],
          top_host=[{"name": e.key[:70], "count": e.count,
-                    "ms": e.self_cpu_time_total / 1e3} for e in by_host[:10]])
+                    "ms": e.self_cpu_time_total / 1e3} for e in host[:10]])
 
 
 if __name__ == "__main__":

@@ -10,6 +10,9 @@ workload (``repro.api.session``, device tier, one card).
     served = sess.serve_embeddings(head="dlrm", max_batch=512,
                                    num_requests=4096, check_exact=True)
 
+Training runs any ported backbone (DLRM, HSTU); serving has a DLRM head
+only, as in the JAX package. A config outside the registry goes through
+``launch.build.assemble_workload`` and :meth:`Session.from_workload`.
 ``device`` defaults to ``cuda`` and raises without a GPU; pass
 ``device="cpu"`` for the plain PyTorch path.
 """
@@ -126,6 +129,13 @@ class Session:
         return cls(wl, opt_cfg=opt_cfg, seed=seed, strategy=strategy,
                    reduced=reduced)
 
+    @classmethod
+    def from_workload(cls, workload: Workload, **kwargs) -> "Session":
+        """Wrap a hand-assembled Workload (a config outside the registry,
+        e.g. ``hstu-industrial`` with its vocabularies cut to fit one card).
+        ``kwargs`` are the constructor's (``opt_cfg``, ``seed``, ...)."""
+        return cls(workload, **kwargs)
+
     # ------------------------------------------------------------------
     # state
     # ------------------------------------------------------------------
@@ -166,6 +176,7 @@ class Session:
     def weights(self) -> Tuple[DLRM, EmbeddingTableState]:
         """The (model, table) the session serves: the current state's dense
         params in a DLRM module, and its master table (not copied)."""
+        self._check_serves()
         state = self.state
         if self._model is None or self._model_of is not state.dense:
             g = torch.Generator(self.device).manual_seed(self.seed)
@@ -174,11 +185,19 @@ class Session:
             self._model, self._model_of = model, state.dense
         return self._model, state.table
 
+    def _check_serves(self) -> None:
+        backbone = self.workload.cfg.backbone
+        if backbone != "dlrm":
+            raise NotImplementedError(
+                f"serving has a DLRM head only; {self.workload.arch.name!r} is "
+                f"a {backbone!r} model (the JAX package has no {backbone} "
+                f"serving head either)")
+
     def ingest(self, params: Mapping[str, torch.Tensor],
                table: EmbeddingTableState) -> None:
         """Use these weights in place of the fresh init, with a fresh
-        optimizer state at step 0: ``params`` is a DLRM state dict,
-        ``table`` the master (see ``repro_torch.convert``)."""
+        optimizer state at step 0: ``params`` is the dense model's state
+        dict, ``table`` the master (see ``repro_torch.convert``)."""
         self._check_table(table)
         dense = {k: torch.as_tensor(v, device=self.device).detach()
                  for k, v in params.items()}
@@ -251,6 +270,7 @@ class Session:
         from ..serve import build_router, run_closed_loop, run_open_loop, \
             synthetic_requests
 
+        self._check_serves()
         seed = self.seed if seed is None else seed
         strategy = get_strategy("serve")
         npcfg = self.workload.npcfg

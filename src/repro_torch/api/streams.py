@@ -1,5 +1,11 @@
-"""Host batch streams for a resolved Workload (``repro.api.streams``, DLRM
-branch): the one place that maps a workload to a synthetic input iterator.
+"""Host batch streams for a resolved Workload (``repro.api.streams``,
+recsys branches): the one place that maps a workload to a synthetic input
+iterator.
+
+- ``dlrm`` backbone: ``SyntheticRecsysStream`` (multi-table zipf CTR);
+- sequential backbones (HSTU): ``SyntheticLMStream``, zipf item-id
+  sequences drawn from the first table's vocabulary, at the stream's
+  default zipf exponent 1.1 (not ``cfg.zipf_a``), as JAX draws them.
 
 Streams are deterministic in ``(seed, batch index)``; ``start_step``
 fast-forwards to any batch index exactly.
@@ -8,23 +14,33 @@ from __future__ import annotations
 
 from typing import Iterator
 
-from ..data.synthetic import SyntheticRecsysStream
+from ..data.synthetic import SyntheticLMStream, SyntheticRecsysStream
 
 
 def resolve_stream(wl, seed: int = 0, *, start_step: int = 0) -> Iterator[dict]:
     """Infinite iterator of host batch dicts matching ``wl.batch_shapes``
     (plus ``raw_keys``, which clustering reads and the device never sees)."""
-    if wl.cfg.backbone != "dlrm":
-        raise NotImplementedError(f"backbone {wl.cfg.backbone!r} is not ported")
-    stream = SyntheticRecsysStream(wl.cfg, wl.spec, wl.global_batch, seed=seed,
-                                   zipf_a=wl.cfg.zipf_a)
+    cfg = wl.cfg
+    if cfg.backbone == "dlrm":
+        stream = SyntheticRecsysStream(cfg, wl.spec, wl.global_batch, seed=seed,
+                                       zipf_a=cfg.zipf_a)
+
+        def make(step):
+            b = stream.make_batch(step)
+            return {"keys": b.keys, "dense": b.dense, "labels": b.labels,
+                    "raw_keys": b.raw_keys}
+    else:
+        lm = SyntheticLMStream(cfg.tables[0].vocab_size, wl.spec,
+                               wl.global_batch, cfg.seq_len, seed=seed)
+
+        def make(step):
+            b = lm.make_batch(step)
+            return {"keys": b["keys"], "raw_keys": b["raw_tokens"]}
 
     def gen():
         step = start_step
         while True:
-            b = stream.make_batch(step)
-            yield {"keys": b.keys, "dense": b.dense, "labels": b.labels,
-                   "raw_keys": b.raw_keys}
+            yield make(step)
             step += 1
 
     return gen()

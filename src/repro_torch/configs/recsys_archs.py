@@ -1,10 +1,46 @@
-"""The DLRM recsys workloads (copies of ``repro.configs.recsys_archs``).
+"""The ported recsys workloads (copies of ``repro.configs.recsys_archs``).
 
-``dlrm-ctr`` is the Criteo-like DLRM at its published widths; its 26 tables
-pack into 57,012,000 rows of dim 128, a 29.19 GB f32 master that fits one
-80 GB card. The other configs are the CPU-runnable bench cells.
+``hstu-industrial`` is the paper's HSTU backbone at its published widths;
+its master (151 M rows of dim 512, 309 GB of f32) does not fit one card,
+so a run on one card keeps every width and cuts the vocabularies
+(``HSTU_INDUSTRIAL_ONE_CARD``). ``dlrm-ctr`` is the Criteo-like DLRM at its published
+widths; its 26 tables pack into 57,012,000 rows of dim 128, a 29.19 GB f32
+master that fits one 80 GB card. The other configs are the CPU-runnable
+bench cells. FuXi is not ported.
 """
+import dataclasses
+
 from .base import RecsysModelConfig, SparseTableConfig
+
+# HSTU on the Industrial-like dataset: one dominant item table at
+# production cardinality plus context tables (paper Table II setting;
+# emb_dim=512 per paper Fig. 10 sweep midpoint).
+HSTU_INDUSTRIAL = RecsysModelConfig(
+    name="hstu-industrial", backbone="hstu",
+    tables=(
+        SparseTableConfig("items", vocab_size=100_000_000, dim=512),
+        SparseTableConfig("users", vocab_size=50_000_000, dim=512),
+        SparseTableConfig("context", vocab_size=1_000_000, dim=512),
+    ),
+    d_model=1024, n_layers=4, n_heads=8, d_ff=4096, seq_len=1024,
+    compute_dtype="bfloat16",  # halves the embedding All2All payload
+)
+
+# hstu-industrial on one 80 GB card: every published width, each vocabulary
+# divided by 6.25 (16 M / 8 M / 160 k rows, a 49.48 GB f32 master); the full
+# master needs the host tier. Not in the registry: it is trained through a
+# hand-assembled workload (``launch.build.assemble_workload`` and
+# ``Session.from_workload``), as the JAX package builds its custom configs.
+HSTU_ROW_CUT = 6.25
+HSTU_INDUSTRIAL_ONE_CARD = dataclasses.replace(HSTU_INDUSTRIAL, tables=tuple(
+    dataclasses.replace(t, vocab_size=round(t.vocab_size / HSTU_ROW_CUT))
+    for t in HSTU_INDUSTRIAL.tables))
+
+HSTU_REDUCED = RecsysModelConfig(
+    name="hstu-reduced", backbone="hstu",
+    tables=(SparseTableConfig("items", vocab_size=4096, dim=32),),
+    d_model=64, n_layers=2, n_heads=4, d_ff=128, seq_len=32,
+)
 
 # DLRM-style CTR: criteo-like multi-table one-hot + bagged features.
 DLRM_CTR = RecsysModelConfig(

@@ -1,5 +1,5 @@
 """Architecture registry, recsys subset: ``--arch <id>`` -> full/reduced
-configs. Only the DLRM archs are ported; HSTU and FuXi come with training."""
+configs. The DLRM archs and HSTU are ported; FuXi is not."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -9,6 +9,7 @@ from . import recsys_archs
 from .base import RecsysModelConfig
 
 _RECSYS = {
+    "hstu-industrial": ("HSTU_INDUSTRIAL", "HSTU_REDUCED"),
     "dlrm-ctr": ("DLRM_CTR", "DLRM_REDUCED"),
     "dlrm-routing": ("DLRM_ROUTING", "DLRM_ROUTING"),
     "dlrm-cached": ("DLRM_CACHED", "DLRM_CACHED"),

@@ -3,7 +3,7 @@ numpy arrays.
 
 JAX's threefry ``jax.random`` cannot be reproduced with ``torch.Generator``,
 so a port that must serve or train from the same weights takes them over:
-the DLRM dense pytree as a state dict, the master table as an
+the DLRM or HSTU dense pytree as a state dict, the master table as an
 ``EmbeddingTableState`` (hand both to ``Session.ingest``), or a whole
 train state, AdamW moments and step included (assign it to
 ``Session.state``).
@@ -33,6 +33,38 @@ def dlrm_params_from_jax(
     return out
 
 
+def hstu_params_from_jax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``{"layers": {...stacked (L, ...)}, "in_proj", "final_norm"}`` -> an
+    ``HSTU`` state dict: the leading layer axis of every ``layers`` leaf is
+    unstacked into ``layers.{i}.*``; weights keep their (in, out) layout."""
+    def f32(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32))
+
+    def flat(tree, prefix):
+        if isinstance(tree, Mapping):
+            for k, v in tree.items():
+                yield from flat(v, f"{prefix}.{k}" if prefix else k)
+        else:
+            yield prefix, tree
+
+    out: Dict[str, torch.Tensor] = {}
+    for name, leaf in flat(params_np["layers"], ""):
+        for i in range(np.shape(leaf)[0]):
+            out[f"layers.{i}.{name}"] = f32(np.asarray(leaf)[i])
+    out["in_proj"] = f32(params_np["in_proj"])
+    for name, leaf in flat(params_np["final_norm"], "final_norm"):
+        out[name] = f32(leaf)
+    return out
+
+
+def dense_params_from_jax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The dense pytree of either ported backbone as a state dict: HSTU's
+    (it has ``layers``) or DLRM's (``bottom`` and ``top``)."""
+    if "layers" in params_np:
+        return hstu_params_from_jax(params_np)
+    return dlrm_params_from_jax(params_np)
+
+
 def table_from_jax(rows_np: np.ndarray, accum_np: np.ndarray,
                    device: torch.device | str) -> EmbeddingTableState:
     """The JAX master table ``(Vp, D)`` and adagrad state ``(Vp,)`` on
@@ -44,11 +76,11 @@ def table_from_jax(rows_np: np.ndarray, accum_np: np.ndarray,
 
 
 def train_state_from_jax(state_np, device: torch.device | str) -> TrainState:
-    """A JAX ``TrainState`` of numpy arrays (DLRM dense pytree, AdamW
-    ``AdamState(step, mu, nu)``, master table, step) -> the port's, on
+    """A JAX ``TrainState`` of numpy arrays (DLRM or HSTU dense pytree,
+    AdamW ``AdamState(step, mu, nu)``, master table, step) -> the port's, on
     ``device``, so both packages start from one state."""
     def params(tree):
-        return {k: v.to(device) for k, v in dlrm_params_from_jax(tree).items()}
+        return {k: v.to(device) for k, v in dense_params_from_jax(tree).items()}
 
     opt = state_np.opt
     return TrainState(

@@ -1,12 +1,13 @@
-"""Synthetic recsys stream with production-like sparsity (a numpy copy of
+"""Synthetic recsys streams with production-like sparsity (a numpy copy of
 ``repro.data.synthetic``: the same seed gives byte-equal batches).
 
-Zipf-distributed categorical keys over multiple tables; labels from a
-planted logistic model.
+Zipf-distributed categorical keys over multiple tables with labels from a
+planted logistic model (DLRM), and zipf id sequences (HSTU).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Dict
 
 import numpy as np
 
@@ -95,3 +96,41 @@ class SyntheticRecsysStream:
             labels=labels,
             raw_keys=raw.astype(np.int64),
         )
+
+
+class SyntheticLMStream:
+    """Zipf id-sequence stream (the HSTU item sequences): batches of
+    (keys, raw_tokens, labels), ``labels`` the sequence shifted by one."""
+
+    def __init__(
+        self,
+        vocab_size: int,
+        mega_spec,  # MegaTableSpec
+        global_batch: int,
+        seq_len: int,
+        *,
+        zipf_a: float = 1.1,
+        seed: int = 0,
+    ):
+        self.vocab = vocab_size
+        self.spec = mega_spec
+        self.batch = global_batch
+        self.seq = seq_len
+        self.zipf_a = zipf_a
+        self.seed = seed
+
+    def scramble_np(self, keys: np.ndarray) -> np.ndarray:
+        """The exact affine scramble, in uint64 (no 32-bit wrap)."""
+        s = self.spec
+        return ((keys.astype(np.uint64) * s.mix_mult + s.mix_add) % s.padded_rows).astype(
+            np.int32
+        )
+
+    def make_batch(self, step: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng((self.seed, step))
+        toks = _zipf(rng, self.vocab, (self.batch, self.seq + 1), self.zipf_a)
+        return {
+            "keys": self.scramble_np(toks[:, :-1]),
+            "raw_tokens": toks[:, :-1].astype(np.int32),
+            "labels": toks[:, 1:].astype(np.int32),
+        }

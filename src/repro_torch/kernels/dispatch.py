@@ -7,9 +7,9 @@ the path always runs the kernels.
 
 Contract (the sentinel conventions of ``repro.kernels.dispatch``):
 
-- ``gather_rows(rows, idx)`` returns ``rows[idx]`` with a zero row for
-  every out-of-range index (sentinel slots, ``idx >= len(rows)``, or
-  negative).
+- ``gather_rows(rows, idx)`` returns ``rows[idx]`` (f32 or bf16 rows)
+  with a zero row for every out-of-range index (sentinel slots,
+  ``idx >= len(rows)``, or negative).
 - ``segment_rowsum(values, ids, S)`` sums rows into ``(S, D)`` f32
   buckets; ids outside ``[0, S)`` are dropped. Ids need not be sorted.
   (JAX's reference backend wraps a negative id to the last segment; its
@@ -19,6 +19,9 @@ Contract (the sentinel conventions of ``repro.kernels.dispatch``):
 - ``scatter_rows(table, table_accum, idx, rows, accum)`` writes rows and
   state into the master in place at distinct in-range ``idx``; the rest
   are dropped.
+- ``hstu_attention(q, k, v, causal)`` is HSTU's pointwise attention,
+  differentiable: the CUDA forward and backward kernels on the card, the
+  plain version under autograd on the CPU.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from . import ref
 from .buffer_sync import buffer_sync as _buffer_sync_kernel
 from .embedding_gather import embedding_gather
 from .embedding_scatter import embedding_scatter
+from .hstu_attention import HSTUAttention
 from .segment_rowsum import segment_rowsum as _segment_rowsum_kernel
 
 
@@ -86,3 +90,15 @@ def scatter_rows(table: torch.Tensor, table_accum: torch.Tensor,
     if _on_cpu(*args):
         return ref.embedding_scatter_ref(*args)
     raise _no_path("scatter_rows", *args)
+
+
+def hstu_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool = True) -> torch.Tensor:
+    """``sum_j m(i,j) silu(q_i . k_j / sqrt(dqk)) / T v_j`` for q, k
+    ``(B, T, H, dqk)`` and v ``(B, T, H, dv)``; ``m`` masks keys past the
+    query when ``causal``."""
+    if q.is_cuda:
+        return HSTUAttention.apply(q, k, v, causal)
+    if _on_cpu(q, k, v):
+        return ref.hstu_attention_ref(q, k, v, causal)
+    raise _no_path("hstu_attention", q, k, v)

@@ -4,8 +4,9 @@ Replaces the Pallas TPU kernel ``embedding_gather``
 (``src/repro/kernels/embedding_gather.py``) and the clamp-then-mask around
 it in ``repro.kernels.dispatch.gather_rows``: ``out[i] = table[idx[i]]``,
 and a zero row where ``idx[i]`` is negative or ``>= len(table)``, in one
-pass. The kernel is bound by memory bandwidth (``2 * n * D * 4 + 4 * n``
-bytes, no arithmetic); its source note says how the design meets that.
+pass, for f32 or bf16 rows. The kernel is bound by memory bandwidth
+(``2 * n * D * e + 4 * n`` bytes for e-byte elements, no arithmetic); its
+source note says how the design meets that.
 
 The CUDA library builds at first use (``kernels/build.py``); nothing here
 touches CUDA at import.
@@ -29,20 +30,21 @@ def _kernel():
     global _fn
     if _fn is None:
         p, i64 = ctypes.c_void_p, ctypes.c_int64
-        _fn = build.function("embedding_gather", "repro_embedding_gather_f32",
-                             [p, i64, i64, p, i64, p, p])
+        _fn = build.function("embedding_gather", "repro_embedding_gather",
+                             [p, i64, i64, i64, p, i64, p, p])
     return _fn
 
 
 def embedding_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``(n, D)`` rows of a contiguous f32 ``(R, D)`` CUDA table at int32
-    ``idx``; out-of-range indices give zero rows."""
+    """``(n, D)`` rows of a contiguous f32 or bf16 ``(R, D)`` CUDA table at
+    int32 ``idx``; out-of-range indices give zero rows."""
     global launches
     if not (table.is_cuda and idx.device == table.device):
         raise ValueError(f"embedding_gather needs table and idx on one CUDA "
                          f"device, got {table.device} and {idx.device}")
-    if table.dtype != torch.float32:
-        raise TypeError(f"embedding_gather takes float32 tables, got {table.dtype}")
+    if table.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"embedding_gather takes float32 or bfloat16 tables, "
+                        f"got {table.dtype}")
     if idx.dtype != torch.int32:
         raise TypeError(f"embedding_gather takes int32 indices, got {idx.dtype}")
     if table.dim() != 2 or idx.dim() != 1:
@@ -58,8 +60,8 @@ def embedding_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     fn = _kernel()
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(table.data_ptr(), rows, dim, idx.data_ptr(), n,
-                 out.data_ptr(), stream)
+        err = fn(table.data_ptr(), rows, dim, table.element_size(),
+                 idx.data_ptr(), n, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"embedding_gather launch failed: CUDA error {err}")
     launches += 1

@@ -51,3 +51,69 @@ def embedding_scatter_ref(table: torch.Tensor, table_accum: torch.Tensor,
     dst = idx[valid].long()
     table[dst] = rows[valid]
     table_accum[dst] = accum[valid]
+
+
+def hstu_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool = True) -> torch.Tensor:
+    """``O[b,i,h] = sum_j m(i,j) silu(scale q_i . k_j) / T v_j`` in f32, with
+    ``scale = 1/sqrt(dqk)`` and ``m`` the key-range (and causal) mask, for
+    q, k (B, T, H, dqk) and v (B, T, H, dv): the contract of
+    ``kernels/hstu_attention.py``. Differentiable by autograd."""
+    t, dqk = q.shape[1], q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * dqk ** -0.5
+    a = torch.nn.functional.silu(s) * (1.0 / t)
+    if causal:
+        a = torch.where(_causal_mask(t, q.device), a, a.new_zeros(()))
+    return torch.einsum("bhqk,bkhd->bqhd", a, v.to(torch.float32)).to(q.dtype)
+
+
+def hstu_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           do: torch.Tensor, causal: bool = True):
+    """``(dq, dk, dv)`` of ``hstu_attention_ref`` for the output gradient
+    ``do``, written out: with ``z = scale q . k``, ``dA = dO v``,
+    ``dS = m dA / T silu'(z) scale`` and ``silu'(z) = sig(z) (1 + z (1 -
+    sig(z)))``, ``dq = dS k``, ``dk = dS^T q`` and ``dv = (m silu(z) / T)^T dO``."""
+    t, dqk = q.shape[1], q.shape[-1]
+    scale, inv_t = dqk ** -0.5, 1.0 / t
+    z = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
+    sig = torch.sigmoid(z)
+    keep = _causal_mask(t, q.device) if causal else torch.ones(
+        (t, t), dtype=torch.bool, device=q.device)
+    zero = z.new_zeros(())
+    a = torch.where(keep, z * sig * inv_t, zero)
+    da = torch.einsum("bqhd,bkhd->bhqk", do.to(torch.float32), v.to(torch.float32))
+    ds = torch.where(keep, da * inv_t * (sig * (1 + z * (1 - sig))) * scale, zero)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.to(torch.float32))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(torch.float32))
+    dv = torch.einsum("bhqk,bqhd->bkhd", a, do.to(torch.float32))
+    return dq, dk, dv
+
+
+def _causal_mask(t: int, device) -> torch.Tensor:
+    pos = torch.arange(t, device=device)
+    return pos[:, None] >= pos[None, :]
+
+
+def hstu_attention_magnitudes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              do: torch.Tensor, causal: bool = True):
+    """The sums of magnitudes that bound how far two f32 evaluations of
+    ``hstu_attention`` (forward; dq, dk, dv) may differ when they add in
+    different orders: each output's sum of ``|term|``, with every score's
+    own rounding (``scale |q| . |k|``) carried through ``|silu'| <= 1.1``
+    and ``|silu''| <= 0.5``. A check holds ``|a - b| <= rtol * magnitude
+    + atol``. Returns ``(out_mag, (dq_mag, dk_mag, dv_mag))``."""
+    t, dqk = q.shape[1], q.shape[-1]
+    scale, inv_t = dqk ** -0.5, 1.0 / t
+    qa, ka, va, da = (x.to(torch.float32).abs() for x in (q, k, v, do))
+    z = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
+    zm = torch.einsum("bqhd,bkhd->bhqk", qa, ka) * scale
+    keep = _causal_mask(t, q.device) if causal else torch.ones(
+        (t, t), dtype=torch.bool, device=q.device)
+    zero = z.new_zeros(())
+    a_mag = torch.where(keep, (torch.nn.functional.silu(z).abs() + 1.1 * zm) * inv_t, zero)
+    p = torch.einsum("bqhd,bkhd->bhqk", da, va)
+    ds_mag = torch.where(keep, (1.1 * p + 0.5 * p * zm) * inv_t * scale, zero)
+    return (torch.einsum("bhqk,bkhd->bqhd", a_mag, va),
+            (torch.einsum("bhqk,bkhd->bqhd", ds_mag, ka),
+             torch.einsum("bhqk,bqhd->bkhd", ds_mag, qa),
+             torch.einsum("bhqk,bqhd->bkhd", a_mag, da)))

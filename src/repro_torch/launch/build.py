@@ -1,6 +1,7 @@
 """Workload resolution, recsys subset: (arch x batch x mode x device) -> the
 mega-table spec, the engine, the batch shapes, the step functions and the
-initial train state."""
+initial train state. The dense model is picked by the config's backbone:
+``dlrm`` or ``hstu``."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -12,7 +13,8 @@ from ..configs.base import NestPipeConfig, OptimizerConfig, RecsysModelConfig
 from ..configs.registry import ArchSpec, get_arch
 from ..core.embedding import EmbeddingEngine, init_table_state, make_mega_table_spec
 from ..core.embedding.table import MegaTableSpec
-from ..models.dlrm import DLRM, make_dlrm_loss_fn, num_feature_slots
+from ..models.dlrm import DLRM, LossFn, make_dlrm_loss_fn, num_feature_slots
+from ..models.hstu import HSTU, make_hstu_loss_fn
 from ..train import (
     OptimizerPair,
     StepFns,
@@ -49,7 +51,7 @@ class Workload:
         optimizer = make_optimizer(opt_cfg)
         mb_keys_shape = self.batch_shapes["keys"][0][1:]
         fns = build_step_fns(
-            self.engine, make_dlrm_loss_fn(self.cfg), optimizer,
+            self.engine, make_loss_fn(self.cfg), optimizer,
             constant_lr(opt_cfg.lr, self.device), self.n_micro, mb_keys_shape)
         return fns, optimizer
 
@@ -57,17 +59,42 @@ class Workload:
                    optimizer: OptimizerPair) -> TrainState:
         """Dense params, then the master table, drawn on the device from
         ``generator``; a fresh optimizer state; step 0."""
-        model = DLRM(self.cfg, device=self.device, generator=generator)
+        model = dense_model(self.cfg, device=self.device, generator=generator)
         params = {k: v.detach() for k, v in model.state_dict().items()}
         table = init_table_state(self.spec, device=self.device, generator=generator)
         return TrainState(params, optimizer.init(params), table,
                           torch.zeros((), dtype=torch.int32, device=self.device))
 
 
+# backbone -> (dense module, loss-function factory)
+BACKBONES = {"dlrm": (DLRM, make_dlrm_loss_fn), "hstu": (HSTU, make_hstu_loss_fn)}
+
+
+def _backbone(cfg: RecsysModelConfig):
+    try:
+        return BACKBONES[cfg.backbone]
+    except KeyError:
+        raise NotImplementedError(f"backbone {cfg.backbone!r} is not ported; "
+                                  f"ported: {sorted(BACKBONES)}") from None
+
+
+def make_loss_fn(cfg: RecsysModelConfig) -> LossFn:
+    """The training loss of the config's backbone."""
+    return _backbone(cfg)[1](cfg)
+
+
+def dense_model(cfg: RecsysModelConfig, *, device, generator: torch.Generator):
+    """The dense module of the config's backbone, drawn from ``generator``."""
+    return _backbone(cfg)[0](cfg, device=device, generator=generator)
+
+
 def batch_shapes(cfg: RecsysModelConfig, global_batch: int,
                  n_micro: int) -> Dict[str, Tuple[Tuple[int, ...], Any]]:
-    """{field: ((N, mb, ...), dtype)} for one DLRM window."""
+    """{field: ((N, mb, ...), dtype)} for one window: DLRM's keys, dense
+    features and labels, or the item-id sequences of a sequential model."""
     mb = global_batch // n_micro
+    if cfg.backbone != "dlrm":
+        return {"keys": ((n_micro, mb, cfg.seq_len), torch.int32)}
     return {
         "keys": ((n_micro, mb, num_feature_slots(cfg)), torch.int32),
         "dense": ((n_micro, mb, cfg.num_dense_features), torch.float32),
@@ -85,9 +112,25 @@ def resolve(
     global_batch: int = RECSYS_GLOBAL_BATCH,
 ) -> Workload:
     arch = get_arch(arch_name)
-    cfg = arch.reduced if reduced else arch.config
-    if cfg.backbone != "dlrm":
-        raise NotImplementedError(f"backbone {cfg.backbone!r} is not ported")
+    return assemble_workload(arch, arch.reduced if reduced else arch.config,
+                             device=device, mode=mode, npcfg=npcfg,
+                             global_batch=global_batch)
+
+
+def assemble_workload(
+    arch: ArchSpec,
+    cfg: RecsysModelConfig,
+    *,
+    device: torch.device | str,
+    mode: str = "nestpipe",
+    npcfg: Optional[NestPipeConfig] = None,
+    global_batch: int = RECSYS_GLOBAL_BATCH,
+) -> Workload:
+    """Assemble the workload of ``cfg`` on one device: what ``resolve``
+    does for a registry arch, and what a hand-assembled config (one
+    outside the registry) goes through before ``Session.from_workload``."""
+    _backbone(cfg)
+    device = torch.device(device)
     npcfg = npcfg or NestPipeConfig()
     n_micro = npcfg.fwp_microbatches
     if global_batch % n_micro:

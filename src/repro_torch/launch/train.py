@@ -2,10 +2,14 @@
 
     python -m repro_torch.launch.train --arch dlrm-ctr --global-batch 8192 \\
         --steps 8 --bucket-slack 1.5
+    python -m repro_torch.launch.train --arch hstu-industrial --reduced \\
+        --device cpu --global-batch 16 --steps 4
 
 runs on the GPU (``--device cpu`` for the plain PyTorch path, with
-``--reduced`` for a CPU-sized model). No checkpoint flags: checkpoints are
-not ported yet.
+``--reduced`` for a CPU-sized model). ``--arch`` takes any ported registry
+arch (``dlrm-*``, ``hstu-industrial``); the full ``hstu-industrial``
+master (309 GB) needs the host tier, so on one card it runs ``--reduced``.
+No checkpoint flags: checkpoints are not ported yet.
 """
 from __future__ import annotations
 

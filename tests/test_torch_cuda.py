@@ -1,5 +1,5 @@
 """The port on the card: the hand-written CUDA kernels, the serving path and
-the training path.
+the training paths (DLRM and HSTU).
 
 Every test here needs an NVIDIA GPU, carries the ``cuda`` marker and skips
 without one (the kernels have no CPU mode). The file imports no jax, so it
@@ -22,6 +22,7 @@ from repro_torch.kernels import buffer_sync as bs
 from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels import embedding_gather as eg
 from repro_torch.kernels import embedding_scatter as es
+from repro_torch.kernels import hstu_attention as ha
 from repro_torch.kernels import segment_rowsum as sr
 from repro_torch.train import clone_state
 
@@ -237,3 +238,106 @@ def test_session_takes_its_own_tables_on_the_card(cuda_device):
     sess.ingest(model.state_dict(), table)
     sess.state = clone_state(sess.state)
     assert sess.train(1).summary["steps"] == 1
+
+
+def _hstu_case(dev, b, t, h, dqk, dv, strided, seed):
+    g = torch.Generator(dev).manual_seed(seed)
+    if strided:  # the layer's q, k, v: column slices of one (..., 2dqk + 2dv) tensor
+        mixed = torch.empty((b, t, h, 2 * dqk + 2 * dv), device=dev).normal_(generator=g)
+        _, v, q, k = torch.split(mixed, [dv, dv, dqk, dqk], dim=-1)
+    else:
+        q, k = (torch.empty((b, t, h, dqk), device=dev).normal_(generator=g) for _ in "qk")
+        v = torch.empty((b, t, h, dv), device=dev).normal_(generator=g)
+    do = torch.empty((b, t, h, dv), device=dev).normal_(generator=g)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,t,h,dqk,dv,strided", [
+    (2, 33, 2, 16, 8, True), (1, 64, 3, 48, 96, True), (2, 130, 2, 128, 128, False),
+    (1, 1, 2, 32, 32, True), (3, 17, 1, 5, 3, False)])
+def test_hstu_attention_kernels_equal_plain(cuda_device, b, t, h, dqk, dv, strided,
+                                            causal):
+    """Forward and backward within 1e-5 of each output's sum of magnitudes
+    plus 1e-7 (the two add in different orders), and the same bits on two
+    runs."""
+    q, k, v, do = _hstu_case(cuda_device, b, t, h, dqk, dv, strided, seed=t + dqk)
+    before = (ha.launches_fwd, ha.launches_bwd)
+    out = ha.hstu_attention_fwd(q, k, v, causal)
+    grads = ha.hstu_attention_bwd(q, k, v, do, causal)
+    again = ha.hstu_attention_fwd(q, k, v, causal), ha.hstu_attention_bwd(q, k, v, do, causal)
+    torch.cuda.synchronize()
+    assert (ha.launches_fwd, ha.launches_bwd) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(out, again[0])
+    assert all(torch.equal(a, c) for a, c in zip(grads, again[1]))
+    out_mag, grad_mags = ref.hstu_attention_magnitudes(q, k, v, do, causal)
+    want = ref.hstu_attention_ref(q, k, v, causal)
+    assert out.shape == want.shape and out.is_contiguous()
+    assert bool(((out - want).abs() <= 1e-5 * out_mag + 1e-7).all())
+    for got, w, mag in zip(grads, ref.hstu_attention_bwd_ref(q, k, v, do, causal),
+                           grad_mags):
+        assert got.shape == w.shape
+        assert bool(((got - w).abs() <= 1e-5 * mag + 1e-7).all())
+
+
+def test_hstu_attention_autograd_runs_the_kernels(cuda_device):
+    q, k, v, do = _hstu_case(cuda_device, 2, 40, 2, 16, 16, True, seed=1)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    before = (ha.launches_fwd, ha.launches_bwd)
+    dispatch.hstu_attention(*leaves).backward(do)
+    torch.cuda.synchronize()
+    assert (ha.launches_fwd, ha.launches_bwd) == (before[0] + 1, before[1] + 1)
+    for leaf, w in zip(leaves, ha.hstu_attention_bwd(q, k, v, do)):
+        assert torch.equal(leaf.grad, w)
+
+
+def test_hstu_attention_raises_rather_than_falling_back(cuda_device):
+    q, k, v, do = _hstu_case(cuda_device, 1, 8, 2, 16, 16, False, seed=2)
+    with pytest.raises(TypeError):
+        dispatch.hstu_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    with pytest.raises(ValueError):
+        dispatch.hstu_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError):
+        ha.hstu_attention_bwd(q, k, v, do.cpu())
+    with pytest.raises(ValueError):  # head dims above 128
+        ha.hstu_attention_fwd(*(torch.zeros((1, 4, 1, 129), device=cuda_device),) * 3)
+    with pytest.raises(ValueError):  # d not the unit-stride axis
+        ha.hstu_attention_fwd(q.transpose(1, 3), k.transpose(1, 3), v.transpose(1, 3))
+
+
+def test_bf16_gather_equals_plain(cuda_device):
+    g = torch.Generator(cuda_device).manual_seed(4)
+    t = torch.empty((300, 512), device=cuda_device).normal_(generator=g).bfloat16()
+    idx = torch.randint(-2, 305, (200,), device=cuda_device, generator=g,
+                        dtype=torch.int32)
+    assert torch.equal(eg.embedding_gather(t, idx), ref.gather_rows_ref(t, idx))
+    odd = t[:, :33].contiguous()  # rows of 66 bytes: the element path
+    assert torch.equal(eg.embedding_gather(odd, idx), ref.gather_rows_ref(odd, idx))
+
+
+def test_hstu_training_on_the_card_runs_the_kernels_and_matches_cpu(cuda_device):
+    """``hstu-reduced`` (2 layers, N = 4): 2 x 2 x 4 forward and 2 x 4
+    backward launches a step (each layer's forward runs again in the
+    backward), and the CPU's trajectory within 1e-5, at the rowwise-Adagrad
+    step and AdamW eps of the CPU parity tests (tests/test_torch_train.py
+    says why: HSTU's training is chaotic at the default step sizes)."""
+    from repro_torch.configs.base import OptimizerConfig
+
+    kw = dict(reduced=True, global_batch=16, n_micro=4, seed=3,
+              opt_cfg=OptimizerConfig(eps=1e-6))
+    gpu = Session.from_arch("hstu-industrial", **kw)
+    cpu = Session.from_arch("hstu-industrial", device="cpu", **kw)
+    for s in (gpu, cpu):
+        s.workload.engine.sparse_lr = 0.002
+    cpu.state = clone_state(gpu.state, "cpu")
+    before = (ha.launches_fwd, ha.launches_bwd)
+    steps = 4
+    got, want = gpu.train(steps), cpu.train(steps)
+    assert (ha.launches_fwd - before[0], ha.launches_bwd - before[1]) == \
+        (16 * steps, 8 * steps)
+    assert got.summary["overflow_max"] == 0
+    np.testing.assert_allclose(got.stats.losses, want.stats.losses, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got.state.table.rows.cpu(), want.state.table.rows,
+                               rtol=0, atol=1e-5)
+    for k, v in want.state.dense.items():
+        torch.testing.assert_close(got.state.dense[k].cpu(), v, rtol=0, atol=1e-5)

@@ -222,7 +222,8 @@ def test_new_kernel_wrappers_reject_cpu_tensors(fn, args):
 
 def test_every_kernel_source_builds_into_build():
     assert set(build.SOURCES) == {"embedding_gather", "segment_rowsum",
-                                  "buffer_sync", "embedding_scatter"}
+                                  "buffer_sync", "embedding_scatter",
+                                  "hstu_attention"}
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").exists()
         assert build.library_path(name).parent == build.BUILD_DIR

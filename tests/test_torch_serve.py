@@ -185,6 +185,8 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "assert len(mods) > 40, mods\n"
+        "assert {'repro_torch.models.hstu', 'repro_torch.models.layers',\n"
+        "        'repro_torch.kernels.hstu_attention'} <= set(mods), mods\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"

@@ -5,7 +5,11 @@
 - ``MegaTableSpec.scramble`` reproduces JAX's uint32 wrap bit for bit,
   including at Vp = 135,000 and 57,012,000 where the wrap disagrees with the
   exact affine form and is not a bijection (pinned here, not fixed);
-- the copied configs and integer helpers match field for field.
+- the copied configs (DLRM and HSTU) and integer helpers match field for
+  field;
+- the HSTU configuration trained on one card (``HSTU_INDUSTRIAL_ONE_CARD``)
+  keeps every published width of ``hstu-industrial`` and cuts only its
+  vocabularies.
 """
 import dataclasses
 import os
@@ -32,7 +36,8 @@ from repro_torch.core.embedding.table import (
     make_mega_table_spec as tmake_spec,
 )
 
-CASES = [("dlrm-ctr", False), ("dlrm-ctr", True), ("dlrm-cached", False)]
+CASES = [("dlrm-ctr", False), ("dlrm-ctr", True), ("dlrm-cached", False),
+         ("hstu-industrial", False), ("hstu-industrial", True)]
 
 
 def _specs(arch, reduced):
@@ -133,3 +138,32 @@ def test_same_device_names_one_device_two_ways():
 def test_optimizer_config_equals_jax_field_for_field():
     t, j = tbase.OptimizerConfig(), jbase.OptimizerConfig()
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
+
+
+def test_hstu_row_cut_keeps_every_width():
+    """The one-card HSTU config: the JAX ``HSTU_INDUSTRIAL`` with each
+    vocabulary divided by 6.25 (a 49.48 GB f32 master) and nothing else
+    changed."""
+    from repro_torch.configs.recsys_archs import HSTU_INDUSTRIAL_ONE_CARD as cut
+
+    full = jget_arch("hstu-industrial").config
+    assert cut.backbone == "hstu"
+    for f in dataclasses.fields(full):
+        if f.name != "tables":
+            assert getattr(cut, f.name) == getattr(full, f.name), f.name
+    assert (cut.d_model, cut.n_layers, cut.n_heads, cut.seq_len) == (1024, 4, 8, 1024)
+    assert cut.compute_dtype == "bfloat16" and cut.max_table_dim == 512
+    assert [(t.name, t.dim, t.bag_size, t.combiner) for t in cut.tables] == \
+        [(t.name, t.dim, t.bag_size, t.combiner) for t in full.tables]
+    assert [t.vocab_size for t in cut.tables] == [16_000_000, 8_000_000, 160_000]
+    assert [t.vocab_size * 4 for t in cut.tables] == \
+        [int(t.vocab_size * 4 / 6.25) for t in full.tables]
+    spec = tmake_spec(cut.tables, num_shards=1)
+    assert spec.padded_rows == 24_160_000
+    assert spec.padded_rows * spec.dim * 4 == 49_479_680_000  # 49.48 GB of f32
+    # the one-card config stays out of the registry
+    from repro_torch.configs.registry import get_arch
+
+    for name in RECSYS_ARCHS:
+        spec_ = get_arch(name)
+        assert cut.tables not in (spec_.config.tables, spec_.reduced.tables), name
