@@ -50,12 +50,35 @@ hand-written kernel on it against its plain PyTorch version:
 10. consistency at ``hstu-reduced``: nestpipe = serial = the reference
    trainer over 6 steps, and async diverges, at the configuration's own
    step sizes and at the smaller ones of the CPU parity tests;
-11. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
+11. release: every earlier session gone (the memory still allocated is
+   printed);
+12. ``flash_attention`` edges: the kernel against its plain version at
+   T in {1, 33, 64, 257, 2048}, hd in {16, 64, 80, 128, 160, 192}, H/KV in
+   {1, 4}, causal and not, f32 and bf16, Tq 33 against Tk 100, and strided
+   views, within ``ref.flash_attention_bound`` (f32: 1e-5 of each output's
+   sum of |w v| + 1e-7; bf16: 2**-8 of it plus one bf16 ulp); the same bits
+   on two runs; a CUDA tensor beside a CPU one raises;
+13. full-width ``stablelm-12b`` serving (40 layers, d_model 5,120, 32
+   heads over 8 kv heads of 160, bf16; 23.26 GB of weights and a 2.06 GB
+   master drawn from a seed): ``serve(batch=8, prompt_len=2048, gen=32)``
+   once as warm-up, with the first and the last layer's ``flash_attention``
+   calls captured and the gathers of the prefill's lookup and of the first
+   decode step's (the f32 master retrieve at D = 5,120, two bf16 assembly
+   gathers) checked bit for bit and timed as in phase 6, then once counted
+   (40 flash launches, all in the prefill; 3 gathers per lookup, 32
+   lookups) with the same tokens; the captured flash calls checked against
+   the plain version at full shape and timed beside it, SDPA and their
+   bound; a second prefill whose attention
+   runs the plain version agrees on the last-token logits within 5e-2 of
+   max |logit| (``--profile``: the device idle share of a prefill and of 8
+   decode steps);
+14. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
 
 Every phase prints one JSON line. Nothing is caught: any failure exits
 non-zero. Run from the repo root: ``python3 chip_smoke.py`` (``--profile``
 adds a host breakdown and a ``torch.profiler`` pass over 4 training steps
-and over the serving path, and one over 2 HSTU steps).
+and over the serving path, one over 2 HSTU steps, and one over an LM
+prefill and 8 decode steps).
 """
 from __future__ import annotations
 
@@ -92,6 +115,14 @@ HSTU_RTOL, HSTU_ATOL = 1e-5, 1e-7
 # hold rows and dense params within 1e-5 and the adagrad accumulator within
 # 1e-4 of 1 + accum.
 HSTU_SMALL_STEPS = {"sparse_lr": 0.002, "adam_eps": 1e-6}
+LM_ARCH = "stablelm-12b"
+# one card's share of decode_32k (batch 128 over 32,768 positions, an
+# 859 GB cache at 204,800 B a token): batch 8, 2,048-token prompts, 32 new
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 32
+# the prefill's last-token logits with the kernel and with the plain
+# attention: within this share of max |logit| (bf16 activations through 40
+# layers; a wrong kernel differs by O(1))
+LM_LOGIT_RTOL = 5e-2
 KERNELS = {  # name -> (source, the Pallas kernel it replaces)
     "embedding_gather": ("src/repro_torch/csrc/embedding_gather.cu",
                          "src/repro/kernels/embedding_gather.py:35"),
@@ -107,6 +138,18 @@ KERNELS = {  # name -> (source, the Pallas kernel it replaces)
                            "src/repro/kernels/hstu_attention.py:56"),
     "hstu_attention_bwd": ("src/repro_torch/csrc/hstu_attention.cu",
                            "src/repro/kernels/hstu_attention.py:56"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:70"),
+}
+# the paths each kernel must run on (launched at least once there)
+RUNS_ON = {
+    "embedding_gather": ("dlrm_train", "dlrm_serve", "hstu_train", "lm_serve"),
+    "segment_rowsum": ("dlrm_train", "hstu_train"),
+    "buffer_sync": ("dlrm_train", "hstu_train"),
+    "embedding_scatter": ("dlrm_train", "hstu_train"),
+    "hstu_attention_fwd": ("hstu_train",),
+    "hstu_attention_bwd": ("hstu_train",),
+    "flash_attention": ("lm_serve",),
 }
 
 
@@ -143,6 +186,27 @@ def tf32_flops(name: str) -> float:
     if "H100" in name or "H200" in name:
         return 495e12
     raise SystemExit(f"chip_smoke: no TF32 figure for {name!r}")
+
+
+def bf16_flops(name: str) -> float:
+    """Dense bf16 tensor-core peak (NVIDIA data sheets, SXM parts)."""
+    if "H100" in name or "H200" in name:
+        return 989e12
+    raise SystemExit(f"chip_smoke: no bf16 figure for {name!r}")
+
+
+def flash_work(q, k, causal):
+    """(operations, bytes) of ``flash_attention`` for these inputs: 4 hd per
+    unmasked (query, key) pair (the score and the weighted sum); q, k, v
+    read once and the output written once."""
+    b, tq, h, hd = q.shape
+    tk = k.shape[1]
+    if causal:  # query i sees keys 0..min(i, Tk - 1)
+        pairs_per_head = sum(min(i + 1, tk) for i in range(tq))
+    else:
+        pairs_per_head = tq * tk
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    return 4 * hd * b * h * pairs_per_head, nbytes
 
 
 def hstu_work(q, dv, causal):
@@ -233,6 +297,7 @@ def main() -> int:
     from repro_torch.kernels import buffer_sync as bs
     from repro_torch.kernels import embedding_gather as eg
     from repro_torch.kernels import embedding_scatter as es
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import hstu_attention as ha
     from repro_torch.kernels import segment_rowsum as sr
     from repro_torch.launch.build import assemble_workload, make_loss_fn, resolve
@@ -248,11 +313,13 @@ def main() -> int:
         for m in mods.values():
             m.launches = 0
         ha.launches_fwd = ha.launches_bwd = 0
+        fa.launches = 0
 
     def counts():
         return {**{k: m.launches for k, m in mods.items()},
                 "hstu_attention_fwd": ha.launches_fwd,
-                "hstu_attention_bwd": ha.launches_bwd}
+                "hstu_attention_bwd": ha.launches_bwd,
+                "flash_attention": fa.launches}
 
     # -- 1. environment ---------------------------------------------------
     smi = subprocess.run(
@@ -607,7 +674,7 @@ def main() -> int:
     want = {"embedding_gather": (1 + 3 * N_MICRO) * TRAIN_STEPS,
             "segment_rowsum": (N_MICRO + 1) * TRAIN_STEPS,
             "buffer_sync": TRAIN_STEPS - 1, "embedding_scatter": TRAIN_STEPS,
-            "hstu_attention_fwd": 0, "hstu_attention_bwd": 0}
+            "hstu_attention_fwd": 0, "hstu_attention_bwd": 0, "flash_attention": 0}
     if train_launches != want:
         raise SystemExit(f"training launches {train_launches} != {want}")
 
@@ -682,23 +749,28 @@ def main() -> int:
         served = check_gather("serve-from-buffer", buf_rows, buf_idx)
         unique_emb = check_gather("assemble-1", served, plan.slot_of_unique)
         check_gather("assemble-2", unique_emb, plan.inverse)
-    serve_shapes = []
-    for label, src, idx in (("retrieve", table.rows, master_idx),
-                            ("serve-from-buffer", buf_rows, buf_idx),
-                            ("assemble-1", served, plan.slot_of_unique),
-                            ("assemble-2", unique_emb, plan.inverse)):
+
+    def timed_gather(path, label, src, idx):
+        """One gather timed beside its plain version, index_select and its
+        bandwidth bound; one kernel_shape line."""
         lib_idx = idx.clamp(0, src.shape[0] - 1).long()
         nbytes = gather_bytes(torch, src, idx)
-        serve_shapes.append({
+        row = {
             "kernel": "embedding_gather", "call": label, "src_rows": src.shape[0],
-            "n": idx.numel(), "dim": src.shape[1], "bytes": nbytes,
+            "n": idx.numel(), "dim": src.shape[1],
+            "dtype": str(src.dtype).removeprefix("torch."), "bytes": nbytes,
             "ms": time_ms(torch, lambda: eg.embedding_gather(src, idx), flush),
             "plain_ms": time_ms(torch, lambda: ref.gather_rows_ref(src, idx), flush),
             "library_ms": time_ms(
                 torch, lambda: torch.index_select(src, 0, lib_idx), flush),
             "bound_ms": nbytes / peak * 1e3,
-        })
-        emit("kernel_shape", path="dlrm_serve", **serve_shapes[-1])
+        }
+        emit("kernel_shape", path=path, **row)
+        return row
+
+    serve_shapes = [timed_gather("dlrm_serve", label, src, idx) for label, src, idx in (
+        ("retrieve", table.rows, master_idx), ("serve-from-buffer", buf_rows, buf_idx),
+        ("assemble-1", served, plan.slot_of_unique), ("assemble-2", unique_emb, plan.inverse))]
 
     # one unchecked warm-up pass, then the counted one
     sess.serve_embeddings(num_requests=2 * MAX_BATCH, max_batch=MAX_BATCH,
@@ -944,7 +1016,8 @@ def main() -> int:
                  "buffer_sync": HSTU_STEPS - 1, "embedding_scatter": HSTU_STEPS,
                  # each layer's forward runs again in the backward (per-layer remat)
                  "hstu_attention_fwd": 2 * n_layers * N_MICRO * HSTU_STEPS,
-                 "hstu_attention_bwd": n_layers * N_MICRO * HSTU_STEPS}
+                 "hstu_attention_bwd": n_layers * N_MICRO * HSTU_STEPS,
+                 "flash_attention": 0}
     if hstu_launches != hstu_want:
         raise SystemExit(f"HSTU launches {hstu_launches} != {hstu_want}")
 
@@ -1054,13 +1127,283 @@ def main() -> int:
         if hgaps["async"]["rows_dense"] <= 1e-6:
             raise SystemExit(f"HSTU async did not diverge at the {label}: {hgaps}")
 
-    # -- 11. kernels line and the result -----------------------------------
+    # -- 11. release --------------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("release", memory_allocated_gb=torch.cuda.memory_allocated() / 1e9,
+         memory_reserved_gb=torch.cuda.memory_reserved() / 1e9)
+
+    # -- 12. flash_attention against its plain version -----------------------
+    fworst = {"float32": 0.0, "bfloat16": 0.0}
+
+    def check_flash(label, q, k, v, causal, chunk=None):
+        """Kernel against the plain version within ref.flash_attention_bound,
+        ``chunk`` batch rows at a time, and the same bits on a second run."""
+        got = fa.flash_attention(q, k, v, causal)
+        if not torch.equal(got, fa.flash_attention(q, k, v, causal)):
+            raise SystemExit(f"flash_attention is not deterministic at {label}")
+        step = chunk or q.shape[0]
+        for b0 in range(0, q.shape[0], step):
+            sl = slice(b0, b0 + step)
+            want = ref.flash_attention_ref(q[sl], k[sl], v[sl], causal)
+            err = (got[sl].float() - want.float()).abs()
+            bound = ref.flash_attention_bound(q[sl], k[sl], v[sl], want, causal)
+            if not bool((err <= bound).all()):
+                raise SystemExit(f"flash_attention beyond its bound at {label}: "
+                                 f"{float(err.max())} (bound there "
+                                 f"{float(bound.flatten()[int((err - bound).argmax())])})")
+            key = str(q.dtype).removeprefix("torch.")
+            fworst[key] = max(fworst[key], float(err.max()))
+            del want, err, bound
+
+    def flash_inputs(b, tq, tk, h, kv, hd, dtype):
+        return [torch.empty((b, t, n, hd), device=dev).normal_(generator=g).to(dtype)
+                for t, n in ((tq, h), (tk, kv), (tk, kv))]
+
+    fedge = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        for t in (1, 33, 64, 257, 2048):
+            for hd in (16, 64, 80, 128, 160, 192):
+                for kv in (4, 1):  # H/KV 1 and 4
+                    for causal in (True, False):
+                        check_flash(f"T={t} hd={hd} H/KV={4 // kv} causal={causal} {dname}",
+                                    *flash_inputs(1, t, t, 4, kv, hd, dtype), causal)
+            fedge.append(f"{dname} T={t} hd in 16..192 H/KV in {{1,4}} causal and not")
+        for causal in (False, True):
+            check_flash(f"Tq=33 Tk=100 causal={causal} {dname}",
+                        *flash_inputs(2, 33, 100, 4, 1, 160, dtype), causal)
+        fedge.append(f"{dname} Tq=33 Tk=100 hd=160 H/KV=4 causal and not")
+        # strided views: column slices of one wider tensor, 16-byte loads off
+        wide = torch.empty((2, 100, 4, 3 * 160 + 3), device=dev).normal_(generator=g).to(dtype)
+        check_flash(f"strided {dname}", wide[..., 3:163], wide[..., 163:323],
+                    wide[..., 323:483], True)
+        fedge.append(f"{dname} strided q, k, v (T=100, hd=160)")
+    try:
+        x = torch.zeros((1, 8, 2, 16), device=dev)
+        dispatch.flash_attention(x, x.cpu(), x)
+    except ValueError:
+        fedge.append("a CUDA tensor beside a CPU tensor raises")
+    else:
+        raise SystemExit("flash_attention took a CPU tensor beside CUDA ones")
+    torch.cuda.synchronize()
+    emit("flash_kernel_edges", cases=fedge, max_abs_err=dict(fworst),
+         tolerance="|kernel - plain| <= 1e-5 M + 1e-7 (f32) or 2**-8 M + one bf16 ulp of "
+                   "the plain output (bf16), M = sum_j w_ij |v_j|; the same bits on two runs")
+
+    # -- 13. main path: full-width stablelm-12b serving -----------------------
+    from torch.autograd import DeviceType
+
+    lm = Session.from_arch(LM_ARCH, seed=0)
+    lwl, lcfg = lm.workload, lm.workload.cfg
+    n_lm_layers = lcfg.n_layers
+    decode_steps = LM_GEN - 1
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, ltable = lm.lm_weights()  # the draw the serves below read
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    weights_gb = sum(p_.numel() * p_.element_size() for p_ in params.values()) / 1e9
+    # warm-up serve, keeping the first and the last layer's flash_attention
+    # inputs and the gathers of two lookups: the prefill's (the f32 master
+    # retrieve, then two bf16 assembly gathers) and the first decode step's;
+    # the master is kept by reference, every other tensor copied
+    kept_flash, flash_calls = {}, [0]
+    kept_gather, gather_calls = [], [0]
+    real_flash, real_gather = dispatch.flash_attention, dispatch.gather_rows
+    gather_labels = [f"{step} {part}" for step in ("prefill", "decode")
+                     for part in ("retrieve", "assemble-1", "assemble-2")]
+
+    def flash_spy(q, k, v, causal=True):
+        i = flash_calls[0]
+        flash_calls[0] += 1
+        if i in (0, n_lm_layers - 1):
+            kept_flash[i] = (q.clone(), k.clone(), v.clone(), causal)
+        return real_flash(q, k, v, causal)
+
+    def gather_spy(rows, idx):
+        if gather_calls[0] < len(gather_labels):
+            kept_gather.append((rows if rows is ltable.rows else rows.clone(), idx.clone()))
+        gather_calls[0] += 1
+        return real_gather(rows, idx)
+
+    dispatch.flash_attention, dispatch.gather_rows = flash_spy, gather_spy
+    try:
+        t0 = time.perf_counter()
+        warm = lm.serve(batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    finally:
+        dispatch.flash_attention, dispatch.gather_rows = real_flash, real_gather
+    if flash_calls[0] != n_lm_layers:
+        raise SystemExit(f"the warm-up serve made {flash_calls[0]} flash calls")
+    if gather_calls[0] != 3 * (1 + decode_steps):
+        raise SystemExit(f"the warm-up serve made {gather_calls[0]} gathers")
+    if kept_gather[0][0] is not ltable.rows or kept_gather[3][0] is not ltable.rows:
+        raise SystemExit("the LM lookups did not retrieve from the master")
+    # the gathers at this path's shapes (the master's 5,120-wide f32 rows,
+    # then bf16 rows), bit-exact against the plain version and timed
+    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)  # evicts the L2 (time_ms)
+    lm_gathers = []
+    for label, (src, idx) in zip(gather_labels, kept_gather):
+        check_gather(f"lm_serve {label}", src, idx)
+        lm_gathers.append(timed_gather("lm_serve", label, src, idx))
+    del kept_gather, src, idx
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    lrep = lm.serve(batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN)
+    torch.cuda.synchronize()
+    lm_launches = counts()
+    lm_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ls = lrep.summary
+    emit("lm_serve", arch=LM_ARCH, batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN,
+         reduced="batch 8, prompt 2048, 32 generated (decode_32k: batch 128 x 32,768)",
+         config={k: getattr(lcfg, k) for k in ("n_layers", "d_model", "d_ff",
+                                               "vocab_size", "param_dtype",
+                                               "compute_dtype")},
+         heads=[lcfg.attention.n_heads, lcfg.attention.n_kv_heads, lcfg.attention.head_dim],
+         weights_gb=weights_gb, table_gb=ltable.rows.numel() * 4 / 1e9,
+         prefill_s=ls["prefill_s"], prompt_tokens_per_s=LM_BATCH * LM_PROMPT / ls["prefill_s"],
+         decode_s=ls["decode_s"], decode_step_ms=ls["decode_s"] / decode_steps * 1e3,
+         generated_tokens_per_s=ls["tokens_per_s"], weights_draw_s=draw_s,
+         warmup_serve_s=warm_s,
+         launches=lm_launches, max_memory_allocated_gb=lm_peak_gb,
+         sample_tokens=ls["sample_tokens"])
+    lm_want = {k: 0 for k in KERNELS}
+    lm_want.update(embedding_gather=3 * (1 + decode_steps), flash_attention=n_lm_layers)
+    if lm_launches != lm_want:  # 3 gathers a lookup: master, then two assembly
+        raise SystemExit(f"LM serving launches {lm_launches} != {lm_want}")
+    if not np.array_equal(lrep.tokens, warm.tokens):
+        raise SystemExit("two serves of the same weights generated different tokens")
+    if lrep.tokens.shape != (LM_BATCH, LM_GEN) or not (
+            (0 <= lrep.tokens) & (lrep.tokens < lcfg.vocab_size)).all():
+        raise SystemExit(f"generated tokens {lrep.tokens.shape} are not vocabulary ids")
+
+    # the prefill once more with the kernel, and once with the plain
+    # attention (here only; the port has no switch), on the serve's prompts
+    toks = np.random.default_rng(lm.seed).integers(0, lcfg.vocab_size,
+                                                   size=(LM_BATCH, LM_PROMPT))
+    with torch.inference_mode():
+        keys = lwl.spec.scramble(torch.as_tensor(toks.astype(np.int32), device=dev))
+        emb, _ = lwl.engine.lookup_from_master(ltable, keys)
+        logits_k, cache = lwl.bundle.prefill(params, emb, cache_len=LM_PROMPT + LM_GEN)
+        del cache
+        dispatch.flash_attention = ref.flash_attention_ref
+        try:
+            logits_p, cache = lwl.bundle.prefill(params, emb, cache_len=LM_PROMPT + LM_GEN)
+        finally:
+            dispatch.flash_attention = real_flash
+        del cache, emb
+    scale = float(logits_p.abs().max())
+    logit_gap = float((logits_k - logits_p).abs().max())
+    greedy_agree = float((logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean())
+    first_tok = logits_k.argmax(-1).cpu().numpy()
+    emit("lm_prefill_vs_plain", max_abs_logit=scale, max_logit_gap=logit_gap,
+         gap_share=logit_gap / scale, bound_share=LM_LOGIT_RTOL,
+         greedy_tokens_agreeing=greedy_agree,
+         first_token_equals_serve=bool(np.array_equal(first_tok, lrep.tokens[:, 0])))
+    if not np.isfinite(logits_k.cpu().numpy()).all() or logit_gap > LM_LOGIT_RTOL * scale:
+        raise SystemExit(f"prefill logits with the kernel are {logit_gap} from the plain "
+                         f"attention's (max |logit| {scale})")
+    if not np.array_equal(first_tok, lrep.tokens[:, 0]):
+        raise SystemExit("the prefill's argmax is not the serve's first token")
+    del logits_k, logits_p
+
+    if args.profile:  # the prefill, then 8 decode steps from its cache
+        from torch.profiler import ProfilerActivity, profile
+
+        with torch.inference_mode():
+            emb, _ = lwl.engine.lookup_from_master(ltable, keys)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                logits, cache = lwl.bundle.prefill(params, emb,
+                                                   cache_len=LM_PROMPT + LM_GEN)
+                tok = logits.argmax(-1).to(torch.int32)
+                torch.cuda.synchronize()
+                span = time.perf_counter() - t0
+            emit_profile(prof, "lm_prefill_profile", span, prefills=1)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(8):
+                    emb, _ = lwl.engine.lookup_from_master(
+                        ltable, lwl.spec.scramble(tok[:, None]))
+                    logits, cache = lwl.bundle.decode_step(params, emb, cache)
+                    tok = logits.argmax(-1).to(torch.int32)
+                    tok.cpu()  # as serve() reads each token back
+                torch.cuda.synchronize()
+                span = time.perf_counter() - t0
+            events = prof.key_averages()
+            emit_profile(prof, "lm_decode_profile", span, steps=8,
+                         device_kernels_per_step=sum(
+                             e.count for e in events if e.device_type != DeviceType.CPU) / 8,
+                         host_op_events_per_step=sum(  # nested operators included
+                             e.count for e in events if e.device_type == DeviceType.CPU
+                             and e.key.startswith("aten::")) / 8)
+            del prof, logits, cache, emb
+    del lm, params, ltable, lwl, warm, lrep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the captured calls: checked at full shape, and timed beside the plain
+    # version, SDPA (the yardstick; the port never calls it) and the bound
+    frows = []
+    for layer, (q, k, v, causal) in sorted(kept_flash.items()):
+        check_flash(f"main-path layer {layer}", q, k, v, causal, chunk=1)
+        ops, nbytes = flash_work(q, k, causal)
+        by_ops, by_bytes = ops / bf16_flops(name) * 1e3, nbytes / peak * 1e3
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        row = {"kernel": "flash_attention", "call": f"prefill layer {layer}",
+               "shape": list(q.shape), "kv_heads": k.shape[2], "causal": causal,
+               "dtype": str(q.dtype).removeprefix("torch."), "operations": ops,
+               "bytes": nbytes,
+               "ms": time_ms(torch, lambda: fa.flash_attention(q, k, v, causal), flush),
+               "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal),
+                                   flush),
+               "library_ms": time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                                         enable_gqa=True), flush),
+               "library_call": "scaled_dot_product_attention(is_causal, enable_gqa) on "
+                               "(B, H, T, hd) views",
+               "bound_ms": max(by_ops, by_bytes),
+               "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+        row["achieved_tflops"] = ops / row["ms"] / 1e9
+        frows.append(row)
+        emit("kernel_shape", path="lm_serve", **row)
+        del qt, kt, vt
+    del kept_flash, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 14. kernels line and the result -----------------------------------
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
         by_path = {"dlrm_train": train_launches[kname],
                    "dlrm_serve": serve_launches[kname],
-                   "hstu_train": hstu_launches[kname]}
-        if kname in hrows_out:
+                   "hstu_train": hstu_launches[kname],
+                   "lm_serve": lm_launches[kname]}
+        for path in RUNS_ON[kname]:
+            if by_path[path] == 0:
+                raise SystemExit(f"{kname} was not launched on the {path} path")
+        if kname == "flash_attention":
+            row = frows[0]
+            entry = {
+                "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "max_abs_err": max(fworst.values()), "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "ms_of": "one call at the main-path shape " + str(row["shape"])
+                         + f" over {row['kv_heads']} kv heads, bf16, causal",
+                "calls_per_serve": n_lm_layers,
+                "last_layer": {k: frows[-1][k] for k in ("ms", "plain_ms", "library_ms",
+                                                         "bound_ms")},
+            }
+        elif kname in hrows_out:
             row = hrows_out[kname]
             entry = {
                 "name": kname, "route": "cuda", "source": source, "replaces": replaces,
@@ -1091,16 +1434,16 @@ def main() -> int:
                        for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
                     "calls": [x["call"] for x in hshapes[kname]]},
             }
-            if train_launches[kname] == 0:
-                raise SystemExit(f"{kname} was not launched on the DLRM training path")
-        if hstu_launches[kname] == 0:
-            raise SystemExit(f"{kname} was not launched on the HSTU training path")
         if kname == "embedding_gather":
-            if serve_launches[kname] == 0:
-                raise SystemExit("embedding_gather was not launched on the serving path")
-            entry["serve_window"] = {k: sum(x[k] for x in serve_shapes)
-                                     for k in ("ms", "plain_ms", "library_ms",
-                                               "bound_ms")}
+            times = ("ms", "plain_ms", "library_ms", "bound_ms")
+            entry["serve_window"] = {k: sum(x[k] for x in serve_shapes) for k in times}
+            # one LM serve: the prefill's lookup and decode_steps decode-step
+            # lookups, each timed at the first decode step's calls
+            entry["lm_serve"] = {
+                **{k: sum(x[k] for x in lm_gathers[:3])
+                   + decode_steps * sum(x[k] for x in lm_gathers[3:]) for k in times},
+                "calls": f"the prefill's {', '.join(x['call'] for x in lm_gathers[:3])}; "
+                         f"{decode_steps} x the first decode step's"}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,10 @@
     sess = Session.from_arch("dlrm-ctr", mode="nestpipe", global_batch=8192)
     print(sess.train(8).summary)
     rep = sess.serve_embeddings(head="dlrm")
+    print(Session.from_arch("stablelm-12b").serve(batch=8, prompt_len=2048,
+                                                  gen=32).summary)
 """
-from .session import EmbedServeReport, Session, TrainReport
+from .session import EmbedServeReport, ServeReport, Session, TrainReport
 from .strategies import (
     DriverStrategy,
     InferenceStrategy,
@@ -17,6 +19,6 @@ from .strategies import (
 )
 from .streams import resolve_stream
 
-__all__ = ["Session", "EmbedServeReport", "TrainReport", "DriverStrategy",
+__all__ = ["Session", "EmbedServeReport", "ServeReport", "TrainReport", "DriverStrategy",
            "InferenceStrategy", "available_strategies", "build_workload_store",
            "get_strategy", "register_strategy", "resolve_stream"]

@@ -1,5 +1,5 @@
-"""The Session facade: one front door to training and serving a recsys
-workload (``repro.api.session``, device tier, one card).
+"""The Session facade: one front door to training and serving a workload
+(``repro.api.session``, device tier, one card).
 
     from repro_torch.api import Session
 
@@ -10,11 +10,15 @@ workload (``repro.api.session``, device tier, one card).
     served = sess.serve_embeddings(head="dlrm", max_batch=512,
                                    num_requests=4096, check_exact=True)
 
-Training runs any ported backbone (DLRM, HSTU); serving has a DLRM head
-only, as in the JAX package. A config outside the registry goes through
-``launch.build.assemble_workload`` and :meth:`Session.from_workload`.
-``device`` defaults to ``cuda`` and raises without a GPU; pass
-``device="cpu"`` for the plain PyTorch path.
+    lm = Session.from_arch("stablelm-12b")             # a dense LM
+    print(lm.serve(batch=8, prompt_len=2048, gen=32).summary)
+
+Training runs any ported recsys backbone (DLRM, HSTU); recsys serving has
+a DLRM head only, as in the JAX package. A dense LM serves (batched
+prefill, then greedy KV-cache decode) and does not train yet. A config
+outside the registry goes through ``launch.build.assemble_workload`` and
+:meth:`Session.from_workload`. ``device`` defaults to ``cuda`` and raises
+without a GPU; pass ``device="cpu"`` for the plain PyTorch path.
 """
 from __future__ import annotations
 
@@ -28,8 +32,8 @@ import torch
 
 from ..configs.base import NestPipeConfig, OptimizerConfig
 from ..core.dbp.pipeline import PipelineStats
-from ..core.embedding.table import EmbeddingTableState
-from ..launch.build import RECSYS_GLOBAL_BATCH, Workload, resolve
+from ..core.embedding.table import EmbeddingTableState, init_table_state
+from ..launch.build import LM_TRAINING_NOT_PORTED, RECSYS_GLOBAL_BATCH, Workload, resolve
 from ..models.dlrm import DLRM
 from ..train.state import TrainState
 from ..utils import resolve_device, same_device
@@ -57,8 +61,16 @@ class EmbedServeReport:
     summary: Dict[str, Any] = field(default_factory=dict)
 
 
+@dataclass
+class ServeReport:
+    """Generated tokens (B, gen) + timing summary from :meth:`Session.serve`."""
+
+    tokens: np.ndarray
+    summary: Dict[str, Any] = field(default_factory=dict)
+
+
 class Session:
-    """A training/serving session over one resolved recsys workload.
+    """A training/serving session over one resolved workload.
 
     The session owns the workload, the execution strategy and the train
     state (dense params, optimizer state, master table, step): drawn on the
@@ -66,6 +78,10 @@ class Session:
     from elsewhere, fresh optimizer state) or by assigning ``state`` (e.g.
     a JAX train state carried over by ``repro_torch.convert``). Training
     updates the master in place; serving reads the current weights.
+
+    A dense LM session holds no train state: :meth:`serve` draws the
+    params and the master table only (no optimizer moments), from the
+    seed, once per seed, unless :meth:`ingest` handed it weights.
     """
 
     def __init__(self, workload: Workload, *, opt_cfg: Optional[OptimizerConfig] = None,
@@ -81,6 +97,10 @@ class Session:
         self._state: Optional[TrainState] = None
         self._model: Optional[DLRM] = None
         self._model_of: Optional[Dict[str, torch.Tensor]] = None
+        # LM weights: (seed they were drawn from, or None if ingested,
+        # params, table)
+        self._lm: Optional[Tuple[Optional[int], Dict[str, torch.Tensor],
+                                 EmbeddingTableState]] = None
 
     @classmethod
     def from_arch(
@@ -152,8 +172,14 @@ class Session:
         return self._optimizer
 
     @property
+    def is_lm(self) -> bool:
+        return self.workload.arch.kind == "lm"
+
+    @property
     def state(self) -> TrainState:
         """The train state; a fresh init from ``seed`` on first use."""
+        if self.is_lm:
+            raise NotImplementedError(LM_TRAINING_NOT_PORTED)
         if self._state is None:
             g = torch.Generator(self.device).manual_seed(self.seed)
             self._state = self.workload.init_state(g, self.optimizer)
@@ -186,6 +212,9 @@ class Session:
         return self._model, state.table
 
     def _check_serves(self) -> None:
+        if self.is_lm:
+            raise ValueError(f"{self.workload.arch.name} is an LM arch: serve it "
+                             "with .serve() (prefill + KV-cache decode)")
         backbone = self.workload.cfg.backbone
         if backbone != "dlrm":
             raise NotImplementedError(
@@ -197,10 +226,16 @@ class Session:
                table: EmbeddingTableState) -> None:
         """Use these weights in place of the fresh init, with a fresh
         optimizer state at step 0: ``params`` is the dense model's state
-        dict, ``table`` the master (see ``repro_torch.convert``)."""
+        dict, ``table`` the master (see ``repro_torch.convert``). An LM
+        session takes its params (names and shapes checked, dtypes kept)
+        and table as they are and keeps no optimizer state."""
         self._check_table(table)
         dense = {k: torch.as_tensor(v, device=self.device).detach()
                  for k, v in params.items()}
+        if self.is_lm:
+            self._check_lm_params(dense)
+            self._lm = (None, dense, table)
+            return
         self._state = TrainState(
             dense, self.optimizer.init(dense), table,
             torch.zeros((), dtype=torch.int32, device=self.device))
@@ -213,6 +248,8 @@ class Session:
         """Run ``steps`` training steps from the current state. The stream
         starts at batch index ``state.step``. The master table is updated
         in place; ``self.state`` is rebound to the returned state."""
+        if self.is_lm:
+            raise NotImplementedError(LM_TRAINING_NOT_PORTED)
         start = int(self.state.step)
         stream = resolve_stream(self.workload, self.seed, start_step=start)
         driver = self.strategy.build_driver(self.fns, stream, self.workload)
@@ -237,6 +274,82 @@ class Session:
     # ------------------------------------------------------------------
     # serve
     # ------------------------------------------------------------------
+
+    def _check_lm_params(self, params: Mapping[str, torch.Tensor]) -> None:
+        want = self.workload.bundle.init_params(None, "meta")
+        got = {k: tuple(v.shape) for k, v in params.items()}
+        if got != {k: tuple(v.shape) for k, v in want.items()}:
+            raise ValueError(f"LM params do not match {self.workload.cfg.name}: "
+                             f"{sorted(set(got) ^ set(want)) or 'shapes differ'}")
+
+    def lm_weights(self, seed: Optional[int] = None
+                   ) -> Tuple[Dict[str, torch.Tensor], EmbeddingTableState]:
+        """The (params, master table) an LM session serves: the ingested
+        ones, or a fresh init from ``seed`` (default: the session's) for the
+        params and from seed 1 for the table, as JAX's serve draws them,
+        kept for the next call with the same seed."""
+        seed = self.seed if seed is None else seed
+        if self._lm is None or self._lm[0] not in (None, seed):
+            self._lm = None  # release the old draw before the new one
+            wl = self.workload
+            params = wl.bundle.init_params(
+                torch.Generator(self.device).manual_seed(seed), self.device)
+            table = init_table_state(wl.spec, device=self.device,
+                                     generator=torch.Generator(self.device).manual_seed(1))
+            self._lm = (seed, params, table)
+        return self._lm[1], self._lm[2]
+
+    @torch.inference_mode()
+    def serve(self, *, batch: int = 4, prompt_len: int = 16, gen: int = 8,
+              seed: Optional[int] = None) -> ServeReport:
+        """Batched prefill + greedy KV-cache decode through the embedding
+        engine (the LM serving path of ``repro.api.session.Session.serve``).
+
+        Draws ``batch`` prompts of ``prompt_len`` tokens from
+        ``np.random.default_rng(seed)``, scrambles them into master rows,
+        looks them up from the master, runs the prefill into a cache of
+        ``prompt_len + gen`` positions and takes the argmax, then ``gen - 1``
+        decode steps, each looking up the scrambled last token. Recsys archs
+        serve through :meth:`serve_embeddings`."""
+        if not self.is_lm:
+            raise ValueError(
+                f"{self.workload.arch.name} is a recsys arch: no KV-cache "
+                "decode path to serve (use .serve_embeddings())")
+        if gen < 1 or prompt_len < 1 or batch < 1:
+            raise ValueError("serve needs batch, prompt_len and gen of at least 1")
+        seed = self.seed if seed is None else seed
+        max_len = prompt_len + gen
+        wl = self.workload
+        cfg, bundle, engine, spec = wl.cfg, wl.bundle, wl.engine, wl.spec
+        params, table = self.lm_weights(seed)
+        rng = np.random.default_rng(seed)
+        toks = rng.integers(0, cfg.vocab_size, size=(batch, prompt_len))
+        keys = spec.scramble(torch.as_tensor(toks.astype(np.int32), device=self.device))
+
+        t0 = time.perf_counter()
+        emb, _ = engine.lookup_from_master(table, keys)
+        logits, cache = bundle.prefill(params, emb, cache_len=max_len)
+        next_tok = logits.argmax(-1).to(torch.int32)
+        generated = [next_tok.cpu().numpy()]  # waits for the device
+        t_prefill = time.perf_counter() - t0
+
+        t1 = time.perf_counter()
+        for _ in range(gen - 1):
+            emb, _ = engine.lookup_from_master(table, spec.scramble(next_tok[:, None]))
+            logits, cache = bundle.decode_step(params, emb, cache)
+            next_tok = logits.argmax(-1).to(torch.int32)
+            generated.append(next_tok.cpu().numpy())
+        t_decode = time.perf_counter() - t1
+
+        out = np.stack(generated, axis=1)
+        summary = {
+            "arch": self.workload.arch.name, "batch": batch,
+            "prompt_len": prompt_len, "generated": gen,
+            "prefill_s": t_prefill, "decode_s": t_decode,
+            "tokens_per_s": batch * (gen - 1) / max(t_decode, 1e-9),
+            "sample_tokens": out[0, :8].tolist(), "device": str(self.device),
+        }
+        return ServeReport(tokens=out, summary=summary)
 
     def serve_embeddings(
         self,

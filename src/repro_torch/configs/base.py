@@ -1,10 +1,153 @@
-"""Config dataclasses for the recsys models, the NestPipe switches the
-serving and training paths read, and the optimizer (field-for-field copies
-of ``repro.configs.base``)."""
+"""Config dataclasses for the models (LM and recsys), the NestPipe
+switches the serving and training paths read, and the optimizer
+(field-for-field copies of ``repro.configs.base``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+# ---------------------------------------------------------------------------
+# LM-side configs
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class AttentionConfig:
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10000.0
+    causal: bool = True
+    # The JAX package's attention implementation ("chunked" | "naive" |
+    # "pallas"). All three compute one function; the port reads none of
+    # them and always runs the flash_attention op (kernels/dispatch.py).
+    impl: str = "chunked"
+    q_chunk: int = 1024
+    kv_chunk: int = 1024
+    qk_norm: bool = False
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    aux_loss_coef: float = 0.01
+
+
+@dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 128
+    headdim: int = 64
+    expand: int = 2
+    n_groups: int = 1
+    d_conv: int = 4
+    chunk_size: int = 256
+    dt_min: float = 0.001
+    dt_max: float = 0.1
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder stack for enc-dec models (whisper)."""
+
+    n_layers: int
+    n_frames: int  # stub conv frontend output length
+    d_model: int = 0  # 0 => same as decoder d_model
+
+
+@dataclass(frozen=True)
+class FrontendConfig:
+    """Stub modality frontend: precomputed embeddings."""
+
+    kind: str  # "audio" | "vision"
+    n_positions: int  # frames or patches
+    feature_dim: int = 0  # 0 => d_model
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # "dense" | "moe" | "hybrid" | "ssm" | "audio" | "vlm" | "recsys"
+    n_layers: int
+    d_model: int
+    d_ff: int
+    vocab_size: int
+    attention: Optional[AttentionConfig] = None
+    moe: Optional[MoEConfig] = None
+    mamba: Optional[MambaConfig] = None
+    encoder: Optional[EncoderConfig] = None
+    frontend: Optional[FrontendConfig] = None
+    # Per-layer pattern tiled over depth: tuple of (mixer, ffn) pairs where
+    # mixer in {"attn", "mamba"} and ffn in {"mlp", "moe", "none"}.
+    # None => homogeneous ("attn", "mlp"/"moe") stack.
+    layer_pattern: Optional[Tuple[Tuple[str, str], ...]] = None
+    mlp_type: str = "swiglu"  # "swiglu" | "mlp"
+    activation: str = "silu"  # "silu" | "gelu" | "relu2"
+    norm_type: str = "rmsnorm"  # "rmsnorm" | "layernorm"
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    # Sub-quadratic sequence mixing available (SSM / hybrid).
+    subquadratic: bool = False
+
+    @property
+    def layer_plan(self) -> Tuple[Tuple[str, str], ...]:
+        """Fully expanded per-layer (mixer, ffn) plan of length n_layers."""
+        if self.layer_pattern is not None:
+            period = len(self.layer_pattern)
+            assert self.n_layers % period == 0, (self.name, self.n_layers, period)
+            return tuple(self.layer_pattern[i % period] for i in range(self.n_layers))
+        ffn = "moe" if self.moe is not None else "mlp"
+        mixer = "mamba" if (self.mamba is not None and self.attention is None) else "attn"
+        return tuple((mixer, ffn) for _ in range(self.n_layers))
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + dense stack + head)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        total = v * d  # embedding
+        if not self.tie_embeddings:
+            total += v * d  # lm head
+        for mixer, ffn in self.layer_plan:
+            if mixer == "attn" and self.attention is not None:
+                a = self.attention
+                qo = d * a.n_heads * a.head_dim * 2
+                kv = d * a.n_kv_heads * a.head_dim * 2
+                total += qo + kv
+            elif mixer == "mamba" and self.mamba is not None:
+                m = self.mamba
+                d_in = m.expand * d
+                nheads = d_in // m.headdim
+                conv_dim = d_in + 2 * m.n_groups * m.d_state
+                total += d * (2 * d_in + 2 * m.n_groups * m.d_state + nheads)  # in_proj
+                total += conv_dim * m.d_conv  # conv
+                total += 2 * nheads  # A_log, D
+                total += d_in * d  # out_proj
+            if ffn == "mlp":
+                total += d * f * (3 if self.mlp_type == "swiglu" else 2)
+            elif ffn == "moe" and self.moe is not None:
+                e = self.moe.num_experts
+                total += d * e  # router
+                total += e * d * f * (3 if self.mlp_type == "swiglu" else 2)
+            total += 2 * d  # norms
+        if self.encoder is not None:
+            enc_d = self.encoder.d_model or d
+            a = self.attention
+            per_layer = enc_d * (a.n_heads + a.n_kv_heads) * a.head_dim * 2 + enc_d * f * (
+                3 if self.mlp_type == "swiglu" else 2
+            ) + 2 * enc_d
+            total += self.encoder.n_layers * per_layer
+            # decoder cross-attention blocks
+            total += self.n_layers * (d * (a.n_heads + a.n_kv_heads) * a.head_dim * 2 + d)
+        return total
+
+
+# ---------------------------------------------------------------------------
+# Recsys-side configs
+# ---------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)

@@ -1,12 +1,21 @@
-"""Architecture registry, recsys subset: ``--arch <id>`` -> full/reduced
-configs. The DLRM archs and HSTU are ported; FuXi is not."""
+"""Architecture registry: ``--arch <id>`` -> full/reduced configs. Ported:
+the recsys archs (DLRM, HSTU; FuXi is not) and the dense LM archs whose
+(attn, mlp) stacks the port's layers cover (``kind="lm"``, serving)."""
 from __future__ import annotations
 
+import importlib
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Tuple, Union
 
 from . import recsys_archs
-from .base import RecsysModelConfig
+from .base import ModelConfig, RecsysModelConfig
+
+_LM_MODULES = {
+    "stablelm-3b": "stablelm_3b",
+    "stablelm-12b": "stablelm_12b",
+    "nemotron-4-340b": "nemotron_4_340b",
+    "yi-34b": "yi_34b",
+}
 
 _RECSYS = {
     "hstu-industrial": ("HSTU_INDUSTRIAL", "HSTU_REDUCED"),
@@ -17,21 +26,25 @@ _RECSYS = {
     "dlrm-growth": ("DLRM_GROWTH", "DLRM_GROWTH"),
 }
 
+LM_ARCHS: Tuple[str, ...] = tuple(_LM_MODULES)
 RECSYS_ARCHS: Tuple[str, ...] = tuple(_RECSYS)
 
 
 @dataclass(frozen=True)
 class ArchSpec:
     name: str
-    kind: str  # "recsys"
-    config: RecsysModelConfig
-    reduced: RecsysModelConfig
+    kind: str  # "lm" | "recsys"
+    config: Union[ModelConfig, RecsysModelConfig]
+    reduced: Union[ModelConfig, RecsysModelConfig]
 
 
 def get_arch(name: str) -> ArchSpec:
+    if name in _LM_MODULES:
+        mod = importlib.import_module(f".{_LM_MODULES[name]}", __package__)
+        return ArchSpec(name, "lm", mod.CONFIG, mod.REDUCED)
     if name in _RECSYS:
         full, red = _RECSYS[name]
         return ArchSpec(name, "recsys", getattr(recsys_archs, full),
                         getattr(recsys_archs, red))
-    raise KeyError(f"unknown or unported arch '{name}'; available: "
-                   f"{sorted(RECSYS_ARCHS)}")
+    raise KeyError(f"unknown or unported arch '{name}'; ported: LM (serving) "
+                   f"{sorted(LM_ARCHS)}, recsys {sorted(RECSYS_ARCHS)}")

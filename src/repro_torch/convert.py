@@ -6,7 +6,8 @@ so a port that must serve or train from the same weights takes them over:
 the DLRM or HSTU dense pytree as a state dict, the master table as an
 ``EmbeddingTableState`` (hand both to ``Session.ingest``), or a whole
 train state, AdamW moments and step included (assign it to
-``Session.state``).
+``Session.state``). A dense LM's params (``lm_params_from_jax``) keep
+their dtypes: bf16 stays bf16.
 """
 from __future__ import annotations
 
@@ -63,6 +64,36 @@ def dense_params_from_jax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tenso
     if "layers" in params_np:
         return hstu_params_from_jax(params_np)
     return dlrm_params_from_jax(params_np)
+
+
+def _tensor_keep_dtype(x) -> torch.Tensor:
+    """A numpy (or ml_dtypes bfloat16) array as a tensor of the same dtype."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":  # no numpy dtype in torch: move the bits
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def lm_params_from_jax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX's LM pytree ``{"blocks": [block per pattern position, leaves
+    stacked (n_rep, ...)], "final_norm", "head_w"}`` -> the port's params
+    (``blocks.{p}.attn.wq``, ..., ``final_norm.scale``, ``head_w``), one to
+    one, stacked axes and dtypes kept."""
+    def flat(tree, prefix):
+        if isinstance(tree, Mapping):
+            for k, v in tree.items():
+                yield from flat(v, f"{prefix}.{k}")
+        else:
+            yield prefix, tree
+
+    out: Dict[str, torch.Tensor] = {}
+    for pos, block in enumerate(params_np["blocks"]):
+        for name, leaf in flat(block, f"blocks.{pos}"):
+            out[name] = _tensor_keep_dtype(leaf)
+    for name, leaf in flat(params_np["final_norm"], "final_norm"):
+        out[name] = _tensor_keep_dtype(leaf)
+    out["head_w"] = _tensor_keep_dtype(params_np["head_w"])
+    return out
 
 
 def table_from_jax(rows_np: np.ndarray, accum_np: np.ndarray,

@@ -15,7 +15,7 @@ same rows. The synthetic stream's ``scramble_np`` uses the exact form.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -55,9 +55,15 @@ class MegaTableSpec:
 
 
 def make_mega_table_spec(
-    tables: Sequence[SparseTableConfig], *, num_shards: int,
+    tables: Optional[Sequence[SparseTableConfig]], *, num_shards: int,
+    vocab_size: Optional[int] = None, dim: Optional[int] = None,
 ) -> MegaTableSpec:
-    """Build the packed spec from recsys table configs."""
+    """Build the packed spec from recsys table configs, or, with ``tables``
+    None, from a single LM vocab (``vocab_size`` rows of ``dim``)."""
+    if tables is None:
+        if vocab_size is None or dim is None:
+            raise ValueError("an LM spec needs vocab_size and dim")
+        tables = [SparseTableConfig(name="vocab", vocab_size=vocab_size, dim=dim)]
     names, offsets, vocabs = [], [], []
     off = 0
     max_dim = max(t.dim for t in tables)

@@ -22,6 +22,9 @@ Contract (the sentinel conventions of ``repro.kernels.dispatch``):
 - ``hstu_attention(q, k, v, causal)`` is HSTU's pointwise attention,
   differentiable: the CUDA forward and backward kernels on the card, the
   plain version under autograd on the CPU.
+- ``flash_attention(q, k, v, causal)`` is softmax attention for q
+  ``(B, Tq, H, hd)`` and k, v ``(B, Tk, KV, hd)`` with ``H % KV == 0``
+  (forward only: the serving path).
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from . import ref
 from .buffer_sync import buffer_sync as _buffer_sync_kernel
 from .embedding_gather import embedding_gather
 from .embedding_scatter import embedding_scatter
+from .flash_attention import flash_attention as _flash_attention_kernel
 from .hstu_attention import HSTUAttention
 from .segment_rowsum import segment_rowsum as _segment_rowsum_kernel
 
@@ -102,3 +106,15 @@ def hstu_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _on_cpu(q, k, v):
         return ref.hstu_attention_ref(q, k, v, causal)
     raise _no_path("hstu_attention", q, k, v)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """``softmax(q k^T / sqrt(hd)) v`` per head, keys after the query masked
+    when ``causal``; q ``(B, Tq, H, hd)``, k and v ``(B, Tk, KV, hd)``, query
+    head ``h`` reading kv head ``h // (H // KV)``."""
+    if q.is_cuda:
+        return _flash_attention_kernel(q, k, v, causal)
+    if _on_cpu(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal)
+    raise _no_path("flash_attention", q, k, v)

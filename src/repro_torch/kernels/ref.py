@@ -117,3 +117,61 @@ def hstu_attention_magnitudes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             (torch.einsum("bhqk,bkhd->bqhd", ds_mag, ka),
              torch.einsum("bhqk,bqhd->bkhd", ds_mag, qa),
              torch.einsum("bhqk,bqhd->bkhd", a_mag, da)))
+
+
+def _softmax_weights(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """f32 ``(B, H, Tq, Tk)`` weights ``softmax_j(scale q_i . k_j)`` with
+    ``scale = 1/sqrt(hd)``, the scores taken in f32 from the inputs' values
+    and set to -1e30 at keys after the query when ``causal`` (positions from
+    0 on both sides); k has H heads already."""
+    tq, tk, hd = q.shape[1], k.shape[1], q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) * hd ** -0.5
+    if causal:
+        s = torch.where(_causal_mask_rect(tq, tk, q.device), s, s.new_full((), -1e30))
+    return torch.softmax(s, dim=-1)
+
+
+def _causal_mask_rect(tq: int, tk: int, device) -> torch.Tensor:
+    return (torch.arange(tq, device=device)[:, None]
+            >= torch.arange(tk, device=device)[None, :])
+
+
+def repeat_kv(k: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, T, KV, hd) -> (B, T, heads, hd): query head h reads kv head
+    h // (heads // KV), as ``repro.models.layers._repeat_kv`` repeats."""
+    kv = k.shape[2]
+    if heads % kv:
+        raise ValueError(f"{heads} query heads are not a multiple of {kv} kv heads")
+    return k if heads == kv else k.repeat_interleave(heads // kv, dim=2)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Softmax attention for q ``(B, Tq, H, hd)`` and k, v ``(B, Tk, KV, hd)``
+    (``H % KV == 0``; kv heads repeated into query groups): f32 scores
+    scaled by ``1/sqrt(hd)``, causal entries -1e30, f32 softmax times f32 v,
+    cast to ``q.dtype``. The contract of ``kernels/flash_attention.py``, and
+    the math of ``repro.kernels.ref.flash_attention_ref`` with the scores
+    in f32 (that oracle rounds bf16 scores before it lifts them)."""
+    h = q.shape[2]
+    w = _softmax_weights(q, repeat_kv(k, h), causal)
+    return torch.einsum("bhqk,bkhd->bqhd", w,
+                        repeat_kv(v, h).to(torch.float32)).to(q.dtype)
+
+
+def flash_attention_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          plain: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    """How far the kernel's output may lie from ``plain`` (this module's
+    output on the same inputs), per element, in f32. f32 inputs: ``1e-5 M
+    + 1e-7`` with ``M = sum_j w_ij |v_j|`` (the same terms added in another
+    order). bf16 inputs: ``2**-8 M`` plus one bf16 ulp of ``plain`` (the
+    kernel rounds each weight to bf16 before the product, a relative 2**-9
+    of M, as the TPU kernel does; then both outputs round to bf16)."""
+    h = q.shape[2]
+    w = _softmax_weights(q, repeat_kv(k, h), causal)
+    mag = torch.einsum("bhqk,bkhd->bqhd", w, repeat_kv(v, h).to(torch.float32).abs())
+    if q.dtype == torch.float32:
+        return 1e-5 * mag + 1e-7
+    _, exp = torch.frexp(plain.to(torch.float32))
+    return 2.0 ** -8 * mag + torch.ldexp(torch.ones_like(mag), exp - 8)

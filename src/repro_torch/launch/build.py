@@ -1,20 +1,27 @@
-"""Workload resolution, recsys subset: (arch x batch x mode x device) -> the
-mega-table spec, the engine, the batch shapes, the step functions and the
-initial train state. The dense model is picked by the config's backbone:
-``dlrm`` or ``hstu``."""
+"""Workload resolution: (arch x shape x mode x device) -> the mega-table
+spec, the engine, the batch shapes and, for a recsys arch, the step
+functions and the initial train state. A recsys dense model is picked by
+the config's backbone (``dlrm`` or ``hstu``); a dense LM (``kind == "lm"``)
+resolves to its serving bundle over a single-vocab table."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
-from ..configs.base import NestPipeConfig, OptimizerConfig, RecsysModelConfig
+from ..configs.base import (
+    ModelConfig,
+    NestPipeConfig,
+    OptimizerConfig,
+    RecsysModelConfig,
+)
 from ..configs.registry import ArchSpec, get_arch
 from ..core.embedding import EmbeddingEngine, init_table_state, make_mega_table_spec
 from ..core.embedding.table import MegaTableSpec
 from ..models.dlrm import DLRM, LossFn, make_dlrm_loss_fn, num_feature_slots
 from ..models.hstu import HSTU, make_hstu_loss_fn
+from ..models.zoo import LMBundle, build_lm_bundle
 from ..train import (
     OptimizerPair,
     StepFns,
@@ -28,10 +35,18 @@ from ..train import (
 RECSYS_GLOBAL_BATCH = 65536
 
 
+# What an LM workload answers when asked to train: the port serves dense
+# LMs, and their training is a later slice.
+LM_TRAINING_NOT_PORTED = (
+    "LM training is not ported: the port serves dense LMs only "
+    "(ROADMAP.md, Queue 1, item 6a: LM training with a flash_attention "
+    "backward kernel)")
+
+
 @dataclass
 class Workload:
     arch: ArchSpec
-    cfg: RecsysModelConfig
+    cfg: Union[RecsysModelConfig, ModelConfig]
     mode: str
     npcfg: NestPipeConfig
     spec: MegaTableSpec
@@ -39,6 +54,8 @@ class Workload:
     n_micro: int
     batch_shapes: Dict[str, Tuple[Tuple[int, ...], Any]]
     device: torch.device
+    # LM workloads only: the serving bundle
+    bundle: Optional[LMBundle] = None
 
     @property
     def global_batch(self) -> int:
@@ -47,6 +64,8 @@ class Workload:
 
     def step_fns(self, opt_cfg: Optional[OptimizerConfig] = None
                  ) -> Tuple[StepFns, OptimizerPair]:
+        if self.bundle is not None:
+            raise NotImplementedError(LM_TRAINING_NOT_PORTED)
         opt_cfg = opt_cfg or OptimizerConfig()
         optimizer = make_optimizer(opt_cfg)
         mb_keys_shape = self.batch_shapes["keys"][0][1:]
@@ -59,6 +78,8 @@ class Workload:
                    optimizer: OptimizerPair) -> TrainState:
         """Dense params, then the master table, drawn on the device from
         ``generator``; a fresh optimizer state; step 0."""
+        if self.bundle is not None:
+            raise NotImplementedError(LM_TRAINING_NOT_PORTED)
         model = dense_model(self.cfg, device=self.device, generator=generator)
         params = {k: v.detach() for k, v in model.state_dict().items()}
         table = init_table_state(self.spec, device=self.device, generator=generator)
@@ -111,7 +132,12 @@ def resolve(
     reduced: bool = False,
     global_batch: int = RECSYS_GLOBAL_BATCH,
 ) -> Workload:
+    """A recsys arch at ``global_batch``, or a dense LM (which serves any
+    batch and prompt, and so takes no batch here)."""
     arch = get_arch(arch_name)
+    if arch.kind == "lm":
+        return _resolve_lm(arch, arch.reduced if reduced else arch.config,
+                           device=device, mode=mode, npcfg=npcfg)
     return assemble_workload(arch, arch.reduced if reduced else arch.config,
                              device=device, mode=mode, npcfg=npcfg,
                              global_batch=global_batch)
@@ -144,3 +170,21 @@ def assemble_workload(
         n_micro=n_micro, batch_shapes=batch_shapes(cfg, global_batch, n_micro),
         device=device,
     )
+
+
+def _resolve_lm(arch: ArchSpec, cfg: ModelConfig, *, device, mode: str,
+                npcfg: Optional[NestPipeConfig]) -> Workload:
+    """JAX ``resolve`` for ``kind == "lm"`` on one device: the vocab as a
+    single-table spec and an engine at the config's compute dtype. Serving
+    takes no FWP micro-batches, and the batch is the caller's, so the
+    workload has no batch shapes."""
+    device = torch.device(device)
+    npcfg = npcfg or NestPipeConfig()
+    bundle = build_lm_bundle(cfg)
+    spec = make_mega_table_spec(None, vocab_size=cfg.vocab_size, dim=bundle.emb_dim,
+                                num_shards=1)
+    engine = EmbeddingEngine(spec, npcfg, device=device,
+                             compute_dtype=getattr(torch, cfg.compute_dtype))
+    return Workload(arch=arch, cfg=cfg, mode=mode, npcfg=npcfg, spec=spec,
+                    engine=engine, n_micro=1, batch_shapes={}, device=device,
+                    bundle=bundle)

@@ -1,10 +1,18 @@
-"""Serving launcher: a thin CLI over ``Session.serve_embeddings``.
+"""Serving launcher: a thin CLI over the two ``Session`` serving paths.
+
+Recsys archs serve embedding requests and check every served result
+against a lookup straight from the master table:
 
     python -m repro_torch.launch.serve --arch dlrm-ctr --head dlrm \
         --requests 4096 --max-batch 512
 
-runs on the GPU (``--device cpu`` for the plain PyTorch path) and checks
-every served result against a lookup straight from the master table.
+Dense LM archs run a batched prefill and greedy KV-cache decode from a
+fresh seeded init:
+
+    python -m repro_torch.launch.serve --arch stablelm-12b --batch 8 \
+        --prompt-len 2048 --gen 32
+
+Both run on the GPU (``--device cpu`` for the plain PyTorch path).
 """
 from __future__ import annotations
 
@@ -12,6 +20,7 @@ import argparse
 import json
 
 from ..api import Session
+from ..configs.registry import get_arch
 
 
 def serve(argv=None):
@@ -21,6 +30,11 @@ def serve(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; raises without a GPU)")
+    # LM decode path
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--prompt-len", type=int, default=16)
+    p.add_argument("--gen", type=int, default=8)
+    # recsys embedding-serving path
     p.add_argument("--store", default="auto",
                    help="embedding tier: device | auto")
     p.add_argument("--requests", type=int, default=256)
@@ -35,6 +49,14 @@ def serve(argv=None):
     p.add_argument("--head", default="embedding",
                    choices=("embedding", "dlrm"))
     args = p.parse_args(argv)
+
+    if get_arch(args.arch).kind == "lm":
+        sess = Session.from_arch(args.arch, reduced=args.reduced, seed=args.seed,
+                                 device=args.device)
+        report = sess.serve(batch=args.batch, prompt_len=args.prompt_len,
+                            gen=args.gen)
+        print("[serve] summary:", json.dumps(report.summary))
+        return report.tokens
 
     sess = Session.from_arch(args.arch, reduced=args.reduced, seed=args.seed,
                              store=args.store, device=args.device)

@@ -1,4 +1,5 @@
-"""Models: the DLRM dense head, the HSTU backbone, and their losses."""
+"""Models: the DLRM dense head, the HSTU backbone and their losses, and the
+dense LM serving path (prefill + KV-cache decode)."""
 from .dlrm import (
     DLRM,
     dlrm_forward,
@@ -14,7 +15,11 @@ from .hstu import (
     sequence_infonce,
 )
 from .layers import apply_norm, init_norm
+from .transformer import LMCache, init_lm_cache, init_lm_params, lm_decode_step, lm_prefill
+from .zoo import LMBundle, build_lm_bundle
 
 __all__ = ["DLRM", "dlrm_forward", "make_dlrm_loss_fn", "num_feature_slots",
            "pool_tables", "HSTU", "hstu_forward", "hstu_layer",
-           "make_hstu_loss_fn", "sequence_infonce", "apply_norm", "init_norm"]
+           "make_hstu_loss_fn", "sequence_infonce", "apply_norm", "init_norm",
+           "LMCache", "init_lm_cache", "init_lm_params", "lm_decode_step",
+           "lm_prefill", "LMBundle", "build_lm_bundle"]

@@ -1,5 +1,6 @@
-"""The port on the card: the hand-written CUDA kernels, the serving path and
-the training paths (DLRM and HSTU).
+"""The port on the card: the hand-written CUDA kernels, the serving paths
+(DLRM embeddings, dense-LM prefill and decode) and the training paths (DLRM
+and HSTU).
 
 Every test here needs an NVIDIA GPU, carries the ``cuda`` marker and skips
 without one (the kernels have no CPU mode). The file imports no jax, so it
@@ -22,6 +23,7 @@ from repro_torch.kernels import buffer_sync as bs
 from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels import embedding_gather as eg
 from repro_torch.kernels import embedding_scatter as es
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import hstu_attention as ha
 from repro_torch.kernels import segment_rowsum as sr
 from repro_torch.train import clone_state
@@ -341,3 +343,81 @@ def test_hstu_training_on_the_card_runs_the_kernels_and_matches_cpu(cuda_device)
                                rtol=0, atol=1e-5)
     for k, v in want.state.dense.items():
         torch.testing.assert_close(got.state.dense[k].cpu(), v, rtol=0, atol=1e-5)
+
+
+def _flash_case(dev, b, tq, tk, h, kv, hd, dtype, seed):
+    g = torch.Generator(dev).manual_seed(seed)
+    q = torch.randn((b, tq, h, hd), device=dev, generator=g).to(dtype)
+    k = torch.randn((b, tk, kv, hd), device=dev, generator=g).to(dtype)
+    v = torch.randn((b, tk, kv, hd), device=dev, generator=g).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,tq,tk,h,kv,hd,causal", [
+    (1, 1, 1, 2, 1, 16, True), (2, 33, 33, 4, 1, 80, True), (1, 130, 130, 4, 4, 160, True),
+    (1, 33, 100, 4, 2, 64, False), (2, 70, 70, 2, 2, 8, False), (1, 65, 65, 2, 1, 256, True)])
+def test_flash_attention_kernel_equals_plain(cuda_device, b, tq, tk, h, kv, hd, causal,
+                                             dtype):
+    """Within ``ref.flash_attention_bound`` of the plain version (f32: 1e-5
+    of each output's sum of |w v| + 1e-7; bf16: 2**-8 of it plus one bf16
+    ulp, as the kernel rounds the weights to bf16), the same bits twice."""
+    q, k, v = _flash_case(cuda_device, b, tq, tk, h, kv, hd, dtype, seed=tq + hd)
+    before = fa.launches
+    got = dispatch.flash_attention(q, k, v, causal)
+    again = fa.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 2
+    assert got.dtype == dtype and got.shape == (b, tq, h, hd) and got.is_contiguous()
+    assert torch.equal(got, again)
+    want = ref.flash_attention_ref(q, k, v, causal)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= ref.flash_attention_bound(q, k, v, want, causal)).all())
+
+
+def test_flash_attention_reads_strided_views(cuda_device):
+    """q, k and v as column slices of one wider tensor, 3 elements off its
+    rows' start (so the 16-byte loads are off), in both types."""
+    g = torch.Generator(cuda_device).manual_seed(4)
+    for t in (torch.float32, torch.bfloat16):
+        wide = torch.randn((2, 50, 4, 3 * 40 + 3), device=cuda_device, generator=g).to(t)
+        q, k, v = wide[..., 3:43], wide[..., 43:83], wide[..., 83:123]
+        assert q.stride(1) == 4 * 123
+        got = fa.flash_attention(q, k, v, True)
+        want = ref.flash_attention_ref(q, k, v, True)
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= ref.flash_attention_bound(q, k, v, want, True)).all())
+
+
+def test_flash_attention_raises_rather_than_falling_back(cuda_device):
+    q, k, v = _flash_case(cuda_device, 1, 8, 8, 4, 2, 16, torch.float32, seed=1)
+    before = fa.launches
+    bad = [
+        (q.half(), k.half(), v.half()),                     # a type it does not take
+        (q, k.bfloat16(), v),                                # mixed types
+        (q, k.cpu(), v),                                     # a CPU tensor among CUDA ones
+        (q.transpose(1, 3), k, v),                           # hd not the unit stride
+        (q[:, :, :3], k, v),                                 # 3 heads over 2 kv heads
+        _flash_case(cuda_device, 1, 8, 8, 2, 1, 264, torch.float32, seed=2),  # hd > 256
+    ]
+    for args in bad:
+        with pytest.raises((TypeError, ValueError)):
+            dispatch.flash_attention(*args)
+    assert fa.launches == before
+
+
+def test_lm_serving_on_the_card_runs_the_kernel_and_matches_cpu(cuda_device):
+    """Reduced stablelm-12b (f32): the same tokens on the card as on the
+    CPU from the same weights, one flash_attention launch per layer (the
+    prefill; decode attention is plain), three gathers per lookup."""
+    gpu = Session.from_arch("stablelm-12b", reduced=True, seed=2)
+    cpu = Session.from_arch("stablelm-12b", reduced=True, seed=2, device="cpu")
+    params, table = gpu.lm_weights()
+    cpu.ingest({k: v.cpu() for k, v in params.items()},
+               type(table)(table.rows.cpu(), table.accum.cpu()))
+    before = (fa.launches, eg.launches)
+    got = gpu.serve(batch=2, prompt_len=40, gen=5)
+    want = cpu.serve(batch=2, prompt_len=40, gen=5)
+    assert (fa.launches - before[0], eg.launches - before[1]) == (2, 3 * 5)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    assert got.summary["device"].startswith("cuda")

@@ -37,6 +37,7 @@ from repro_torch.kernels import build, dispatch, ref
 from repro_torch.kernels import buffer_sync as bs
 from repro_torch.kernels import embedding_gather as eg
 from repro_torch.kernels import embedding_scatter as es
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import segment_rowsum as sr
 
 
@@ -214,6 +215,8 @@ def test_plain_scatter_drops_sentinels_and_writes_in_place():
     (es.embedding_scatter, (torch.zeros((2, 4)), torch.zeros(2),
                             torch.zeros(2, dtype=torch.int32), torch.zeros((2, 4)),
                             torch.zeros(2))),
+    (fa.flash_attention, (torch.zeros((1, 3, 2, 8)), torch.zeros((1, 3, 1, 8)),
+                          torch.zeros((1, 3, 1, 8)))),
 ])
 def test_new_kernel_wrappers_reject_cpu_tensors(fn, args):
     with pytest.raises(ValueError, match="CUDA"):
@@ -223,7 +226,7 @@ def test_new_kernel_wrappers_reject_cpu_tensors(fn, args):
 def test_every_kernel_source_builds_into_build():
     assert set(build.SOURCES) == {"embedding_gather", "segment_rowsum",
                                   "buffer_sync", "embedding_scatter",
-                                  "hstu_attention"}
+                                  "hstu_attention", "flash_attention"}
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").exists()
         assert build.library_path(name).parent == build.BUILD_DIR

@@ -186,7 +186,11 @@ def test_port_imports_neither_jax_nor_repro():
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "assert len(mods) > 40, mods\n"
         "assert {'repro_torch.models.hstu', 'repro_torch.models.layers',\n"
-        "        'repro_torch.kernels.hstu_attention'} <= set(mods), mods\n"
+        "        'repro_torch.kernels.hstu_attention', 'repro_torch.kernels.flash_attention',\n"
+        "        'repro_torch.models.transformer', 'repro_torch.models.zoo',\n"
+        "        'repro_torch.configs.stablelm_12b', 'repro_torch.configs.stablelm_3b',\n"
+        "        'repro_torch.configs.yi_34b',\n"
+        "        'repro_torch.configs.nemotron_4_340b'} <= set(mods), mods\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"

@@ -9,7 +9,12 @@
   field;
 - the HSTU configuration trained on one card (``HSTU_INDUSTRIAL_ONE_CARD``)
   keeps every published width of ``hstu-industrial`` and cuts only its
-  vocabularies.
+  vocabularies;
+- the LM configs (``AttentionConfig``, ``ModelConfig`` and the dataclasses
+  it names) and the four dense archs' ``CONFIG`` and ``REDUCED`` match
+  field for field, with ``layer_plan`` and ``param_count``; the
+  single-vocab spec matches, and its scramble equals JAX's on every one of
+  stablelm-12b's 100,352 keys and is a bijection there.
 """
 import dataclasses
 import os
@@ -28,7 +33,7 @@ from repro.configs.registry import get_arch as jget_arch
 from repro.core.embedding.table import make_mega_table_spec as jmake_spec
 from repro_torch import utils as tutils
 from repro_torch.configs import base as tbase
-from repro_torch.configs.registry import RECSYS_ARCHS
+from repro_torch.configs.registry import LM_ARCHS, RECSYS_ARCHS
 from repro_torch.configs.registry import get_arch as tget_arch
 from repro_torch.core.embedding.table import (
     EmbeddingTableState,
@@ -167,3 +172,57 @@ def test_hstu_row_cut_keeps_every_width():
     for name in RECSYS_ARCHS:
         spec_ = get_arch(name)
         assert cut.tables not in (spec_.config.tables, spec_.reduced.tables), name
+
+
+@pytest.mark.parametrize("cls", ["AttentionConfig", "MoEConfig", "MambaConfig",
+                                 "EncoderConfig", "FrontendConfig", "ModelConfig"])
+def test_lm_config_classes_equal_field_for_field(cls):
+    t, j = getattr(tbase, cls), getattr(jbase, cls)
+    assert [(f.name, f.default) for f in dataclasses.fields(t)] == \
+        [(f.name, f.default) for f in dataclasses.fields(j)]
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_configs_equal_field_for_field(arch):
+    j, t = jget_arch(arch), tget_arch(arch)
+    assert t.kind == j.kind == "lm"
+    for a, b in ((t.config, j.config), (t.reduced, j.reduced)):
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+        assert a.layer_plan == b.layer_plan
+        assert a.param_count() == b.param_count()
+    assert set(LM_ARCHS) == {"stablelm-12b", "stablelm-3b", "yi-34b", "nemotron-4-340b"}
+
+
+def test_stablelm_12b_is_full_width():
+    cfg = tget_arch("stablelm-12b").config
+    a = cfg.attention
+    assert (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size) == (40, 5120, 13824, 100352)
+    assert (a.n_heads, a.n_kv_heads, a.head_dim) == (32, 8, 160)
+    assert cfg.param_dtype == cfg.compute_dtype == "bfloat16"
+    dense = cfg.param_count() - cfg.vocab_size * cfg.d_model  # the table is apart
+    assert dense == 11_629_117_440  # 23.26 GB in bf16, the head included
+
+
+@pytest.mark.parametrize("arch,reduced", [("stablelm-12b", False), ("stablelm-12b", True),
+                                          ("stablelm-3b", False), ("nemotron-4-340b", False)])
+def test_lm_vocab_spec_equal(arch, reduced):
+    jcfg = jget_arch(arch).reduced if reduced else jget_arch(arch).config
+    js = jmake_spec(None, vocab_size=jcfg.vocab_size, dim=jcfg.d_model, num_shards=1)
+    ts = tmake_spec(None, vocab_size=jcfg.vocab_size, dim=jcfg.d_model, num_shards=1)
+    assert dataclasses.asdict(ts) == dataclasses.asdict(js)
+    with pytest.raises(ValueError, match="vocab_size"):
+        tmake_spec(None, num_shards=1)
+
+
+def test_lm_scramble_equals_jax_and_is_a_bijection_on_every_key():
+    """stablelm-12b: Vp = 100,352, P = 25,009, A = 14,336. Every k * P + A
+    stays below 2**32, so JAX's uint32 wrap never fires and the map is a
+    permutation of the rows."""
+    cfg = tget_arch("stablelm-12b").config
+    ts = tmake_spec(None, vocab_size=cfg.vocab_size, dim=cfg.d_model, num_shards=1)
+    js = jmake_spec(None, vocab_size=cfg.vocab_size, dim=cfg.d_model, num_shards=1)
+    assert (ts.padded_rows, ts.mix_mult, ts.mix_add) == (100_352, 25_009, 14_336)
+    keys = np.arange(ts.padded_rows, dtype=np.int32)
+    got = ts.scramble(torch.from_numpy(keys)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(js.scramble(jnp.asarray(keys))))
+    assert np.array_equal(np.sort(got), keys)
