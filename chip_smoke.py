@@ -7,18 +7,25 @@ hand-written kernel on it against its plain PyTorch version:
 1. environment: the card's name and power limit, torch and CUDA versions,
    TF32 switched off for matmuls and convolutions;
 2. build: compiles every kernel from ``src/repro_torch/csrc`` with nvcc, one
-   process per source, all at once;
+   process per source, all at once; each source's nvcc seconds, ptxas's
+   registers and spills, and the HGMMA instructions in the wgmma
+   ``flash_attention`` library (``cuobjdump -sass``; none fails);
 3. kernel edges: ``embedding_gather``, ``segment_rowsum``, ``buffer_sync``
    and ``embedding_scatter`` against their plain versions at edge cases
    (empty, one segment, drop ids and sentinels, negative sources, D in
-   {1, 33, 128}, a view off 16-byte alignment), bit for bit where the sums
-   are exact, and the same bits on two runs;
+   {1, 33, 128}, a view off 16-byte alignment; for ``segment_rowsum`` also
+   hot keys, one id's run of C - 1, C, C + 1 and 5,400 positions at D 512,
+   C = 256 positions a chunk), bit for bit where the sums are exact
+   (``segment_rowsum`` against the CPU plain version in its chunk order,
+   and the input-order one on integer grads or runs of at most C), and the
+   same bits on two runs;
 4. a full-width ``dlrm-ctr`` training session (``mode="nestpipe"``,
    ``global_batch=8192``, N = 4, ``bucket_slack=1.5``) on the 29.19 GB
    table: one warm-up step, then two steps whose kernel calls are captured,
    and every captured call checked against its plain version and timed
    beside the plain version, one PyTorch library call where there is one,
-   and its bandwidth bound;
+   and its bandwidth bound (``segment_rowsum`` also by part: the sort, the
+   starts pass, the sum pass and the combine pass);
 5. main path, training: ``train(8)`` with every launch counted; finite
    losses, no routing overflow, the master still full on the card, rows of
    window 0 changed;
@@ -52,12 +59,16 @@ hand-written kernel on it against its plain PyTorch version:
    step sizes and at the smaller ones of the CPU parity tests;
 11. release: every earlier session gone (the memory still allocated is
    printed);
-12. ``flash_attention`` edges: the kernel against its plain version at
-   T in {1, 33, 64, 257, 2048}, hd in {16, 64, 80, 128, 160, 192}, H/KV in
-   {1, 4}, causal and not, f32 and bf16, Tq 33 against Tk 100, and strided
-   views, within ``ref.flash_attention_bound`` (f32: 1e-5 of each output's
-   sum of |w v| + 1e-7; bf16: 2**-8 of it plus one bf16 ulp); the same bits
-   on two runs; a CUDA tensor beside a CPU one raises;
+12. ``flash_attention`` edges: both kernels against the plain version at
+   T in {1, 33, 64, 257, 2048}, hd in {16, 64, 80, 128, 160, 192, 256},
+   H/KV in {1, 4}, causal and not, f32 and bf16 (bf16 at the wgmma kernel's
+   head dims goes to it, and to the general kernel too at T 33 and 257; the
+   rest to the general kernel, each asserted by its counter), Tq 33 against
+   Tk 100, and strided views (off 16-byte alignment: the general kernel;
+   aligned: the wgmma kernel in bf16), within ``ref.flash_attention_bound``
+   (f32: 1e-5 of each output's sum of |w v| + 1e-7; bf16: 2**-8 of it plus
+   one bf16 ulp); the same bits on two runs; a CUDA tensor beside a CPU one
+   raises;
 13. full-width ``stablelm-12b`` serving (40 layers, d_model 5,120, 32
    heads over 8 kv heads of 160, bf16; 23.26 GB of weights and a 2.06 GB
    master drawn from a seed): ``serve(batch=8, prompt_len=2048, gen=32)``
@@ -65,10 +76,11 @@ hand-written kernel on it against its plain PyTorch version:
    calls captured and the gathers of the prefill's lookup and of the first
    decode step's (the f32 master retrieve at D = 5,120, two bf16 assembly
    gathers) checked bit for bit and timed as in phase 6, then once counted
-   (40 flash launches, all in the prefill; 3 gathers per lookup, 32
-   lookups) with the same tokens; the captured flash calls checked against
-   the plain version at full shape and timed beside it, SDPA and their
-   bound; a second prefill whose attention
+   (40 launches of the wgmma flash kernel, all in the prefill, none of the
+   general one; 3 gathers per lookup, 32 lookups) with the same tokens; the
+   captured flash calls checked at full shape against the plain version,
+   through both kernels, and timed beside the general kernel, the plain
+   version, SDPA and their bound; a second prefill whose attention
    runs the plain version agrees on the last-token logits within 5e-2 of
    max |logit| (``--profile``: the device idle share of a prefill and of 8
    decode steps);
@@ -138,8 +150,11 @@ KERNELS = {  # name -> (source, the Pallas kernel it replaces)
                            "src/repro/kernels/hstu_attention.py:56"),
     "hstu_attention_bwd": ("src/repro_torch/csrc/hstu_attention.cu",
                            "src/repro/kernels/hstu_attention.py:56"),
-    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                        "src/repro/kernels/flash_attention.py:70"),
+    # two kernels of one function: the main path's and the general one
+    "flash_attention_wgmma": ("src/repro_torch/csrc/flash_attention_wgmma.cu",
+                              "src/repro/kernels/flash_attention.py:70"),
+    "flash_attention_simple": ("src/repro_torch/csrc/flash_attention.cu",
+                               "src/repro/kernels/flash_attention.py:70"),
 }
 # the paths each kernel must run on (launched at least once there)
 RUNS_ON = {
@@ -149,7 +164,10 @@ RUNS_ON = {
     "embedding_scatter": ("dlrm_train", "hstu_train"),
     "hstu_attention_fwd": ("hstu_train",),
     "hstu_attention_bwd": ("hstu_train",),
-    "flash_attention": ("lm_serve",),
+    "flash_attention_wgmma": ("lm_serve",),
+    # f32, other head dims and views TMA cannot describe (phase 12); no
+    # main path gives it such inputs
+    "flash_attention_simple": (),
 }
 
 
@@ -313,13 +331,14 @@ def main() -> int:
         for m in mods.values():
             m.launches = 0
         ha.launches_fwd = ha.launches_bwd = 0
-        fa.launches = 0
+        fa.launches = fa.launches_wgmma = fa.launches_simple = 0
 
     def counts():
         return {**{k: m.launches for k, m in mods.items()},
                 "hstu_attention_fwd": ha.launches_fwd,
                 "hstu_attention_bwd": ha.launches_bwd,
-                "flash_attention": fa.launches}
+                "flash_attention_wgmma": fa.launches_wgmma,
+                "flash_attention_simple": fa.launches_simple}
 
     # -- 1. environment ---------------------------------------------------
     smi = subprocess.run(
@@ -339,8 +358,15 @@ def main() -> int:
     # -- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     build.build()
-    emit("build", seconds=round(time.perf_counter() - t0, 3),
-         sources=list(build.SOURCES),
+    build_s = time.perf_counter() - t0
+    sass = subprocess.run(["cuobjdump", "-sass", str(build.library_path("flash_attention_wgmma"))],
+                          capture_output=True, text=True)
+    hgmma = sass.stdout.count("HGMMA") if sass.returncode == 0 else None
+    if hgmma == 0:
+        raise SystemExit("the wgmma flash_attention library holds no HGMMA instruction")
+    emit("build", seconds=round(build_s, 3), sources=list(build.SOURCES),
+         nvcc_seconds={k: round(v["seconds"], 3) for k, v in build.build_log.items()},
+         flash_wgmma_hgmma_instructions=hgmma,
          ptxas={k: [ln.strip() for ln in v["ptxas"].splitlines()
                     if "registers" in ln or "spill" in ln]
                 for k, v in build.build_log.items()})
@@ -376,9 +402,15 @@ def main() -> int:
             grads.abs(), ids, segments) + 1e-6
         record("segment_rowsum", [got], [ref.segment_rowsum_ref(grads, ids, segments)],
                label, tol)
-        if ids.numel() <= 4096:  # the CPU plain version adds in input order
-            record("segment_rowsum", [got.cpu()],
-                   [ref.segment_rowsum_ref(grads.cpu(), ids.cpu(), segments)], label)
+        if ids.numel() <= 65536:  # on the CPU, bit for bit, in the kernel's chunk order
+            cg, ci = grads.cpu(), ids.cpu()
+            record("segment_rowsum", [got.cpu()], [ref.segment_rowsum_chunked_ref(
+                cg, ci, segments, chunk=sr.CHUNK)], label)
+            kept = ci[(ci >= 0) & (ci < segments)].long()
+            if integer or kept.numel() == 0 or int(torch.bincount(kept).max()) <= sr.CHUNK:
+                # exact sums, or every run one chunk: the input order's bits too
+                record("segment_rowsum", [got.cpu()],
+                       [ref.segment_rowsum_ref(cg, ci, segments)], label)
         return got
 
     def check_sync(label, *a):
@@ -465,12 +497,28 @@ def main() -> int:
                           torch.rand(r, device=dev), idx, misaligned(rows),
                           torch.rand(n, device=dev))
             edge.append(f"embedding_scatter D={d},R={r},n={n}")
+    # hot keys: one id's run of C - 1, C, C + 1 and 5,400 positions (HSTU's
+    # hot row in a micro-batch) among singles and drops, at D = 512
+    for run in (sr.CHUNK - 1, sr.CHUNK, sr.CHUNK + 1, 5400):
+        ids = randint(0, 4096, run + 4096)
+        ids[torch.randperm(ids.numel(), device=dev, generator=g)[:run]] = 3
+        ids[::37] = SENTINEL
+        for integer in (True, False):
+            grads = torch.empty((ids.numel(), 512), device=dev).normal_(generator=g)
+            if integer:
+                grads = torch.round(grads * 8)
+            check_segment(f"hot run {run} D=512", grads, ids, 4096, integer)
+            check_segment(f"misaligned hot run {run} D=512", misaligned(grads), ids, 4096,
+                          integer)
+        edge.append(f"segment_rowsum hot run of {run} at D=512, L={ids.numel()}, S=4096")
     torch.cuda.synchronize()
     emit("kernel_edges", cases=edge, max_abs_err=worst,
          exact="bit-exact (gathers in f32 and bf16), except segment_rowsum on "
                "normal grads against the card's atomic index_add_: within 1e-6 "
                "of each output's sum of magnitudes + 1e-6 (bit-exact against "
-               "the CPU plain version)")
+               "the CPU plain version in the kernel's chunk order, and against "
+               "the input-order one on integer grads or runs of at most "
+               f"{sr.CHUNK})")
 
     # -- 4. the full-width training session -------------------------------
     sess = Session.from_arch(ARCH, mode="nestpipe", global_batch=TRAIN_BATCH,
@@ -578,6 +626,20 @@ def main() -> int:
             kept = (ids >= 0) & (ids < segments)
             lib_ids, lib_grads = ids[kept].long(), grads[kept]
             run_counts = torch.bincount(lib_ids, minlength=segments)
+            # the op's parts, each timed alone on this call's inputs
+            sorted_ids, perm = sr.sort_ids(ids)
+            starts = sr.find_starts(sorted_ids, segments)
+            out, partial = sr.sum_chunks(grads, sorted_ids, perm, starts, segments)
+            parts = {
+                "sort": time_ms(torch, lambda: sr.sort_ids(ids), flush),
+                "starts": time_ms(torch, lambda: sr.find_starts(sorted_ids, segments), flush),
+                "sum": time_ms(torch, lambda: sr.sum_chunks(grads, sorted_ids, perm, starts,
+                                                            segments), flush),
+                "combine": time_ms(torch, lambda: sr.combine(out, partial, sorted_ids, starts),
+                                   flush)}
+            # chunks after a run's first: the stripes the combine reads
+            extra_chunks = int(((run_counts - 1).clamp(min=0) // sr.CHUNK).sum())
+            del sorted_ids, perm, starts, out, partial
             timed("segment_rowsum", label, segment_bytes(grads, ids, segments),
                   lambda: sr.segment_rowsum(grads, ids, segments),
                   lambda: ref.segment_rowsum_ref(grads, ids, segments),
@@ -585,6 +647,7 @@ def main() -> int:
                   .index_add_(0, lib_ids, lib_grads),
                   L=ids.numel(), S=segments, dim=grads.shape[1],
                   in_range=lib_ids.numel(), longest_run=int(run_counts.max()),
+                  extra_chunks=extra_chunks, parts_ms=parts,
                   library_call="index_add_ of the in-range rows only, "
                   "selected beforehand")
             del lib_ids, lib_grads
@@ -674,7 +737,8 @@ def main() -> int:
     want = {"embedding_gather": (1 + 3 * N_MICRO) * TRAIN_STEPS,
             "segment_rowsum": (N_MICRO + 1) * TRAIN_STEPS,
             "buffer_sync": TRAIN_STEPS - 1, "embedding_scatter": TRAIN_STEPS,
-            "hstu_attention_fwd": 0, "hstu_attention_bwd": 0, "flash_attention": 0}
+            "hstu_attention_fwd": 0, "hstu_attention_bwd": 0,
+            "flash_attention_wgmma": 0, "flash_attention_simple": 0}
     if train_launches != want:
         raise SystemExit(f"training launches {train_launches} != {want}")
 
@@ -1017,7 +1081,7 @@ def main() -> int:
                  # each layer's forward runs again in the backward (per-layer remat)
                  "hstu_attention_fwd": 2 * n_layers * N_MICRO * HSTU_STEPS,
                  "hstu_attention_bwd": n_layers * N_MICRO * HSTU_STEPS,
-                 "flash_attention": 0}
+                 "flash_attention_wgmma": 0, "flash_attention_simple": 0}
     if hstu_launches != hstu_want:
         raise SystemExit(f"HSTU launches {hstu_launches} != {hstu_want}")
 
@@ -1134,14 +1198,25 @@ def main() -> int:
          memory_reserved_gb=torch.cuda.memory_reserved() / 1e9)
 
     # -- 12. flash_attention against its plain version -----------------------
-    fworst = {"float32": 0.0, "bfloat16": 0.0}
+    fworst = {"flash_attention_wgmma bfloat16": 0.0, "flash_attention_simple float32": 0.0,
+              "flash_attention_simple bfloat16": 0.0}
 
-    def check_flash(label, q, k, v, causal, chunk=None):
-        """Kernel against the plain version within ref.flash_attention_bound,
-        ``chunk`` batch rows at a time, and the same bits on a second run."""
-        got = fa.flash_attention(q, k, v, causal)
-        if not torch.equal(got, fa.flash_attention(q, k, v, causal)):
-            raise SystemExit(f"flash_attention is not deterministic at {label}")
+    def check_flash(label, q, k, v, causal, chunk=None, simple=False):
+        """The kernel ``fa.variant`` picks (or the general one when
+        ``simple``) against the plain version within
+        ref.flash_attention_bound, ``chunk`` batch rows at a time, the same
+        bits on a second run, and only that kernel's counter moved. Returns
+        the kernel's name."""
+        kind = "simple" if simple else fa.variant(q, k, v)
+        kname = f"flash_attention_{kind}"
+        fn = fa.flash_attention_simple if simple else fa.flash_attention
+        before = (fa.launches_wgmma, fa.launches_simple)
+        got = fn(q, k, v, causal)
+        if not torch.equal(got, fn(q, k, v, causal)):
+            raise SystemExit(f"{kname} is not deterministic at {label}")
+        moved = (fa.launches_wgmma - before[0], fa.launches_simple - before[1])
+        if moved != ((2, 0) if kind == "wgmma" else (0, 2)):
+            raise SystemExit(f"{label}: {kname} chosen, but launches moved by {moved}")
         step = chunk or q.shape[0]
         for b0 in range(0, q.shape[0], step):
             sl = slice(b0, b0 + step)
@@ -1149,36 +1224,56 @@ def main() -> int:
             err = (got[sl].float() - want.float()).abs()
             bound = ref.flash_attention_bound(q[sl], k[sl], v[sl], want, causal)
             if not bool((err <= bound).all()):
-                raise SystemExit(f"flash_attention beyond its bound at {label}: "
+                raise SystemExit(f"{kname} beyond its bound at {label}: "
                                  f"{float(err.max())} (bound there "
                                  f"{float(bound.flatten()[int((err - bound).argmax())])})")
-            key = str(q.dtype).removeprefix("torch.")
+            key = f"{kname} {str(q.dtype).removeprefix('torch.')}"
             fworst[key] = max(fworst[key], float(err.max()))
             del want, err, bound
+        return kname
 
     def flash_inputs(b, tq, tk, h, kv, hd, dtype):
         return [torch.empty((b, t, n, hd), device=dev).normal_(generator=g).to(dtype)
                 for t, n in ((tq, h), (tk, kv), (tk, kv))]
 
     fedge = []
+    head_dims = (16, 64, 80, 128, 160, 192, 256)
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).removeprefix("torch.")
         for t in (1, 33, 64, 257, 2048):
-            for hd in (16, 64, 80, 128, 160, 192):
+            for hd in head_dims:
                 for kv in (4, 1):  # H/KV 1 and 4
                     for causal in (True, False):
-                        check_flash(f"T={t} hd={hd} H/KV={4 // kv} causal={causal} {dname}",
-                                    *flash_inputs(1, t, t, 4, kv, hd, dtype), causal)
-            fedge.append(f"{dname} T={t} hd in 16..192 H/KV in {{1,4}} causal and not")
+                        case = (f"T={t} hd={hd} H/KV={4 // kv} causal={causal} {dname}",
+                                *flash_inputs(1, t, t, 4, kv, hd, dtype), causal)
+                        kname = check_flash(*case)
+                        want = ("flash_attention_wgmma" if dtype == torch.bfloat16
+                                and hd in fa.WGMMA_HEAD_DIMS else "flash_attention_simple")
+                        if kname != want:
+                            raise SystemExit(f"{case[0]} went to {kname}, not {want}")
+                        if kname == "flash_attention_wgmma" and t in (33, 257):
+                            check_flash(*case, simple=True)  # the general kernel in bf16
+            fedge.append(f"{dname} T={t} hd in {head_dims} H/KV in {{1,4}} causal and not"
+                         + (" (wgmma; the general kernel too at T 33, 257)"
+                            if dtype == torch.bfloat16 else ""))
         for causal in (False, True):
-            check_flash(f"Tq=33 Tk=100 causal={causal} {dname}",
-                        *flash_inputs(2, 33, 100, 4, 1, 160, dtype), causal)
+            case = (f"Tq=33 Tk=100 causal={causal} {dname}",
+                    *flash_inputs(2, 33, 100, 4, 1, 160, dtype), causal)
+            check_flash(*case)
+            if dtype == torch.bfloat16:
+                check_flash(*case, simple=True)
         fedge.append(f"{dname} Tq=33 Tk=100 hd=160 H/KV=4 causal and not")
         # strided views: column slices of one wider tensor, 16-byte loads off
-        wide = torch.empty((2, 100, 4, 3 * 160 + 3), device=dev).normal_(generator=g).to(dtype)
-        check_flash(f"strided {dname}", wide[..., 3:163], wide[..., 163:323],
-                    wide[..., 323:483], True)
-        fedge.append(f"{dname} strided q, k, v (T=100, hd=160)")
+        # (the general kernel), and 16-byte aligned as a fused projection
+        # makes them (TMA: the wgmma kernel in bf16)
+        for off in (3, 8):
+            wide = torch.empty((2, 100, 4, 3 * 160 + off), device=dev).normal_(
+                generator=g).to(dtype)
+            kname = check_flash(f"strided {dname} offset {off}", wide[..., off:off + 160],
+                                wide[..., off + 160:off + 320], wide[..., off + 320:off + 480],
+                                True)
+            fedge.append(f"{dname} strided q, k, v (T=100, hd=160, {off} elements in): "
+                         f"{kname}")
     try:
         x = torch.zeros((1, 8, 2, 16), device=dev)
         dispatch.flash_attention(x, x.cpu(), x)
@@ -1274,7 +1369,8 @@ def main() -> int:
          launches=lm_launches, max_memory_allocated_gb=lm_peak_gb,
          sample_tokens=ls["sample_tokens"])
     lm_want = {k: 0 for k in KERNELS}
-    lm_want.update(embedding_gather=3 * (1 + decode_steps), flash_attention=n_lm_layers)
+    # every prefill call through the main-path kernel
+    lm_want.update(embedding_gather=3 * (1 + decode_steps), flash_attention_wgmma=n_lm_layers)
     if lm_launches != lm_want:  # 3 gathers a lookup: master, then two assembly
         raise SystemExit(f"LM serving launches {lm_launches} != {lm_want}")
     if not np.array_equal(lrep.tokens, warm.tokens):
@@ -1353,16 +1449,22 @@ def main() -> int:
     # version, SDPA (the yardstick; the port never calls it) and the bound
     frows = []
     for layer, (q, k, v, causal) in sorted(kept_flash.items()):
+        if fa.variant(q, k, v) != "wgmma":
+            raise SystemExit(f"the prefill's layer {layer} call is not the wgmma kernel's")
         check_flash(f"main-path layer {layer}", q, k, v, causal, chunk=1)
+        check_flash(f"main-path layer {layer}, general kernel", q, k, v, causal, chunk=1,
+                    simple=True)
         ops, nbytes = flash_work(q, k, causal)
         by_ops, by_bytes = ops / bf16_flops(name) * 1e3, nbytes / peak * 1e3
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        row = {"kernel": "flash_attention", "call": f"prefill layer {layer}",
+        row = {"kernel": "flash_attention_wgmma", "call": f"prefill layer {layer}",
                "shape": list(q.shape), "kv_heads": k.shape[2], "causal": causal,
                "dtype": str(q.dtype).removeprefix("torch."), "operations": ops,
                "bytes": nbytes,
                "ms": time_ms(torch, lambda: fa.flash_attention(q, k, v, causal), flush),
+               "simple_ms": time_ms(torch, lambda: fa.flash_attention_simple(q, k, v, causal),
+                                    flush),
                "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal),
                                    flush),
                "library_ms": time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal,
@@ -1372,6 +1474,7 @@ def main() -> int:
                "bound_ms": max(by_ops, by_bytes),
                "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
         row["achieved_tflops"] = ops / row["ms"] / 1e9
+        row["simple_tflops"] = ops / row["simple_ms"] / 1e9
         frows.append(row)
         emit("kernel_shape", path="lm_serve", **row)
         del qt, kt, vt
@@ -1389,18 +1492,19 @@ def main() -> int:
         for path in RUNS_ON[kname]:
             if by_path[path] == 0:
                 raise SystemExit(f"{kname} was not launched on the {path} path")
-        if kname == "flash_attention":
+        if kname.startswith("flash_attention_"):
             row = frows[0]
+            ms_key = "ms" if kname == "flash_attention_wgmma" else "simple_ms"
             entry = {
                 "name": kname, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
-                "max_abs_err": max(fworst.values()), "ms": row["ms"],
-                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "max_abs_err": max(v for k, v in fworst.items() if k.startswith(kname)),
+                "ms": row[ms_key], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                 "ms_of": "one call at the main-path shape " + str(row["shape"])
                          + f" over {row['kv_heads']} kv heads, bf16, causal",
-                "calls_per_serve": n_lm_layers,
-                "last_layer": {k: frows[-1][k] for k in ("ms", "plain_ms", "library_ms",
+                "calls_per_serve": lm_launches[kname],
+                "last_layer": {k: frows[-1][k] for k in (ms_key, "plain_ms", "library_ms",
                                                          "bound_ms")},
             }
         elif kname in hrows_out:
@@ -1444,6 +1548,10 @@ def main() -> int:
                    + decode_steps * sum(x[k] for x in lm_gathers[3:]) for k in times},
                 "calls": f"the prefill's {', '.join(x['call'] for x in lm_gathers[:3])}; "
                          f"{decode_steps} x the first decode step's"}
+        if kname == "segment_rowsum":  # the op's parts per step: sort, starts, sum, combine
+            for step, calls in ((entry, rows), (entry["hstu_train_step"], hshapes[kname])):
+                step["parts_ms"] = {k: sum(x["parts_ms"][k] for x in calls)
+                                    for k in calls[0]["parts_ms"]}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

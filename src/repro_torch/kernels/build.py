@@ -24,7 +24,8 @@ from typing import Callable, Dict, Sequence
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("embedding_gather", "segment_rowsum", "buffer_sync",
-           "embedding_scatter", "hstu_attention", "flash_attention")
+           "embedding_scatter", "hstu_attention", "flash_attention",
+           "flash_attention_wgmma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

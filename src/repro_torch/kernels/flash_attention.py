@@ -1,4 +1,5 @@
-"""Softmax attention on the card: the wrapper of ``csrc/flash_attention.cu``.
+"""Softmax attention on the card: the wrapper of ``csrc/flash_attention_wgmma.cu``
+and ``csrc/flash_attention.cu``.
 
 Replaces the Pallas TPU kernel ``flash_attention``
 (``src/repro/kernels/flash_attention.py``): for q ``(B, Tq, H, hd)`` and k,
@@ -9,11 +10,21 @@ running max, denominator and f32 accumulator over key tiles, ``p`` rounded
 to v's type before it multiplies v, and ``acc / max(d, 1e-30)`` cast to
 q's type. Query head ``h`` reads kv head ``h // (H // KV)``, so grouped
 heads are never repeated in memory. The function is bound by its
-products; the source note says how the design meets that (bf16 on the
-tensor cores, f32 on the CUDA cores).
+products; the source notes say how each design meets that.
+
+Two kernels compute it, chosen by ``variant`` from the inputs' type, head
+dim, strides and alignment alone (never from a build or launch error):
+
+- ``csrc/flash_attention_wgmma.cu`` (``"wgmma"``), the main path: bf16,
+  hd in ``WGMMA_HEAD_DIMS``, views that a TMA tensor map describes (16-byte
+  aligned bases, every stride a multiple of 8 elements and nested: heads
+  inside positions inside batches). wgmma products with S, P and O in
+  registers, TMA loads into a two-stage ring, a producer warpgroup.
+- ``csrc/flash_attention.cu`` (``"simple"``), the general path: f32, any
+  ``1 <= hd <= 256``, any view with a unit stride along hd.
 
 Inputs are bf16 or f32 strided views with a unit stride along hd and
-``1 <= hd <= 256``; the output is contiguous. The CUDA library builds at
+``1 <= hd <= 256``; the output is contiguous. The CUDA libraries build at
 first use (``kernels/build.py``); nothing here touches CUDA at import.
 """
 from __future__ import annotations
@@ -24,37 +35,68 @@ import torch
 
 from . import build
 
-# Launches of the kernel in this process. Incremented only where the
-# kernel launches, so a run can show that its path went through it.
+# Launches of each kernel in this process, and their sum. Incremented only
+# where a kernel launches, so a run can show that its path went through it.
+launches_wgmma = 0
+launches_simple = 0
 launches = 0
 
 MAX_HEAD_DIM = 256
-_SYMBOLS = {torch.float32: "repro_flash_attention_fwd_f32",
-            torch.bfloat16: "repro_flash_attention_fwd_bf16"}
+WGMMA_HEAD_DIMS = (64, 80, 128, 160, 192, 256)
+_SYMBOLS = {("simple", torch.float32): ("flash_attention", "repro_flash_attention_fwd_f32"),
+            ("simple", torch.bfloat16): ("flash_attention", "repro_flash_attention_fwd_bf16"),
+            ("wgmma", torch.bfloat16): ("flash_attention_wgmma",
+                                        "repro_flash_attention_fwd_wgmma")}
 _fns = {}
 
 
-def _kernel(dtype: torch.dtype):
-    fn = _fns.get(dtype)
+def _kernel(kind: str, dtype: torch.dtype):
+    fn = _fns.get((kind, dtype))
     if fn is None:
         p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
         view = [p, i64, i64, i64]
-        fn = _fns[dtype] = build.function(
-            "flash_attention", _SYMBOLS[dtype],
+        fn = _fns[(kind, dtype)] = build.function(
+            *_SYMBOLS[(kind, dtype)],
             [*view * 3, p, i64, i64, i64, i64, i64, i64, i32, f32, p])
     return fn
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
-    """The contiguous ``(B, Tq, H, hd)`` output, in q's type, for CUDA q,
-    k, v of one type (bf16 or f32)."""
-    global launches
+def _strides(x: torch.Tensor):
+    """``(sb, st, sh)`` of a (B, T, heads, hd) view, a size-1 dim's stride
+    replaced by the one it would have nested inside the next (its value is
+    never used to address anything)."""
+    b, t, heads, hd = x.shape
+    sh = x.stride(2) if heads > 1 else hd
+    st = x.stride(1) if t > 1 else heads * sh
+    sb = x.stride(0) if b > 1 else t * st
+    return sb, st, sh
+
+
+def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """``"wgmma"`` where the main-path kernel takes these inputs (bf16, hd
+    in ``WGMMA_HEAD_DIMS``, every view one that a TMA map describes), else
+    ``"simple"``. A pure function of the types, head dim, strides and base
+    addresses: it runs on CPU tensors too."""
+    hd = q.shape[-1]
+    if hd not in WGMMA_HEAD_DIMS:
+        return "simple"
+    for x in (q, k, v):
+        if x.dtype != torch.bfloat16 or x.stride(-1) != 1 or x.data_ptr() % 16:
+            return "simple"
+        sb, st, sh = _strides(x)
+        if sb % 8 or st % 8 or sh % 8:  # TMA: strides a multiple of 16 bytes
+            return "simple"
+        if not (sh >= hd and st >= x.shape[2] * sh and sb >= x.shape[1] * st):
+            return "simple"
+    return "wgmma"
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     dev = q.device
     if not all(x.is_cuda and x.device == dev for x in (q, k, v)):
         raise ValueError(f"flash_attention needs q, k and v on one CUDA device, "
                          f"got {[str(x.device) for x in (q, k, v)]}")
-    if q.dtype not in _SYMBOLS or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in (torch.float32, torch.bfloat16) or not k.dtype == v.dtype == q.dtype:
         raise TypeError(f"flash_attention takes q, k, v of one type, float32 or "
                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.dim() == k.dim() == v.dim() == 4):
@@ -73,16 +115,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention takes views with unit stride along hd")
     if tk == 0 and tq > 0 and b > 0:
         raise ValueError("flash_attention needs at least one key")
-    out = torch.empty((b, tq, h, hd), dtype=q.dtype, device=dev)
+
+
+def _launch(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool) -> torch.Tensor:
+    global launches, launches_wgmma, launches_simple
+    b, tq, h, hd = q.shape
+    tk, kv = k.shape[1], k.shape[2]
+    out = torch.empty((b, tq, h, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    fn = _kernel(q.dtype)
-    with torch.cuda.device(dev):
+    fn = _kernel(kind, q.dtype)
+    with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
-                 v.data_ptr(), *v.stride()[:3], out.data_ptr(), b, tq, tk, h, kv, hd,
+        err = fn(q.data_ptr(), *_strides(q), k.data_ptr(), *_strides(k),
+                 v.data_ptr(), *_strides(v), out.data_ptr(), b, tq, tk, h, kv, hd,
                  int(causal), hd ** -0.5, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention ({kind}) launch failed: CUDA error {err}")
+    if kind == "wgmma":
+        launches_wgmma += 1
+    else:
+        launches_simple += 1
     launches += 1
     return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """The contiguous ``(B, Tq, H, hd)`` output, in q's type, for CUDA q,
+    k, v of one type (bf16 or f32), through the kernel ``variant`` picks."""
+    _check(q, k, v)
+    return _launch(variant(q, k, v), q, k, v, causal)
+
+
+def flash_attention_simple(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           causal: bool = True) -> torch.Tensor:
+    """``flash_attention`` through the general kernel whatever the inputs
+    (to hold the two kernels against each other and time them)."""
+    _check(q, k, v)
+    return _launch("simple", q, k, v, causal)

@@ -26,6 +26,30 @@ def segment_rowsum_ref(grads: torch.Tensor, ids: torch.Tensor,
     return out.index_add_(0, ids[keep].long(), grads[keep].to(torch.float32))
 
 
+def segment_rowsum_chunked_ref(grads: torch.Tensor, ids: torch.Tensor,
+                               num_segments: int, chunk: int) -> torch.Tensor:
+    """``segment_rowsum_ref`` summed in the CUDA kernel's order: each
+    segment's rows, in input order, cut into chunks of ``chunk``; each chunk
+    summed in order from zero, then the chunk sums added in chunk order. A
+    segment of at most ``chunk`` rows gives ``segment_rowsum_ref``'s bits
+    (on the CPU, whose ``index_add_`` adds in input order)."""
+    keep = (ids >= 0) & (ids < num_segments)
+    seg = ids[keep].long()
+    rows = grads[keep].to(torch.float32)
+    order = torch.sort(seg, stable=True).indices  # input order within a segment
+    seg, rows = seg[order], rows[order]
+    first = torch.searchsorted(seg, seg, right=False)  # each segment's first position
+    rank = torch.arange(seg.numel(), device=seg.device) - first
+    # chunks numbered segment-major, in chunk order within a segment
+    key = seg * (seg.numel() // chunk + 1) + rank // chunk
+    uniq, chunk_of = torch.unique(key, sorted=True, return_inverse=True)
+    sums = torch.zeros((uniq.numel(), grads.shape[-1]), dtype=torch.float32,
+                       device=grads.device).index_add_(0, chunk_of, rows)
+    out = torch.zeros((num_segments, grads.shape[-1]), dtype=torch.float32,
+                      device=grads.device)
+    return out.index_add_(0, uniq // (seg.numel() // chunk + 1), sums)
+
+
 def buffer_sync_ref(active_rows: torch.Tensor, active_accum: torch.Tensor,
                     prefetch_rows: torch.Tensor, prefetch_accum: torch.Tensor,
                     src: torch.Tensor):

@@ -134,9 +134,9 @@ def test_segment_rowsum_kernel_equals_plain(cuda_device, n, d, s):
         assert sr.launches == before + 3 * (n > 0)
         assert got.shape == (s, d) and got.dtype == torch.float32
         assert torch.equal(got, again) and torch.equal(got, shifted)  # deterministic
-        # the CPU plain version adds in input order, as the kernel does
-        assert torch.equal(got.cpu(), ref.segment_rowsum_ref(
-            torch.from_numpy(grads), torch.from_numpy(ids), s))
+        # the CPU plain version in the kernel's chunk order
+        assert torch.equal(got.cpu(), ref.segment_rowsum_chunked_ref(
+            torch.from_numpy(grads), torch.from_numpy(ids), s, chunk=sr.CHUNK))
         want = ref.segment_rowsum_ref(g, i, s)  # atomics on the card
         if integer:
             assert torch.equal(got, want)
@@ -145,6 +145,49 @@ def test_segment_rowsum_kernel_equals_plain(cuda_device, n, d, s):
             # terms moves it by about sqrt(n) * 6e-8 of its sum of magnitudes
             mag = ref.segment_rowsum_ref(g.abs(), i, s)
             assert bool(((got - want).abs() <= 1e-6 * mag + 1e-6).all())
+
+
+@pytest.mark.parametrize("run", [5400, sr.CHUNK - 1, sr.CHUNK, sr.CHUNK + 1, 3 * sr.CHUNK])
+def test_segment_rowsum_splits_long_runs(cuda_device, run):
+    """A hot key: ``run`` positions of one id among singles and drops, at
+    D = 512 (HSTU's width). Bit for bit against the chunk-ordered plain
+    version; against the input-order one on integer grads (exact sums) and
+    whenever the run is one chunk; the same bits twice and off alignment."""
+    rng = np.random.default_rng(run)
+    s, n = 700, run + 900
+    ids = rng.integers(0, s, size=n)
+    ids[rng.permutation(n)[:run]] = 3
+    ids[rng.random(n) < 0.05] = SENTINEL
+    for integer in (True, False):
+        grads = rng.normal(size=(n, 512)).astype(np.float32)
+        if integer:
+            grads = np.round(grads * 8).astype(np.float32)
+        gc, ic = torch.from_numpy(grads), torch.from_numpy(ids.astype(np.int32))
+        g, i = gc.to(cuda_device), ic.to(cuda_device)
+        got = sr.segment_rowsum(g, i, s)
+        torch.cuda.synchronize()
+        assert torch.equal(got, sr.segment_rowsum(g, i, s))
+        assert torch.equal(got, sr.segment_rowsum(_misaligned(g), i, s))
+        assert torch.equal(got.cpu(), ref.segment_rowsum_chunked_ref(gc, ic, s, chunk=sr.CHUNK))
+        if integer or int((ids == 3).sum()) <= sr.CHUNK:
+            assert torch.equal(got.cpu(), ref.segment_rowsum_ref(gc, ic, s))
+
+
+def test_segment_rowsum_parts_compose(cuda_device):
+    """The op's four parts, called one by one (as chip_smoke times them),
+    give the op's bits."""
+    rng = np.random.default_rng(9)
+    ids = rng.integers(0, 50, size=3000).astype(np.int32)
+    ids[:700] = 7
+    g = torch.from_numpy(rng.normal(size=(3000, 96)).astype(np.float32)).to(cuda_device)
+    i = torch.from_numpy(ids).to(cuda_device)
+    sorted_ids, perm = sr.sort_ids(i)
+    starts = sr.find_starts(sorted_ids, 50)
+    runs = torch.bincount(i.long(), minlength=50)
+    assert torch.equal(starts[1:] - starts[:-1], runs)
+    out, partial = sr.sum_chunks(g, sorted_ids, perm, starts, 50)
+    assert partial.shape == (-(-3000 // sr.CHUNK), 96)
+    assert torch.equal(sr.combine(out, partial, sorted_ids, starts), sr.segment_rowsum(g, i, 50))
 
 
 def _sync_case(ka, kp, d, seed):
@@ -373,6 +416,56 @@ def test_flash_attention_kernel_equals_plain(cuda_device, b, tq, tk, h, kv, hd, 
     want = ref.flash_attention_ref(q, k, v, causal)
     err = (got.float() - want.float()).abs()
     assert bool((err <= ref.flash_attention_bound(q, k, v, want, causal)).all())
+
+
+@pytest.mark.parametrize("hd", fa.WGMMA_HEAD_DIMS)
+def test_flash_attention_wgmma_kernel_equals_plain(cuda_device, hd):
+    """The main-path kernel at every head dim it takes: causal and not, T 1,
+    33 and 2048 with H/KV 4, Tq 33 against Tk 100; within
+    ``ref.flash_attention_bound``, the same bits twice, and only its own
+    counter moves."""
+    cases = [(1, 1, 1, 4, 1), (2, 33, 33, 4, 1), (1, 2048, 2048, 4, 1), (2, 33, 100, 4, 1),
+             (1, 300, 300, 8, 8)]
+    for b, tq, tk, h, kv in cases:
+        for causal in (True, False):
+            q, k, v = _flash_case(cuda_device, b, tq, tk, h, kv, hd, torch.bfloat16,
+                                  seed=tq + hd)
+            assert fa.variant(q, k, v) == "wgmma"
+            before = (fa.launches_wgmma, fa.launches_simple, fa.launches)
+            got = dispatch.flash_attention(q, k, v, causal)
+            again = fa.flash_attention(q, k, v, causal)
+            torch.cuda.synchronize()
+            assert (fa.launches_wgmma, fa.launches_simple, fa.launches) == (
+                before[0] + 2, before[1], before[2] + 2)
+            assert got.shape == (b, tq, h, hd) and got.is_contiguous()
+            assert torch.equal(got, again)
+            want = ref.flash_attention_ref(q, k, v, causal)
+            err = (got.float() - want.float()).abs()
+            assert bool((err <= ref.flash_attention_bound(q, k, v, want, causal)).all()), (
+                b, tq, tk, h, kv, causal, float(err.max()))
+
+
+def test_flash_attention_wgmma_reads_strided_views(cuda_device):
+    """q, k and v as column slices of one wider tensor whose rows keep
+    16-byte alignment (as a fused projection makes them): the main-path
+    kernel takes them in place, and agrees with the general kernel's bound."""
+    g = torch.Generator(cuda_device).manual_seed(5)
+    wide = torch.randn((2, 200, 4, 3 * 160 + 8), device=cuda_device,
+                       generator=g).to(torch.bfloat16)
+    q, k, v = wide[..., 8:168], wide[..., 168:328], wide[..., 328:488]
+    assert not q.is_contiguous() and fa.variant(q, k, v) == "wgmma"
+    for causal in (True, False):
+        before = fa.launches_wgmma
+        got = fa.flash_attention(q, k, v, causal)
+        assert fa.launches_wgmma == before + 1
+        assert torch.equal(got, fa.flash_attention(q.contiguous(), k.contiguous(),
+                                                   v.contiguous(), causal))
+        want = ref.flash_attention_ref(q, k, v, causal)
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= ref.flash_attention_bound(q, k, v, want, causal)).all())
+        simple = fa.flash_attention_simple(q, k, v, causal)
+        assert bool(((simple.float() - want.float()).abs()
+                     <= ref.flash_attention_bound(q, k, v, want, causal)).all())
 
 
 def test_flash_attention_reads_strided_views(cuda_device):

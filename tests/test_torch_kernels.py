@@ -10,6 +10,14 @@
   {1, 33, 128}: bit for bit on integer-valued grads, and within
   ``rtol=1e-6, atol=1e-6`` on normal grads (XLA's scatter-add and the
   interpreter's one-hot matmul may add in another order);
+- the chunk-ordered plain segment sum (the CUDA kernel's order: a run cut
+  into chunks of ``CHUNK`` positions, chunk sums added in order) equals JAX's
+  ``segment_rowsum_ref`` bit for bit on integer-valued grads and within
+  the reordering bound on normal grads, hot keys included; it equals the
+  input-order plain version bit for bit on runs of at most one chunk, and
+  a loop over the chunks at any chunk size;
+- the choice between the two ``flash_attention`` kernels is a function of
+  type, head dim, strides and alignment, checked on CPU tensors;
 - the plain buffer sync equals JAX ``dispatch.buffer_sync`` under both
   backends bit for bit, misses at ``Ka`` and ``SENTINEL`` and negative
   sources included (both JAX backends wrap -1 to the last active row), and
@@ -32,6 +40,7 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
 from repro.kernels import dispatch as jdispatch
+from repro.kernels import ref as jref
 from repro_torch.core.embedding.routing import SENTINEL
 from repro_torch.kernels import build, dispatch, ref
 from repro_torch.kernels import buffer_sync as bs
@@ -226,7 +235,108 @@ def test_new_kernel_wrappers_reject_cpu_tensors(fn, args):
 def test_every_kernel_source_builds_into_build():
     assert set(build.SOURCES) == {"embedding_gather", "segment_rowsum",
                                   "buffer_sync", "embedding_scatter",
-                                  "hstu_attention", "flash_attention"}
+                                  "hstu_attention", "flash_attention",
+                                  "flash_attention_wgmma"}
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").exists()
         assert build.library_path(name).parent == build.BUILD_DIR
+
+
+def _hot_case(l, s, d, hot, *, integer, seed):
+    """``l`` ids over ``s`` segments, ``hot`` of them (and no other) on
+    segment 1, drops at ``s``, ``SENTINEL`` and -1; normal or integer-valued
+    grads."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, s - 1, size=l)
+    ids[ids >= 1] += 1
+    ids[rng.permutation(l)[:hot]] = 1
+    drop = rng.random(l) < 0.1
+    ids[drop] = rng.choice([s, SENTINEL, -1], size=int(drop.sum()))
+    grads = (rng.integers(-8, 8, size=(l, d)) if integer
+             else rng.normal(size=(l, d))).astype(np.float32)
+    return grads, ids.astype(np.int32)
+
+
+@pytest.mark.parametrize("l,s,d,hot", [(600, 40, 64, 0), (900, 30, 33, 300),
+                                       (1500, 50, 128, 1100), (5800, 64, 16, 5400),
+                                       (300, 7, 1, 257)])
+def test_chunked_segment_rowsum_equals_jax(l, s, d, hot):
+    """Bit for bit on integer grads (every order gives the exact sum);
+    within (n - 1) 2**-24 of each output's sum of magnitudes on normal
+    grads, n the longest run (two orders of one f32 sum of n terms)."""
+    for integer in (True, False):
+        grads, ids = _hot_case(l, s, d, hot, integer=integer, seed=l + hot)
+        jids = np.where((ids >= 0) & (ids < s), ids, s)  # JAX's ref drops id == s only
+        want = np.asarray(jref.segment_rowsum_ref(jnp.asarray(grads), jnp.asarray(jids), s))
+        got = ref.segment_rowsum_chunked_ref(torch.from_numpy(grads), torch.from_numpy(ids), s,
+                                             chunk=sr.CHUNK).numpy()
+        if integer:
+            np.testing.assert_array_equal(got, want)
+        else:
+            keep = jids < s
+            mag = np.zeros((s, d), np.float64)
+            np.add.at(mag, jids[keep], np.abs(grads[keep]).astype(np.float64))
+            n = np.bincount(jids[keep], minlength=s).max()
+            assert (np.abs(got - want) <= (n - 1) * 2.0 ** -24 * mag + 1e-30).all()
+
+
+@pytest.mark.parametrize("l,s,d,hot", [(400, 20, 64, sr.CHUNK), (700, 90, 33, sr.CHUNK - 1),
+                                       (256, 8, 128, 0), (3000, 200, 8, 40)])
+def test_chunked_segment_rowsum_is_input_order_on_short_runs(l, s, d, hot):
+    grads, ids = _hot_case(l, s, d, hot, integer=False, seed=l)
+    g, i = torch.from_numpy(grads), torch.from_numpy(ids)
+    kept = ids[(ids >= 0) & (ids < s)]
+    assert np.bincount(kept, minlength=s).max() <= sr.CHUNK
+    assert torch.equal(ref.segment_rowsum_chunked_ref(g, i, s, chunk=sr.CHUNK),
+                       ref.segment_rowsum_ref(g, i, s))
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 7, 64])
+def test_chunked_segment_rowsum_sums_chunk_by_chunk(chunk):
+    """The plain version against a loop: each segment's rows in input order,
+    cut every ``chunk`` rows, each chunk summed from zero, the chunk sums
+    added in order."""
+    grads, ids = _hot_case(200, 6, 5, 120, integer=False, seed=chunk)
+    want = np.zeros((6, 5), np.float32)
+    for seg in range(6):
+        rows = grads[ids == seg]
+        total = np.zeros(5, np.float32)
+        for c0 in range(0, len(rows), chunk):
+            part = np.zeros(5, np.float32)
+            for r in rows[c0:c0 + chunk]:
+                part = part + r
+            total = part if c0 == 0 else total + part
+        want[seg] = total
+    got = ref.segment_rowsum_chunked_ref(torch.from_numpy(grads), torch.from_numpy(ids), 6,
+                                         chunk=chunk)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _view(shape, dtype, offset=0, pad=0):
+    """A (B, T, heads, hd) view ``offset`` elements into rows padded by
+    ``pad`` elements past hd, like a column slice of a fused projection."""
+    b, t, h, hd = shape
+    wide = torch.zeros((b, t, h, hd + offset + pad), dtype=dtype)
+    return wide[..., offset:offset + hd]
+
+
+@pytest.mark.parametrize("q,k,want", [
+    (_view((8, 64, 32, 160), torch.bfloat16), _view((8, 64, 8, 160), torch.bfloat16),
+     "wgmma"),                                            # the main path's shape
+    *[(_view((2, 9, 4, hd), torch.bfloat16), _view((2, 9, 1, hd), torch.bfloat16), "wgmma")
+      for hd in (64, 80, 128, 192, 256)],
+    (_view((2, 9, 4, 160), torch.bfloat16, 8, 320), _view((2, 9, 1, 160), torch.bfloat16, 8, 8),
+     "wgmma"),                                            # aligned column slices
+    (_view((8, 64, 32, 160), torch.float32), _view((8, 64, 8, 160), torch.float32),
+     "simple"),                                           # f32
+    (_view((2, 9, 4, 8), torch.bfloat16), _view((2, 9, 1, 8), torch.bfloat16), "simple"),
+    (_view((2, 9, 4, 96), torch.bfloat16), _view((2, 9, 1, 96), torch.bfloat16), "simple"),
+    (_view((2, 9, 4, 160), torch.bfloat16, 3, 5), _view((2, 9, 1, 160), torch.bfloat16),
+     "simple"),                                           # off 16-byte alignment
+    (_view((2, 9, 4, 160), torch.bfloat16, 0, 4), _view((2, 9, 1, 160), torch.bfloat16),
+     "simple"),                                           # a stride of 164: not 16 bytes
+    (_view((2, 9, 4, 160), torch.bfloat16).transpose(1, 2).contiguous().transpose(1, 2),
+     _view((2, 9, 1, 160), torch.bfloat16), "simple"),    # heads outside positions
+])
+def test_flash_kernel_choice(q, k, want):
+    assert fa.variant(q, k, k) == want
