@@ -8,14 +8,18 @@ hand-written kernel on it against its plain PyTorch version:
    TF32 switched off for matmuls and convolutions;
 2. build: compiles every kernel from ``src/repro_torch/csrc`` with nvcc, one
    process per source, all at once; each source's nvcc seconds, ptxas's
-   registers and spills, and the HGMMA instructions in the wgmma
-   ``flash_attention`` library (``cuobjdump -sass``; none fails);
+   registers and spills, the HGMMA instructions in the wgmma
+   ``flash_attention`` library and the HMMA (``mma.sync``) instructions in
+   the ``hstu_attention`` library (``cuobjdump -sass``; none fails);
 3. kernel edges: ``embedding_gather``, ``segment_rowsum``, ``buffer_sync``
    and ``embedding_scatter`` against their plain versions at edge cases
    (empty, one segment, drop ids and sentinels, negative sources, D in
-   {1, 33, 128}, a view off 16-byte alignment; for ``segment_rowsum`` also
-   hot keys, one id's run of C - 1, C, C + 1 and 5,400 positions at D 512,
-   C = 256 positions a chunk), bit for bit where the sums are exact
+   {1, 33, 128}, a view off 16-byte alignment; for ``embedding_scatter``
+   also every slot a sentinel, one valid slot among 1,000 sentinels, valid
+   slots only at lanes 0 and 31 of a 32-slot group, n = 31 and 33, at D in
+   {1, 33, 128, 512}; for ``segment_rowsum`` also hot keys, one id's run of
+   C - 1, C, C + 1 and 5,400 positions at D 512, C = 64 positions a chunk,
+   ``segment_rowsum.CHUNK``), bit for bit where the sums are exact
    (``segment_rowsum`` against the CPU plain version in its chunk order,
    and the input-order one on integer grads or runs of at most C), and the
    same bits on two runs;
@@ -36,7 +40,8 @@ hand-written kernel on it against its plain PyTorch version:
    reference trainer within 1e-5 over 6 steps, and async diverges;
 8. HSTU kernel edges: the ``hstu_attention`` forward and backward kernels
    against their plain versions at T in {1, 33, 256, 1024}, (dqk, dv) in
-   {(128, 128), (16, 8), (48, 96)}, causal and not, on strided q, k, v
+   {(128, 128), (16, 8), (48, 96)}, and T in {65, 1024} at (5, 3), causal
+   and not, on strided q, k, v
    (column slices of one (..., 2dqk + 2dv) tensor, as the layer makes
    them), within 1e-5 of each output's sum of magnitudes plus 1e-7, and the
    same bits on two runs;
@@ -64,11 +69,14 @@ hand-written kernel on it against its plain PyTorch version:
    H/KV in {1, 4}, causal and not, f32 and bf16 (bf16 at the wgmma kernel's
    head dims goes to it, and to the general kernel too at T 33 and 257; the
    rest to the general kernel, each asserted by its counter), Tq 33 against
-   Tk 100, and strided views (off 16-byte alignment: the general kernel;
-   aligned: the wgmma kernel in bf16), within ``ref.flash_attention_bound``
+   Tk 100, and strided views (off 16-byte alignment, and 16-byte aligned),
+   within ``ref.flash_attention_bound``
    (f32: 1e-5 of each output's sum of |w v| + 1e-7; bf16: 2**-8 of it plus
-   one bf16 ulp); the same bits on two runs; a CUDA tensor beside a CPU one
-   raises;
+   one bf16 ulp); the same bits on two runs; the same values give the same
+   bits through ``flash_attention`` in a contiguous layout and in each
+   layout a TMA map cannot describe (off 16-byte alignment, a row stride of
+   164, heads outside positions), each through the wgmma kernel (its
+   counter moves); a CUDA tensor beside a CPU one raises;
 13. full-width ``stablelm-12b`` serving (40 layers, d_model 5,120, 32
    heads over 8 kv heads of 160, bf16; 23.26 GB of weights and a 2.06 GB
    master drawn from a seed): ``serve(batch=8, prompt_len=2048, gen=32)``
@@ -165,8 +173,7 @@ RUNS_ON = {
     "hstu_attention_fwd": ("hstu_train",),
     "hstu_attention_bwd": ("hstu_train",),
     "flash_attention_wgmma": ("lm_serve",),
-    # f32, other head dims and views TMA cannot describe (phase 12); no
-    # main path gives it such inputs
+    # f32 and other head dims (phase 12); no main path gives it such inputs
     "flash_attention_simple": (),
 }
 
@@ -364,9 +371,15 @@ def main() -> int:
     hgmma = sass.stdout.count("HGMMA") if sass.returncode == 0 else None
     if hgmma == 0:
         raise SystemExit("the wgmma flash_attention library holds no HGMMA instruction")
+    # the hstu_attention backward's products: mma.sync m16n8k8 TF32 (HMMA.1688)
+    sass = subprocess.run(["cuobjdump", "-sass", str(build.library_path("hstu_attention"))],
+                          capture_output=True, text=True)
+    hmma = sass.stdout.count("HMMA") if sass.returncode == 0 else None
+    if hmma == 0:
+        raise SystemExit("the hstu_attention library holds no HMMA instruction")
     emit("build", seconds=round(build_s, 3), sources=list(build.SOURCES),
          nvcc_seconds={k: round(v["seconds"], 3) for k, v in build.build_log.items()},
-         flash_wgmma_hgmma_instructions=hgmma,
+         flash_wgmma_hgmma_instructions=hgmma, hstu_hmma_instructions=hmma,
          ptxas={k: [ln.strip() for ln in v["ptxas"].splitlines()
                     if "registers" in ln or "spill" in ln]
                 for k, v in build.build_log.items()})
@@ -423,8 +436,12 @@ def main() -> int:
 
     def check_scatter(label, table, table_accum, idx, rows, accum):
         got, got_acc = table.clone(), table_accum.clone()
+        again, again_acc = table.clone(), table_accum.clone()
         want, want_acc = table.clone(), table_accum.clone()
         es.embedding_scatter(got, got_acc, idx, rows, accum)
+        es.embedding_scatter(again, again_acc, idx, rows, accum)
+        if not (torch.equal(got, again) and torch.equal(got_acc, again_acc)):
+            raise SystemExit(f"embedding_scatter not deterministic at {label}")
         ref.embedding_scatter_ref(want, want_acc, idx, rows, accum)
         record("embedding_scatter", [got, got_acc], [want, want_acc], label)
 
@@ -497,6 +514,34 @@ def main() -> int:
                           torch.rand(r, device=dev), idx, misaligned(rows),
                           torch.rand(n, device=dev))
             edge.append(f"embedding_scatter D={d},R={r},n={n}")
+    # the write-back's sentinel-heavy slots: the kernel takes 32 slots a warp
+    # and keeps the valid ones by a ballot
+    for d in (1, 33, 128, 512):
+        r = 1000
+        table = torch.empty((r, d), device=dev).normal_(generator=g)
+        one = torch.full((1001,), SENTINEL, dtype=torch.int32, device=dev)
+        one[517] = 7
+        lanes = torch.full((96,), SENTINEL, dtype=torch.int32, device=dev)
+        lanes[0::32] = torch.tensor([3, 500, 999], dtype=torch.int32, device=dev)
+        lanes[31::32] = torch.tensor([0, 42, 998], dtype=torch.int32, device=dev)
+        cases = [("every slot a sentinel", torch.full((300,), SENTINEL, dtype=torch.int32,
+                                                      device=dev)),
+                 ("one valid among 1,000 sentinels", one),
+                 ("valid only at lanes 0 and 31", lanes)]
+        for n in (31, 33):
+            idx = torch.randperm(r, device=dev, generator=g)[:n].to(torch.int32)
+            idx[::4] = SENTINEL
+            idx[1::9] = -1
+            cases.append((f"n={n}", idx))
+        for label, idx in cases:
+            n = idx.numel()
+            rows = torch.empty((n, d), device=dev).normal_(generator=g)
+            check_scatter(f"{label} D={d}", table, torch.rand(r, device=dev), idx, rows,
+                          torch.rand(n, device=dev))
+            check_scatter(f"misaligned {label} D={d}", misaligned(table),
+                          torch.rand(r, device=dev), idx, misaligned(rows),
+                          torch.rand(n, device=dev))
+            edge.append(f"embedding_scatter {label}, D={d}")
     # hot keys: one id's run of C - 1, C, C + 1 and 5,400 positions (HSTU's
     # hot row in a micro-batch) among singles and drops, at D = 512
     for run in (sr.CHUNK - 1, sr.CHUNK, sr.CHUNK + 1, 5400):
@@ -968,6 +1013,12 @@ def main() -> int:
                 hedge.append(f"T={t},dqk={dqk},dv={dv},causal={causal},strided")
         check_hstu(f"T={t} contiguous", *hstu_inputs(2, t, 2, 128, 128, strided=False))
         hedge.append(f"T={t},dqk=dv=128,contiguous")
+    # head dims below the MMA's k of 8 (zero-padded), a ragged last tile
+    for t in (65, 1024):
+        for causal in (True, False):
+            check_hstu(f"T={t} dqk=5 dv=3 causal={causal}", *hstu_inputs(2, t, 2, 5, 3),
+                       causal=causal)
+            hedge.append(f"T={t},dqk=5,dv=3,causal={causal},strided")
     torch.cuda.synchronize()
     emit("hstu_kernel_edges", cases=hedge, max_abs_err=dict(hworst),
          tolerance=f"|kernel - plain| <= {HSTU_RTOL} x each output's sum of "
@@ -1264,8 +1315,8 @@ def main() -> int:
                 check_flash(*case, simple=True)
         fedge.append(f"{dname} Tq=33 Tk=100 hd=160 H/KV=4 causal and not")
         # strided views: column slices of one wider tensor, 16-byte loads off
-        # (the general kernel), and 16-byte aligned as a fused projection
-        # makes them (TMA: the wgmma kernel in bf16)
+        # (in bf16, copied for the wgmma kernel), and 16-byte aligned as a
+        # fused projection makes them (read in place)
         for off in (3, 8):
             wide = torch.empty((2, 100, 4, 3 * 160 + off), device=dev).normal_(
                 generator=g).to(dtype)
@@ -1274,6 +1325,38 @@ def main() -> int:
                                 True)
             fedge.append(f"{dname} strided q, k, v (T=100, hd=160, {off} elements in): "
                          f"{kname}")
+    # the layout never picks the kernel: the same values give the same bits
+    # in a contiguous layout and in each layout TMA cannot describe (copied)
+    base = flash_inputs(2, 100, 100, 4, 1, 160, torch.bfloat16)
+
+    def off_alignment(x):
+        flat = torch.zeros(x.numel() + 3, dtype=x.dtype, device=dev)
+        return flat[3:].view(x.shape).copy_(x)  # 6 bytes off 16-byte alignment
+
+    def stride_164(x):
+        return torch.zeros((*x.shape[:-1], 164), dtype=x.dtype, device=dev)[..., :160].copy_(x)
+
+    def heads_outside(x):
+        return x.transpose(1, 2).contiguous().transpose(1, 2)
+
+    for causal in (True, False):
+        want_bits = fa.flash_attention(*base, causal)
+        for layout in (off_alignment, stride_164, heads_outside):
+            views = [layout(x) for x in base]
+            if not all(torch.equal(a, b) for a, b in zip(views, base)):
+                raise SystemExit(f"the {layout.__name__} views do not hold the same values")
+            if fa.tma_ok(views[0]):
+                raise SystemExit(f"the {layout.__name__} view is one TMA describes")
+            before = fa.launches_wgmma
+            got = fa.flash_attention(*views, causal)
+            if fa.launches_wgmma != before + 1:
+                raise SystemExit(f"the {layout.__name__} layout did not run the wgmma kernel")
+            if not torch.equal(got, want_bits):
+                raise SystemExit(f"the {layout.__name__} layout changed the bits "
+                                 f"(causal={causal})")
+            fedge.append(f"bf16 T=100 hd=160 {layout.__name__} (causal={causal}): the "
+                         "contiguous layout's bits through the wgmma kernel")
+    del base, want_bits, got, views
     try:
         x = torch.zeros((1, 8, 2, 16), device=dev)
         dispatch.flash_attention(x, x.cpu(), x)

@@ -12,16 +12,21 @@ q's type. Query head ``h`` reads kv head ``h // (H // KV)``, so grouped
 heads are never repeated in memory. The function is bound by its
 products; the source notes say how each design meets that.
 
-Two kernels compute it, chosen by ``variant`` from the inputs' type, head
-dim, strides and alignment alone (never from a build or launch error):
+Two kernels compute it, chosen by ``variant`` from the inputs' type and
+head dim alone (never from their layout, nor from a build or launch
+error), so the same values give the same bits in every layout, as the
+TPU kernel does:
 
-- ``csrc/flash_attention_wgmma.cu`` (``"wgmma"``), the main path: bf16,
-  hd in ``WGMMA_HEAD_DIMS``, views that a TMA tensor map describes (16-byte
-  aligned bases, every stride a multiple of 8 elements and nested: heads
-  inside positions inside batches). wgmma products with S, P and O in
-  registers, TMA loads into a two-stage ring, a producer warpgroup.
-- ``csrc/flash_attention.cu`` (``"simple"``), the general path: f32, any
-  ``1 <= hd <= 256``, any view with a unit stride along hd.
+- ``csrc/flash_attention_wgmma.cu`` (``"wgmma"``), the main path: bf16 at
+  hd in ``WGMMA_HEAD_DIMS``. It reads views that a TMA tensor map describes
+  (16-byte aligned bases, every stride a multiple of 8 elements and
+  nested: heads inside positions inside batches) in place; any other view
+  is copied into a fresh contiguous tensor first. wgmma products with S, P
+  and O in registers, TMA loads into a two-stage ring, a producer
+  warpgroup.
+- ``csrc/flash_attention.cu`` (``"simple"``), the general path: f32, or
+  another ``1 <= hd <= 256``, any view with a unit stride along hd; and
+  ``flash_attention_simple`` for any inputs.
 
 Inputs are bf16 or f32 strided views with a unit stride along hd and
 ``1 <= hd <= 256``; the output is contiguous. The CUDA libraries build at
@@ -73,22 +78,24 @@ def _strides(x: torch.Tensor):
 
 
 def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """``"wgmma"`` where the main-path kernel takes these inputs (bf16, hd
-    in ``WGMMA_HEAD_DIMS``, every view one that a TMA map describes), else
-    ``"simple"``. A pure function of the types, head dim, strides and base
-    addresses: it runs on CPU tensors too."""
-    hd = q.shape[-1]
-    if hd not in WGMMA_HEAD_DIMS:
-        return "simple"
-    for x in (q, k, v):
-        if x.dtype != torch.bfloat16 or x.stride(-1) != 1 or x.data_ptr() % 16:
-            return "simple"
-        sb, st, sh = _strides(x)
-        if sb % 8 or st % 8 or sh % 8:  # TMA: strides a multiple of 16 bytes
-            return "simple"
-        if not (sh >= hd and st >= x.shape[2] * sh and sb >= x.shape[1] * st):
-            return "simple"
-    return "wgmma"
+    """``"wgmma"`` for bf16 inputs at a head dim in ``WGMMA_HEAD_DIMS``, else
+    ``"simple"``: a function of the type and the head dim only, never of
+    the layout. It runs on CPU tensors too."""
+    if q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simple"
+
+
+def tma_ok(x: torch.Tensor) -> bool:
+    """Whether a TMA tensor map describes this (B, T, heads, hd) view: a
+    16-byte aligned base, every stride a multiple of 16 bytes, and nested
+    (heads inside positions inside batches)."""
+    if x.stride(-1) != 1 or x.data_ptr() % 16:
+        return False
+    sb, st, sh = _strides(x)
+    if sb % 8 or st % 8 or sh % 8:
+        return False
+    return sh >= x.shape[-1] and st >= x.shape[2] * sh and sb >= x.shape[1] * st
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -144,9 +151,15 @@ def _launch(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """The contiguous ``(B, Tq, H, hd)`` output, in q's type, for CUDA q,
-    k, v of one type (bf16 or f32), through the kernel ``variant`` picks."""
+    k, v of one type (bf16 or f32), through the kernel ``variant`` picks;
+    for the wgmma kernel, a view TMA cannot describe is read from a
+    contiguous copy."""
     _check(q, k, v)
-    return _launch(variant(q, k, v), q, k, v, causal)
+    kind = variant(q, k, v)
+    if kind == "wgmma":  # a view TMA cannot describe is copied, not sent elsewhere
+        q, k, v = (x if tma_ok(x) else x.clone(memory_format=torch.contiguous_format)
+                   for x in (q, k, v))
+    return _launch(kind, q, k, v, causal)
 
 
 def flash_attention_simple(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

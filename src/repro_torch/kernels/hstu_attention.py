@@ -7,8 +7,10 @@ v ``(B, T, H, dv)``, ``O[b,i,h] = sum_j m(i,j) silu(q_i . k_j / sqrt(dqk))
 the query. The JAX layer differentiates its jnp form; here the backward
 is a kernel too (a dq kernel over query tiles and a dk/dv kernel over key
 tiles, both recomputing the scores), behind :class:`HSTUAttention`. The
-function is bound by arithmetic on the f32 CUDA cores; the source note
-says how the design meets that.
+function is bound by arithmetic: the forward runs on the f32 CUDA cores,
+the backward's products on the tensor cores in split-precision TF32
+(3xTF32, ``mma.sync``; ``ref.hstu_attention_bwd_tf32`` models its
+arithmetic on the CPU). The source note says how each design meets that.
 
 Inputs are f32 strided views with a unit stride along d (the layer's q, k
 and v are column slices of one tensor and are not copied); outputs are

@@ -97,20 +97,63 @@ def hstu_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``do``, written out: with ``z = scale q . k``, ``dA = dO v``,
     ``dS = m dA / T silu'(z) scale`` and ``silu'(z) = sig(z) (1 + z (1 -
     sig(z)))``, ``dq = dS k``, ``dk = dS^T q`` and ``dv = (m silu(z) / T)^T dO``."""
+    return _hstu_attention_bwd(q, k, v, do, causal, torch.einsum)
+
+
+def tf32_round(x: torch.Tensor, ties: str = "even") -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 (10 explicit mantissa bits), to nearest,
+    ties to even as ``cvt.rn.tf32.f32`` rounds (the CUDA backward's split)
+    or away from zero as ``cvt.rna.tf32.f32`` does (``ties="away"``);
+    infinities and NaNs unchanged."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    if ties == "away":
+        half = 0x1000
+    elif ties == "even":  # half an ulp, less one unless the kept last bit is odd
+        half = 0x0FFF + ((bits >> 13) & 1)
+    else:
+        raise ValueError(f"ties is 'even' or 'away', got {ties!r}")
+    rounded = (bits + half) & -0x2000  # drop the 13 bits below TF32's last
+    return torch.where(torch.isfinite(x), rounded, bits).view(torch.float32)
+
+
+def hstu_attention_bwd_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            do: torch.Tensor, causal: bool = True, passes: int = 3,
+                            ties: str = "even"):
+    """``hstu_attention_bwd_ref`` with every product as the CUDA backward's
+    tensor cores take it: both operands in TF32, rounded with ``ties``
+    (``tf32_round``; the kernel's is "even"), in ``passes``: 3 is split
+    precision, the kernel's (``hi lo' + lo hi' + hi hi'`` with ``lo =
+    tf32(x - hi)``), 1 plain TF32 (``hi hi'``). Each product of two TF32
+    values is exact in f32 and the sums are f32. A model of the kernel's
+    arithmetic for the CPU, not a kernel: the elementwise part stays f32."""
+
+    def product(eq, a, b):
+        a_hi, b_hi = tf32_round(a, ties), tf32_round(b, ties)
+        if passes == 1:
+            return torch.einsum(eq, a_hi, b_hi)
+        a_lo, b_lo = tf32_round(a - a_hi, ties), tf32_round(b - b_hi, ties)
+        return (torch.einsum(eq, a_hi, b_lo) + torch.einsum(eq, a_lo, b_hi)
+                + torch.einsum(eq, a_hi, b_hi))
+
+    return _hstu_attention_bwd(q, k, v, do, causal, product)
+
+
+def _hstu_attention_bwd(q, k, v, do, causal, product):
+    """The backward of ``hstu_attention_bwd_ref`` in f32 with each of its
+    five products ``product(equation, a, b)``."""
     t, dqk = q.shape[1], q.shape[-1]
     scale, inv_t = dqk ** -0.5, 1.0 / t
-    z = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
+    q, k, v, do = (x.to(torch.float32) for x in (q, k, v, do))
+    z = product("bqhd,bkhd->bhqk", q, k) * scale
     sig = torch.sigmoid(z)
     keep = _causal_mask(t, q.device) if causal else torch.ones(
         (t, t), dtype=torch.bool, device=q.device)
     zero = z.new_zeros(())
     a = torch.where(keep, z * sig * inv_t, zero)
-    da = torch.einsum("bqhd,bkhd->bhqk", do.to(torch.float32), v.to(torch.float32))
+    da = product("bqhd,bkhd->bhqk", do, v)
     ds = torch.where(keep, da * inv_t * (sig * (1 + z * (1 - sig))) * scale, zero)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.to(torch.float32))
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(torch.float32))
-    dv = torch.einsum("bhqk,bqhd->bkhd", a, do.to(torch.float32))
-    return dq, dk, dv
+    return (product("bhqk,bkhd->bqhd", ds, k), product("bhqk,bqhd->bkhd", ds, q),
+            product("bhqk,bqhd->bkhd", a, do))
 
 
 def _causal_mask(t: int, device) -> torch.Tensor:

@@ -217,14 +217,21 @@ def test_buffer_sync_kernel_equals_plain(cuda_device, ka, kp, d):
         assert torch.equal(got[0], want_rows) and torch.equal(got[1], want_accum)
 
 
-@pytest.mark.parametrize("r,n,d", [(100, 37, 128), (50, 50, 33), (7, 0, 4), (1000, 300, 1)])
-def test_embedding_scatter_kernel_equals_plain(cuda_device, r, n, d):
+@pytest.mark.parametrize("r,n,d,valid", [(100, 37, 128, None), (50, 50, 33, None),
+                                         (7, 0, 4, None), (1000, 300, 1, None),
+                                         (5000, 2000, 128, 0.1), (5000, 1001, 33, 0.01)])
+def test_embedding_scatter_kernel_equals_plain(cuda_device, r, n, d, valid):
+    """Bit for bit against the plain version; ``valid`` is the share of
+    in-range slots where most are sentinels (a write-back's padding)."""
     rng = np.random.default_rng(r + n)
     table = torch.from_numpy(rng.normal(size=(r, d)).astype(np.float32)).to(cuda_device)
     accum = torch.from_numpy(rng.random(r).astype(np.float32)).to(cuda_device)
     idx = rng.permutation(r)[:n].astype(np.int64)
-    idx[::4] = r
-    idx[1::9] = SENTINEL
+    if valid is None:
+        idx[::4] = r
+        idx[1::9] = SENTINEL
+    else:
+        idx[rng.random(n) >= valid] = SENTINEL
     idx = torch.from_numpy(idx.astype(np.int32)).to(cuda_device)
     rows = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda_device)
     racc = torch.from_numpy(rng.random(n).astype(np.float32)).to(cuda_device)
@@ -300,12 +307,13 @@ def _hstu_case(dev, b, t, h, dqk, dv, strided, seed):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("b,t,h,dqk,dv,strided", [
     (2, 33, 2, 16, 8, True), (1, 64, 3, 48, 96, True), (2, 130, 2, 128, 128, False),
-    (1, 1, 2, 32, 32, True), (3, 17, 1, 5, 3, False)])
+    (1, 1, 2, 32, 32, True), (3, 17, 1, 5, 3, False), (2, 65, 2, 128, 128, True),
+    (1, 65, 2, 5, 3, True)])
 def test_hstu_attention_kernels_equal_plain(cuda_device, b, t, h, dqk, dv, strided,
                                             causal):
     """Forward and backward within 1e-5 of each output's sum of magnitudes
-    plus 1e-7 (the two add in different orders), and the same bits on two
-    runs."""
+    plus 1e-7 (the two add in different orders; the backward's products are
+    3xTF32 on the tensor cores), and the same bits on two runs."""
     q, k, v, do = _hstu_case(cuda_device, b, t, h, dqk, dv, strided, seed=t + dqk)
     before = (ha.launches_fwd, ha.launches_bwd)
     out = ha.hstu_attention_fwd(q, k, v, causal)
@@ -466,6 +474,29 @@ def test_flash_attention_wgmma_reads_strided_views(cuda_device):
         simple = fa.flash_attention_simple(q, k, v, causal)
         assert bool(((simple.float() - want.float()).abs()
                      <= ref.flash_attention_bound(q, k, v, want, causal)).all())
+
+
+def test_flash_attention_layout_does_not_pick_the_kernel(cuda_device):
+    """Views a TMA map cannot describe (off 16-byte alignment, a row stride
+    of 164, heads outside positions) are copied for the wgmma kernel, so the
+    same values give the contiguous layout's bits."""
+    q, k, v = _flash_case(cuda_device, 2, 70, 70, 4, 1, 160, torch.bfloat16, seed=6)
+    layouts = {
+        "off alignment": lambda x: torch.zeros(x.numel() + 3, dtype=x.dtype,
+                                               device=x.device)[3:].view(x.shape).copy_(x),
+        "stride 164": lambda x: torch.zeros((*x.shape[:-1], 164), dtype=x.dtype,
+                                            device=x.device)[..., :160].copy_(x),
+        "heads outside": lambda x: x.transpose(1, 2).contiguous().transpose(1, 2),
+    }
+    for causal in (True, False):
+        want = fa.flash_attention(q, k, v, causal)
+        for name, layout in layouts.items():
+            views = [layout(x) for x in (q, k, v)]
+            assert not fa.tma_ok(views[0]), name
+            before = (fa.launches_wgmma, fa.launches_simple)
+            got = fa.flash_attention(*views, causal)
+            assert (fa.launches_wgmma, fa.launches_simple) == (before[0] + 1, before[1]), name
+            assert torch.equal(got, want), name
 
 
 def test_flash_attention_reads_strided_views(cuda_device):

@@ -331,12 +331,84 @@ def _view(shape, dtype, offset=0, pad=0):
      "simple"),                                           # f32
     (_view((2, 9, 4, 8), torch.bfloat16), _view((2, 9, 1, 8), torch.bfloat16), "simple"),
     (_view((2, 9, 4, 96), torch.bfloat16), _view((2, 9, 1, 96), torch.bfloat16), "simple"),
+    # views TMA cannot describe: the layout does not pick the kernel (they
+    # are copied for it), so the same values give the same bits
     (_view((2, 9, 4, 160), torch.bfloat16, 3, 5), _view((2, 9, 1, 160), torch.bfloat16),
-     "simple"),                                           # off 16-byte alignment
+     "wgmma"),                                            # off 16-byte alignment
     (_view((2, 9, 4, 160), torch.bfloat16, 0, 4), _view((2, 9, 1, 160), torch.bfloat16),
-     "simple"),                                           # a stride of 164: not 16 bytes
+     "wgmma"),                                            # a stride of 164: not 16 bytes
     (_view((2, 9, 4, 160), torch.bfloat16).transpose(1, 2).contiguous().transpose(1, 2),
-     _view((2, 9, 1, 160), torch.bfloat16), "simple"),    # heads outside positions
+     _view((2, 9, 1, 160), torch.bfloat16), "wgmma"),     # heads outside positions
 ])
 def test_flash_kernel_choice(q, k, want):
     assert fa.variant(q, k, k) == want
+
+
+@pytest.mark.parametrize("x,tma", [
+    (_view((8, 64, 32, 160), torch.bfloat16), True),
+    (_view((2, 9, 4, 160), torch.bfloat16, 8, 320), True),   # aligned column slice
+    (_view((2, 9, 4, 160), torch.bfloat16, 3, 5), False),    # off 16-byte alignment
+    (_view((2, 9, 4, 160), torch.bfloat16, 0, 4), False),    # a stride of 164
+    (_view((2, 9, 4, 160), torch.bfloat16).transpose(1, 2).contiguous().transpose(1, 2),
+     False),                                                 # heads outside positions
+])
+def test_flash_views_tma_reads_in_place(x, tma):
+    """Which views the wgmma kernel reads in place; ``flash_attention``
+    copies the others into a contiguous tensor before it launches."""
+    assert fa.tma_ok(x) == tma
+    assert fa.tma_ok(x.clone(memory_format=torch.contiguous_format))
+
+
+@pytest.mark.parametrize("ties", ["even", "away"])
+def test_tf32_round_is_round_to_nearest(ties):
+    """``ref.tf32_round`` keeps 10 mantissa bits, rounding to nearest with
+    ties to even (``cvt.rn.tf32.f32``) or away from zero (``cvt.rna``)."""
+    ulp = 2.0 ** -10  # of TF32 at 1.0
+    x = torch.tensor([1.0, 1.0 + ulp / 2, 1.0 + ulp / 2 - 2.0 ** -23, -(1.0 + ulp / 2),
+                      1.0 + 1.5 * ulp, 1.0 + ulp / 2 + 2.0 ** -23, float("inf"),
+                      -float("inf")])
+    tie_up = ties == "away"  # 1 + ulp / 2 sits between 1 (even) and 1 + ulp (odd)
+    want = torch.tensor([1.0, 1.0 + ulp * tie_up, 1.0, -(1.0 + ulp * tie_up),
+                         1.0 + 2 * ulp, 1.0 + ulp, float("inf"), -float("inf")])
+    got = ref.tf32_round(x, ties)
+    assert torch.equal(got, want)
+    assert torch.isnan(ref.tf32_round(torch.tensor([float("nan")]), ties)).all()
+    rng = np.random.default_rng(0)
+    r = torch.from_numpy(rng.normal(size=4096).astype(np.float32))
+    got = ref.tf32_round(r, ties)
+    assert bool((got.view(torch.int32) & 0x1FFF == 0).all())
+    assert float(((got - r).abs() / r.abs()).max()) <= 2.0 ** -11
+
+
+def _hstu_bwd_case(seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(2, 64, 2, 32)).astype(np.float32))
+            for _ in range(4)]
+
+
+@pytest.mark.parametrize("ties", ["even", "away"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tf32x3_backward_holds_the_kernel_limit(causal, ties):
+    """The backward's products in split precision (3xTF32, as the CUDA
+    kernels take them, split with either tie rule) stay within the limit
+    chip_smoke holds the kernels to: 1e-5 of each output's sum of
+    magnitudes plus 1e-7."""
+    q, k, v, do = _hstu_bwd_case(seed=7)
+    got = ref.hstu_attention_bwd_tf32(q, k, v, do, causal, passes=3, ties=ties)
+    want = ref.hstu_attention_bwd_ref(q, k, v, do, causal)
+    _, mags = ref.hstu_attention_magnitudes(q, k, v, do, causal)
+    for g_, w_, m_ in zip(got, want, mags):
+        assert bool(((g_ - w_).abs() <= 1e-5 * m_ + 1e-7).all())
+
+
+@pytest.mark.parametrize("ties", ["even", "away"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_one_pass_tf32_backward_misses_the_kernel_limit(causal, ties):
+    """One TF32 pass (10 mantissa bits, about 5e-4 relative) cannot meet the
+    limit: the reason the kernels take three."""
+    q, k, v, do = _hstu_bwd_case(seed=7)
+    got = ref.hstu_attention_bwd_tf32(q, k, v, do, causal, passes=1, ties=ties)
+    want = ref.hstu_attention_bwd_ref(q, k, v, do, causal)
+    _, mags = ref.hstu_attention_magnitudes(q, k, v, do, causal)
+    for g_, w_, m_ in zip(got, want, mags):
+        assert not bool(((g_ - w_).abs() <= 1e-5 * m_ + 1e-7).all())
