@@ -8,9 +8,11 @@ hand-written kernel on it against its plain PyTorch version:
    TF32 switched off for matmuls and convolutions;
 2. build: compiles every kernel from ``src/repro_torch/csrc`` with nvcc, one
    process per source, all at once; each source's nvcc seconds, ptxas's
-   registers and spills, the HGMMA instructions in the wgmma
-   ``flash_attention`` library and the HMMA (``mma.sync``) instructions in
-   the ``hstu_attention`` library (``cuobjdump -sass``; none fails);
+   registers and spills (the ``hstu_attention`` forward's by head dim), the
+   HGMMA instructions in the wgmma ``flash_attention`` library and the HMMA
+   (``mma.sync``) instructions of each ``hstu_attention`` kernel, the
+   forward and the two backward kernels apart (``cuobjdump -sass``; none
+   fails);
 3. kernel edges: ``embedding_gather``, ``segment_rowsum``, ``buffer_sync``
    and ``embedding_scatter`` against their plain versions at edge cases
    (empty, one segment, drop ids and sentinels, negative sources, D in
@@ -37,7 +39,11 @@ hand-written kernel on it against its plain PyTorch version:
    4,096 requests in windows of 512, ``check_exact=True``, gather launches
    counted (and the four gathers of one serving window timed first);
 7. consistency at the reduced ``dlrm-ctr``: nestpipe = serial = the naive
-   reference trainer within 1e-5 over 6 steps, and async diverges;
+   reference trainer within 1e-5 over 6 steps, and async diverges; the
+   reference, run twice from the same state, gives the same bits (its sum
+   has a fixed order); the longest run of one key in a micro-batch, beside
+   ``segment_rowsum.CHUNK``, and whether nestpipe equals the reference bit
+   for bit;
 8. HSTU kernel edges: the ``hstu_attention`` forward and backward kernels
    against their plain versions at T in {1, 33, 256, 1024}, (dqk, dv) in
    {(128, 128), (16, 8), (48, 96)}, and T in {65, 1024} at (5, 3), causal
@@ -58,10 +64,13 @@ hand-written kernel on it against its plain PyTorch version:
    samples/s, tokens/s, step p50 and p99 (``--profile``: the device idle
    share over 2 more steps); then, with the session released, the captured
    attention calls checked against the plain versions and timed beside
-   their FP32 bound;
+   their FP32 and 3xTF32 bounds, the forward also in TF32 MMA TFLOP/s and
+   its share of the TF32 peak (exactly 32 forward calls a step);
 10. consistency at ``hstu-reduced``: nestpipe = serial = the reference
    trainer over 6 steps, and async diverges, at the configuration's own
-   step sizes and at the smaller ones of the CPU parity tests;
+   step sizes and at the smaller ones of the CPU parity tests; the
+   reference gives the same bits twice, and the longest key run is printed
+   as in phase 7;
 11. release: every earlier session gone (the memory still allocated is
    printed);
 12. ``flash_attention`` edges: both kernels against the plain version at
@@ -105,6 +114,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -125,6 +135,9 @@ TIMED_RUNS = 30
 CONSISTENCY_STEPS = 6
 HSTU_BATCH = 256  # the per-worker share of the 65,536 recsys batch over 256 workers
 HSTU_STEPS = 6
+# the hstu_attention forward's calls a step: 4 layers x 4 micro-batches x 2
+# (each layer's forward runs again in the backward: per-layer remat)
+HSTU_FWD_CALLS_PER_STEP = 32
 # HSTU's kernels against their plain versions: within HSTU_RTOL of each
 # output's sum of magnitudes (ref.hstu_attention_magnitudes) plus HSTU_ATOL;
 # the two add the same terms in different orders.
@@ -242,6 +255,73 @@ def hstu_work(q, dv, causal):
     b, t, h, dqk = q.shape
     pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
     return pairs * 2 * (dqk + dv), pairs * 2 * (3 * dqk + 2 * dv)
+
+
+def hstu_fwd_mma_ops(q, dv, causal):
+    """TF32 MMA operations the ``hstu_attention`` forward kernel issues for
+    these inputs, its three passes included: each warp (16 query rows of a
+    128-row block) runs, per step of 32 keys up to T (causal: up to the
+    block's last row, skipping steps wholly after the warp's rows), two
+    products of 16 x 32 x kD, kD the head dim padded to 16, 32, 64 or 128."""
+    b, t, h, dqk = q.shape
+    kd = next(p for p in (16, 32, 64, 128) if p >= max(dqk, dv))
+    warp_steps = 0
+    for row0 in range(0, t, 16):
+        block_steps = -(-(min(t, row0 // 128 * 128 + 128) if causal else t) // 32)
+        warp_steps += min(block_steps, (row0 + 15) // 32 + 1) if causal else block_steps
+    return b * h * warp_steps * 2 * (2 * 16 * 32 * kd) * 3
+
+
+def sass_counts(path, op: str) -> dict:
+    """Per kernel of a built library, the SASS instructions whose line holds
+    ``op`` (``cuobjdump -sass``); None where cuobjdump fails."""
+    out = subprocess.run(["cuobjdump", "-sass", str(path)], capture_output=True, text=True)
+    if out.returncode != 0:
+        return None
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and op in line:
+            counts[fn] += 1
+    return counts
+
+
+def ptxas_by_kernel(report: str) -> dict:
+    """Per kernel of a ptxas -v report: registers and spilled bytes."""
+    out, fn = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            out[fn].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn]["registers"] = int(m.group(1))
+    return out
+
+
+def longest_key_run(batches) -> int:
+    """The most positions one key takes in one micro-batch of ``batches``
+    (each ``keys`` stacked (N, ...))."""
+    import torch
+
+    return max(int(torch.unique(b["keys"][i].reshape(-1), return_counts=True)[1].max())
+               for b in batches for i in range(b["keys"].shape[0]))
+
+
+def same_bits(a, b) -> bool:
+    """Two train states with the same bits in table, accumulator and dense
+    params."""
+    import torch
+
+    return (torch.equal(a.table.rows, b.table.rows) and torch.equal(a.table.accum, b.table.accum)
+            and all(torch.equal(a.dense[k], b.dense[k]) for k in a.dense))
 
 
 def time_ms(torch, fn, flush) -> float:
@@ -371,15 +451,24 @@ def main() -> int:
     hgmma = sass.stdout.count("HGMMA") if sass.returncode == 0 else None
     if hgmma == 0:
         raise SystemExit("the wgmma flash_attention library holds no HGMMA instruction")
-    # the hstu_attention backward's products: mma.sync m16n8k8 TF32 (HMMA.1688)
-    sass = subprocess.run(["cuobjdump", "-sass", str(build.library_path("hstu_attention"))],
-                          capture_output=True, text=True)
-    hmma = sass.stdout.count("HMMA") if sass.returncode == 0 else None
-    if hmma == 0:
-        raise SystemExit("the hstu_attention library holds no HMMA instruction")
+    # every hstu_attention product: mma.sync m16n8k8 TF32 (HMMA.1688), per
+    # kernel (summed over its head-dim instantiations)
+    per_fn = sass_counts(build.library_path("hstu_attention"), "HMMA")
+    hmma = None if per_fn is None else {
+        kn: sum(c for fn, c in per_fn.items() if kn in fn)
+        for kn in ("hstu_fwd_kernel", "hstu_bwd_dq_kernel", "hstu_bwd_dkdv_kernel")}
+    if hmma is not None and min(hmma.values()) == 0:
+        raise SystemExit(f"an hstu_attention kernel holds no HMMA instruction: {hmma}")
+    if per_fn is not None and len([fn for fn in per_fn if "hstu_fwd_kernel" in fn]) != 4:
+        raise SystemExit(f"the hstu_attention library's kernels: {sorted(per_fn)}")
+    # the forward's registers and spills by padded head dim (kernel<kD>)
+    fwd_ptxas = {"d" + re.search(r"ILi(\d+)E", fn).group(1): v for fn, v in ptxas_by_kernel(
+        build.build_log.get("hstu_attention", {}).get("ptxas", "")).items()
+        if "hstu_fwd_kernel" in fn}
     emit("build", seconds=round(build_s, 3), sources=list(build.SOURCES),
          nvcc_seconds={k: round(v["seconds"], 3) for k, v in build.build_log.items()},
          flash_wgmma_hgmma_instructions=hgmma, hstu_hmma_instructions=hmma,
+         hstu_fwd_ptxas=fwd_ptxas,
          ptxas={k: [ln.strip() for ln in v["ptxas"].splitlines()
                     if "registers" in ln or "spill" in ln]
                 for k, v in build.build_log.items()})
@@ -936,12 +1025,21 @@ def main() -> int:
                                     constant_lr(base.opt_cfg.lr, dev), N_MICRO)
     transform = make_cluster_transform(N_MICRO, rwl.npcfg.clustering)
     stream = resolve_stream(rwl, base.seed)
-    ref_state = clone_state(init)
-    with torch.no_grad():
-        for _ in range(CONSISTENCY_STEPS):
-            b = transform(next(stream))
-            b.pop("raw_keys")
-            ref_state, _ = ref_step(ref_state, stage_to_device(b, dev))
+    batches = []
+    for _ in range(CONSISTENCY_STEPS):
+        b = transform(next(stream))
+        b.pop("raw_keys")
+        batches.append(stage_to_device(b, dev))
+
+    def reference_run(step_fn, start, batches):
+        state = clone_state(start)
+        with torch.no_grad():
+            for b in batches:
+                state, _ = step_fn(state, b)
+        return state
+
+    ref_state = reference_run(ref_step, init, batches)
+    ref_twice = same_bits(ref_state, reference_run(ref_step, init, batches))
 
     def gap(a, b):
         parts = [a.table.rows - b.table.rows, a.table.accum - b.table.accum]
@@ -952,13 +1050,18 @@ def main() -> int:
     gaps["nestpipe_vs_serial"] = gap(finals["nestpipe"].state, finals["serial"].state)
     emit("consistency", arch=ARCH + " (reduced)", steps=CONSISTENCY_STEPS,
          max_abs_diff_to_reference=gaps,
+         reference_same_bits_twice=ref_twice,
+         nestpipe_equals_reference_bit_for_bit=same_bits(finals["nestpipe"].state, ref_state),
+         longest_key_run=longest_key_run(batches), segment_rowsum_chunk=sr.CHUNK,
          losses={m: r.stats.losses for m, r in finals.items()})
+    if not ref_twice:
+        raise SystemExit("the reference trainer gave other bits on a second run")
     if max(gaps["nestpipe"], gaps["serial"], gaps["nestpipe_vs_serial"]) > 1e-5:
         raise SystemExit(f"nestpipe/serial differ from the reference: {gaps}")
     if gaps["async"] <= 1e-6:
         raise SystemExit(f"async did not diverge from the reference: {gaps}")
 
-    del base, init, finals, ref_state, stream
+    del base, init, finals, ref_state, stream, batches
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1135,6 +1238,9 @@ def main() -> int:
                  "flash_attention_wgmma": 0, "flash_attention_simple": 0}
     if hstu_launches != hstu_want:
         raise SystemExit(f"HSTU launches {hstu_launches} != {hstu_want}")
+    if hstu_launches["hstu_attention_fwd"] != HSTU_FWD_CALLS_PER_STEP * HSTU_STEPS:
+        raise SystemExit(f"{hstu_launches['hstu_attention_fwd']} forward calls in "
+                         f"{HSTU_STEPS} steps, not {HSTU_FWD_CALLS_PER_STEP} a step")
 
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -1161,7 +1267,11 @@ def main() -> int:
     hrows_out["hstu_attention_fwd"] = {
         "ms": time_ms(torch, lambda: ha.hstu_attention_fwd(q, k, v, causal), flush),
         "plain_ms": time_ms(torch, lambda: ref.hstu_attention_ref(q, k, v, causal), flush),
-        "operations": fwd_ops, "bytes": fwd_bytes}
+        "operations": fwd_ops, "bytes": fwd_bytes,
+        "tf32_mma_operations": hstu_fwd_mma_ops(q, v.shape[-1], causal)}
+    fwd_row = hrows_out["hstu_attention_fwd"]
+    fwd_row["tf32_mma_tflops"] = fwd_row["tf32_mma_operations"] / fwd_row["ms"] / 1e9
+    fwd_row["tf32_peak_share"] = fwd_row["tf32_mma_tflops"] * 1e12 / tf32_flops(name)
     q, k, v, do, causal = kept["bwd"]
     check_hstu("main-path backward call", q, k, v, do, causal, chunk=16)
     _, bwd_ops = hstu_work(q, v.shape[-1], causal)
@@ -1210,11 +1320,10 @@ def main() -> int:
                                         sparse_lr=rwl.engine.sparse_lr)
         transform = make_cluster_transform(N_MICRO, rwl.npcfg.clustering)
         stream = resolve_stream(rwl, first.seed)
-        ref_state = clone_state(init)
-        with torch.no_grad():
-            for _ in range(CONSISTENCY_STEPS):
-                b = transform(next(stream))
-                ref_state, _ = ref_step(ref_state, stage_to_device({"keys": b["keys"]}, dev))
+        batches = [stage_to_device({"keys": transform(next(stream))["keys"]}, dev)
+                   for _ in range(CONSISTENCY_STEPS)]
+        ref_state = reference_run(ref_step, init, batches)
+        ref_twice = same_bits(ref_state, reference_run(ref_step, init, batches))
 
         def two(a, b):
             parts = [a.table.rows - b.table.rows] + [a.dense[k] - b.dense[k] for k in a.dense]
@@ -1225,7 +1334,10 @@ def main() -> int:
         gaps = {mode: two(r.state, ref_state) for mode, r in finals.items()}
         gaps["nestpipe_vs_serial"] = two(finals["nestpipe"].state, finals["serial"].state)
         return {"sparse_lr": rwl.engine.sparse_lr, "adam_eps": first.opt_cfg.eps,
-                "max_diff_to_reference": gaps,
+                "max_diff_to_reference": gaps, "reference_same_bits_twice": ref_twice,
+                "nestpipe_equals_reference_bit_for_bit": same_bits(finals["nestpipe"].state,
+                                                                   ref_state),
+                "longest_key_run": longest_key_run(batches), "segment_rowsum_chunk": sr.CHUNK,
                 "losses": {m: r.stats.losses for m, r in finals.items()}}
 
     hstu_runs = {"default_step_sizes": hstu_gaps(),
@@ -1234,6 +1346,8 @@ def main() -> int:
          **hstu_runs, bounds="rows and dense within 1e-5, accum within 1e-4 of "
          "1 + accum; async more than 1e-6 from the reference")
     for label, run in hstu_runs.items():
+        if not run["reference_same_bits_twice"]:
+            raise SystemExit(f"the HSTU reference gave other bits on a second run at the {label}")
         hgaps = run["max_diff_to_reference"]
         for key in ("nestpipe", "serial", "nestpipe_vs_serial"):
             if hgaps[key]["rows_dense"] > 1e-5 or hgaps[key]["accum_rel"] > 1e-4:
@@ -1602,6 +1716,7 @@ def main() -> int:
                 "calls_per_step": hstu_want[kname] // HSTU_STEPS,
                 "tf32x3_bound_ms": row["tf32x3_bound_ms"],
             }
+            entry.update({k: row[k] for k in ("tf32_mma_tflops", "tf32_peak_share") if k in row})
         else:
             rows = shapes[kname]
             entry = {

@@ -3,7 +3,8 @@
 
 A deliberately naive implementation of Eq. (1): a plain table gather (no
 routing, no buffers, no exchange), full-batch gradients by scatter-add
-into a dense (Vp, D) gradient, one rowwise-adagrad update per step.
+into a dense (Vp, D) gradient, each key's rows added in input order on
+every device (``add_rows_in_order``), one rowwise-adagrad update per step.
 NestPipe's DBP + FWP pipeline and the serial baseline must reproduce this
 trajectory; the async mode must not. It allocates a (Vp, D) gradient and
 a second table, so it runs at small sizes only.
@@ -18,6 +19,24 @@ from ..core.fwp.executor import value_and_grad
 from ..train.optim import OptimizerPair
 from ..train.state import TrainState
 from .embedding.table import EmbeddingTableState
+
+
+def add_rows_in_order(grad: torch.Tensor, keys: torch.Tensor, rows: torch.Tensor) -> None:
+    """``grad[keys[i]] += rows[i]`` in place, for i in input order: each
+    key's rows are added one at a time, in the order they come, as
+    ``index_add_`` adds on the CPU (the same bits there). On CUDA
+    ``index_add_`` adds with atomics in no fixed order, so its bits change
+    from run to run. Here a stable sort ranks each key's positions, and
+    pass ``j`` adds every key's ``j``-th row: within a pass the keys are
+    distinct, so each element sees one plain add in a fixed order on every
+    device."""
+    order = torch.sort(keys, stable=True).indices
+    keys, rows = keys[order], rows[order]
+    first = torch.searchsorted(keys, keys)  # where each key's run starts
+    rank = torch.arange(keys.numel(), device=keys.device) - first
+    for j in range(int(rank.max()) + 1 if keys.numel() else 0):
+        at = rank == j
+        grad[keys[at]] += rows[at]
 
 
 def build_reference_step(
@@ -44,8 +63,8 @@ def build_reference_step(
             keys = mb["keys"].long()
             emb = rows[keys].to(torch.float32)
             (loss, _), (dg, demb) = value_and_grad(loss_fn, state.dense, emb, mb)
-            table_grad.index_add_(0, keys.reshape(-1),
-                                  demb.reshape(-1, d).to(torch.float32) / n_micro)
+            add_rows_in_order(table_grad, keys.reshape(-1),
+                              demb.reshape(-1, d).to(torch.float32) / n_micro)
             gsum = dg if gsum is None else {k: gsum[k] + dg[k] for k in gsum}
             losses.append(loss)
         gmean = {k: g * (1.0 / n_micro) for k, g in gsum.items()}

@@ -9,19 +9,19 @@
 // k block) grid sequentially and carries an f32 accumulator in VMEM across
 // the k axis; JAX differentiates the layer's jnp form instead, so the TPU
 // has no backward kernel. Hopper blocks run in no order and carry nothing
-// between them, so each block owns one (b, h) and one tile of the rows it
-// writes and loops over the other side's tiles itself:
-//   - forward: one block per 64-row query tile; it loops over the key
-//     tiles up to the diagonal (the tiles wholly above it are skipped when
-//     causal: every entry there is masked, so the function is the same);
-//   - dq: one block per 128-row query tile, looping over the same keys;
+// between them, so each block owns one (b, h) and one 128-row tile of the
+// rows it writes and loops over the other side itself:
+//   - forward: one block per query tile, looping over the keys up to the
+//     diagonal (when causal: every entry past it is masked, so the
+//     function is the same); O += A V with A = m * silu(scale S) * inv_t;
+//   - dq: one block per query tile, looping over the same keys;
 //     dQ = scale * dS K with dS = m * dA * inv_t * silu'(scale S),
 //     dA = dO V^T and silu'(x) = sig(x) (1 + x (1 - sig(x)));
-//   - dk/dv: one block per 128-row key tile, looping over the queries from
-//     the diagonal on; dK = scale * dS^T Q and dV = (m * silu(scale S) * inv_t)^T dO.
+//   - dk/dv: one block per key tile, looping over the queries from the
+//     diagonal on; dK = scale * dS^T Q and dV = (m * silu(scale S) * inv_t)^T dO.
 // The backward recomputes S tile by tile and never stores a score matrix.
-// Every output element is summed by one thread (or one warp's MMA) in a
-// fixed order, with no atomics, so two runs give the same bits.
+// Every output element is summed by one warp's MMAs in a fixed order, with
+// no atomics, so two runs give the same bits.
 //
 // Bound: arithmetic. At the HSTU shape (b = 64, h = 8, T = 1024, d = 128)
 // one causal forward does 137.6 GFLOP on 0.8 GB of inputs and one backward
@@ -29,23 +29,11 @@
 // its TF32 tensor cores (495 TFLOP/s) 0.8 and 2.1 ms at the three passes
 // that f32 accuracy takes, its memory 0.3 and 0.6 ms.
 //
-// The forward, simply, on the CUDA cores in f32: 256 threads per block,
-// each owning a 4 x 4 tile of the 64 x 64 score block and a 4 x 8 tile of
-// the 64 x (<= 128) output block (columns c and c + 64), so every inner
-// step reads two or three float4s from shared memory for 16 or 32 fused
-// multiply-adds. Operands are staged in shared memory transposed (d-major,
-// rows padded to 68 floats: float4 reads along the rows, at most 2-way
-// conflicts on the transposing stores) when the 64 rows of a tile are the
-// fast index, and row-major when d is. Global loads are float4 along d when
-// every stride allows it (the layer's q, k, v are column slices of one
-// (b, s, h, 2dqk + 2dv) tensor, rows 16 K apart), a warp covering 8 rows x
-// 16 floats. No tensor cores, no cp.async or TMA overlap; two blocks an SM.
-//
-// The backward on the tensor cores, in 3xTF32 through mma.sync (the note
-// before kBwdRows says how): 8 warps a block, each owning 16 of the
-// block's 128 rows; the other side comes 32 rows a step through a
-// two-stage cp.async ring, so the next step's loads fly behind this step's
-// products. Tiles stay f32 in shared memory, rows padded to d + 4 floats
+// So every product runs on the tensor cores in 3xTF32 through mma.sync (the
+// note before kRows says how): 8 warps a block, each owning 16 of the
+// block's 128 rows; the other side comes 32 rows a step through a two-stage
+// cp.async ring, so the next rows' loads fly behind the products on the
+// rows already there. Tiles stay f32 in shared memory, rows padded to d + 4 floats
 // (4 mod 32 words: every fragment read is free of bank conflicts), and are
 // split into TF32 hi and lo parts as fragments are read. Head dims are
 // zero-padded to 16, 32, 64 or 128 (one instantiation each).
@@ -55,13 +43,11 @@
 #include <climits>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
-constexpr int kTile = 64;      // query or key rows per tile
-constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr int kPad = 68;       // row stride of a transposed (d-major) tile
-constexpr int kMaxD = 128;     // head dims up to 128; row stride of a row-major tile
+constexpr int kMaxD = 128;  // head dims up to 128
 
 // A (B, T, H, D) strided view with unit stride along D.
 struct View {
@@ -73,206 +59,27 @@ __device__ __forceinline__ const float* head_base(const View& x, int b, int h) {
   return x.p + b * x.sb + h * x.sh;
 }
 
-// The 64 x D tile of rows [t0, t0 + 64) of one (b, h) head, transposed:
-// dst[d * kPad + r] = x[t0 + r][d], zero where t0 + r >= T or d >= D (for d
-// below D rounded up to 4). A warp covers 8 rows x 4 groups of 4 columns.
-__device__ void load_transposed(float* dst, const float* base, int64_t st,
-                                int t0, int T, int D, bool vec) {
-  const int groups = (D + 3) >> 2;
-  const int chunks = 8 * ((groups + 3) >> 2);
-  const int lane = threadIdx.x & 31;
-  for (int c = threadIdx.x >> 5; c < chunks; c += kThreads / 32) {
-    const int r = (c & 7) * 8 + (lane & 7);
-    const int g = (c >> 3) * 4 + (lane >> 3);
-    if (g >= groups) continue;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    const int t = t0 + r;
-    if (t < T) {
-      const float* src = base + t * st + 4 * g;
-      if (vec) {
-        x = __ldg(reinterpret_cast<const float4*>(src));
-      } else {
-        const int d = 4 * g;
-        x.x = __ldg(src);
-        if (d + 1 < D) x.y = __ldg(src + 1);
-        if (d + 2 < D) x.z = __ldg(src + 2);
-        if (d + 3 < D) x.w = __ldg(src + 3);
-      }
-    }
-    float* col = dst + 4 * g * kPad + r;
-    col[0] = x.x;
-    col[kPad] = x.y;
-    col[2 * kPad] = x.z;
-    col[3 * kPad] = x.w;
-  }
-}
-
-// The same tile row-major: dst[r * kMaxD + d] = x[t0 + r][d], zero where
-// t0 + r >= T or D <= d < D rounded up to 4; columns beyond are not written
-// (they only reach output columns that are never stored).
-__device__ void load_rows(float* dst, const float* base, int64_t st, int t0,
-                          int T, int D, bool vec) {
-  const int groups = (D + 3) >> 2;
-  for (int u = threadIdx.x; u < kTile * groups; u += kThreads) {
-    const int r = u / groups;
-    const int g = u - r * groups;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    const int t = t0 + r;
-    if (t < T) {
-      const float* src = base + t * st + 4 * g;
-      if (vec) {
-        x = __ldg(reinterpret_cast<const float4*>(src));
-      } else {
-        const int d = 4 * g;
-        x.x = __ldg(src);
-        if (d + 1 < D) x.y = __ldg(src + 1);
-        if (d + 2 < D) x.z = __ldg(src + 2);
-        if (d + 3 < D) x.w = __ldg(src + 3);
-      }
-    }
-    *reinterpret_cast<float4*>(dst + r * kMaxD + 4 * g) = x;
-  }
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void st4(float* p, float a, float b, float c, float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-
-// acc[r][c] += sum_{d < D} at[d * kPad + 4 ty + r] * bt[d * kPad + 4 tx + c]:
-// the 4 x 4 corner of a 64 x 64 product of two transposed tiles.
-__device__ __forceinline__ void product_tt(float (&acc)[4][4], const float* at,
-                                           const float* bt, int D, int ty, int tx) {
-  for (int d = 0; d < D; ++d) {
-    const float4 a = ld4(at + d * kPad + 4 * ty);
-    const float4 b = ld4(bt + d * kPad + 4 * tx);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-    }
-  }
-}
-
-// acc[r][c] += sum_{j < 64} pt[j * kPad + 4 ty + r] * rows[j * kMaxD + col(c)]
-// with col(c) = 4 tx + c for c < 4 and 64 + 4 tx + c - 4 after: a 4 x 8
-// corner of a 64 x 128 product of a transposed tile and a row-major one.
-__device__ __forceinline__ void product_tr(float (&acc)[4][8], const float* pt,
-                                           const float* rows, int ty, int tx) {
-#pragma unroll 4
-  for (int j = 0; j < kTile; ++j) {
-    const float4 a = ld4(pt + j * kPad + 4 * ty);
-    const float4 b0 = ld4(rows + j * kMaxD + 4 * tx);
-    const float4 b1 = ld4(rows + j * kMaxD + 64 + 4 * tx);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-    }
-  }
-}
-
-// Row i0 + 4 ty + r of a contiguous (B, T, H, D) output, columns 4 tx + c
-// and 64 + 4 tx + c, where the row is below T and the column below D.
-__device__ __forceinline__ void store_rows(float* out, const float (&acc)[4][8],
-                                           int b, int h, int i0, int T, int H,
-                                           int D, int ty, int tx) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int t = i0 + 4 * ty + r;
-    if (t >= T) continue;
-    float* row = out + ((static_cast<int64_t>(b) * T + t) * H + h) * D;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int col = (c < 4 ? 0 : 64) + 4 * tx + (c & 3);
-      if (col < D) row[col] = acc[r][c];
-    }
-  }
-}
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
-
-__global__ void __launch_bounds__(kThreads, 2)
-hstu_fwd_kernel(View q, View k, View v, float* __restrict__ o, int T, int H,
-                int dqk, int dv, int causal, float scale, float inv_t,
-                bool vec_qk, bool vec_v) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int dqk4 = (dqk + 3) & ~3;
-  float* qt = smem;                    // Q tile, transposed
-  float* x = qt + dqk4 * kPad;         // K tile transposed, then V row-major
-  const int x_size = dqk4 * kPad > kTile * kMaxD ? dqk4 * kPad : kTile * kMaxD;
-  float* at = x + x_size;              // A tile, [key][query]
-
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int n_tiles = (T + kTile - 1) / kTile;
-  const int q0 = (n_tiles - 1 - static_cast<int>(blockIdx.y)) * kTile;  // longest first
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const float* qb = head_base(q, b, h);
-  const float* kb = head_base(k, b, h);
-  const float* vb = head_base(v, b, h);
-
-  load_transposed(qt, qb, q.st, q0, T, dqk, vec_qk);
-  float acc[4][8] = {};
-  const int k_end = causal ? min(T, q0 + kTile) : T;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();  // the last tile's reads of x and at are done
-    load_transposed(x, kb, k.st, k0, T, dqk, vec_qk);
-    __syncthreads();
-    float s[4][4] = {};
-    product_tt(s, qt, x, dqk, ty, tx);
-    float a[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = q0 + 4 * ty + r, j = k0 + 4 * tx + c;
-        const float z = s[r][c] * scale;
-        const bool keep = j < T && (!causal || i >= j);
-        a[r][c] = keep ? z * sigmoid(z) * inv_t : 0.f;
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      st4(at + (4 * tx + c) * kPad + 4 * ty, a[0][c], a[1][c], a[2][c], a[3][c]);
-    }
-    __syncthreads();  // every thread is done with the K tile in x
-    load_rows(x, vb, v.st, k0, T, dv, vec_v);
-    __syncthreads();
-    product_tr(acc, at, x, ty, tx);
-  }
-  store_rows(o, acc, b, h, q0, T, H, dv, ty, tx);
-}
-
-// ---------------------------------------------------------------------------
-// The backward on the tensor cores: every product is mma.sync m16n8k8 in
-// TF32, three times over in split precision (3xTF32), each operand x taken
-// as hi + lo with hi = rn_tf32(x) and lo = rn_tf32(x - hi); a product is
-// then hi.lo' + lo.hi' + hi.hi' (small terms first) accumulated in f32,
-// about 1e-6 relative where one TF32 pass keeps about 5e-4.
+// Every product is mma.sync m16n8k8 in TF32, three times over in split
+// precision (3xTF32), each operand x taken as hi + lo with hi = rn_tf32(x)
+// and lo = rn_tf32(x - hi); a product is then hi.lo' + lo.hi' + hi.hi'
+// (small terms first) accumulated in f32, about 1e-6 relative where one
+// TF32 pass keeps about 5e-4.
 //
 // Fragments (PTX ISA, m16n8k8 .tf32; lane = 4 g + t): A (16 x 8, row) holds
 // (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B (8 x 8, col) holds
 // (t, g), (t + 4, g); the accumulator (16 x 8) holds (g, 2t), (g, 2t + 1),
 // (g + 8, 2t), (g + 8, 2t + 1). The accumulator's columns are not the A
-// fragment's, so dS and A, which the next product takes as its A operand,
-// do not move at all: that product's 8 k indices are renumbered, k = t
-// standing for column 2t and k = t + 4 for column 2t + 1, and its B
-// fragment is read from the rows those columns name. The sum over k is the
-// same, added in another order.
+// fragment's, so A (forward) and dS and A (backward), which the next
+// product takes as its A operand, do not move at all: that product's 8 k
+// indices are renumbered, k = t standing for column 2t and k = t + 4 for
+// column 2t + 1, and its B fragment is read from the rows those columns
+// name. The sum over k is the same, added in another order.
 
-// The tensor-core shape of the backward: a block owns 128 rows (8 warps x
+// The tensor-core shape of every kernel: a block owns 128 rows (8 warps x
 // 16) of one (b, h) and walks the other side 32 rows a step.
-constexpr int kBwdRows = 128;
-constexpr int kBwdStep = 32;
-constexpr int kBwdThreads = 256;
+constexpr int kRows = 128;
+constexpr int kStep = 32;
+constexpr int kThreads = 256;
 
 // x = hi + lo in two TF32 values, each rounded to nearest (the MMA would
 // otherwise truncate the low 13 bits of an f32 register). cvt.rn (ties to
@@ -354,13 +161,13 @@ __device__ __forceinline__ void load_tile(float* dst, const float* base, int64_t
                                           int t0, int T, int d, bool vec) {
   constexpr int kLd = kD + 4, kChunks = kD / 4;
   if (vec) {
-    for (int u = threadIdx.x; u < kRows * kChunks; u += kBwdThreads) {
+    for (int u = threadIdx.x; u < kRows * kChunks; u += kThreads) {
       const int r = u / kChunks, c = u % kChunks;
       const bool full = t0 + r < T && 4 * c < d;
       cp_async16(dst + r * kLd + 4 * c, full ? base + (t0 + r) * st + 4 * c : base, full);
     }
   } else {
-    for (int u = threadIdx.x; u < kRows * kD; u += kBwdThreads) {
+    for (int u = threadIdx.x; u < kRows * kD; u += kThreads) {
       const int r = u / kD, c = u % kD;
       dst[r * kLd + c] = t0 + r < T && c < d ? __ldg(base + (t0 + r) * st + c) : 0.f;
     }
@@ -423,6 +230,28 @@ __device__ __forceinline__ void product_ab(float (&acc)[kD / 8][4], const float 
   }
 }
 
+// sig(z) to about 1e-7 relative; 0 where exp(-z) overflows.
+__device__ __forceinline__ float sigmoid(float z) { return __fdividef(1.f, 1.f + __expf(-z)); }
+
+// The weights A = m silu(scale S) inv_t in place of the scores s (q . k,
+// not yet scaled) of a 16 x 32 accumulator block of queries r0 .. r0 + 15
+// and keys c0 .. c0 + 31: entry (nb, e) at query r0 + g + 8 (e >> 1) and
+// key c0 + 8 nb + 2t + (e & 1).
+__device__ __forceinline__ void weights_of_frags(float (&s)[4][4], int r0, int c0, int T,
+                                                 int causal, float scale, float inv_t, int g,
+                                                 int t) {
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = r0 + g + 8 * (e >> 1), j = c0 + 8 * nb + 2 * t + (e & 1);
+      const bool keep = i < T && j < T && (!causal || i >= j);
+      const float z = s[nb][e] * scale;
+      s[nb][e] = keep ? z * sigmoid(z) * inv_t : 0.f;
+    }
+  }
+}
+
 // The masked dS (in place of s) and A (in place of da, when `want_a`) of a
 // 16 x 32 accumulator block from its scores s (q . k, not yet scaled) and
 // da (dO . v). Entry (nb, e) sits at row r0 + g + 8 (e >> 1) and column
@@ -441,7 +270,7 @@ __device__ __forceinline__ void grads_of_frags(float (&s)[4][4], float (&da)[4][
       const int j = rows_are_queries ? col : row;
       const bool keep = i < T && j < T && (!causal || i >= j);
       const float z = s[nb][e] * scale;
-      const float sg = __fdividef(1.f, 1.f + __expf(-z));  // about 1e-7 relative
+      const float sg = sigmoid(z);
       s[nb][e] = keep ? da[nb][e] * inv_t * (sg * (1.f + z * (1.f - sg))) * scale : 0.f;
       if (want_a) da[nb][e] = keep ? z * sg * inv_t : 0.f;
     }
@@ -478,12 +307,77 @@ __device__ __forceinline__ void store_frags(float* out, const float (&acc)[kD / 
   }
 }
 
+// Shared memory of the forward: the block's 128 query rows and two stages
+// of 32 rows.
+template <int kD>
+constexpr size_t fwd_smem_bytes() {
+  return sizeof(float) * (kD + 4) * (kRows + 2 * kStep);
+}
+
 // Shared memory of either backward kernel: the block's 128 rows of two
 // operands, and a two-stage ring of 32 rows of the other two.
 template <int kD>
 constexpr size_t bwd_smem_bytes() {
-  return sizeof(float) * (kD + 4) * (2 * kBwdRows + 2 * 2 * kBwdStep);
+  return sizeof(float) * (kD + 4) * (2 * kRows + 2 * 2 * kStep);
 }
+
+// O for 128 query rows of one (b, h): for each step of 32 keys up to the
+// diagonal, S = Q K^T, then A from S in its own accumulators, then O += A V.
+// Q stays in shared memory. K and V come through a two-stage cp.async ring
+// whose stages hold 32 rows of one operand each: this step's V rows load
+// behind S = Q K^T, the next step's K rows behind O += A V. At d 128 that
+// is 101,376 bytes of shared memory (Q and the two stages) and at most 128
+// registers a thread, so two blocks share an SM and one block's products
+// also run while the other waits at a barrier. A warp skips the products
+// of a step whose keys are all after its 16 queries (causal).
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 2)
+hstu_fwd_kernel(View q, View k, View v, float* __restrict__ o, int T, int H, int dqk,
+                int dv, int causal, float scale, float inv_t, bool vec_qk, bool vec_v) {
+  constexpr int kLd = kD + 4;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // 128 query rows
+  float* ks = qs + kRows * kLd;                   // stage 0: 32 K rows
+  float* vs = ks + kStep * kLd;                   // stage 1: their V rows
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int n_tiles = (T + kRows - 1) / kRows;
+  const int q0 = (n_tiles - 1 - static_cast<int>(blockIdx.y)) * kRows;  // longest first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + 16 * warp;
+  const float* kb = head_base(k, b, h);
+  const float* vb = head_base(v, b, h);
+
+  load_tile<kD, kRows>(qs, head_base(q, b, h), q.st, q0, T, dqk, vec_qk);
+  load_tile<kD, kStep>(ks, kb, k.st, 0, T, dqk, vec_qk);
+  cp_async_commit();
+  load_tile<kD, kStep>(vs, vb, v.st, 0, T, dv, vec_v);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q and the first K rows have landed
+  __syncthreads();
+  float acc[kD / 8][4] = {};
+  const int k_end = causal ? min(T, q0 + kRows) : T;
+  const int steps = (k_end + kStep - 1) / kStep;
+  for (int step = 0; step < steps; ++step) {
+    const int k0 = step * kStep;
+    const bool live = row0 < T && !(causal && k0 > row0 + 15);
+    float s[4][4] = {};
+    if (live) {
+      product_abt<kD>(s, qs + 16 * warp * kLd, ks, lane);
+      weights_of_frags(s, row0, k0, T, causal, scale, inv_t, g, t);
+    }
+    cp_async_wait<0>();  // this step's V rows have landed
+    __syncthreads();     // ... for every thread, and no warp reads the K rows now
+    if (step + 1 < steps) load_tile<kD, kStep>(ks, kb, k.st, k0 + kStep, T, dqk, vec_qk);
+    cp_async_commit();
+    if (live) product_ab<kD>(acc, s, vs, g, t);
+    cp_async_wait<0>();  // the next step's K rows have landed
+    __syncthreads();     // ... for every thread, and no warp reads the V rows now
+    if (step + 1 < steps) load_tile<kD, kStep>(vs, vb, v.st, k0 + kStep, T, dv, vec_v);
+    cp_async_commit();
+  }
+  store_frags<kD>(o, acc, b, h, row0, T, H, dv, g, t);
+}
+
 
 // dQ for 128 query rows of one (b, h): S = Q K^T and dA = dO V^T for each
 // step of 32 keys up to the diagonal, dS from them, dQ += dS K. Q and dO
@@ -491,47 +385,47 @@ constexpr size_t bwd_smem_bytes() {
 // loads in flight behind this step's products. A warp skips a step whose
 // keys are all after its 16 queries (causal).
 template <int kD>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 hstu_bwd_dq_kernel(View q, View k, View v, View dout, float* __restrict__ dq, int T, int H,
                    int dqk, int dv, int causal, float scale, float inv_t, bool vec_qk,
                    bool vec_v) {
   constexpr int kLd = kD + 4;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // 128 query rows
-  float* dos = qs + kBwdRows * kLd;               // their dO rows
-  float* ring = dos + kBwdRows * kLd;             // stage s: K rows, then V rows
+  float* dos = qs + kRows * kLd;               // their dO rows
+  float* ring = dos + kRows * kLd;             // stage s: K rows, then V rows
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int n_tiles = (T + kBwdRows - 1) / kBwdRows;
-  const int q0 = (n_tiles - 1 - static_cast<int>(blockIdx.y)) * kBwdRows;  // longest first
+  const int n_tiles = (T + kRows - 1) / kRows;
+  const int q0 = (n_tiles - 1 - static_cast<int>(blockIdx.y)) * kRows;  // longest first
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int row0 = q0 + 16 * warp;
   const float* kb = head_base(k, b, h);
   const float* vb = head_base(v, b, h);
 
-  load_tile<kD, kBwdRows>(qs, head_base(q, b, h), q.st, q0, T, dqk, vec_qk);
-  load_tile<kD, kBwdRows>(dos, head_base(dout, b, h), dout.st, q0, T, dv, vec_v);
-  load_tile<kD, kBwdStep>(ring, kb, k.st, 0, T, dqk, vec_qk);
-  load_tile<kD, kBwdStep>(ring + kBwdStep * kLd, vb, v.st, 0, T, dv, vec_v);
+  load_tile<kD, kRows>(qs, head_base(q, b, h), q.st, q0, T, dqk, vec_qk);
+  load_tile<kD, kRows>(dos, head_base(dout, b, h), dout.st, q0, T, dv, vec_v);
+  load_tile<kD, kStep>(ring, kb, k.st, 0, T, dqk, vec_qk);
+  load_tile<kD, kStep>(ring + kStep * kLd, vb, v.st, 0, T, dv, vec_v);
   cp_async_commit();
   float acc[kD / 8][4] = {};
-  const int k_end = causal ? min(T, q0 + kBwdRows) : T;
-  const int steps = (k_end + kBwdStep - 1) / kBwdStep;
+  const int k_end = causal ? min(T, q0 + kRows) : T;
+  const int steps = (k_end + kStep - 1) / kStep;
   for (int step = 0; step < steps; ++step) {
     if (step + 1 < steps) {  // the stage read one step ago; a barrier has passed
-      float* next = ring + ((step + 1) & 1) * 2 * kBwdStep * kLd;
-      const int k1 = (step + 1) * kBwdStep;
-      load_tile<kD, kBwdStep>(next, kb, k.st, k1, T, dqk, vec_qk);
-      load_tile<kD, kBwdStep>(next + kBwdStep * kLd, vb, v.st, k1, T, dv, vec_v);
+      float* next = ring + ((step + 1) & 1) * 2 * kStep * kLd;
+      const int k1 = (step + 1) * kStep;
+      load_tile<kD, kStep>(next, kb, k.st, k1, T, dqk, vec_qk);
+      load_tile<kD, kStep>(next + kStep * kLd, vb, v.st, k1, T, dv, vec_v);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const int k0 = step * kBwdStep;
-    const float* ks = ring + (step & 1) * 2 * kBwdStep * kLd;
+    const int k0 = step * kStep;
+    const float* ks = ring + (step & 1) * 2 * kStep * kLd;
     if (row0 < T && !(causal && k0 > row0 + 15)) {
       float s[4][4] = {}, da[4][4] = {};
       product_abt<kD>(s, qs + 16 * warp * kLd, ks, lane);
-      product_abt<kD>(da, dos + 16 * warp * kLd, ks + kBwdStep * kLd, lane);
+      product_abt<kD>(da, dos + 16 * warp * kLd, ks + kStep * kLd, lane);
       grads_of_frags(s, da, false, row0, k0, true, T, causal, scale, inv_t, g, t);
       product_ab<kD>(acc, s, ks, g, t);
     }
@@ -546,44 +440,44 @@ hstu_bwd_dq_kernel(View q, View k, View v, View dout, float* __restrict__ dq, in
 // come through the ring. A warp skips a step whose queries are all before
 // its 16 keys (causal).
 template <int kD>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 hstu_bwd_dkdv_kernel(View q, View k, View v, View dout, float* __restrict__ dk,
                      float* __restrict__ dvo, int T, int H, int dqk, int dv, int causal,
                      float scale, float inv_t, bool vec_qk, bool vec_v) {
   constexpr int kLd = kD + 4;
   extern __shared__ float4 smem4[];
   float* kbuf = reinterpret_cast<float*>(smem4);  // 128 key rows
-  float* vbuf = kbuf + kBwdRows * kLd;            // their V rows
-  float* ring = vbuf + kBwdRows * kLd;            // stage s: Q rows, then dO rows
+  float* vbuf = kbuf + kRows * kLd;            // their V rows
+  float* ring = vbuf + kRows * kLd;            // stage s: Q rows, then dO rows
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int k0 = static_cast<int>(blockIdx.y) * kBwdRows;  // tile 0 loops longest
+  const int k0 = static_cast<int>(blockIdx.y) * kRows;  // tile 0 loops longest
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int key0 = k0 + 16 * warp;
   const float* qb = head_base(q, b, h);
   const float* ob = head_base(dout, b, h);
 
   const int i_begin = causal ? k0 : 0;
-  load_tile<kD, kBwdRows>(kbuf, head_base(k, b, h), k.st, k0, T, dqk, vec_qk);
-  load_tile<kD, kBwdRows>(vbuf, head_base(v, b, h), v.st, k0, T, dv, vec_v);
-  load_tile<kD, kBwdStep>(ring, qb, q.st, i_begin, T, dqk, vec_qk);
-  load_tile<kD, kBwdStep>(ring + kBwdStep * kLd, ob, dout.st, i_begin, T, dv, vec_v);
+  load_tile<kD, kRows>(kbuf, head_base(k, b, h), k.st, k0, T, dqk, vec_qk);
+  load_tile<kD, kRows>(vbuf, head_base(v, b, h), v.st, k0, T, dv, vec_v);
+  load_tile<kD, kStep>(ring, qb, q.st, i_begin, T, dqk, vec_qk);
+  load_tile<kD, kStep>(ring + kStep * kLd, ob, dout.st, i_begin, T, dv, vec_v);
   cp_async_commit();
   float acc_k[kD / 8][4] = {}, acc_v[kD / 8][4] = {};
-  const int steps = (T - i_begin + kBwdStep - 1) / kBwdStep;
+  const int steps = (T - i_begin + kStep - 1) / kStep;
   for (int step = 0; step < steps; ++step) {
     if (step + 1 < steps) {
-      float* next = ring + ((step + 1) & 1) * 2 * kBwdStep * kLd;
-      const int i1 = i_begin + (step + 1) * kBwdStep;
-      load_tile<kD, kBwdStep>(next, qb, q.st, i1, T, dqk, vec_qk);
-      load_tile<kD, kBwdStep>(next + kBwdStep * kLd, ob, dout.st, i1, T, dv, vec_v);
+      float* next = ring + ((step + 1) & 1) * 2 * kStep * kLd;
+      const int i1 = i_begin + (step + 1) * kStep;
+      load_tile<kD, kStep>(next, qb, q.st, i1, T, dqk, vec_qk);
+      load_tile<kD, kStep>(next + kStep * kLd, ob, dout.st, i1, T, dv, vec_v);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const int i0 = i_begin + step * kBwdStep;
-    const float* qs = ring + (step & 1) * 2 * kBwdStep * kLd;
-    const float* dos = qs + kBwdStep * kLd;
-    if (key0 < T && !(causal && i0 + kBwdStep - 1 < key0)) {
+    const int i0 = i_begin + step * kStep;
+    const float* qs = ring + (step & 1) * 2 * kStep * kLd;
+    const float* dos = qs + kStep * kLd;
+    if (key0 < T && !(causal && i0 + kStep - 1 < key0)) {
       float s[4][4] = {}, da[4][4] = {};
       product_abt<kD>(s, kbuf + 16 * warp * kLd, qs, lane);  // [key][query]
       product_abt<kD>(da, vbuf + 16 * warp * kLd, dos, lane);
@@ -596,8 +490,6 @@ hstu_bwd_dkdv_kernel(View q, View k, View v, View dout, float* __restrict__ dk,
   store_frags<kD>(dk, acc_k, b, h, key0, T, H, dqk, g, t);
   store_frags<kD>(dvo, acc_v, b, h, key0, T, H, dv, g, t);
 }
-
-int x_floats(int d4) { return d4 * kPad > kTile * kMaxD ? d4 * kPad : kTile * kMaxD; }
 
 // Dynamic shared memory above 48 KB has to be granted per kernel first.
 cudaError_t grant(const void* kernel, size_t bytes) {
@@ -613,31 +505,22 @@ bool vec_ok(const float* p, int64_t sb, int64_t st, int64_t sh, int64_t d) {
 
 bool shape_ok(int64_t B, int64_t T, int64_t H, int64_t dqk, int64_t dv) {
   return B > 0 && T > 0 && H > 0 && dqk > 0 && dv > 0 && dqk <= kMaxD &&
-         dv <= kMaxD && B * H <= INT_MAX && T <= INT_MAX - kTile &&
-         (T + kTile - 1) / kTile <= 65535;
+         dv <= kMaxD && B * H <= INT_MAX && T <= INT_MAX - kRows &&
+         (T + kRows - 1) / kRows <= 65535;
 }
 
-template <int kD>
-int launch_bwd(const View& qv, const View& kv, const View& vv, const View& ov, float* dq,
-               float* dk, float* dv_out, int64_t B, int64_t T, int64_t H, int64_t dqk,
-               int64_t dv, int causal, float scale, float inv_t, bool vec_qk, bool vec_v,
-               cudaStream_t st) {
-  const size_t bytes = bwd_smem_bytes<kD>();
-  cudaError_t err = grant(reinterpret_cast<const void*>(hstu_bwd_dq_kernel<kD>), bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = grant(reinterpret_cast<const void*>(hstu_bwd_dkdv_kernel<kD>), bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(B * H),
-                  static_cast<unsigned>((T + kBwdRows - 1) / kBwdRows));
-  hstu_bwd_dq_kernel<kD><<<grid, kBwdThreads, bytes, st>>>(
-      qv, kv, vv, ov, dq, static_cast<int>(T), static_cast<int>(H), static_cast<int>(dqk),
-      static_cast<int>(dv), causal, scale, inv_t, vec_qk, vec_v);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  hstu_bwd_dkdv_kernel<kD><<<grid, kBwdThreads, bytes, st>>>(
-      qv, kv, vv, ov, dk, dv_out, static_cast<int>(T), static_cast<int>(H),
-      static_cast<int>(dqk), static_cast<int>(dv), causal, scale, inv_t, vec_qk, vec_v);
-  return static_cast<int>(cudaGetLastError());
+// launch(std::integral_constant<int, kD>{}) at the smallest padded head dim
+// of 16, 32, 64 or 128 that holds d.
+template <typename F>
+int at_head_dim(int64_t d, F&& launch) {
+  if (d <= 16) return launch(std::integral_constant<int, 16>{});
+  if (d <= 32) return launch(std::integral_constant<int, 32>{});
+  if (d <= 64) return launch(std::integral_constant<int, 64>{});
+  return launch(std::integral_constant<int, 128>{});
+}
+
+dim3 grid_of(int64_t B, int64_t T, int64_t H) {
+  return dim3(static_cast<unsigned>(B * H), static_cast<unsigned>((T + kRows - 1) / kRows));
 }
 
 }  // namespace
@@ -646,8 +529,10 @@ int launch_bwd(const View& qv, const View& kv, const View& vv, const View& ov, f
 // q, k (B, T, H, dqk) and v (B, T, H, dv) are strided views (element
 // strides sb, st, sh; unit stride along d); o is a contiguous
 // (B, T, H, dv) output, every element of which is written. dqk and dv are
-// at most 128. Launches on `stream` and returns cudaGetLastError() (0 on
-// success). The caller checks shapes, types and devices.
+// at most 128; the kernel runs at the smallest padded head dim of 16, 32,
+// 64 or 128 that holds both. Launches on `stream` and returns
+// cudaGetLastError() (0 on success). The caller checks shapes, types and
+// devices.
 extern "C" int repro_hstu_attention_fwd_f32(
     const float* q, int64_t qsb, int64_t qst, int64_t qsh,
     const float* k, int64_t ksb, int64_t kst, int64_t ksh,
@@ -655,27 +540,27 @@ extern "C" int repro_hstu_attention_fwd_f32(
     int64_t B, int64_t T, int64_t H, int64_t dqk, int64_t dv, int causal,
     float scale, float inv_t, void* stream) {
   if (!shape_ok(B, T, H, dqk, dv)) return static_cast<int>(cudaErrorInvalidValue);
-  const int dqk4 = static_cast<int>((dqk + 3) & ~3);
-  const size_t bytes = sizeof(float) * (static_cast<size_t>(dqk4) * kPad +
-                                        x_floats(dqk4) + kTile * kPad);
-  cudaError_t err = grant(reinterpret_cast<const void*>(hstu_fwd_kernel), bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const bool vec_qk = vec_ok(q, qsb, qst, qsh, dqk) && vec_ok(k, ksb, kst, ksh, dqk);
   const bool vec_v = vec_ok(v, vsb, vst, vsh, dv);
-  const dim3 grid(static_cast<unsigned>(B * H), static_cast<unsigned>((T + kTile - 1) / kTile));
-  hstu_fwd_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      View{q, qsb, qst, qsh}, View{k, ksb, kst, ksh}, View{v, vsb, vst, vsh}, o,
-      static_cast<int>(T), static_cast<int>(H), static_cast<int>(dqk),
-      static_cast<int>(dv), causal, scale, inv_t, vec_qk, vec_v);
-  return static_cast<int>(cudaGetLastError());
+  const View qv{q, qsb, qst, qsh}, kv{k, ksb, kst, ksh}, vv{v, vsb, vst, vsh};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return at_head_dim(dqk > dv ? dqk : dv, [&](auto pad) {
+    constexpr int kD = decltype(pad)::value;
+    const size_t bytes = fwd_smem_bytes<kD>();
+    cudaError_t err = grant(reinterpret_cast<const void*>(hstu_fwd_kernel<kD>), bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    hstu_fwd_kernel<kD><<<grid_of(B, T, H), kThreads, bytes, st>>>(
+        qv, kv, vv, o, static_cast<int>(T), static_cast<int>(H), static_cast<int>(dqk),
+        static_cast<int>(dv), causal, scale, inv_t, vec_qk, vec_v);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // The backward of the forward above for the output gradient `dout` (a
 // strided (B, T, H, dv) view, unit stride along d): writes every element of
 // the contiguous dq, dk (B, T, H, dqk) and dv (B, T, H, dv). Launches the dq
-// kernel, then the dk/dv kernel, on `stream`, both at the smallest padded
-// head dim of 16, 32, 64 or 128 that holds dqk and dv; returns
-// cudaGetLastError().
+// kernel, then the dk/dv kernel, on `stream`, both at the padded head dim
+// the forward takes; returns cudaGetLastError().
 extern "C" int repro_hstu_attention_bwd_f32(
     const float* q, int64_t qsb, int64_t qst, int64_t qsh,
     const float* k, int64_t ksb, int64_t kst, int64_t ksh,
@@ -689,16 +574,22 @@ extern "C" int repro_hstu_attention_bwd_f32(
   const View qv{q, qsb, qst, qsh}, kv{k, ksb, kst, ksh}, vv{v, vsb, vst, vsh},
       ov{dout, osb, ost, osh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t d = dqk > dv ? dqk : dv;
-  if (d <= 16)
-    return launch_bwd<16>(qv, kv, vv, ov, dq, dk, dv_out, B, T, H, dqk, dv, causal, scale,
-                          inv_t, vec_qk, vec_v, st);
-  if (d <= 32)
-    return launch_bwd<32>(qv, kv, vv, ov, dq, dk, dv_out, B, T, H, dqk, dv, causal, scale,
-                          inv_t, vec_qk, vec_v, st);
-  if (d <= 64)
-    return launch_bwd<64>(qv, kv, vv, ov, dq, dk, dv_out, B, T, H, dqk, dv, causal, scale,
-                          inv_t, vec_qk, vec_v, st);
-  return launch_bwd<128>(qv, kv, vv, ov, dq, dk, dv_out, B, T, H, dqk, dv, causal, scale,
-                         inv_t, vec_qk, vec_v, st);
+  return at_head_dim(dqk > dv ? dqk : dv, [&](auto pad) {
+    constexpr int kD = decltype(pad)::value;
+    const size_t bytes = bwd_smem_bytes<kD>();
+    cudaError_t err = grant(reinterpret_cast<const void*>(hstu_bwd_dq_kernel<kD>), bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = grant(reinterpret_cast<const void*>(hstu_bwd_dkdv_kernel<kD>), bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid = grid_of(B, T, H);
+    hstu_bwd_dq_kernel<kD><<<grid, kThreads, bytes, st>>>(
+        qv, kv, vv, ov, dq, static_cast<int>(T), static_cast<int>(H), static_cast<int>(dqk),
+        static_cast<int>(dv), causal, scale, inv_t, vec_qk, vec_v);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    hstu_bwd_dkdv_kernel<kD><<<grid, kThreads, bytes, st>>>(
+        qv, kv, vv, ov, dk, dv_out, static_cast<int>(T), static_cast<int>(H),
+        static_cast<int>(dqk), static_cast<int>(dv), causal, scale, inv_t, vec_qk, vec_v);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

@@ -116,16 +116,13 @@ def tf32_round(x: torch.Tensor, ties: str = "even") -> torch.Tensor:
     return torch.where(torch.isfinite(x), rounded, bits).view(torch.float32)
 
 
-def hstu_attention_bwd_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                            do: torch.Tensor, causal: bool = True, passes: int = 3,
-                            ties: str = "even"):
-    """``hstu_attention_bwd_ref`` with every product as the CUDA backward's
-    tensor cores take it: both operands in TF32, rounded with ``ties``
-    (``tf32_round``; the kernel's is "even"), in ``passes``: 3 is split
-    precision, the kernel's (``hi lo' + lo hi' + hi hi'`` with ``lo =
+def _tf32_product(passes: int, ties: str):
+    """``product(equation, a, b)``: an einsum of two f32 operands as the CUDA
+    kernels' tensor cores take it: both operands in TF32, rounded with
+    ``ties`` (``tf32_round``; the kernels' is "even"), in ``passes``: 3 is
+    split precision, the kernels' (``hi lo' + lo hi' + hi hi'`` with ``lo =
     tf32(x - hi)``), 1 plain TF32 (``hi hi'``). Each product of two TF32
-    values is exact in f32 and the sums are f32. A model of the kernel's
-    arithmetic for the CPU, not a kernel: the elementwise part stays f32."""
+    values is exact in f32 and the sums are f32."""
 
     def product(eq, a, b):
         a_hi, b_hi = tf32_round(a, ties), tf32_round(b, ties)
@@ -135,7 +132,33 @@ def hstu_attention_bwd_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return (torch.einsum(eq, a_hi, b_lo) + torch.einsum(eq, a_lo, b_hi)
                 + torch.einsum(eq, a_hi, b_hi))
 
-    return _hstu_attention_bwd(q, k, v, do, causal, product)
+    return product
+
+
+def hstu_attention_fwd_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            causal: bool = True, passes: int = 3,
+                            ties: str = "even") -> torch.Tensor:
+    """``hstu_attention_ref`` with both products (S = q k^T and O = A v) as
+    the CUDA forward's tensor cores take them (``_tf32_product``). A model
+    of the kernel's arithmetic for the CPU, not a kernel: the weights A stay
+    f32."""
+    product = _tf32_product(passes, ties)
+    t, dqk = q.shape[1], q.shape[-1]
+    q, k, v = (x.to(torch.float32) for x in (q, k, v))
+    s = product("bqhd,bkhd->bhqk", q, k) * dqk ** -0.5
+    a = torch.nn.functional.silu(s) * (1.0 / t)
+    if causal:
+        a = torch.where(_causal_mask(t, q.device), a, a.new_zeros(()))
+    return product("bhqk,bkhd->bqhd", a, v)
+
+
+def hstu_attention_bwd_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            do: torch.Tensor, causal: bool = True, passes: int = 3,
+                            ties: str = "even"):
+    """``hstu_attention_bwd_ref`` with every product as the CUDA backward's
+    tensor cores take it (``_tf32_product``). A model of the kernels'
+    arithmetic for the CPU, not a kernel: the elementwise part stays f32."""
+    return _hstu_attention_bwd(q, k, v, do, causal, _tf32_product(passes, ties))
 
 
 def _hstu_attention_bwd(q, k, v, do, causal, product):

@@ -17,7 +17,8 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
-from repro_torch.api import Session
+from repro_torch.api import Session, resolve_stream
+from repro_torch.core.consistency import add_rows_in_order, build_reference_step
 from repro_torch.core.embedding.routing import SENTINEL
 from repro_torch.kernels import buffer_sync as bs
 from repro_torch.kernels import dispatch, ref
@@ -26,7 +27,9 @@ from repro_torch.kernels import embedding_scatter as es
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import hstu_attention as ha
 from repro_torch.kernels import segment_rowsum as sr
-from repro_torch.train import clone_state
+from repro_torch.data.pipeline import make_cluster_transform, stage_to_device
+from repro_torch.launch.build import make_loss_fn
+from repro_torch.train import clone_state, constant_lr
 
 pytestmark = pytest.mark.cuda
 
@@ -308,12 +311,13 @@ def _hstu_case(dev, b, t, h, dqk, dv, strided, seed):
 @pytest.mark.parametrize("b,t,h,dqk,dv,strided", [
     (2, 33, 2, 16, 8, True), (1, 64, 3, 48, 96, True), (2, 130, 2, 128, 128, False),
     (1, 1, 2, 32, 32, True), (3, 17, 1, 5, 3, False), (2, 65, 2, 128, 128, True),
-    (1, 65, 2, 5, 3, True)])
+    (1, 65, 2, 5, 3, True), (2, 65, 2, 48, 48, True), (1, 129, 2, 48, 96, True),
+    (2, 129, 1, 128, 128, True)])
 def test_hstu_attention_kernels_equal_plain(cuda_device, b, t, h, dqk, dv, strided,
                                             causal):
     """Forward and backward within 1e-5 of each output's sum of magnitudes
-    plus 1e-7 (the two add in different orders; the backward's products are
-    3xTF32 on the tensor cores), and the same bits on two runs."""
+    plus 1e-7 (the two add in different orders; every product is 3xTF32 on
+    the tensor cores), and the same bits on two runs."""
     q, k, v, do = _hstu_case(cuda_device, b, t, h, dqk, dv, strided, seed=t + dqk)
     before = (ha.launches_fwd, ha.launches_bwd)
     out = ha.hstu_attention_fwd(q, k, v, causal)
@@ -545,3 +549,47 @@ def test_lm_serving_on_the_card_runs_the_kernel_and_matches_cpu(cuda_device):
     assert (fa.launches - before[0], eg.launches - before[1]) == (2, 3 * 5)
     np.testing.assert_array_equal(got.tokens, want.tokens)
     assert got.summary["device"].startswith("cuda")
+
+
+@pytest.mark.parametrize("d", [1, 64])
+def test_reference_sum_gives_the_cpu_bits_on_the_card(cuda_device, d):
+    """The reference trainer's table-gradient sum adds each key's rows in
+    input order on the card too: the CPU ``index_add_``'s bits, hot keys
+    included."""
+    rng = np.random.default_rng(d)
+    idx = np.concatenate([rng.integers(0, 37, size=3000), np.full(300, 5)])
+    rows = (rng.normal(size=(idx.size, d)) * rng.uniform(0, 1e3, (idx.size, 1))).astype(
+        np.float32)
+    grad = rng.normal(size=(37, d)).astype(np.float32)
+    want = torch.from_numpy(grad.copy()).index_add_(0, torch.from_numpy(idx),
+                                                    torch.from_numpy(rows))
+    got = torch.from_numpy(grad).to(cuda_device)
+    add_rows_in_order(got, torch.from_numpy(idx).to(cuda_device),
+                      torch.from_numpy(rows).to(cuda_device))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_reference_step_gives_the_same_bits_twice_on_the_card(cuda_device):
+    """The reference trainer at hstu-reduced, two steps from one state, run
+    twice: the same bits (its sum has a fixed order on the card)."""
+    sess = Session.from_arch("hstu-industrial", reduced=True, global_batch=16, n_micro=4,
+                             seed=1)
+    wl = sess.workload
+    step = build_reference_step(make_loss_fn(wl.cfg), sess.optimizer,
+                                constant_lr(sess.opt_cfg.lr, cuda_device), wl.n_micro,
+                                sparse_lr=wl.engine.sparse_lr)
+    transform = make_cluster_transform(wl.n_micro, wl.npcfg.clustering)
+    stream = resolve_stream(wl, sess.seed)
+    batches = [stage_to_device({"keys": transform(next(stream))["keys"]}, cuda_device)
+               for _ in range(2)]
+    finals = []
+    for _ in range(2):
+        state = clone_state(sess.state)
+        with torch.no_grad():
+            for b in batches:
+                state, _ = step(state, b)
+        finals.append(state)
+    a, b = finals
+    assert torch.equal(a.table.rows, b.table.rows)
+    assert torch.equal(a.table.accum, b.table.accum)
+    assert all(torch.equal(a.dense[k], b.dense[k]) for k in a.dense)

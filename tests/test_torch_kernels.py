@@ -412,3 +412,37 @@ def test_one_pass_tf32_backward_misses_the_kernel_limit(causal, ties):
     _, mags = ref.hstu_attention_magnitudes(q, k, v, do, causal)
     for g_, w_, m_ in zip(got, want, mags):
         assert not bool(((g_ - w_).abs() <= 1e-5 * m_ + 1e-7).all())
+
+
+def _hstu_fwd_case(seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(2, 64, 2, 32)).astype(np.float32))
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("ties", ["even", "away"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tf32x3_forward_holds_the_kernel_limit(causal, ties):
+    """The forward's two products in split precision (3xTF32, as the CUDA
+    kernel takes them, split with either tie rule) stay within the limit
+    chip_smoke holds the kernel to: 1e-5 of each output's sum of
+    magnitudes plus 1e-7, against the plain version (held against JAX's
+    ``hstu_attention`` in tests/test_torch_hstu.py)."""
+    q, k, v = _hstu_fwd_case(seed=11)
+    got = ref.hstu_attention_fwd_tf32(q, k, v, causal, passes=3, ties=ties)
+    want = ref.hstu_attention_ref(q, k, v, causal)
+    mag, _ = ref.hstu_attention_magnitudes(q, k, v, torch.zeros_like(v), causal)
+    assert got.shape == want.shape
+    assert bool(((got - want).abs() <= 1e-5 * mag + 1e-7).all())
+
+
+@pytest.mark.parametrize("ties", ["even", "away"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_one_pass_tf32_forward_misses_the_kernel_limit(causal, ties):
+    """One TF32 pass cannot meet the forward's limit either: the reason the
+    kernel takes three."""
+    q, k, v = _hstu_fwd_case(seed=11)
+    got = ref.hstu_attention_fwd_tf32(q, k, v, causal, passes=1, ties=ties)
+    want = ref.hstu_attention_ref(q, k, v, causal)
+    mag, _ = ref.hstu_attention_magnitudes(q, k, v, torch.zeros_like(v), causal)
+    assert not bool(((got - want).abs() <= 1e-5 * mag + 1e-7).all())

@@ -11,6 +11,8 @@ the modes ``nestpipe``, ``serial`` and ``async``:
   matmuls add in another order on XLA:CPU than in torch;
 - in the port, nestpipe == serial == the naive reference trainer
   (``core/consistency.py``) within ``1e-5``, and async diverges from it;
+  the reference's table-gradient sum (``add_rows_in_order``) gives
+  ``index_add_``'s bits on the CPU, repeated keys included;
 - at lookahead depth ``prefetch_ahead=2`` the same holds against the JAX
   session at that depth;
 - the clustered host batches are byte-equal to JAX's;
@@ -42,7 +44,7 @@ from repro_torch.configs.base import OptimizerConfig
 from repro_torch.configs.registry import ArchSpec, get_arch
 from repro_torch.convert import dense_params_from_jax, dlrm_params_from_jax, \
     train_state_from_jax
-from repro_torch.core.consistency import build_reference_step
+from repro_torch.core.consistency import add_rows_in_order, build_reference_step
 from repro_torch.data.pipeline import make_cluster_transform, stage_to_device
 from repro_torch.kernels import buffer_sync as bs
 from repro_torch.kernels import embedding_gather as eg
@@ -115,6 +117,25 @@ def _gap(a, b):
     return max([_max_diff(a.table.rows, b.table.rows),
                 _max_diff(a.table.accum, b.table.accum)]
                + [_max_diff(a.dense[k], b.dense[k]) for k in a.dense])
+
+
+@pytest.mark.parametrize("d", [1, 16, 64])
+@pytest.mark.parametrize("keys", ["repeats", "one_hot_key", "distinct", "empty"])
+def test_reference_sum_gives_index_add_bits_on_cpu(keys, d):
+    """The reference trainer adds each key's rows in input order, one at a
+    time, as ``index_add_`` does on the CPU: the same bits, on a gradient
+    that already holds values (a step's later micro-batches add to it)."""
+    rng = np.random.default_rng(d)
+    n = {"repeats": 3000, "one_hot_key": 200, "distinct": 37, "empty": 0}[keys]
+    idx = {"repeats": rng.integers(0, 37, size=n), "one_hot_key": np.full(n, 5),
+           "distinct": rng.permutation(37), "empty": np.zeros(0, np.int64)}[keys]
+    rows = (rng.normal(size=(n, d)) * rng.uniform(0, 1e3, size=(n, 1))).astype(np.float32)
+    grad = rng.normal(size=(37, d)).astype(np.float32)
+    want = torch.from_numpy(grad.copy()).index_add_(0, torch.from_numpy(idx),
+                                                   torch.from_numpy(rows))
+    got = torch.from_numpy(grad.copy())
+    add_rows_in_order(got, torch.from_numpy(idx), torch.from_numpy(rows))
+    assert torch.equal(got, want)
 
 
 @pytest.fixture(scope="module")
