@@ -21,17 +21,26 @@ hand-written kernel on it against its plain PyTorch version:
    slots only at lanes 0 and 31 of a 32-slot group, n = 31 and 33, at D in
    {1, 33, 128, 512}; for ``segment_rowsum`` also hot keys, one id's run of
    C - 1, C, C + 1 and 5,400 positions at D 512, C = 64 positions a chunk,
-   ``segment_rowsum.CHUNK``), bit for bit where the sums are exact
-   (``segment_rowsum`` against the CPU plain version in its chunk order,
-   and the input-order one on integer grads or runs of at most C), and the
-   same bits on two runs;
+   ``segment_rowsum.CHUNK``; for ``embedding_gather`` also few wide rows,
+   n in {1, 8, 32, 33} at D 5,120, rows of 5,121 and views off alignment
+   at D 5,120 and 5,121, every slot a sentinel at n 32, D 5,120, and 60,000
+   narrow rows with sentinels, f32 and bf16), bit for bit where the sums
+   are exact (``segment_rowsum`` against the CPU plain version in its chunk
+   order, and the input-order one on integer grads or runs of at most C),
+   and the same bits on two runs (every gather check, here and on the
+   captured main-path calls, runs the kernel twice);
 4. a full-width ``dlrm-ctr`` training session (``mode="nestpipe"``,
    ``global_batch=8192``, N = 4, ``bucket_slack=1.5``) on the 29.19 GB
-   table: one warm-up step, then two steps whose kernel calls are captured,
+   table: what ``time_ms`` reads for an empty kernel and for one 16-byte
+   row gathered by the kernel and by ``index_select`` (``timing_floor``);
+   one warm-up step, then two steps whose kernel calls are captured,
    and every captured call checked against its plain version and timed
    beside the plain version, one PyTorch library call where there is one,
    and its bandwidth bound (``segment_rowsum`` also by part: the sort, the
-   starts pass, the sum pass and the combine pass);
+   starts pass, the sum pass and the combine pass; each gather with the
+   launch plan it ran, ``embedding_gather.launch_plan``, bound / ms, and
+   its and ``index_select``'s times after a flush that leaves the L2
+   clean);
 5. main path, training: ``train(8)`` with every launch counted; finite
    losses, no routing overflow, the master still full on the card, rows of
    window 0 changed;
@@ -101,7 +110,9 @@ hand-written kernel on it against its plain PyTorch version:
    runs the plain version agrees on the last-token logits within 5e-2 of
    max |logit| (``--profile``: the device idle share of a prefill and of 8
    decode steps);
-14. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
+14. a ``{"kernels": [...]}`` line (the gather's LM serve as its 96 calls,
+   and apart as the prefill's three and one decode step's three) and,
+   last, the ``{"ok": true, ...}`` line.
 
 Every phase prints one JSON line. Nothing is caught: any failure exits
 non-zero. Run from the repo root: ``python3 chip_smoke.py`` (``--profile``
@@ -324,17 +335,23 @@ def same_bits(a, b) -> bool:
             and all(torch.equal(a.dense[k], b.dense[k]) for k in a.dense))
 
 
-def time_ms(torch, fn, flush) -> float:
+def time_ms(torch, fn, flush, clean=False) -> float:
     """Median device time of ``fn`` over TIMED_RUNS launches, each timed
     alone with CUDA events after a write of ``flush`` evicts the 50 MB L2
-    (the main path finds the master table cold). A ~100 us spin after the
+    (the main path finds the master table cold). The write leaves the L2
+    full of dirty lines, so ``fn``'s first ~50 MB of traffic also writes
+    them back, as it would after a kernel that wrote as much; ``clean``
+    evicts them by a read of ``flush`` instead. A ~100 us spin after the
     flush keeps the card busy until ``fn`` is queued, so the events time
     the device work and not the host's launch overhead."""
     for _ in range(3):
         fn()
     pairs = []
     for _ in range(TIMED_RUNS):
-        flush.zero_()
+        if clean:
+            flush.sum()
+        else:
+            flush.zero_()
         torch.cuda._sleep(200_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -488,6 +505,8 @@ def main() -> int:
 
     def check_gather(label, src, idx):
         got = eg.embedding_gather(src, idx)
+        if not torch.equal(got, eg.embedding_gather(src, idx)):
+            raise SystemExit(f"embedding_gather not deterministic at {label}")
         record("embedding_gather", [got], [ref.gather_rows_ref(src, idx)], label)
         return got
 
@@ -645,9 +664,38 @@ def main() -> int:
             check_segment(f"misaligned hot run {run} D=512", misaligned(grads), ids, 4096,
                           integer)
         edge.append(f"segment_rowsum hot run of {run} at D=512, L={ids.numel()}, S=4096")
+    # the gather's few wide rows (a row split over warps and blocks, as the
+    # LM decode's 32 x 5,120 f32 and 8 x 5,120 bf16 calls), rows of 5,121
+    # (no 16-byte vectors), every slot a sentinel, and many narrow rows
+    wide = torch.empty((1000, 5120), device=dev).normal_(generator=g)
+    odd = torch.empty((1000, 5121), device=dev).normal_(generator=g)
+    for dtype in (torch.float32, torch.bfloat16):
+        w, o = wide.to(dtype), odd.to(dtype)
+        kind = str(dtype).removeprefix("torch.")
+        for n in (1, 8, 32, 33):
+            idx = randint(0, 1000, n)
+            idx[1::5] = SENTINEL
+            check_gather(f"{kind} D=5120 n={n}", w, idx)
+            edge.append(f"gather {kind} D=5120,n={n}")
+        for n in (1, 32, 777):
+            idx = randint(-2, 1002, n)
+            check_gather(f"{kind} D=5121 n={n}", o, idx)
+            check_gather(f"{kind} misaligned D=5121 n={n}", misaligned(o), idx)
+            check_gather(f"{kind} misaligned D=5120 n={n}", misaligned(w), idx)
+            edge.append(f"gather {kind} D=5121 and misaligned D=5120/5121,n={n}")
+        check_gather(f"{kind} every slot a sentinel", w,
+                     torch.full((32,), SENTINEL, dtype=torch.int32, device=dev))
+        edge.append(f"gather {kind} D=5120,n=32,every slot a sentinel")
+        narrow = wide[:, :128].contiguous().to(dtype)
+        idx = randint(-2, 1002, 60_000)
+        idx[::13] = SENTINEL
+        check_gather(f"{kind} D=128 n=60000", narrow, idx)
+        edge.append(f"gather {kind} D=128,n=60000 with sentinels")
+    del wide, odd, w, o, narrow
     torch.cuda.synchronize()
     emit("kernel_edges", cases=edge, max_abs_err=worst,
-         exact="bit-exact (gathers in f32 and bf16), except segment_rowsum on "
+         exact="bit-exact (gathers in f32 and bf16, each the same bits twice), "
+               "except segment_rowsum on "
                "normal grads against the card's atomic index_add_: within 1e-6 "
                "of each output's sum of magnitudes + 1e-6 (bit-exact against "
                "the CPU plain version in the kernel's chunk order, and against "
@@ -675,6 +723,15 @@ def main() -> int:
     torch.cuda.synchronize()
 
     flush = torch.empty(128 * 2 ** 20 // 4, device=dev)  # evicts the L2 (time_ms)
+    # what time_ms reads for almost no work: an empty kernel, and one
+    # 16-byte row gathered by the kernel and by index_select
+    tiny, one = torch.zeros((64, 4), device=dev), torch.ones(1, dtype=torch.int32, device=dev)
+    one_long = one.long()
+    emit("timing_floor", empty_kernel_ms=time_ms(torch, lambda: torch.cuda._sleep(1), flush),
+         gather_one_row_ms=time_ms(torch, lambda: eg.embedding_gather(tiny, one), flush),
+         index_select_one_row_ms=time_ms(
+             torch, lambda: torch.index_select(tiny, 0, one_long), flush))
+    del tiny, one, one_long
 
     def capture_calls(sess):
         """Two training steps with the inputs of the first calls of each
@@ -722,6 +779,35 @@ def main() -> int:
         captured["gather"] = captured["gather"][:1] + captured["gather"][2:]
         return captured
 
+    def timed_gather(path, label, src, idx):
+        """One gather timed beside its plain version, index_select and its
+        bandwidth bound, with the launch plan it ran; one kernel_shape line."""
+        lib_idx = idx.clamp(0, src.shape[0] - 1).long()
+        nbytes = gather_bytes(torch, src, idx)
+        plan = eg.launch_plan(idx.numel(), src.shape[1], src.element_size(),
+                              eg.vector_aligned(src, eg.embedding_gather(src, idx)))
+        row = {
+            "kernel": "embedding_gather", "call": label, "src_rows": src.shape[0],
+            "n": idx.numel(), "dim": src.shape[1],
+            "dtype": str(src.dtype).removeprefix("torch."), "bytes": nbytes,
+            "plan": {"chunk_bytes": plan.chunk_bytes, "rows_per_warp": plan.rows_per_warp,
+                     "blocks": plan.blocks, "warps_per_block": plan.warps_per_block,
+                     "vec_bytes": plan.vec_bytes},
+            "ms": time_ms(torch, lambda: eg.embedding_gather(src, idx), flush),
+            "plain_ms": time_ms(torch, lambda: ref.gather_rows_ref(src, idx), flush),
+            "library_ms": time_ms(
+                torch, lambda: torch.index_select(src, 0, lib_idx), flush),
+            "bound_ms": nbytes / peak * 1e3,
+            # the same two after a flush that leaves the L2 clean
+            "clean_l2_ms": time_ms(torch, lambda: eg.embedding_gather(src, idx), flush,
+                                   clean=True),
+            "clean_l2_library_ms": time_ms(
+                torch, lambda: torch.index_select(src, 0, lib_idx), flush, clean=True),
+        }
+        row["bound_over_ms"] = row["bound_ms"] / row["ms"]
+        emit("kernel_shape", path=path, **row)
+        return row
+
     def check_and_time(path, captured, master):
         """Every captured call checked against its plain version (as at the
         edges) and timed beside the plain version, one PyTorch library call
@@ -742,13 +828,7 @@ def main() -> int:
                                         for part in ("serve", "assemble-1", "assemble-2")]
         for label, (src, idx) in zip(gather_labels, captured["gather"]):
             check_gather(label, src, idx)
-            lib_idx = idx.clamp(0, src.shape[0] - 1).long()
-            timed("embedding_gather", label, gather_bytes(torch, src, idx),
-                  lambda: eg.embedding_gather(src, idx),
-                  lambda: ref.gather_rows_ref(src, idx),
-                  lambda: torch.index_select(src, 0, lib_idx),
-                  src_rows=src.shape[0], n=idx.numel(), dim=src.shape[1],
-                  dtype=str(src.dtype).removeprefix("torch."))
+            shapes["embedding_gather"].append(timed_gather(path, label, src, idx))
 
         seg_labels = [f"grads_to_owner-mb{i}" for i in range(N_MICRO)] + ["window-to-buffer"]
         for label, (grads, ids, segments) in zip(seg_labels, captured["segment"]):
@@ -947,24 +1027,6 @@ def main() -> int:
         served = check_gather("serve-from-buffer", buf_rows, buf_idx)
         unique_emb = check_gather("assemble-1", served, plan.slot_of_unique)
         check_gather("assemble-2", unique_emb, plan.inverse)
-
-    def timed_gather(path, label, src, idx):
-        """One gather timed beside its plain version, index_select and its
-        bandwidth bound; one kernel_shape line."""
-        lib_idx = idx.clamp(0, src.shape[0] - 1).long()
-        nbytes = gather_bytes(torch, src, idx)
-        row = {
-            "kernel": "embedding_gather", "call": label, "src_rows": src.shape[0],
-            "n": idx.numel(), "dim": src.shape[1],
-            "dtype": str(src.dtype).removeprefix("torch."), "bytes": nbytes,
-            "ms": time_ms(torch, lambda: eg.embedding_gather(src, idx), flush),
-            "plain_ms": time_ms(torch, lambda: ref.gather_rows_ref(src, idx), flush),
-            "library_ms": time_ms(
-                torch, lambda: torch.index_select(src, 0, lib_idx), flush),
-            "bound_ms": nbytes / peak * 1e3,
-        }
-        emit("kernel_shape", path=path, **row)
-        return row
 
     serve_shapes = [timed_gather("dlrm_serve", label, src, idx) for label, src, idx in (
         ("retrieve", table.rows, master_idx), ("serve-from-buffer", buf_rows, buf_idx),
@@ -1741,9 +1803,11 @@ def main() -> int:
             entry["serve_window"] = {k: sum(x[k] for x in serve_shapes) for k in times}
             # one LM serve: the prefill's lookup and decode_steps decode-step
             # lookups, each timed at the first decode step's calls
+            prefill = {k: sum(x[k] for x in lm_gathers[:3]) for k in times}
+            decode_step = {k: sum(x[k] for x in lm_gathers[3:]) for k in times}
             entry["lm_serve"] = {
-                **{k: sum(x[k] for x in lm_gathers[:3])
-                   + decode_steps * sum(x[k] for x in lm_gathers[3:]) for k in times},
+                **{k: prefill[k] + decode_steps * decode_step[k] for k in times},
+                "prefill": prefill, "decode_step": decode_step,
                 "calls": f"the prefill's {', '.join(x['call'] for x in lm_gathers[:3])}; "
                          f"{decode_steps} x the first decode step's"}
         if kname == "segment_rowsum":  # the op's parts per step: sort, starts, sum, combine

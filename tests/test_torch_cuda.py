@@ -51,8 +51,24 @@ def _case(rows, d, n, seed):
     return table, idx.astype(np.int32)
 
 
+def _gathers_once(table, idx):
+    """The kernel's rows, after checking that the call launched once (none
+    for no rows) and that a second call gives the same bits."""
+    before = eg.launches
+    got = eg.embedding_gather(table, idx)
+    torch.cuda.synchronize()
+    assert eg.launches == before + (idx.numel() > 0)
+    assert torch.equal(got, eg.embedding_gather(table, idx))
+    return got
+
+
 @pytest.mark.parametrize("rows,d,n", [(64, 128, 37), (100, 96, 200), (32, 33, 8),
-                                      (1000, 1, 513), (7, 128, 1), (5, 16, 0)])
+                                      (1000, 1, 513), (7, 128, 1), (5, 16, 0),
+                                      # few wide rows: a row split over warps
+                                      (1000, 5120, 1), (1000, 5120, 8),
+                                      (1000, 5120, 32), (1000, 5120, 33),
+                                      (300, 5121, 40),  # no 16-byte vectors
+                                      (5000, 128, 20000)])  # many narrow rows
 def test_kernel_bitwise_equals_plain(cuda_device, rows, d, n):
     table, idx = _case(rows, d, n, seed=rows + n)
     t = torch.from_numpy(table).to(cuda_device)
@@ -62,10 +78,13 @@ def test_kernel_bitwise_equals_plain(cuda_device, rows, d, n):
     torch.cuda.synchronize()
     assert eg.launches == before + (n > 0)
     assert torch.equal(got, ref.gather_rows_ref(t, i))
-    # a contiguous view 4 bytes off 16-byte alignment takes the scalar path
+    # a contiguous view 4 bytes off 16-byte alignment takes the element path
     flat = torch.cat([t.new_zeros(1), t.reshape(-1)])
     shifted = flat[1:].view(rows, d)
-    assert torch.equal(eg.embedding_gather(shifted, i), ref.gather_rows_ref(shifted, i))
+    assert torch.equal(_gathers_once(shifted, i), ref.gather_rows_ref(shifted, i))
+    # every slot a sentinel: zero rows, nothing read
+    sentinels = torch.full((n,), SENTINEL, dtype=torch.int32, device=cuda_device)
+    assert torch.equal(_gathers_once(t, sentinels), torch.zeros_like(got))
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
@@ -362,14 +381,27 @@ def test_hstu_attention_raises_rather_than_falling_back(cuda_device):
         ha.hstu_attention_fwd(q.transpose(1, 3), k.transpose(1, 3), v.transpose(1, 3))
 
 
-def test_bf16_gather_equals_plain(cuda_device):
+@pytest.mark.parametrize("rows,d,n", [(300, 512, 200),
+                                      # few wide rows: a row split over warps
+                                      (1000, 5120, 1), (1000, 5120, 8),
+                                      (1000, 5120, 32), (1000, 5120, 33),
+                                      (300, 5121, 40),  # no 16-byte vectors
+                                      (5000, 128, 20000)])  # many narrow rows
+def test_bf16_gather_equals_plain(cuda_device, rows, d, n):
     g = torch.Generator(cuda_device).manual_seed(4)
-    t = torch.empty((300, 512), device=cuda_device).normal_(generator=g).bfloat16()
-    idx = torch.randint(-2, 305, (200,), device=cuda_device, generator=g,
+    t = torch.empty((rows, d), device=cuda_device).normal_(generator=g).bfloat16()
+    idx = torch.randint(-2, rows + 5, (n,), device=cuda_device, generator=g,
                         dtype=torch.int32)
-    assert torch.equal(eg.embedding_gather(t, idx), ref.gather_rows_ref(t, idx))
+    idx[1::7] = SENTINEL
+    assert torch.equal(_gathers_once(t, idx), ref.gather_rows_ref(t, idx))
     odd = t[:, :33].contiguous()  # rows of 66 bytes: the element path
-    assert torch.equal(eg.embedding_gather(odd, idx), ref.gather_rows_ref(odd, idx))
+    assert torch.equal(_gathers_once(odd, idx), ref.gather_rows_ref(odd, idx))
+    flat = torch.cat([t.new_zeros(2), t.reshape(-1)])  # 4 bytes off alignment
+    shifted = flat[2:].view(rows, d)
+    assert torch.equal(_gathers_once(shifted, idx), ref.gather_rows_ref(shifted, idx))
+    sentinels = torch.full((n,), SENTINEL, dtype=torch.int32, device=cuda_device)
+    assert torch.equal(_gathers_once(t, sentinels), torch.zeros((n, d), dtype=t.dtype,
+                                                                device=cuda_device))
 
 
 def test_hstu_training_on_the_card_runs_the_kernels_and_matches_cpu(cuda_device):

@@ -27,7 +27,14 @@
   Pallas path zeroes it. The engine never makes negative indices; the trap
   is pinned below, not fixed;
 - the CUDA kernel wrapper launches nothing on CPU tensors; it is held
-  against the plain version on the card by tests/test_torch_cuda.py.
+  against the plain version on the card by tests/test_torch_cuda.py;
+- the gather kernel's launch plan (``embedding_gather.launch_plan``, a
+  pure function of the shape) covers every output element exactly once
+  without a vector crossing its row's end or its alignment, keeps its grid
+  within ``INT_MAX`` blocks and spreads the LM decode's calls over at least
+  32 blocks; a numpy emulation that copies by the plan as the kernel does
+  equals the plain version bit for bit, sentinels and negative indices
+  included.
 """
 import os
 import sys
@@ -125,6 +132,129 @@ def test_library_path_tracks_source_and_lives_in_build():
     assert p.parent == build.BUILD_DIR
     assert p.parent.parent == build.CSRC.parents[2]  # the repo root
     assert p == build.library_path("embedding_gather")
+
+
+def _emulate_gather(plan, table, idx, batch=1024):
+    """The gather kernel's copy by its launch plan, in numpy: every warp of
+    the grid walks its items in a grid-stride loop; lanes below
+    ``rows_per_warp`` load the warp's indices; load j of lane l moves unit
+    32 j + l of the item's ``rows_per_warp`` x ``span`` units, reading its
+    row's index from lane (32 j + l) // span by a shuffle. ``table`` holds
+    any element type (its bits are copied). Returns the output and how many
+    times each of its elements was written; asserts that no load crosses its
+    row's end or breaks its vector's alignment."""
+    rows, dim = table.shape
+    n, e = idx.shape[0], table.itemsize
+    ve = plan.vec_bytes // e  # elements a load moves
+    width = dim // ve
+    out = np.zeros((n, dim), dtype=table.dtype)
+    counts = np.zeros(n * dim, dtype=np.int64)
+    warps = plan.blocks * plan.warps_per_block
+    iters = -(-plan.items // warps) if plan.items else 0
+    visits = (np.arange(warps)[:, None] + warps * np.arange(iters)[None, :]).ravel()
+    visits = visits[visits < plan.items]
+    lane = np.arange(32)
+    rpw, span = plan.rows_per_warp, plan.span
+    u = (32 * np.arange(plan.loads)[:, None] + lane[None, :]).ravel()  # (j, lane)
+    k, col = u // span, u % span  # the unit's row in the warp, its column
+    t = np.arange(ve)
+    for b0 in range(0, visits.size, batch):
+        item = visits[b0:b0 + batch]
+        row0 = item // plan.chunks_per_row * rpw
+        chunk = item % plan.chunks_per_row
+        slot = row0[:, None] + lane[None, :]
+        mine = np.where((lane < rpw)[None, :] & (slot < n),
+                        idx[np.minimum(slot, n - 1)], -1)
+        r = mine[:, k]  # the shuffle: a unit of row k reads lane k
+        i = row0[:, None] + k[None, :]
+        v = chunk[:, None] * span + col[None, :]
+        live = (i < n) & (v < width)
+        i_l = i[live]
+        r_l = r[live].astype(np.int64)
+        first = v[live] * ve
+        assert (first + ve <= dim).all()  # never past the row's end
+        valid = (r_l >= 0) & (r_l < rows)
+        if plan.vec_bytes == 16:  # both base pointers 16-byte aligned
+            assert ((i_l * dim + first) * e % 16 == 0).all()
+            assert ((r_l[valid] * dim + first[valid]) * e % 16 == 0).all()
+        dst = (i_l * dim + first)[:, None] + t
+        src = (np.where(valid, r_l, 0) * dim + first)[:, None] + t
+        out.reshape(-1)[dst] = np.where(valid[:, None], table.reshape(-1)[src], 0)
+        counts += np.bincount(dst.ravel(), minlength=n * dim)
+    return out, counts.reshape(n, dim)
+
+
+_PLAN_DIMS = [1, 33, 128, 512, 5120, 5121]
+_PLAN_NS = [0, 1, 7, 8, 31, 32, 33, 777]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("elem_bytes", [4, 2])
+@pytest.mark.parametrize("d", _PLAN_DIMS)
+def test_gather_plan_covers_every_element_once(d, elem_bytes, aligned):
+    table = np.zeros((3, d), dtype=np.float32 if elem_bytes == 4 else np.uint16)
+    for n in _PLAN_NS:
+        plan = eg.launch_plan(n, d, elem_bytes, aligned)
+        vec = 16 if aligned and d * elem_bytes % 16 == 0 else elem_bytes
+        assert plan.vec_bytes == vec and plan.loads * vec == eg.LANE_BYTES
+        assert 32 % plan.rows_per_warp == 0
+        assert plan.chunks_per_row == 1 or plan.rows_per_warp == 1
+        assert 1 <= plan.warps_per_block <= eg.MAX_WARPS_PER_BLOCK
+        idx = (np.arange(n) % 3).astype(np.int32)
+        _, counts = _emulate_gather(plan, table, idx)
+        assert (counts == 1).all(), (n, plan)
+        if plan.items > 1:  # a smaller grid: the grid-stride loop covers it
+            _, counts = _emulate_gather(plan._replace(blocks=1, warps_per_block=1),
+                                        table, idx)
+            assert (counts == 1).all(), (n, plan)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", _PLAN_DIMS)
+def test_gather_emulation_equals_plain_bit_for_bit(d, dtype, aligned):
+    rng = np.random.default_rng(d)
+    rows = 50
+    t = torch.from_numpy(rng.normal(size=(rows, d)).astype(np.float32)).to(dtype)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    for n in (1, 33, 777):
+        idx = rng.integers(0, rows, size=n).astype(np.int32)
+        idx[::5] = rows
+        idx[1::7] = SENTINEL
+        idx[2::9] = -1
+        idx[3::11] = -(2 ** 31)
+        want = ref.gather_rows_ref(t, torch.from_numpy(idx)).view(bits).numpy()
+        plan = eg.launch_plan(n, d, t.element_size(), aligned)
+        got, counts = _emulate_gather(plan, t.view(bits).numpy(), idx)
+        np.testing.assert_array_equal(got, want)
+        assert (counts == 1).all()
+
+
+@pytest.mark.parametrize("n,d,elem_bytes", [
+    (319_488, 128, 4),  # the dlrm-ctr retrieve
+    (65_536, 5_120, 4),  # the stablelm-12b prefill retrieve
+    (2 ** 31 - 1, 5_120, 4),  # past the grid: the grid-stride loop
+])
+def test_gather_plan_blocks_stay_within_int_max(n, d, elem_bytes):
+    plan = eg.launch_plan(n, d, elem_bytes, aligned=True)
+    assert 1 <= plan.blocks <= 2 ** 31 - 1
+    assert plan.items == -(-n // plan.rows_per_warp) * plan.chunks_per_row
+    iters = -(-plan.items // (plan.blocks * plan.warps_per_block))
+    assert plan.blocks * plan.warps_per_block * iters >= plan.items
+
+
+@pytest.mark.parametrize("n,d,elem_bytes,chunk_bytes,rows_per_warp,blocks", [
+    (32, 5_120, 4, 2048, 1, 160),  # the LM decode retrieve: 10 chunks a row
+    (8, 5_120, 2, 2048, 1, 40),  # each LM decode assembly: 5 chunks a row
+    (13_312, 128, 4, 512, 4, 416),  # a DLRM serve window's assemblies
+    (65_536, 512, 2, 1024, 2, 4_096),  # an HSTU assembly
+])
+def test_gather_plan_spreads_the_main_path_shapes(n, d, elem_bytes, chunk_bytes,
+                                                  rows_per_warp, blocks):
+    plan = eg.launch_plan(n, d, elem_bytes, aligned=True)
+    assert (plan.chunk_bytes, plan.rows_per_warp, plan.blocks) == (
+        chunk_bytes, rows_per_warp, blocks)
+    assert plan.blocks >= 32
 
 
 def _segment_case(l, s, d, *, sort, integer, seed=1):
