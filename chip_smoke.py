@@ -5,7 +5,11 @@ Drives the port's main paths once on one NVIDIA GPU and holds every
 hand-written kernel on it against its plain PyTorch version:
 
 1. environment: the card's name and power limit, torch and CUDA versions,
-   TF32 switched off for matmuls and convolutions;
+   TF32 switched off for matmuls and convolutions, the host's memory
+   (``MemTotal``, ``MemAvailable``) and CPUs; then a pinned host tensor of
+   the ``dlrm-ctr`` master's size (29.19 GB): the seconds pinning took, and
+   one step's buffer (K = 319,488 rows x 128 f32, 163.6 MB) copied each
+   way from it, timed by CUDA events (``pin_probe``);
 2. build: compiles every kernel from ``src/repro_torch/csrc`` with nvcc, one
    process per source, all at once; each source's nvcc seconds, ptxas's
    registers and spills (the ``hstu_attention`` forward's by head dim), the
@@ -47,6 +51,34 @@ hand-written kernel on it against its plain PyTorch version:
 6. main path, serving: the trained weights served from the same session,
    4,096 requests in windows of 512, ``check_exact=True``, gather launches
    counted (and the four gathers of one serving window timed first);
+6a. full-width ``dlrm-ctr`` training through the host tier (a pinned
+   29.19 GB master in host memory), the cached tier (the default 3.65 GB
+   device cache, 8-row chunks, ``freq``), the cached tier again with a
+   cache of 131,072 rows under ``lru`` (the default one holds every chunk
+   a short run touches, so only this one evicts) and the device tier,
+   each from seed 0: one warm-up step, then 10 counted; the same losses and the
+   same master rows and adagrad state at every key the steps touched, bit
+   for bit; the master pinned, the card holding only the dense model, the
+   buffers and the cache while the steps run; per tier step p50 and p99,
+   samples/s, host ms per stage, bytes each way and the copies' device
+   time (so GB/s), peak device memory, and for the cached tier the hit
+   rate after the first step, bursts, admissions and evictions (the
+   evicting run must evict); launches counted;
+6b. the cached path's kernel calls from those runs (the default cache's
+   third assembly: the cache's and the staged misses' rows and their D = 1
+   adagrad state; its third admission's pulls and cache scatter; its third
+   commit's cache scatter and cold pulls; the evicting run's first
+   eviction's pulls), checked bit for bit
+   against the plain versions and timed beside ``index_select`` or
+   ``index_copy_`` and their byte bounds, each gather with its launch plan;
+6c. full-width serving through the cached tier: the master trained in 6a,
+   4,096 requests in windows of 512, ``head="dlrm"``, the read horizon on,
+   ``check_exact=True`` (``exact`` must be 1); qps, p50 and p99, the hit
+   rate and the admissions; launches counted;
+6d. each cache policy (freq, lfu, lru, oracle) on ``dlrm-cached``,
+   ``dlrm-drift`` and ``dlrm-growth`` (their full sizes) with a 1,024-row
+   cache, batch 1,024, 6 steps: the host tier's losses and master bit for
+   bit, evictions required; hit rates and evictions printed;
 7. consistency at the reduced ``dlrm-ctr``: nestpipe = serial = the naive
    reference trainer within 1e-5 over 6 steps, and async diverges; the
    reference, run twice from the same state, gives the same bits (its sum
@@ -111,20 +143,26 @@ hand-written kernel on it against its plain PyTorch version:
    max |logit| (``--profile``: the device idle share of a prefill and of 8
    decode steps);
 14. a ``{"kernels": [...]}`` line (the gather's LM serve as its 96 calls,
-   and apart as the prefill's three and one decode step's three) and,
-   last, the ``{"ok": true, ...}`` line.
+   and apart as the prefill's three and one decode step's three; the
+   gather's and the scatter's cached-path calls of 6b as
+   ``dlrm_cached_train_calls``; launches by path, the host and cached
+   tiers' training and the cached tier's serving among them) and, last,
+   the ``{"ok": true, ...}`` line.
 
 Every phase prints one JSON line. Nothing is caught: any failure exits
 non-zero. Run from the repo root: ``python3 chip_smoke.py`` (``--profile``
 adds a host breakdown and a ``torch.profiler`` pass over 4 training steps
-and over the serving path, one over 2 HSTU steps, and one over an LM
-prefill and 8 decode steps).
+and over the serving path, one over 4 more steps of the host and of the
+cached tier (read between a run's first stage after its ingest and its
+release), one over 2 HSTU steps, and one over an LM prefill and 8 decode
+steps).
 """
 from __future__ import annotations
 
 import argparse
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -144,6 +182,20 @@ MAX_BATCH = 512
 N_REQUESTS = 4096
 TIMED_RUNS = 30
 CONSISTENCY_STEPS = 6
+# the host and cached tiers at full width: counted steps after one warm-up.
+# The default cache (padded_rows / 8, 890,813 chunks) holds every chunk a
+# short run touches (~38k new a window), so a second cached run, with a
+# cache of 16,384 chunks under lru, evicts.
+TIER_STEPS = 10
+# The default cached run comes last: its session, and its 29.19 GB master
+# on the card, serve in 6c.
+TIER_RUNS = (("host", "host", {}),
+             ("cached-evicting", "cached", {"cache_rows": 131_072, "cache_policy": "lru"}),
+             ("device", "device", {}), ("cached", "cached", {}))
+# every cache policy against the host tier, on the archs whose full size is
+# their reduced one, with a cache small enough to evict
+POLICY_ARCHS = ("dlrm-cached", "dlrm-drift", "dlrm-growth")
+POLICY_BATCH, POLICY_STEPS, POLICY_CACHE_ROWS = 1024, 6, 1024
 HSTU_BATCH = 256  # the per-worker share of the 65,536 recsys batch over 256 workers
 HSTU_STEPS = 6
 # the hstu_attention forward's calls a step: 4 layers x 4 micro-batches x 2
@@ -190,10 +242,15 @@ KERNELS = {  # name -> (source, the Pallas kernel it replaces)
 }
 # the paths each kernel must run on (launched at least once there)
 RUNS_ON = {
-    "embedding_gather": ("dlrm_train", "dlrm_serve", "hstu_train", "lm_serve"),
-    "segment_rowsum": ("dlrm_train", "hstu_train"),
-    "buffer_sync": ("dlrm_train", "hstu_train"),
-    "embedding_scatter": ("dlrm_train", "hstu_train"),
+    "embedding_gather": ("dlrm_train", "dlrm_serve", "dlrm_host_train",
+                         "dlrm_cached_train", "dlrm_cached_serve", "hstu_train",
+                         "lm_serve"),
+    "segment_rowsum": ("dlrm_train", "dlrm_host_train", "dlrm_cached_train",
+                       "hstu_train"),
+    "buffer_sync": ("dlrm_train", "dlrm_host_train", "dlrm_cached_train", "hstu_train"),
+    # the host tier writes its master back on the host: no device scatter
+    "embedding_scatter": ("dlrm_train", "dlrm_cached_train", "dlrm_cached_serve",
+                          "hstu_train"),
     "hstu_attention_fwd": ("hstu_train",),
     "hstu_attention_bwd": ("hstu_train",),
     "flash_attention_wgmma": ("lm_serve",),
@@ -414,6 +471,7 @@ def main() -> int:
     from repro_torch.core.consistency import build_reference_step
     from repro_torch.core.embedding.engine import LookupPlan
     from repro_torch.core.embedding.routing import SENTINEL, sorted_lookup
+    from repro_torch.core.store import CACHE_POLICIES, CachedStore, HostStore
     from repro_torch.data.pipeline import make_cluster_transform, stage_to_device
     from repro_torch.kernels import build, dispatch, ref
     from repro_torch.kernels import buffer_sync as bs
@@ -453,11 +511,52 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
     peak = peak_bytes_per_s(name)
+    meminfo = {ln.split(":")[0]: int(ln.split()[1]) * 1024
+               for ln in Path("/proc/meminfo").read_text().splitlines()
+               if ln.split(":")[0] in ("MemTotal", "MemAvailable")}
     emit("env", nvidia_smi=smi[0], device=name, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda,
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
-         peak_bytes_per_s=peak)
+         peak_bytes_per_s=peak, host_mem_total_gb=meminfo["MemTotal"] / 1e9,
+         host_mem_available_gb=meminfo["MemAvailable"] / 1e9,
+         cpu_count=os.cpu_count(), cpus_usable=len(os.sched_getaffinity(0)))
+
+    # the host tier's master, pinned: how long pinning a tensor of its size
+    # takes, and one step's buffer (K rows x 128 f32) copied each way
+    tier_wl = resolve(ARCH, device=dev, npcfg=NestPipeConfig(
+        fwp_microbatches=N_MICRO, bucket_slack=SLACK), global_batch=TRAIN_BATCH)
+    tier_k = tier_wl.engine.dims(tier_wl.batch_shapes["keys"][0][1:], N_MICRO).buffer_cap
+    t0 = time.perf_counter()
+    probe = torch.empty((tier_wl.spec.padded_rows, tier_wl.spec.dim), pin_memory=True)
+    pin_s = time.perf_counter() - t0
+    on_card = torch.empty((tier_k, tier_wl.spec.dim), device=dev)
+    copy_ms = {}
+    for way, (dst, src) in (("h2d", (on_card, probe[:tier_k])),
+                            ("d2h", (probe[:tier_k], on_card))):
+        times = []
+        for _ in range(5):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            dst.copy_(src, non_blocking=True)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        copy_ms[way] = statistics.median(times)
+    del dst, src  # the probe's views: its pinned block goes back to the cache
+    buf_bytes = on_card.numel() * 4
+    emit("pin_probe", master_gb=probe.numel() * 4 / 1e9, pin_s=pin_s,
+         pinned=probe.is_pinned(),
+         host_pinned_allocated_gb=torch.cuda.host_memory_stats().get(
+             "allocated_bytes.current", 0) / 1e9,
+         buffer_rows=tier_k, buffer_mb=buf_bytes / 1e6,
+         h2d_ms=copy_ms["h2d"], d2h_ms=copy_ms["d2h"],
+         h2d_gb_per_s=buf_bytes / copy_ms["h2d"] / 1e6,
+         d2h_gb_per_s=buf_bytes / copy_ms["d2h"] / 1e6)
+    if not probe.is_pinned():
+        raise SystemExit("the pinned probe tensor is not pinned")
+    tier_dim = tier_wl.spec.dim
+    del probe, on_card, tier_wl
 
     # -- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -1072,6 +1171,314 @@ def main() -> int:
             span = time.perf_counter() - t0
         emit_profile(prof, "serve_profile", span, requests=N_REQUESTS)
     del sess, model, table, state, rep, srep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 6a. full-width dlrm-ctr training through the host and cached tiers
+    # the same seed and steps through each tier, then the device tier: the
+    # same losses and the same master rows and adagrad state, bit for bit,
+    # at every key the steps touched
+    tier_kw = dict(mode="nestpipe", global_batch=TRAIN_BATCH, n_micro=N_MICRO,
+                   bucket_slack=SLACK, seed=0)
+    touched = []  # the host tier's buffer keys, window by window
+    seen = {}  # what the wrapped store methods saw in the current run
+    # --profile: a record_function range from a run's first stage after its
+    # ingest to its release, the window its device idle share is read over
+    marker = {"on": False, "range": None}
+    real_tier = {m: getattr(HostStore, m) for m in ("ingest", "plan_from_window", "release")}
+
+    def tier_ingest(self, table):
+        t = time.perf_counter()
+        out = real_tier["ingest"](self, table)
+        torch.cuda.synchronize()
+        seen.update(ingest_s=time.perf_counter() - t, fresh=True)
+        return out
+
+    def tier_plan(self, window):
+        if seen.pop("fresh", False):
+            # the run's first stage after ingest: the device master is gone
+            torch.cuda.synchronize()
+            seen["device_gb_running"] = torch.cuda.memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            if marker["on"]:
+                marker["range"] = torch.profiler.record_function("tier_steady")
+                marker["range"].__enter__()
+        plan = real_tier["plan_from_window"](self, window)
+        if self.tier == "host":
+            touched.append(plan.host_keys.copy())
+        return plan
+
+    def tier_release(self):
+        torch.cuda.synchronize()
+        if marker["range"] is not None:
+            marker["range"].__exit__(None, None, None)
+            marker["range"] = None
+        seen.update(peak_device_gb_running=torch.cuda.max_memory_allocated() / 1e9,
+                    master_pinned=self.rows.is_pinned() and self.accum.is_pinned(),
+                    master_device=str(self.rows.device),
+                    master_gb=self.memory_bytes() / 1e9)
+        t = time.perf_counter()
+        out = real_tier["release"](self)
+        torch.cuda.synchronize()
+        seen["release_s"] = time.perf_counter() - t
+        return out
+
+    # the cached tier's device work, labelled by the store method it runs in:
+    # one call of each kept (the third, when the run has one; an eviction's
+    # first), every tensor by reference (only the cache is written later)
+    cached_calls = {}  # run -> label -> [(kind, args)]
+    run_name = None
+    label = []
+    nth = {}
+
+    def labelled(fn, name):
+        def run(self, *a, **kw):
+            nth[name] = nth.get(name, -1) + 1
+            if name == "evict" and nth[name] > 0 or name != "evict" and nth[name] > 2:
+                label.append(None)
+            else:
+                label.append(name)
+                cached_calls[run_name][name] = []
+            try:
+                return fn(self, *a, **kw)
+            finally:
+                label.pop()
+        return run
+
+    def captured(kind, fn):
+        def run(*a):
+            if label and label[-1] is not None:
+                cached_calls[run_name][label[-1]].append((kind, a))
+            return fn(*a)
+        return run
+
+    def tier_run(run, store, **kw):
+        nonlocal run_name
+        run_name = run
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        tsess = Session.from_arch(ARCH, store=store, **tier_kw, **kw)
+        warm_losses = tsess.train(1).stats.losses  # the report holds the table
+        torch.cuda.synchronize()
+        warm_seen = dict(seen)
+        seen.clear()
+        patched = []
+        if store == "cached":
+            nth.clear()
+            cached_calls[run] = {}
+            patched = [(CachedStore, m, getattr(CachedStore, m)) for m in
+                       ("_assemble", "_admit_chunks", "_writeback_chunks", "_commit_body")]
+            for (c, m, fn), name in zip(patched, ("assemble", "admit", "evict", "commit")):
+                setattr(c, m, labelled(fn, name))
+            patched += [(dispatch, m, getattr(dispatch, m)) for m in
+                        ("gather_rows", "scatter_rows")]
+            dispatch.gather_rows = captured("gather", patched[-2][2])
+            dispatch.scatter_rows = captured("scatter", patched[-1][2])
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            trep = tsess.train(TIER_STEPS)
+            torch.cuda.synchronize()
+        finally:
+            for c, m, fn in patched:
+                setattr(c, m, fn)
+        wall = time.perf_counter() - t0
+        launches = counts()
+        s = trep.summary
+        m = trep.stats.store_metrics
+        row = {"run": run, "store": store, "steps": TIER_STEPS, "warmup_steps": 1,
+               "losses": trep.stats.losses, "overflow_max": s["overflow_max"],
+               "samples_per_s": TRAIN_BATCH * TIER_STEPS / wall, "wall_s": wall,
+               "step_ms": [x * 1e3 for x in trep.stats.step_times],
+               "step_p50_ms": s["p50_step_s"] * 1e3, "step_p99_ms": s["p99_step_s"] * 1e3,
+               "stage_host_ms_per_step": {k: s[k] / TIER_STEPS for k in
+                                          ("plan_ms", "retrieve_ms", "commit_ms", "h2d_ms")},
+               "launches": launches, "device_gb_before_session": base_gb, **seen,
+               "warmup_ingest_s": warm_seen.get("ingest_s"),
+               "warmup_release_s": warm_seen.get("release_s")}
+        if store != "device":
+            row.update({k: m.get(k) for k in (
+                "h2d_bytes", "d2h_bytes", "h2d_copy_ms", "d2h_copy_ms", "wire_bytes",
+                "idx_bytes", "h2d_bursts", "d2h_bursts", "cache_evictions",
+                "cache_hits", "cache_misses", "cache_admissions", "cache_rows_used",
+                "cache_capacity")})
+            row.update({f"{w}_gb_per_s": m[f"{w}_bytes"] / m[f"{w}_copy_ms"] / 1e6
+                        if m[f"{w}_copy_ms"] else None for w in ("h2d", "d2h")})
+            row.update({k: s.get(k) for k in ("cache_hit_rate", "cache_hit_rate_steady")})
+        row.update(cache_rows=kw.get("cache_rows"), cache_policy=kw.get("cache_policy"))
+        row["host_pinned_allocated_gb"] = torch.cuda.host_memory_stats().get(
+            "allocated_bytes.current", 0) / 1e9
+        emit("tier_train", arch=ARCH, global_batch=TRAIN_BATCH, n_micro=N_MICRO,
+             bucket_slack=SLACK, **row)
+        if not all(np.isfinite(trep.stats.losses)) or s["overflow_max"] != 0:
+            raise SystemExit(f"the {store} tier's losses or routing are off: {s}")
+        return tsess, warm_losses + trep.stats.losses, row
+
+    for m, fn in (("ingest", tier_ingest), ("plan_from_window", tier_plan),
+                  ("release", tier_release)):
+        setattr(HostStore, m, fn)
+    try:
+        tiers = {}
+        for run, store, kw in TIER_RUNS:
+            tsess, losses, row = tier_run(run, store, **kw)
+            if run == "host":
+                keys_t = np.unique(np.concatenate(touched))
+                keys_t = torch.from_numpy(keys_t[keys_t != SENTINEL].astype(np.int64)).to(dev)
+            table = tsess.state.table
+            tiers[run] = (losses, table.rows[keys_t], table.accum[keys_t], row)
+            del table  # the next run of this session frees it
+            gc.collect()
+            torch.cuda.empty_cache()
+            if args.profile and run in ("host", "cached"):
+                # 4 more steps, after the comparison's rows were taken
+                marker["on"] = True
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    tsess.train(4)
+                    torch.cuda.synchronize()
+                    span = time.perf_counter() - t0
+                marker["on"] = False
+                emit_profile(prof, "tier_profile", span, window="tier_steady",
+                             run=run, steps=4)
+                del prof
+            if run == "cached":
+                csess = tsess  # serves in 6c
+            del tsess
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        for m, fn in real_tier.items():
+            setattr(HostStore, m, fn)
+    dev_losses, dev_rows, dev_accum, _ = tiers["device"]
+    same = {run: {"losses": tiers[run][0] == dev_losses,
+                  "rows": torch.equal(tiers[run][1], dev_rows),
+                  "accum": torch.equal(tiers[run][2], dev_accum)}
+            for run in tiers if run != "device"}
+    emit("tier_consistency", arch=ARCH, steps=1 + TIER_STEPS,
+         touched_keys=keys_t.numel(), equal_to_device_tier=same,
+         device_losses=dev_losses)
+    for run in same:
+        row = tiers[run][3]
+        if not all(same[run].values()):
+            raise SystemExit(f"the {run} run differs from the device tier: {same}")
+        if not row["master_pinned"] or row["master_device"] != "cpu":
+            raise SystemExit(f"the {run} run's master is not pinned host memory")
+        # on the card: the dense model, the buffers and (cached) the cache
+        cache_gb = (row["cache_capacity"] or 0) * (tier_dim * 4 + 4) / 1e9
+        if row["device_gb_running"] - row["device_gb_before_session"] > cache_gb + 1.0:
+            raise SystemExit(f"the {run} run holds more than its cache on the card: {row}")
+    if tiers["cached-evicting"][3]["cache_evictions"] == 0:
+        raise SystemExit("the full-width cached run with a small cache evicted nothing")
+    host_train_launches = tiers["host"][3]["launches"]
+    cached_train_launches = tiers["cached"][3]["launches"]
+    del tiers, dev_rows, dev_accum
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 6b. the cached path's kernel calls, checked and timed ---------------
+    need = {"assemble": ("gather",) * 4, "admit": ("gather", "gather", "scatter"),
+            "evict": ("gather", "gather"), "commit": ("scatter",)}
+    calls_of = {lab: cached_calls["cached-evicting" if lab == "evict" else "cached"]
+                .get(lab, []) for lab in need}
+    for lab, kinds in need.items():
+        got = tuple(k for k, _ in calls_of[lab])
+        if got[:len(kinds)] != kinds:
+            raise SystemExit(f"the cached tier's {lab} ran {got}, not {kinds}")
+    cached_shapes = {"embedding_gather": [], "embedding_scatter": []}
+    for lab in need:
+        for kind, a in calls_of[lab]:
+            if kind == "gather":
+                src, idx = a
+                call = f"{lab}: {idx.numel():,} of {src.shape[0]:,} x {src.shape[1]}"
+                check_gather(call, src, idx)
+                cached_shapes["embedding_gather"].append(
+                    timed_gather("dlrm_cached_train", call, src, idx))
+                continue
+            cache, cache_acc, idx, rows, accum = a
+            call = f"{lab}: {idx.numel():,} slots into {cache.shape[0]:,} x {cache.shape[1]}"
+            check_scatter(call, cache, cache_acc, idx, rows, accum)
+            work, work_acc = cache.clone(), cache_acc.clone()
+            valid = (idx >= 0) & (idx < cache.shape[0])
+            lib_dst, lib_rows = idx[valid].long(), rows[valid]
+            nbytes = scatter_bytes(cache, idx)
+            row = {"kernel": "embedding_scatter", "call": call, "table_rows": cache.shape[0],
+                   "n": idx.numel(), "valid": int(valid.sum()), "dim": rows.shape[1],
+                   "bytes": nbytes,
+                   "ms": time_ms(torch, lambda: es.embedding_scatter(
+                       work, work_acc, idx, rows, accum), flush),
+                   "plain_ms": time_ms(torch, lambda: ref.embedding_scatter_ref(
+                       work, work_acc, idx, rows, accum), flush),
+                   "library_ms": time_ms(torch, lambda: work.index_copy_(0, lib_dst, lib_rows),
+                                         flush),
+                   "library_call": "index_copy_ of the rows only, valid indices "
+                                   "selected beforehand",
+                   "bound_ms": nbytes / peak * 1e3}
+            cached_shapes["embedding_scatter"].append(row)
+            emit("kernel_shape", path="dlrm_cached_train", **row)
+            del work, work_acc, lib_dst, lib_rows
+    del cached_calls, calls_of
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 6c. full-width serving through the cached tier ----------------------
+    reset_counts()
+    t0 = time.perf_counter()
+    crep = csess.serve_embeddings(num_requests=N_REQUESTS, max_batch=MAX_BATCH,
+                                  head="dlrm", check_exact=True)
+    wall = time.perf_counter() - t0
+    cached_serve_launches = counts()
+    s = crep.summary
+    emit("cached_serve", arch=ARCH, store=s["store"], head="dlrm",
+         weights="trained through the cached tier", requests=N_REQUESTS,
+         max_batch=MAX_BATCH, windows=int(s["windows"]), qps=s["qps"],
+         latency_p50_ms=s["latency_p50_ms"], latency_p99_ms=s["latency_p99_ms"],
+         serve_wall_s=s["wall_s"], total_wall_s=wall, exact=s["exact"],
+         max_abs_diff=s["max_abs_diff"], read_horizon=True,
+         **{k: s.get(k) for k in ("cache_hit_rate", "cache_hits", "cache_misses",
+                                  "cache_admissions", "cache_evictions", "h2d_bytes",
+                                  "d2h_bytes", "h2d_bursts", "h2d_copy_ms",
+                                  "retrieve_ms", "plan_ms")},
+         launches=cached_serve_launches)
+    if s["exact"] != 1 or s["store"] != "frozen-cached":
+        raise SystemExit(f"the cached tier did not serve the master exactly: {s}")
+    if crep.results.shape != (N_REQUESTS,) or not np.isfinite(crep.results).all():
+        raise SystemExit("served logits are not finite of shape (requests,)")
+    del csess, crep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 6d. every cache policy on the card replays the host tier -------------
+    policy_runs = []
+    for parch in POLICY_ARCHS:
+        pkw = dict(mode="nestpipe", global_batch=POLICY_BATCH, n_micro=N_MICRO, seed=0)
+        init = clone_state(Session.from_arch(parch, **pkw).state)
+        host = Session.from_arch(parch, store="host", **pkw)
+        host.state = clone_state(init)
+        hrep = host.train(POLICY_STEPS)
+        for pol in CACHE_POLICIES:
+            csess = Session.from_arch(parch, store="cached", cache_rows=POLICY_CACHE_ROWS,
+                                      cache_policy=pol, **pkw)
+            csess.state = clone_state(init)
+            prep = csess.train(POLICY_STEPS)
+            m = prep.stats.store_metrics
+            same = (prep.stats.losses == hrep.stats.losses
+                    and torch.equal(csess.state.table.rows, host.state.table.rows)
+                    and torch.equal(csess.state.table.accum, host.state.table.accum))
+            policy_runs.append({
+                "arch": parch, "policy": pol, "equal_to_host_tier": same,
+                "cache_hit_rate": prep.summary.get("cache_hit_rate"),
+                "cache_hit_rate_steady": prep.summary.get("cache_hit_rate_steady"),
+                **{k: m[k] for k in ("cache_evictions", "cache_admissions", "h2d_bursts",
+                                     "d2h_bursts", "cache_hits", "cache_misses")}})
+            if not same:
+                raise SystemExit(f"{parch} under {pol} differs from the host tier")
+            if m["cache_evictions"] == 0:
+                raise SystemExit(f"{parch} under {pol} evicted nothing")
+        del init, host, hrep, csess, prep
+    emit("cache_policies", cache_rows=POLICY_CACHE_ROWS, global_batch=POLICY_BATCH,
+         steps=POLICY_STEPS, runs=policy_runs)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- 7. consistency at the reduced size ---------------------------------
     kw = dict(reduced=True, global_batch=32, n_micro=N_MICRO, seed=1)
@@ -1746,6 +2153,9 @@ def main() -> int:
     for kname, (source, replaces) in KERNELS.items():
         by_path = {"dlrm_train": train_launches[kname],
                    "dlrm_serve": serve_launches[kname],
+                   "dlrm_host_train": host_train_launches[kname],
+                   "dlrm_cached_train": cached_train_launches[kname],
+                   "dlrm_cached_serve": cached_serve_launches[kname],
                    "hstu_train": hstu_launches[kname],
                    "lm_serve": lm_launches[kname]}
         for path in RUNS_ON[kname]:
@@ -1810,6 +2220,12 @@ def main() -> int:
                 "prefill": prefill, "decode_step": decode_step,
                 "calls": f"the prefill's {', '.join(x['call'] for x in lm_gathers[:3])}; "
                          f"{decode_steps} x the first decode step's"}
+        if kname in cached_shapes:  # the cached tier's calls (phase 6b)
+            calls = cached_shapes[kname]
+            entry["dlrm_cached_train_calls"] = {
+                **{k: sum(x[k] for x in calls)
+                   for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+                "calls": [x["call"] for x in calls]}
         if kname == "segment_rowsum":  # the op's parts per step: sort, starts, sum, combine
             for step, calls in ((entry, rows), (entry["hstu_train_step"], hshapes[kname])):
                 step["parts_ms"] = {k: sum(x["parts_ms"][k] for x in calls)
@@ -1822,31 +2238,46 @@ def main() -> int:
     return 0
 
 
-def emit_profile(prof, phase, span, **fields):
+def emit_profile(prof, phase, span, window=None, **fields):
     """Device busy time and idle share of a profiled span, and its top
     kernels and host ops. Busy time is the union of the intervals of the
     profiler's device-side events (kernels, copies, sets); an operator that
     launched a kernel carries the kernel's time too and is not counted
-    again."""
+    again. ``window`` names a host-side ``record_function`` range: the span
+    is then that range, and only device time inside it counts."""
     from torch.autograd import DeviceType
 
+    lo, hi = float("-inf"), float("inf")
+    marks = [e for e in prof.events()
+             if window and e.name == window and e.device_type == DeviceType.CPU]
+    if marks:
+        lo, hi = marks[0].time_range.start, marks[0].time_range.end
+        span = (hi - lo) / 1e6
+    # device work: every device-side event but the range's own annotation
+    on_device = [e for e in prof.events()
+                 if e.device_type != DeviceType.CPU and not (window and e.name == window)]
     busy_us, end = 0.0, float("-inf")
-    for a, b in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type != DeviceType.CPU):
-        if b > end:
+    per_kernel = {}
+    for e in on_device:
+        a, b = max(e.time_range.start, lo), min(e.time_range.end, hi)
+        if b > a:
+            n, us = per_kernel.get(e.name, (0, 0.0))
+            per_kernel[e.name] = (n + 1, us + b - a)
+    for a, b in sorted((max(e.time_range.start, lo), min(e.time_range.end, hi))
+                       for e in on_device):
+        if b > end and b > a:
             busy_us += b - max(a, end)
             end = b
     events = prof.key_averages()
-    device = sorted((e for e in events if e.device_type != DeviceType.CPU),
-                    key=lambda e: -e.self_device_time_total)
+    device = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])
     host = sorted((e for e in events if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)
     emit(phase, **fields, wall_ms=span * 1e3, device_busy_ms=busy_us / 1e3,
          device_idle_share=1 - busy_us / 1e3 / (span * 1e3),
-         device_kernels_ms=sum(e.self_device_time_total for e in device) / 1e3,
+         device_kernels_ms=sum(us for _, us in per_kernel.values()) / 1e3,
          host_torch_ops_ms=sum(e.self_cpu_time_total for e in host) / 1e3,
-         top_device=[{"name": e.key[:70], "count": e.count,
-                      "ms": e.self_device_time_total / 1e3} for e in device[:12]],
+         top_device=[{"name": k[:70], "count": n, "ms": us / 1e3}
+                     for k, (n, us) in device[:12]],
          top_host=[{"name": e.key[:70], "count": e.count,
                     "ms": e.self_cpu_time_total / 1e3} for e in host[:10]])
 

@@ -95,6 +95,7 @@ class Session:
         self._fns = None
         self._optimizer = None
         self._state: Optional[TrainState] = None
+        self._state_taken = False  # a train run holds the state
         self._model: Optional[DLRM] = None
         self._model_of: Optional[Dict[str, torch.Tensor]] = None
         # LM weights: (seed they were drawn from, or None if ingested,
@@ -114,6 +115,9 @@ class Session:
         clustering: str = "keycentric",
         bucket_slack: float = 4.0,
         store: str = "auto",
+        cache_rows: int = 0,
+        cache_chunk_rows: int = 0,
+        cache_policy: str = "auto",
         prefetch_ahead: int = 1,
         npcfg: Optional[NestPipeConfig] = None,
         opt_cfg: Optional[OptimizerConfig] = None,
@@ -128,7 +132,17 @@ class Session:
         the JAX package's recsys batch), split into ``n_micro`` FWP
         micro-batches. ``bucket_slack`` sizes the routing buffers (C and K):
         4.0 only pads them on one shard, 1.5 is the ``NestPipeConfig``
-        default. ``prefetch_ahead`` is the DBP lookahead depth k."""
+        default. ``prefetch_ahead`` is the DBP lookahead depth k.
+
+        ``store`` picks the embedding tier for the pipelined modes
+        (``"device" | "host" | "cached"``; ``"auto"`` resolves
+        ``$REPRO_STORE``, then the device tier). ``cache_rows`` sizes the
+        cached tier's device cache (0: the config's, ``padded_rows // 8``
+        by default), ``cache_chunk_rows`` its chunk (0: the config's, 8)
+        and ``cache_policy`` its eviction policy (``"freq" | "lfu" | "lru" |
+        "oracle"``; ``"auto"`` resolves ``$REPRO_CACHE_POLICY``, then
+        ``"freq"``). Every tier and policy replays the device tier's
+        trajectory bit for bit."""
         strategy = get_strategy(mode)  # fail fast on unknown modes
         device = resolve_device(device)
         npcfg = npcfg or NestPipeConfig(fwp_microbatches=n_micro,
@@ -137,6 +151,12 @@ class Session:
         overlay = {}
         if store != "auto":
             overlay["store"] = store
+        if cache_rows != 0:
+            overlay["cache_rows"] = cache_rows
+        if cache_chunk_rows != 0:
+            overlay["cache_chunk_rows"] = cache_chunk_rows
+        if cache_policy != "auto":
+            overlay["cache_policy"] = cache_policy
         if prefetch_ahead != 1:
             overlay["prefetch_ahead"] = prefetch_ahead
         if overlay:
@@ -181,6 +201,9 @@ class Session:
         if self.is_lm:
             raise NotImplementedError(LM_TRAINING_NOT_PORTED)
         if self._state is None:
+            if self._state_taken:
+                raise RuntimeError("the train state went to a train run that "
+                                   "failed: it cannot be recovered")
             g = torch.Generator(self.device).manual_seed(self.seed)
             self._state = self.workload.init_state(g, self.optimizer)
         return self._state
@@ -188,7 +211,7 @@ class Session:
     @state.setter
     def state(self, value: TrainState) -> None:
         self._check_table(value.table)
-        self._state = value
+        self._state, self._state_taken = value, False
 
     def _check_table(self, table: EmbeddingTableState) -> None:
         spec = self.workload.spec
@@ -239,6 +262,7 @@ class Session:
         self._state = TrainState(
             dense, self.optimizer.init(dense), table,
             torch.zeros((), dtype=torch.int32, device=self.device))
+        self._state_taken = False
 
     # ------------------------------------------------------------------
     # train
@@ -254,9 +278,12 @@ class Session:
         stream = resolve_stream(self.workload, self.seed, start_step=start)
         driver = self.strategy.build_driver(self.fns, stream, self.workload)
         t0 = time.perf_counter()
-        state, stats = driver.run(self.state, max(int(steps), 0))
+        # the run takes the state over (as a JAX run takes it donated): no
+        # reference stays here, so a host tier frees the device master
+        # once it holds the host copy
+        state, stats = driver.run(self._take_state(), max(int(steps), 0))
         wall = time.perf_counter() - t0
-        self._state = state
+        self._state, self._state_taken = state, False
         summary = stats.summary()
         gb = self.workload.global_batch
         summary.update({
@@ -270,6 +297,11 @@ class Session:
         })
         return TrainReport(state=state, stats=stats, wall_s=wall,
                            stragglers=len(stats.straggler_steps), summary=summary)
+
+    def _take_state(self) -> TrainState:
+        state, self._state = self.state, None
+        self._state_taken = True
+        return state
 
     # ------------------------------------------------------------------
     # serve

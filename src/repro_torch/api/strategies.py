@@ -18,10 +18,29 @@ from ..core.store import build_store
 from ..serve import FrozenStoreView
 
 
-def build_workload_store(workload):
-    """Build the store a resolved workload's config asks for."""
-    return build_store(workload.npcfg.store, workload.engine,
-                       n_micro=workload.n_micro)
+def build_workload_store(workload, *, serial: bool = False):
+    """Build the store a resolved workload's config asks for: one seam for
+    the training drivers and the serving replicas, so a replica gets the
+    tier its training run would use.
+
+    The serial baseline is device-resident by definition: an explicit
+    non-device store in the config raises, while ``$REPRO_STORE`` (a blunt
+    override for whole-suite sweeps) falls back to the device tier."""
+    npcfg = workload.npcfg
+    name = npcfg.store
+    if serial:
+        if name not in ("auto", "device"):
+            raise ValueError(
+                f"mode 'serial' is the device-resident baseline; "
+                f"store={name!r} needs a pipelined mode (nestpipe | async)")
+        name = "device"
+    return build_store(
+        name, workload.engine, n_micro=workload.n_micro,
+        cache_rows=npcfg.cache_rows, cache_admit=npcfg.cache_admit,
+        cache_chunk_rows=npcfg.cache_chunk_rows,
+        cache_policy=npcfg.cache_policy,
+        prefetch_ahead=npcfg.prefetch_ahead,
+        sparse_comm=npcfg.sparse_comm)
 
 
 @dataclass(frozen=True)
@@ -42,7 +61,8 @@ class DriverStrategy:
         driver_kw.setdefault("metrics_every", self.metrics_every)
         driver_kw.setdefault("lookahead", workload.npcfg.prefetch_ahead)
         if "store" not in driver_kw:
-            driver_kw["store"] = build_workload_store(workload)
+            driver_kw["store"] = build_workload_store(
+                workload, serial=self.driver_mode == "serial")
         return DBPDriver(fns, stream, workload.n_micro, mode=self.driver_mode,
                          **driver_kw)
 

@@ -201,9 +201,22 @@ class NestPipeConfig:
     # Fixed-capacity routing knobs (static shapes).
     unique_capacity_factor: float = 1.0  # U_max = ceil(L * factor)
     bucket_slack: float = 1.5  # C = ceil(U_max / S * slack)
-    # Embedding storage tier: "auto" resolves to "device"; "host" and
-    # "cached" are not ported yet (core/store/base.py raises).
+    # Embedding storage tier: "auto" resolves $REPRO_STORE, then "device";
+    # "device" | "host" | "cached" force one (core/store).
     store: str = "auto"
+    # The cached tier: its device cache in rows (0 = padded_rows // 8), the
+    # access count a chunk needs before admission, the chunk (the unit of
+    # admission, eviction and host<->device bursts) in rows, and the
+    # eviction policy ("auto" resolves $REPRO_CACHE_POLICY, then "freq";
+    # core/store/policy.py). None of them changes a value: every setting
+    # replays the host tier bit for bit.
+    cache_rows: int = 0
+    cache_admit: int = 1
+    cache_chunk_rows: int = 8
+    cache_policy: str = "auto"
+    # The host tiers' sparse-path wire mode ("auto" resolves
+    # $REPRO_SPARSE_COMM, then "off"; only "off" is ported, core/store/comm.py).
+    sparse_comm: str = "auto"
     # DBP lookahead depth k: the Prefetcher routes and retrieves step t+k
     # while step t computes (k=1 is the paper's dual-buffer setting).
     prefetch_ahead: int = 1

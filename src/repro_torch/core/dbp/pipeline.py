@@ -9,7 +9,7 @@ Orchestrates the inter-batch pipeline over a batch stream:
                                the intersection sync against the window
                                just updated (4b, ``sync_buffers``)
     stage 5  fwd/bwd (FWP)   — the frozen window over N micro-batches
-    stage 6  commit          — store.commit: in-place master write-back
+    stage 6  commit          — store.commit: the master write-back
 
 A :class:`~repro_torch.core.store.Prefetcher` keeps ``lookahead`` batches
 routed and retrieved ahead of the window, so their device work is queued
@@ -29,8 +29,14 @@ steps' events (it includes any time the device sat idle waiting for the
 host); on the CPU a drained span's host wall time is spread evenly over
 its steps, as the JAX driver does.
 
-Not ported (they come with the host tiers, ``ROADMAP.md`` Queue 1):
-``async_stages``, checkpoints, the preemption guard and the watchdog.
+The store is a seam: the device, host and cached tiers ride the same loop.
+``run`` consumes its state: the master moves into the store at the start
+(the state carries a zero-row placeholder) and comes back at the end, so
+a host tier frees the device copy while it runs, as long as the caller
+keeps no reference to it.
+
+Not ported (``ROADMAP.md``, port Queue 1): ``async_stages``, checkpoints,
+the preemption guard and the watchdog.
 """
 from __future__ import annotations
 
@@ -57,12 +63,30 @@ class PipelineStats:
     straggler_steps: List[int] = field(default_factory=list)
     overflow_max: int = 0
     store_tier: str = "device"
-    # cumulative store counters at the last drain
+    sparse_comm: str = "off"
+    # cumulative store counters at the last drain, and at the first drain
+    # after a step (the end of warm-up: the first calls and a cold cache)
     store_metrics: Dict[str, float] = field(default_factory=dict)
+    store_metrics_warm: Dict[str, float] = field(default_factory=dict)
 
     def add_input_wait(self, dt: float) -> None:
         self.input_wait_times.append(dt)
         self.input_wait_total += dt
+
+    def _cache_rates(self) -> Dict[str, float]:
+        out: Dict[str, float] = {}
+        m = self.store_metrics
+        if "cache_hits" in m:
+            total = m["cache_hits"] + m["cache_misses"]
+            if total:
+                out["cache_hit_rate"] = m["cache_hits"] / total
+            w = self.store_metrics_warm
+            if w:
+                dh = m["cache_hits"] - w.get("cache_hits", 0.0)
+                dm = m["cache_misses"] - w.get("cache_misses", 0.0)
+                if dh + dm > 0:
+                    out["cache_hit_rate_steady"] = dh / (dh + dm)
+        return out
 
     def summary(self) -> Dict[str, float]:
         st = np.asarray(self.step_times[1:] or self.step_times)
@@ -76,10 +100,14 @@ class PipelineStats:
             "final_loss": self.losses[-1] if self.losses else float("nan"),
             "overflow_max": self.overflow_max,
             "store": self.store_tier,
+            "sparse_comm": self.sparse_comm,
         }
-        for k in STAGE_TIMER_KEYS:
+        for k in ("h2d_bytes", "d2h_bytes", "h2d_bursts", "d2h_bursts",
+                  "wire_bytes", "idx_bytes", "h2d_copy_ms",
+                  "d2h_copy_ms") + STAGE_TIMER_KEYS:
             if k in self.store_metrics:
                 out[k] = self.store_metrics[k]
+        out.update(self._cache_rates())
         return out
 
 
@@ -145,6 +173,8 @@ class _MetricsDrain:
         self._wait_mark = self.stats.input_wait_total
         if self.store is not None:
             self.stats.store_metrics = dict(self.store.metrics())
+            if not self.stats.store_metrics_warm and self.stats.step_times:
+                self.stats.store_metrics_warm = dict(self.stats.store_metrics)
 
 
 class DBPDriver:
@@ -156,7 +186,7 @@ class DBPDriver:
         source: Iterator,  # yields dict batches with a "keys" field (numpy)
         n_micro: int,
         *,
-        store,  # core.store.DeviceStore over the workload's engine
+        store,  # a core.store tier over the workload's engine
         mode: str = "nestpipe",  # "nestpipe" | "async" | "serial"
         clustering: str = "keycentric",
         device_fields: Optional[List[str]] = None,  # batch fields shipped to device
@@ -205,9 +235,10 @@ class DBPDriver:
     # -- main loop --------------------------------------------------------
 
     def run(self, state: TrainState, num_steps: int):
-        """Train ``num_steps`` steps from ``state``. The master table is
-        updated in place; returns ``(state, stats)``."""
-        stats = PipelineStats(store_tier=self.store.tier)
+        """Train ``num_steps`` steps from ``state``, which the run consumes
+        (see the module docstring); returns ``(state, stats)``."""
+        stats = PipelineStats(store_tier=self.store.tier,
+                              sparse_comm=self.store.sparse_comm)
         drain = _MetricsDrain(stats, self.straggler_factor, store=self.store)
         try:
             with torch.no_grad():
@@ -216,6 +247,9 @@ class DBPDriver:
                     return self._run_serial(state, num_steps, stats, drain)
                 if num_steps <= 0:
                     return state, stats
+                # the master moves into the store; the old state's table
+                # goes with this rebinding
+                state = state._replace(table=self.store.ingest(state.table))
                 return self._run_pipelined(state, num_steps, stats, drain)
         finally:
             self.queue.close()
@@ -231,7 +265,6 @@ class DBPDriver:
         return state, stats
 
     def _run_pipelined(self, state, num_steps, stats, drain):
-        state = state._replace(table=self.store.ingest(state.table))
         sync_on = self.mode == "nestpipe"
         pf = Prefetcher(lambda: self._next_device_batch(stats), self.store,
                         depth=self.lookahead)

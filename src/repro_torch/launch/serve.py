@@ -36,7 +36,8 @@ def serve(argv=None):
     p.add_argument("--gen", type=int, default=8)
     # recsys embedding-serving path
     p.add_argument("--store", default="auto",
-                   help="embedding tier: device | auto")
+                   help="embedding tier: device | host | cached | auto "
+                        "(auto: $REPRO_STORE, then device)")
     p.add_argument("--requests", type=int, default=256)
     p.add_argument("--max-batch", type=int, default=32,
                    help="window size (requests coalesced per dispatch)")

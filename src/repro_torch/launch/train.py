@@ -7,9 +7,16 @@
 
 runs on the GPU (``--device cpu`` for the plain PyTorch path, with
 ``--reduced`` for a CPU-sized model). ``--arch`` takes any ported registry
-arch (``dlrm-*``, ``hstu-industrial``); the full ``hstu-industrial``
-master (309 GB) needs the host tier, so on one card it runs ``--reduced``.
-No checkpoint flags: checkpoints are not ported yet.
+arch (``dlrm-*``, ``hstu-industrial``); ``--store`` picks the embedding
+tier (``device``, ``host``: the master in host memory, ``cached``: a
+device cache over it):
+
+    REPRO_CACHE_POLICY=oracle python -m repro_torch.launch.train \
+        --arch dlrm-drift --reduced --device cpu --store cached --steps 6
+
+The full ``hstu-industrial`` master (309 GB) needs the host tier at a
+size this launcher does not reach yet, so on one card it runs
+``--reduced``. No checkpoint flags: checkpoints are not ported yet.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ import argparse
 import json
 
 from ..api import Session, available_strategies
+from ..core.store import STORES
 
 
 def train(argv=None):
@@ -31,6 +39,10 @@ def train(argv=None):
     p.add_argument("--bucket-slack", type=float, default=4.0)
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--store", default="auto", choices=("auto", *STORES),
+                   help="embedding storage tier (auto: $REPRO_STORE, then "
+                        "device); the cached tier's policy is "
+                        "$REPRO_CACHE_POLICY (default freq)")
     p.add_argument("--prefetch-ahead", type=int, default=1,
                    help="DBP retrieval lookahead depth k")
     p.add_argument("--device", default=None,
@@ -41,7 +53,8 @@ def train(argv=None):
         args.arch, mode=args.mode, reduced=args.reduced,
         global_batch=args.global_batch, n_micro=args.n_micro,
         bucket_slack=args.bucket_slack, lr=args.lr, seed=args.seed,
-        prefetch_ahead=args.prefetch_ahead, device=args.device)
+        store=args.store, prefetch_ahead=args.prefetch_ahead,
+        device=args.device)
     report = sess.train(args.steps)
     print("[train] summary:", json.dumps(report.summary))
     return report.state, report.stats

@@ -144,6 +144,13 @@ class WindowBatcher:
     def pending(self) -> int:
         return len(self._queue)
 
+    def pending_keys(self) -> np.ndarray:
+        """Sorted unique keys of every still-queued request: the visible
+        horizon the cached tier's serving admission uses."""
+        if not self._queue:
+            return np.empty((0,), np.int32)
+        return np.unique(np.concatenate([r.keys for r in self._queue]))
+
     # -- window formation --------------------------------------------------
 
     def ready(self) -> bool:

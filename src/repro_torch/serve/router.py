@@ -2,11 +2,13 @@
 
 One window trip is the DBP data path with the epilogue cut off:
 
-    plan (stage 3 routing)  ->  retrieve (stage 4a)
-                            ->  head lookup (stage 5 FWP forward)
+    read horizon -> plan (stage 3 routing) -> retrieve (stage 4a)
+                 -> head lookup (stage 5 FWP forward)
 
-and nothing else — no commit, no gradient, no buffer rotation, and no
-read horizon: the device tier has no cache admission to feed. Two heads:
+and nothing else: no commit, no gradient, no buffer rotation. Before each
+window the router hands the view the keys of that window and of every
+queued request (the read horizon, which a cached tier's admission uses).
+Two heads:
 
 - ``embedding``: the raw (F, D) embedding rows per request;
 - ``dlrm``: the full DLRM dense forward, one logit per request.
@@ -62,6 +64,11 @@ class ServeRouter:
 
     @torch.inference_mode()
     def _dispatch(self, window: CoalescedWindow) -> None:
+        # the read horizon: this window's keys and every queued request's,
+        # so a cached tier admits exactly the keys it will see again
+        horizon = np.union1d(np.unique(window.keys),
+                             self.batcher.pending_keys()).astype(np.int32)
+        self.view.set_read_horizon(horizon)
         plan: FetchPlan = self.view.plan(window.keys[None])
         buffer = self.view.retrieve(plan)
         eng = self.engine

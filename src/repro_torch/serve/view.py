@@ -6,11 +6,14 @@ lookup serves embeddings out of that buffer, but nothing is ever written
 back. ``plan`` / ``route`` / ``plan_from_window`` / ``retrieve`` delegate
 to the wrapped tier unchanged; every mutation path raises
 :class:`ReadOnlyStoreError`; ``metrics`` drops the commit-stage fields a
-read path structurally lacks.
+read path structurally lacks. ``set_read_horizon`` forwards the request
+queue's visible keys to a cached tier's admission.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
+
+import numpy as np
 
 from ..core.embedding.engine import DualBuffer
 from ..core.store.base import FetchPlan
@@ -54,6 +57,16 @@ class FrozenStoreView:
     def retrieve(self, plan: FetchPlan) -> DualBuffer:
         self.reads += 1
         return self._store.retrieve(plan)
+
+    # -- read-tuned cache admission --------------------------------------
+
+    def set_read_horizon(self, keys: Optional[np.ndarray]) -> None:
+        """Hand the cached tier the keys visible in the request queue (plus
+        the window being dispatched): it then admits exactly the chunks it
+        will read again. A no-op on tiers without admission."""
+        setter = getattr(self._store, "set_admission_allow", None)
+        if setter is not None:
+            setter(keys)
 
     # -- mutation paths: rejected loudly ---------------------------------
 

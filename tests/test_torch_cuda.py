@@ -1,6 +1,6 @@
 """The port on the card: the hand-written CUDA kernels, the serving paths
-(DLRM embeddings, dense-LM prefill and decode) and the training paths (DLRM
-and HSTU).
+(DLRM embeddings, dense-LM prefill and decode), the training paths (DLRM
+and HSTU) and the host and cached embedding tiers.
 
 Every test here needs an NVIDIA GPU, carries the ``cuda`` marker and skips
 without one (the kernels have no CPU mode). The file imports no jax, so it
@@ -20,6 +20,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 from repro_torch.api import Session, resolve_stream
 from repro_torch.core.consistency import add_rows_in_order, build_reference_step
 from repro_torch.core.embedding.routing import SENTINEL
+from repro_torch.core.store import FetchPlan
 from repro_torch.kernels import buffer_sync as bs
 from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels import embedding_gather as eg
@@ -625,3 +626,128 @@ def test_reference_step_gives_the_same_bits_twice_on_the_card(cuda_device):
     assert torch.equal(a.table.rows, b.table.rows)
     assert torch.equal(a.table.accum, b.table.accum)
     assert all(torch.equal(a.dense[k], b.dense[k]) for k in a.dense)
+
+
+# ---------------------------------------------------------------------------
+# the host and cached tiers on the card
+# ---------------------------------------------------------------------------
+
+TIER_KW = dict(reduced=True, global_batch=32, n_micro=4, seed=3)
+
+
+def _tier_sessions(*tiers, **kw):
+    """Sessions on the card over ``tiers``, all from one initial state."""
+    init = clone_state(Session.from_arch("dlrm-ctr", **TIER_KW).state)
+    out = []
+    for tier in tiers:
+        sess = Session.from_arch("dlrm-ctr", store=tier, **TIER_KW, **kw)
+        sess.state = clone_state(init)
+        out.append(sess)
+    return out
+
+
+def test_host_and_cached_tiers_give_the_device_tiers_bits(cuda_device):
+    """Staging over the side stream (host tier) and the cache's kernel
+    gathers and scatters (cached tier) replay the device tier bit for bit:
+    losses, master rows and adagrad state."""
+    runs = [s.train(6) for s in _tier_sessions("device", "host", "cached")]
+    want = runs[0]
+    for rep in runs[1:]:
+        assert rep.stats.losses == want.stats.losses, rep.summary["store"]
+        assert torch.equal(rep.state.table.rows, want.state.table.rows)
+        assert torch.equal(rep.state.table.accum, want.state.table.accum)
+        assert rep.state.table.rows.is_cuda  # released to the card
+        assert rep.summary["h2d_copy_ms"] > 0 and rep.summary["d2h_copy_ms"] > 0
+
+
+def test_cached_tier_under_eviction_replays_the_host_tier(cuda_device):
+    host, = _tier_sessions("host")
+    want = host.train(6)
+    for policy in ("freq", "lru", "oracle"):
+        cached, = _tier_sessions("cached", cache_rows=32, cache_chunk_rows=4,
+                                 cache_policy=policy)
+        got = cached.train(6)
+        assert got.stats.store_metrics["cache_evictions"] > 0
+        assert got.stats.losses == want.stats.losses, policy
+        assert torch.equal(got.state.table.rows, want.state.table.rows), policy
+
+
+def test_host_master_is_pinned_and_stages_the_device_gathers_bits(cuda_device):
+    from repro_torch.core.store import HostStore
+
+    sess = Session.from_arch("dlrm-ctr", **TIER_KW)
+    table, spec = sess.state.table, sess.workload.spec
+    store = HostStore.from_device_table(sess.workload.engine, table)
+    assert store.rows.is_pinned() and store.accum.is_pinned()
+    assert not store.rows.is_cuda
+    keys = np.unique(np.random.default_rng(1).integers(0, spec.padded_rows, 300))
+    keys = np.pad(keys.astype(np.int32), (0, 64), constant_values=SENTINEL)
+    buf = store.stage(keys)
+    idx = torch.from_numpy(np.where(keys == SENTINEL, spec.padded_rows, keys)
+                           .astype(np.int32)).to(cuda_device)
+    assert buf.rows.is_cuda and torch.equal(buf.rows, ref.gather_rows_ref(table.rows, idx))
+    assert torch.equal(buf.accum, ref.gather_rows_ref(table.accum[:, None], idx)[:, 0])
+    torch.cuda.synchronize()
+    assert store.copies.times()["h2d_copy_ms"] > 0
+
+
+def test_cached_tier_kernels_run_and_equal_the_plain_versions(cuda_device):
+    """The cached tier's device work on the card (assembly gathers of the
+    rows and of the D = 1 adagrad state, admission pulls, cache scatters,
+    eviction pulls) against the same store on the CPU, bit for bit: the
+    kernels' counters move and every buffer, the cache and the master
+    agree."""
+    from repro_torch.core.store import CachedStore
+
+    gpu_sess = Session.from_arch("dlrm-ctr", **TIER_KW)
+    cpu_sess = Session.from_arch("dlrm-ctr", device="cpu", **TIER_KW)
+    table = gpu_sess.state.table
+    kw = dict(capacity=64, chunk_rows=4, miss_bucket=8, policy="lru")
+    gpu = CachedStore.from_device_table(gpu_sess.workload.engine, table, **kw)
+    cpu = CachedStore.from_device_table(cpu_sess.workload.engine,
+                                        clone_state(gpu_sess.state, "cpu").table, **kw)
+    rng = np.random.default_rng(2)
+    spec = gpu_sess.workload.spec
+    before = (eg.launches, es.launches)
+    for step in range(6):
+        keys = np.unique(rng.integers(0, spec.padded_rows, 40)).astype(np.int32)
+        keys = np.pad(keys, (0, 48 - keys.size), constant_values=SENTINEL)
+        plan = FetchPlan(None, keys)
+        got, want = gpu.retrieve(plan), cpu.retrieve(plan)
+        assert torch.equal(got.rows.cpu(), want.rows)
+        assert torch.equal(got.accum.cpu(), want.accum)
+        upd = rng.normal(size=want.rows.shape).astype(np.float32)
+        acc = rng.random(want.accum.shape[0]).astype(np.float32)
+        for store, buf in ((gpu, got), (cpu, want)):
+            dev = buf.rows.device
+            store.commit(buf._replace(rows=torch.from_numpy(upd).to(dev),
+                                      accum=torch.from_numpy(acc).to(dev)), plan)
+    assert gpu.evictions == cpu.evictions > 0
+    assert torch.equal(gpu.cache_rows.cpu(), cpu.cache_rows)
+    assert torch.equal(gpu.cache_accum.cpu(), cpu.cache_accum)
+    gathers, scatters = eg.launches - before[0], es.launches - before[1]
+    assert gathers >= 6 * 4 and scatters >= 6 * 2
+    assert torch.equal(gpu.export_table().rows.cpu(), cpu.export_table().rows)
+    assert gpu.rows.is_pinned()
+
+
+def test_accum_gather_at_one_column_runs_the_kernel(cuda_device):
+    g = torch.Generator(cuda_device).manual_seed(0)
+    accum = torch.rand(5000, device=cuda_device, generator=g)
+    idx = torch.randint(-3, 5010, (777,), device=cuda_device, generator=g,
+                        dtype=torch.int32)
+    before = eg.launches
+    got = dispatch.gather_rows(accum.view(-1, 1), idx)
+    assert eg.launches == before + 1
+    assert torch.equal(got, ref.gather_rows_ref(accum.view(-1, 1), idx))
+
+
+def test_cached_tier_serves_exactly_on_the_card(cuda_device):
+    sess, = _tier_sessions("cached")
+    sess.train(2)
+    before = (eg.launches, es.launches)
+    rep = sess.serve_embeddings(num_requests=64, max_batch=16, head="dlrm",
+                                check_exact=True)
+    assert rep.summary["exact"] == 1 and rep.summary["store"] == "frozen-cached"
+    assert rep.summary["cache_hits"] > 0
+    assert eg.launches > before[0] and es.launches > before[1]

@@ -11,6 +11,12 @@ and both packages serve the same synthetic requests, closed loop,
 - the port's own ``check_exact`` gives ``exact == 1``;
 - request streams are byte-equal.
 
+On ``dlrm-cached``, from the JAX session's weights, each tier (device,
+host, cached) serves the JAX tier's rows bit for bit, with the same cache
+counters, and serves its own trained master exactly; the cached tier
+serves hits with read-path metrics; ``pending_keys`` equals JAX's; the
+router hands every window's read horizon to the cached tier's admission.
+
 Also: the frozen view rejects every mutation, the default device raises
 without a GPU, and no module of the port imports jax or ``repro``.
 """
@@ -33,6 +39,7 @@ from repro.core.embedding.table import make_mega_table_spec as jmake_spec
 from repro.models.dlrm import init_dlrm_params
 from repro.serve import synthetic_requests as jrequests
 from repro_torch.api import Session
+from repro_torch.configs.base import NestPipeConfig
 from repro_torch.configs.registry import get_arch as tget_arch
 from repro_torch.convert import dlrm_params_from_jax, table_from_jax
 from repro_torch.core.embedding.table import make_mega_table_spec as tmake_spec
@@ -163,10 +170,120 @@ def test_default_device_raises_without_a_gpu(monkeypatch):
 
 
 def test_unported_store_tiers_raise():
+    """The host and cached tiers serve; what of them is not ported yet (the
+    ``pack`` and ``int8`` sparse-comm modes) raises, naming the roadmap."""
     sess = Session.from_arch(ARCH, reduced=True, device="cpu")
     for tier in ("host", "cached"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sess.serve_embeddings(num_requests=8, max_batch=8, store=tier)
+        rep = sess.serve_embeddings(num_requests=8, max_batch=8, store=tier,
+                                    check_exact=True)
+        assert rep.summary["exact"] == 1 and rep.summary["store"] == f"frozen-{tier}"
+        for mode in ("pack", "int8"):
+            packed = Session.from_arch(ARCH, reduced=True, device="cpu",
+                                       npcfg=NestPipeConfig(sparse_comm=mode))
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                packed.serve_embeddings(num_requests=8, max_batch=8, store=tier)
+
+
+# ---------------------------------------------------------------------------
+# the host and cached tiers (tests/test_serve.py mirrored on dlrm-cached)
+# ---------------------------------------------------------------------------
+
+CACHED_ARCH = "dlrm-cached"  # steep zipf: the cache's admission path
+TIERS = ("device", "host", "cached")
+
+
+def _cached_pair(store):
+    """A JAX session on ``dlrm-cached`` and a port session holding its
+    initial weights (dense params and master table)."""
+    js = JSession.from_arch(CACHED_ARCH, reduced=True, global_batch=16, seq_len=8,
+                            n_micro=4, store=store, lr=1e-2, data_seed=0)
+    state = jax.tree.map(lambda x: np.array(x, copy=True), js.state)
+    sess = Session.from_arch(CACHED_ARCH, reduced=True, global_batch=16, n_micro=4,
+                             store=store, lr=1e-2, device="cpu")
+    sess.ingest(dlrm_params_from_jax(state.dense),
+                table_from_jax(state.table.rows, state.table.accum, "cpu"))
+    return js, sess
+
+
+@pytest.mark.parametrize("store", TIERS)
+def test_served_rows_bit_exact_per_tier(store):
+    """Each tier serves the JAX tier's rows bit for bit from the same
+    weights, and after training serves its own master exactly."""
+    js, sess = _cached_pair(store)
+    want = js.serve_embeddings(num_requests=40, max_batch=8, store=store)
+    got = sess.serve_embeddings(num_requests=40, max_batch=8, store=store,
+                                check_exact=True)
+    np.testing.assert_array_equal(got.results, want.results)
+    assert got.summary["exact"] == 1 and got.summary["store"] == f"frozen-{store}"
+    for k in ("windows", "requests_done", "reads", "cache_hits", "cache_misses",
+              "h2d_bytes", "h2d_bursts"):
+        assert got.summary.get(k) == want.summary.get(k), k
+    sess.train(2)
+    rep = sess.serve_embeddings(num_requests=40, max_batch=8, store=store,
+                                check_exact=True)
+    assert rep.summary["exact"] == 1 and rep.summary["max_abs_diff"] == 0.0
+    assert rep.results.shape[0] == 40 and rep.summary["requests_done"] == 40.0
+
+
+def test_cached_tier_serves_hits_and_clean_metrics():
+    _, sess = _cached_pair("cached")
+    sess.train(2)
+    s = sess.serve_embeddings(num_requests=64, max_batch=16).summary
+    # the read horizon admits the keys the queue will ask for again
+    assert s["cache_hits"] > 0 and s["cache_hit_rate"] > 0
+    assert s["read_only"] == 1.0 and s["reads"] == s["windows"]
+    for k in COMMIT_METRIC_KEYS:
+        assert k not in s, (k, sorted(s))
+    assert "plan_ms" in s and "retrieve_ms" in s
+
+
+def test_pending_keys_equal_jax():
+    from repro.serve.batcher import WindowBatcher as JBatcher
+    from repro_torch.serve.batcher import WindowBatcher
+
+    rng = np.random.default_rng(7)
+    mine, theirs = WindowBatcher(4, 2.0), JBatcher(4, 2.0)
+    assert mine.pending_keys().size == theirs.pending_keys().size == 0
+    for step in range(6):
+        for _ in range(3):
+            keys = rng.integers(0, 500, size=6).astype(np.int32)
+            mine.submit(keys)
+            theirs.submit(keys)
+        got, want = mine.pending_keys(), theirs.pending_keys()
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+        if step % 2:
+            mine.next_window(force=True)
+            theirs.next_window(force=True)
+
+
+def test_read_horizon_reaches_the_cached_tiers_admission(monkeypatch):
+    """Before every window the router hands the cached tier the sorted
+    union of that window's keys and every queued request's."""
+    from repro_torch.core.store import CachedStore
+    from repro_torch.serve import ServeRouter
+
+    seen, windows = [], []
+    real_allow = CachedStore.set_admission_allow
+    real_dispatch = ServeRouter._dispatch
+
+    def allow(self, keys):
+        seen.append(None if keys is None else np.array(keys, copy=True))
+        return real_allow(self, keys)
+
+    def dispatch_(self, window):
+        windows.append((np.unique(window.keys), self.batcher.pending_keys()))
+        return real_dispatch(self, window)
+
+    monkeypatch.setattr(CachedStore, "set_admission_allow", allow)
+    monkeypatch.setattr(ServeRouter, "_dispatch", dispatch_)
+    _, sess = _cached_pair("cached")
+    rep = sess.serve_embeddings(num_requests=24, max_batch=8, check_exact=True)
+    assert rep.summary["exact"] == 1
+    assert len(seen) == len(windows) == rep.summary["windows"]
+    for got, (mine, queued) in zip(seen, windows):
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, np.union1d(mine, queued))
 
 
 def test_cli_serves_on_cpu(capsys):
@@ -190,7 +307,10 @@ def test_port_imports_neither_jax_nor_repro():
         "        'repro_torch.models.transformer', 'repro_torch.models.zoo',\n"
         "        'repro_torch.configs.stablelm_12b', 'repro_torch.configs.stablelm_3b',\n"
         "        'repro_torch.configs.yi_34b',\n"
-        "        'repro_torch.configs.nemotron_4_340b'} <= set(mods), mods\n"
+        "        'repro_torch.configs.nemotron_4_340b',\n"
+        "        'repro_torch.core.store.host', 'repro_torch.core.store.cached',\n"
+        "        'repro_torch.core.store.policy', 'repro_torch.core.store.comm',\n"
+        "        } <= set(mods), mods\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
