@@ -74,11 +74,36 @@ hand-written kernel on it against its plain PyTorch version:
 6c. full-width serving through the cached tier: the master trained in 6a,
    4,096 requests in windows of 512, ``head="dlrm"``, the read horizon on,
    ``check_exact=True`` (``exact`` must be 1); qps, p50 and p99, the hit
-   rate and the admissions; launches counted;
+   rate and the admissions; launches counted; then the same master served
+   again with ``sparse_comm="pack"`` (``exact`` 1, the same results, its
+   bytes beside ``off``'s);
 6d. each cache policy (freq, lfu, lru, oracle) on ``dlrm-cached``,
    ``dlrm-drift`` and ``dlrm-growth`` (their full sizes) with a 1,024-row
    cache, batch 1,024, 6 steps: the host tier's losses and master bit for
    bit, evictions required; hit rates and evictions printed;
+6e. the async stage executor at full width, as in 6a (seed 0, one warm-up
+   step, 10 counted): the host tier and the cached tier with
+   ``async_stages="on"`` and one stage worker, the host tier with
+   ``stage_workers=2`` at lookahead 3, and the host tier at lookahead 3
+   under a forced race (window 5's retrieve held until commit 3 is
+   submitted); each run's losses and the rows and adagrad state of every
+   touched key equal 6a's synchronous run of its tier bit for bit; the
+   race's hook log shows it happened, and it ran deferred repairs and more
+   than ``steps - 1`` ``buffer_sync`` launches; per run step p50 and p99,
+   samples/s, host ms per stage (on the worker threads), bytes and GB/s,
+   repairs by kind, the pinned host memory the counted steps allocated
+   (the caching host allocator's ``cudaHostAlloc`` calls and bytes), each
+   beside the synchronous run's (``--profile``: the device idle share over 4 steps of
+   each async tier, beside 6a's);
+6f. the sparse-comm modes at full width on 6a's evicting cache (131,072
+   rows, lru: the one that commits cold rows), sync and async: ``pack``
+   equals 6a's run of that cache (``off``) bit for bit, with
+   ``wire_bytes``, ``idx_bytes``, ``h2d_bytes`` and ``d2h_bytes`` beside
+   off's; ``int8`` prints its largest loss deviation from off, its
+   ``comm_rows_synced`` (required above 0) and ``comm_rows_deferred`` and
+   bytes, its losses finite; one more synchronous ``int8`` run syncs every
+   cold row (``min_sync_p`` = 1, none deferred, required) and prints its
+   deviation, which is the quantization's alone;
 7. consistency at the reduced ``dlrm-ctr``: nestpipe = serial = the naive
    reference trainer within 1e-5 over 6 steps, and async diverges; the
    reference, run twice from the same state, gives the same bits (its sum
@@ -146,7 +171,8 @@ hand-written kernel on it against its plain PyTorch version:
    and apart as the prefill's three and one decode step's three; the
    gather's and the scatter's cached-path calls of 6b as
    ``dlrm_cached_train_calls``; launches by path, the host and cached
-   tiers' training and the cached tier's serving among them) and, last,
+   tiers' training, every run of 6e and 6f, and the cached tier's serving
+   with and without ``pack`` among them) and, last,
    the ``{"ok": true, ...}`` line.
 
 Every phase prints one JSON line. Nothing is caught: any failure exits
@@ -167,6 +193,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import weakref
 from pathlib import Path
@@ -187,10 +214,32 @@ CONSISTENCY_STEPS = 6
 # short run touches (~38k new a window), so a second cached run, with a
 # cache of 16,384 chunks under lru, evicts.
 TIER_STEPS = 10
+# phase 6e: the async stage executor at full width, each run held to 6a's
+# synchronous run of its tier; the forced race holds window RACE_WINDOW's
+# retrieve until commit RACE_COMMIT is submitted
+ASYNC_RUNS = (("host-async", "host", {"async_stages": "on"}),
+              ("cached-async", "cached", {"async_stages": "on"}),
+              ("host-async-w2-k3", "host",
+               {"async_stages": "on", "stage_workers": 2, "prefetch_ahead": 3}),
+              ("host-async-race-k3", "host", {"async_stages": "on", "prefetch_ahead": 3}))
+RACE_WINDOW, RACE_COMMIT = 5, 3
+# phase 6f: the sparse-comm modes on 6a's evicting cache, sync and async,
+# held to 6a's run of that cache (off): pack bit for bit, int8 by its loss
+# deviation. The default cache holds every row 11 windows touch, so only
+# the evicting one commits cold rows: int8's selective sync runs there.
+COMM_CACHE = {"cache_rows": 131_072, "cache_policy": "lru"}
+COMM_RUNS = tuple((f"cached-evicting-{mode}" + ("-async" if on else ""), "cached",
+                   {**COMM_CACHE, "sparse_comm": mode,
+                    **({"async_stages": "on"} if on else {})})
+                  for mode in ("pack", "int8") for on in (False, True)) + (
+    # int8 with every cold row synced at each commit (min_sync_p = 1): the
+    # quantization's share of int8's loss deviation, without deferral's
+    ("cached-evicting-int8-sync-all", "cached", {**COMM_CACHE, "sparse_comm": "int8"}),)
+INT8_SYNC_ALL = "cached-evicting-int8-sync-all"
 # The default cached run comes last: its session, and its 29.19 GB master
 # on the card, serve in 6c.
 TIER_RUNS = (("host", "host", {}),
-             ("cached-evicting", "cached", {"cache_rows": 131_072, "cache_policy": "lru"}),
+             ("cached-evicting", "cached", COMM_CACHE),
              ("device", "device", {}), ("cached", "cached", {}))
 # every cache policy against the host tier, on the archs whose full size is
 # their reduced one, with a cache small enough to evict
@@ -240,17 +289,23 @@ KERNELS = {  # name -> (source, the Pallas kernel it replaces)
     "flash_attention_simple": ("src/repro_torch/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:70"),
 }
-# the paths each kernel must run on (launched at least once there)
+# the paths each kernel must run on (launched at least once there); 6e's and
+# 6f's runs are paths of their own
+TIER_PATHS = {run: "dlrm_" + run.replace("-", "_") + "_train"
+              for run, _, _ in ASYNC_RUNS + COMM_RUNS}
+CACHED_PATHS = tuple(TIER_PATHS[run] for run, store, _ in ASYNC_RUNS + COMM_RUNS
+                     if store == "cached") + ("dlrm_cached_pack_serve",)
 RUNS_ON = {
     "embedding_gather": ("dlrm_train", "dlrm_serve", "dlrm_host_train",
                          "dlrm_cached_train", "dlrm_cached_serve", "hstu_train",
-                         "lm_serve"),
+                         "lm_serve", "dlrm_cached_pack_serve") + tuple(TIER_PATHS.values()),
     "segment_rowsum": ("dlrm_train", "dlrm_host_train", "dlrm_cached_train",
-                       "hstu_train"),
-    "buffer_sync": ("dlrm_train", "dlrm_host_train", "dlrm_cached_train", "hstu_train"),
+                       "hstu_train") + tuple(TIER_PATHS.values()),
+    "buffer_sync": ("dlrm_train", "dlrm_host_train", "dlrm_cached_train", "hstu_train")
+    + tuple(TIER_PATHS.values()),
     # the host tier writes its master back on the host: no device scatter
     "embedding_scatter": ("dlrm_train", "dlrm_cached_train", "dlrm_cached_serve",
-                          "hstu_train"),
+                          "hstu_train") + CACHED_PATHS,
     "hstu_attention_fwd": ("hstu_train",),
     "hstu_attention_bwd": ("hstu_train",),
     "flash_attention_wgmma": ("lm_serve",),
@@ -471,7 +526,7 @@ def main() -> int:
     from repro_torch.core.consistency import build_reference_step
     from repro_torch.core.embedding.engine import LookupPlan
     from repro_torch.core.embedding.routing import SENTINEL, sorted_lookup
-    from repro_torch.core.store import CACHE_POLICIES, CachedStore, HostStore
+    from repro_torch.core.store import CACHE_POLICIES, CachedStore, HostStore, SparseComm
     from repro_torch.data.pipeline import make_cluster_transform, stage_to_device
     from repro_torch.kernels import build, dispatch, ref
     from repro_torch.kernels import buffer_sync as bs
@@ -1185,7 +1240,8 @@ def main() -> int:
     # --profile: a record_function range from a run's first stage after its
     # ingest to its release, the window its device idle share is read over
     marker = {"on": False, "range": None}
-    real_tier = {m: getattr(HostStore, m) for m in ("ingest", "plan_from_window", "release")}
+    real_tier = {m: getattr(HostStore, m)
+                 for m in ("ingest", "route", "plan_from_window", "release")}
 
     def tier_ingest(self, table):
         t = time.perf_counter()
@@ -1194,17 +1250,21 @@ def main() -> int:
         seen.update(ingest_s=time.perf_counter() - t, fresh=True)
         return out
 
-    def tier_plan(self, window):
+    def tier_route(self, keys):
         if seen.pop("fresh", False):
-            # the run's first stage after ingest: the device master is gone
+            # the run's first stage after ingest (on the driver thread in
+            # every mode): the device master is gone
             torch.cuda.synchronize()
             seen["device_gb_running"] = torch.cuda.memory_allocated() / 1e9
             torch.cuda.reset_peak_memory_stats()
             if marker["on"]:
                 marker["range"] = torch.profiler.record_function("tier_steady")
                 marker["range"].__enter__()
-        plan = real_tier["plan_from_window"](self, window)
-        if self.tier == "host":
+        return real_tier["route"](self, keys)
+
+    def tier_plan(self, window, after=None):
+        plan = real_tier["plan_from_window"](self, window, after)
+        if run_name == "host":
             touched.append(plan.host_keys.copy())
         return plan
 
@@ -1252,7 +1312,17 @@ def main() -> int:
             return fn(*a)
         return run
 
-    def tier_run(run, store, **kw):
+    class HookedStrategy:
+        """A session's strategy whose drivers get the executor's hooks."""
+
+        def __init__(self, inner, hooks):
+            self.inner, self.hooks, self.name = inner, hooks, inner.name
+
+        def build_driver(self, fns, stream, workload, **kw):
+            return self.inner.build_driver(fns, stream, workload,
+                                           stage_hooks=self.hooks, **kw)
+
+    def tier_run(run, store, capture=True, hooks=None, **kw):
         nonlocal run_name
         run_name = run
         base_gb = torch.cuda.memory_allocated() / 1e9
@@ -1262,7 +1332,9 @@ def main() -> int:
         warm_seen = dict(seen)
         seen.clear()
         patched = []
-        if store == "cached":
+        if hooks is not None:
+            tsess.strategy = HookedStrategy(tsess.strategy, hooks)
+        if store == "cached" and capture:
             nth.clear()
             cached_calls[run] = {}
             patched = [(CachedStore, m, getattr(CachedStore, m)) for m in
@@ -1273,6 +1345,7 @@ def main() -> int:
                         ("gather_rows", "scatter_rows")]
             dispatch.gather_rows = captured("gather", patched[-2][2])
             dispatch.scatter_rows = captured("scatter", patched[-1][2])
+        host0 = torch.cuda.host_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
         try:
@@ -1281,13 +1354,19 @@ def main() -> int:
         finally:
             for c, m, fn in patched:
                 setattr(c, m, fn)
+            tsess.strategy = getattr(tsess.strategy, "inner", tsess.strategy)
         wall = time.perf_counter() - t0
+        host1 = torch.cuda.host_memory_stats()
         launches = counts()
         s = trep.summary
         m = trep.stats.store_metrics
         row = {"run": run, "store": store, "steps": TIER_STEPS, "warmup_steps": 1,
                "losses": trep.stats.losses, "overflow_max": s["overflow_max"],
                "samples_per_s": TRAIN_BATCH * TIER_STEPS / wall, "wall_s": wall,
+               # the steps alone (the device-timeline spans), without the
+               # run's ingest and release of the master
+               "samples_per_s_in_steps": TRAIN_BATCH * len(trep.stats.step_times)
+               / sum(trep.stats.step_times),
                "step_ms": [x * 1e3 for x in trep.stats.step_times],
                "step_p50_ms": s["p50_step_s"] * 1e3, "step_p99_ms": s["p99_step_s"] * 1e3,
                "stage_host_ms_per_step": {k: s[k] / TIER_STEPS for k in
@@ -1304,7 +1383,21 @@ def main() -> int:
             row.update({f"{w}_gb_per_s": m[f"{w}_bytes"] / m[f"{w}_copy_ms"] / 1e6
                         if m[f"{w}_copy_ms"] else None for w in ("h2d", "d2h")})
             row.update({k: s.get(k) for k in ("cache_hit_rate", "cache_hit_rate_steady")})
-        row.update(cache_rows=kw.get("cache_rows"), cache_policy=kw.get("cache_policy"))
+        row.update(cache_rows=kw.get("cache_rows"), cache_policy=kw.get("cache_policy"),
+                   async_stages=s["async_stages"], sparse_comm=s["sparse_comm"],
+                   stage_workers=kw.get("stage_workers", 1),
+                   prefetch_ahead=kw.get("prefetch_ahead", 1),
+                   buffer_sync_launches=launches["buffer_sync"],
+                   **{k: s[k] for k in ("async_repairs_at_commit", "async_repairs_deferred",
+                                        "async_repairs_ring", "comm_rows_synced",
+                                        "comm_rows_deferred") if k in s})
+        # pinned host memory the counted steps allocated: the caching host
+        # allocator's new blocks (cudaHostAlloc)
+        row["host_alloc_in_counted_steps"] = {
+            k: host1[k] - host0.get(k, 0) for k in (
+                "num_host_alloc", "num_host_free", "host_alloc_time.total",
+                "allocated_bytes.allocated", "reserved_bytes.current")
+            if k in host1}
         row["host_pinned_allocated_gb"] = torch.cuda.host_memory_stats().get(
             "allocated_bytes.current", 0) / 1e9
         emit("tier_train", arch=ARCH, global_batch=TRAIN_BATCH, n_micro=N_MICRO,
@@ -1313,8 +1406,9 @@ def main() -> int:
             raise SystemExit(f"the {store} tier's losses or routing are off: {s}")
         return tsess, warm_losses + trep.stats.losses, row
 
-    for m, fn in (("ingest", tier_ingest), ("plan_from_window", tier_plan),
-                  ("release", tier_release)):
+    tier_patches = (("ingest", tier_ingest), ("route", tier_route),
+                    ("plan_from_window", tier_plan), ("release", tier_release))
+    for m, fn in tier_patches:
         setattr(HostStore, m, fn)
     try:
         tiers = {}
@@ -1349,6 +1443,8 @@ def main() -> int:
     finally:
         for m, fn in real_tier.items():
             setattr(HostStore, m, fn)
+    # what 6e and 6f hold their runs to: each tier's synchronous run
+    sync_ref = {run: tiers[run] for run in ("host", "cached", "cached-evicting")}
     dev_losses, dev_rows, dev_accum, _ = tiers["device"]
     same = {run: {"losses": tiers[run][0] == dev_losses,
                   "rows": torch.equal(tiers[run][1], dev_rows),
@@ -1443,7 +1539,23 @@ def main() -> int:
         raise SystemExit(f"the cached tier did not serve the master exactly: {s}")
     if crep.results.shape != (N_REQUESTS,) or not np.isfinite(crep.results).all():
         raise SystemExit("served logits are not finite of shape (requests,)")
-    del csess, crep
+    # the same master served again with the pack wire mode: the same bits
+    reset_counts()
+    prep = csess.serve_embeddings(num_requests=N_REQUESTS, max_batch=MAX_BATCH,
+                                  head="dlrm", sparse_comm="pack", check_exact=True)
+    cached_pack_serve_launches = counts()
+    ps = prep.summary
+    emit("cached_serve_pack", arch=ARCH, store=ps["store"], sparse_comm=ps["sparse_comm"],
+         requests=N_REQUESTS, max_batch=MAX_BATCH, qps=ps["qps"],
+         latency_p50_ms=ps["latency_p50_ms"], latency_p99_ms=ps["latency_p99_ms"],
+         exact=ps["exact"], max_abs_diff=ps["max_abs_diff"],
+         same_results_as_off=bool(np.array_equal(prep.results, crep.results)),
+         **{f"{k}_pack": ps.get(k) for k in ("wire_bytes", "idx_bytes", "h2d_bytes")},
+         **{f"{k}_off": s.get(k) for k in ("wire_bytes", "idx_bytes", "h2d_bytes")},
+         launches=cached_pack_serve_launches)
+    if ps["exact"] != 1 or ps["sparse_comm"] != "pack":
+        raise SystemExit(f"the cached tier did not serve exactly under pack: {ps}")
+    del csess, crep, prep
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1477,6 +1589,116 @@ def main() -> int:
         del init, host, hrep, csess, prep
     emit("cache_policies", cache_rows=POLICY_CACHE_ROWS, global_batch=POLICY_BATCH,
          steps=POLICY_STEPS, runs=policy_runs)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 6e. the async stage executor at full width ---------------------------
+    # -- 6f. the sparse-comm modes on the evicting cache, sync and async ------
+    # each run as in 6a (one warm-up step, TIER_STEPS counted, seed 0), then
+    # its losses and the rows and adagrad state of every touched key against
+    # 6a's synchronous run of its tier (6f: of the evicting cache), bit for
+    # bit (pack included); int8 reports its largest loss deviation from it
+    race_log = []
+    race_gate = threading.Event()
+
+    def race_retrieve_start(w):
+        if w == RACE_WINDOW and not race_gate.wait(timeout=120):
+            raise RuntimeError(f"commit {RACE_COMMIT} was never submitted")
+        race_log.append(("retrieve", w))
+
+    def race_commit_submit(epoch):
+        race_log.append(("commit_submit", epoch))
+        if epoch == RACE_COMMIT:
+            race_gate.set()
+
+    race_hooks = {"retrieve_start": race_retrieve_start,
+                  "commit_submit": race_commit_submit}
+    side_keys = ("step_p50_ms", "step_p99_ms", "samples_per_s", "stage_host_ms_per_step",
+                 "h2d_bytes", "d2h_bytes", "h2d_gb_per_s", "d2h_gb_per_s", "wire_bytes",
+                 "idx_bytes", "buffer_sync_launches", "host_alloc_in_counted_steps")
+    path_launches = {}
+    exec_runs = {"async": [], "comm": []}
+    for m, fn in tier_patches:
+        setattr(HostStore, m, fn)
+    try:
+        for run, store, kw in ASYNC_RUNS + COMM_RUNS:
+            comm_init = SparseComm.__init__
+            if run == INT8_SYNC_ALL:
+                SparseComm.__init__ = lambda self, mode=None, **ckw: comm_init(
+                    self, mode, **{**ckw, "min_sync_p": 1.0})
+            try:
+                tsess, losses, row = tier_run(run, store, capture=False,
+                                              hooks=race_hooks if "race" in run else None,
+                                              **kw)
+            finally:
+                SparseComm.__init__ = comm_init
+            ref_run = "cached-evicting" if "sparse_comm" in kw else store
+            ref_losses, ref_rows, ref_accum, ref_row = sync_ref[ref_run]
+            table = tsess.state.table
+            same = {"losses": losses == ref_losses,
+                    "rows": torch.equal(table.rows[keys_t], ref_rows),
+                    "accum": torch.equal(table.accum[keys_t], ref_accum)}
+            del table
+            rec = {"run": run, "store": store, **kw, "sync_run": ref_run,
+                   "equal_to_sync_run": same,
+                   **{k: row.get(k) for k in side_keys},
+                   **{k: row.get(k) for k in row if k.startswith(("async_repairs",
+                                                                   "comm_rows"))},
+                   "sync": {k: ref_row.get(k) for k in side_keys}}
+            if kw.get("sparse_comm") == "int8":
+                rec["max_loss_dev_from_off"] = max(abs(a - b) for a, b in
+                                                   zip(losses, ref_losses))
+                if not all(np.isfinite(losses)):
+                    raise SystemExit(f"the {run} run's losses are not finite")
+                if not row.get("comm_rows_synced"):
+                    raise SystemExit(f"the {run} run synced no row selectively: {row}")
+                if run == INT8_SYNC_ALL and row.get("comm_rows_deferred") != 0:
+                    raise SystemExit(f"the {run} run deferred rows: {row}")
+            elif not all(same.values()):
+                raise SystemExit(f"the {run} run differs from 6a's {ref_run} run: {same}")
+            if "race" in run:
+                r = race_log.index(("retrieve", RACE_WINDOW))
+                rec["race"] = {
+                    "commits_submitted_before_gated_retrieve": sorted(
+                        e for k, e in race_log[:r] if k == "commit_submit"),
+                    "log": race_log[:r + 1]}
+                if ("commit_submit", RACE_COMMIT) not in race_log[:r]:
+                    raise SystemExit(f"the forced race did not happen: {race_log}")
+                if row["buffer_sync_launches"] <= TIER_STEPS - 1 \
+                        or not row.get("async_repairs_deferred"):
+                    raise SystemExit(f"the forced race ran no deferred repairs: {row}")
+            exec_runs["comm" if "sparse_comm" in kw else "async"].append(rec)
+            path_launches[run] = row["launches"]
+            if args.profile and run in ("host-async", "cached-async"):
+                # 4 more steps, beside 6a's synchronous tier_profile lines
+                marker["on"] = True
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    tsess.train(4)
+                    torch.cuda.synchronize()
+                    span = time.perf_counter() - t0
+                marker["on"] = False
+                emit_profile(prof, "tier_profile", span, window="tier_steady",
+                             run=run, steps=4)
+                del prof
+            del tsess
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        for m, fn in real_tier.items():
+            setattr(HostStore, m, fn)
+    emit("async_stages", arch=ARCH, global_batch=TRAIN_BATCH, steps=1 + TIER_STEPS,
+         touched_keys=keys_t.numel(), runs=exec_runs["async"])
+    off = sync_ref["cached-evicting"][3]
+    emit("sparse_comm", arch=ARCH, global_batch=TRAIN_BATCH, steps=1 + TIER_STEPS,
+         runs=exec_runs["comm"],
+         off={k: off.get(k) for k in side_keys},
+         pack_over_off={k: next(r[k] for r in exec_runs["comm"]
+                               if r["run"] == "cached-evicting-pack") / off[k]
+                        for k in ("wire_bytes", "idx_bytes", "h2d_bytes", "d2h_bytes")
+                        if off.get(k)})
+    del sync_ref, keys_t, exec_runs
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2156,6 +2378,9 @@ def main() -> int:
                    "dlrm_host_train": host_train_launches[kname],
                    "dlrm_cached_train": cached_train_launches[kname],
                    "dlrm_cached_serve": cached_serve_launches[kname],
+                   "dlrm_cached_pack_serve": cached_pack_serve_launches[kname],
+                   **{path: path_launches[run][kname]
+                      for run, path in TIER_PATHS.items()},
                    "hstu_train": hstu_launches[kname],
                    "lm_serve": lm_launches[kname]}
         for path in RUNS_ON[kname]:

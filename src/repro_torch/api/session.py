@@ -119,6 +119,9 @@ class Session:
         cache_chunk_rows: int = 0,
         cache_policy: str = "auto",
         prefetch_ahead: int = 1,
+        sparse_comm: str = "auto",
+        async_stages: str = "auto",
+        stage_workers: int = 1,
         npcfg: Optional[NestPipeConfig] = None,
         opt_cfg: Optional[OptimizerConfig] = None,
         lr: Optional[float] = None,
@@ -142,7 +145,15 @@ class Session:
         and ``cache_policy`` its eviction policy (``"freq" | "lfu" | "lru" |
         "oracle"``; ``"auto"`` resolves ``$REPRO_CACHE_POLICY``, then
         ``"freq"``). Every tier and policy replays the device tier's
-        trajectory bit for bit."""
+        trajectory bit for bit.
+
+        ``sparse_comm`` is the host tiers' sparse-path wire mode (``"off" |
+        "pack" | "int8"``; ``"auto"`` resolves ``$REPRO_SPARSE_COMM``, then
+        off): ``pack`` replays ``off`` bit for bit, ``int8`` is approximate.
+        ``async_stages`` runs the host-side plan / retrieve / commit stages
+        on worker threads, the same bits as without (``"auto"`` resolves
+        ``$REPRO_ASYNC_STAGES``, then off), and ``stage_workers`` sizes its
+        plan / retrieve pool."""
         strategy = get_strategy(mode)  # fail fast on unknown modes
         device = resolve_device(device)
         npcfg = npcfg or NestPipeConfig(fwp_microbatches=n_micro,
@@ -159,6 +170,12 @@ class Session:
             overlay["cache_policy"] = cache_policy
         if prefetch_ahead != 1:
             overlay["prefetch_ahead"] = prefetch_ahead
+        if sparse_comm != "auto":
+            overlay["sparse_comm"] = sparse_comm
+        if async_stages != "auto":
+            overlay["async_stages"] = async_stages
+        if stage_workers != 1:
+            overlay["stage_workers"] = stage_workers
         if overlay:
             npcfg = dataclasses.replace(npcfg, **overlay)
         npcfg = strategy.configure(npcfg)
@@ -393,6 +410,7 @@ class Session:
         zipf_a: Optional[float] = None,
         head: str = "embedding",
         store: Optional[str] = None,
+        sparse_comm: Optional[str] = None,
         check_exact: bool = False,
         seed: Optional[int] = None,
     ) -> EmbedServeReport:
@@ -411,6 +429,8 @@ class Session:
         (F, D) rows per request) or ``"dlrm"`` (one logit per request).
         ``check_exact`` recomputes every result from the master table via
         ``lookup_from_master`` and reports ``exact``/``max_abs_diff``.
+        ``store`` and ``sparse_comm`` override the session's tier and wire
+        mode for the read path (``"pack"`` keeps serving exact).
         """
         from ..serve import build_router, run_closed_loop, run_open_loop, \
             synthetic_requests
@@ -421,6 +441,8 @@ class Session:
         npcfg = self.workload.npcfg
         if store is not None and store != "auto":
             npcfg = dataclasses.replace(npcfg, store=store)
+        if sparse_comm is not None and sparse_comm != "auto":
+            npcfg = dataclasses.replace(npcfg, sparse_comm=sparse_comm)
         npcfg = strategy.configure(npcfg)
         wl = resolve(self.workload.arch.name, device=self.device, mode="serve",
                      npcfg=npcfg, reduced=self.reduced, global_batch=max_batch)

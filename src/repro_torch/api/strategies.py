@@ -60,6 +60,8 @@ class DriverStrategy:
         driver_kw.setdefault("device_fields", list(workload.batch_shapes))
         driver_kw.setdefault("metrics_every", self.metrics_every)
         driver_kw.setdefault("lookahead", workload.npcfg.prefetch_ahead)
+        driver_kw.setdefault("async_stages", workload.npcfg.async_stages)
+        driver_kw.setdefault("stage_workers", workload.npcfg.stage_workers)
         if "store" not in driver_kw:
             driver_kw["store"] = build_workload_store(
                 workload, serial=self.driver_mode == "serial")

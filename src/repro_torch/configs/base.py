@@ -215,11 +215,20 @@ class NestPipeConfig:
     cache_chunk_rows: int = 8
     cache_policy: str = "auto"
     # The host tiers' sparse-path wire mode ("auto" resolves
-    # $REPRO_SPARSE_COMM, then "off"; only "off" is ported, core/store/comm.py).
+    # $REPRO_SPARSE_COMM, then "off"): "pack" is lossless and replays "off"
+    # bit for bit, "int8" is approximate (core/store/comm.py).
     sparse_comm: str = "auto"
     # DBP lookahead depth k: the Prefetcher routes and retrieves step t+k
     # while step t computes (k=1 is the paper's dual-buffer setting).
     prefetch_ahead: int = 1
+    # The async host-stage executor: plan / retrieve on stage threads and
+    # the commit on a commit thread, epoch-fenced, the same bits as the
+    # synchronous loop (core/store/async_exec.py). "auto" resolves
+    # $REPRO_ASYNC_STAGES, then off; "on" | "off" force it.
+    async_stages: str = "auto"
+    # plan / retrieve threads of the executor (1: one FIFO; more keep the
+    # values exact, cache counters may vary from run to run)
+    stage_workers: int = 1
 
 
 @dataclass(frozen=True)

@@ -16,6 +16,15 @@ routed and retrieved ahead of the window, so their device work is queued
 before the window's; every in-flight buffer is re-synced at every commit,
 so lookahead never trades exactness.
 
+With ``async_stages`` on (pipelined modes only), the host-side stages run
+on worker threads: a :class:`~repro_torch.core.store.StageExecutor` runs
+plan + retrieve and the commit, epoch-fenced, and an
+:class:`~repro_torch.core.store.AsyncPrefetcher` repairs each buffer
+against the commits its gather missed, so the trajectory stays the
+synchronous loop's bit for bit (``core/store/async_exec.py``). The driver
+only queues device work and pops finished jobs; it drains the commits
+before the master is released.
+
 Modes: ``nestpipe`` (the above), ``async`` (the same without the sync: the
 staleness baseline) and ``serial`` (no pipelining: each micro-batch looks
 up the master directly, one master update per step).
@@ -35,8 +44,9 @@ The store is a seam: the device, host and cached tiers ride the same loop.
 a host tier frees the device copy while it runs, as long as the caller
 keeps no reference to it.
 
-Not ported (``ROADMAP.md``, port Queue 1): ``async_stages``, checkpoints,
-the preemption guard and the watchdog.
+Not ported (``ROADMAP.md``, port Queue 1, item 3): checkpoints (the
+mid-run export under the executor's lock comes with them), the preemption
+guard and the watchdog.
 """
 from __future__ import annotations
 
@@ -50,6 +60,7 @@ import torch
 from ...data.pipeline import PrefetchQueue, make_cluster_transform, stage_to_device
 from ...train.state import PipelineCarry, TrainState
 from ..store import STAGE_TIMER_KEYS, Prefetcher
+from ..store.async_exec import AsyncPrefetcher, StageExecutor, resolve_async_stages
 
 MODES = ("nestpipe", "async", "serial")
 
@@ -64,6 +75,9 @@ class PipelineStats:
     overflow_max: int = 0
     store_tier: str = "device"
     sparse_comm: str = "off"
+    async_stages: bool = False
+    # the executor's repairs by kind (AsyncPrefetcher.repairs), async only
+    async_repairs: Dict[str, int] = field(default_factory=dict)
     # cumulative store counters at the last drain, and at the first drain
     # after a step (the end of warm-up: the first calls and a cold cache)
     store_metrics: Dict[str, float] = field(default_factory=dict)
@@ -101,9 +115,12 @@ class PipelineStats:
             "overflow_max": self.overflow_max,
             "store": self.store_tier,
             "sparse_comm": self.sparse_comm,
+            "async_stages": self.async_stages,
+            **{f"async_repairs_{k}": v for k, v in self.async_repairs.items()},
         }
         for k in ("h2d_bytes", "d2h_bytes", "h2d_bursts", "d2h_bursts",
-                  "wire_bytes", "idx_bytes", "h2d_copy_ms",
+                  "wire_bytes", "idx_bytes", "comm_rows_synced",
+                  "comm_rows_deferred", "h2d_copy_ms",
                   "d2h_copy_ms") + STAGE_TIMER_KEYS:
             if k in self.store_metrics:
                 out[k] = self.store_metrics[k]
@@ -193,6 +210,11 @@ class DBPDriver:
         straggler_factor: float = 3.0,
         metrics_every: int = 8,  # steps between deferred metric drains
         lookahead: int = 1,  # DBP retrieval lookahead depth k (Prefetcher)
+        async_stages="auto",  # host stages on worker threads ("auto" ->
+        # $REPRO_ASYNC_STAGES -> off); serial mode ignores it
+        stage_workers: int = 1,  # plan / retrieve threads (>1: values exact,
+        # cache placement and counters may vary from run to run)
+        stage_hooks=None,  # StageExecutor test seam (schedule injection)
     ):
         if mode not in MODES:
             raise ValueError(f"unknown driver mode {mode!r}; expected one of {MODES}")
@@ -209,6 +231,15 @@ class DBPDriver:
         self.straggler_factor = straggler_factor
         self.metrics_every = max(int(metrics_every), 1)
         self.lookahead = max(int(lookahead), 1)
+        self.async_stages = resolve_async_stages(async_stages) and mode != "serial"
+        self.stage_workers = max(int(stage_workers), 1)
+        # commits a retrieve may trail: overlap needs a relaxed fence; the
+        # device tier and the staleness baseline keep the synchronous
+        # interleaving
+        self.fence_slack = self.lookahead + 1 \
+            if (mode == "nestpipe" and store.tier != "device") else 0
+        self.stage_hooks = stage_hooks
+        self._exec: Optional[StageExecutor] = None  # live only inside run()
         # Key-centric clustering only shapes FWP micro-batch locality; the
         # serial baseline has no window to cluster for.
         self.clustering = clustering if mode != "serial" else "none"
@@ -252,6 +283,9 @@ class DBPDriver:
                 state = state._replace(table=self.store.ingest(state.table))
                 return self._run_pipelined(state, num_steps, stats, drain)
         finally:
+            if self._exec is not None:
+                self._exec.shutdown()
+                self._exec = None
             self.queue.close()
 
     def _run_serial(self, state, num_steps, stats, drain):
@@ -266,8 +300,18 @@ class DBPDriver:
 
     def _run_pipelined(self, state, num_steps, stats, drain):
         sync_on = self.mode == "nestpipe"
-        pf = Prefetcher(lambda: self._next_device_batch(stats), self.store,
-                        depth=self.lookahead)
+        next_batch = lambda: self._next_device_batch(stats)  # noqa: E731
+        if self.async_stages:
+            stats.async_stages = True
+            self._exec = StageExecutor(self.store, workers=self.stage_workers,
+                                       fence_slack=self.fence_slack,
+                                       hooks=self.stage_hooks)
+            pf = AsyncPrefetcher(next_batch, self.store, self._exec,
+                                 depth=self.lookahead, strict=sync_on)
+            commit = self._exec.submit_commit
+        else:
+            pf = Prefetcher(next_batch, self.store, depth=self.lookahead)
+            commit = self.store.commit
         pf.fill(limit=num_steps)  # windows 0..min(k, steps)-1
         first = pf.pop()  # warm-up: route + retrieve batch 0
         carry = PipelineCarry(first.buffer, first.plan.window)
@@ -286,12 +330,15 @@ class DBPDriver:
                     pf.resync(buf_updated, self.fns.sync_buffers)
                 else:
                     nxt_buf = nxt.buffer  # staleness baseline: no sync
-            self.store.commit(buf_updated, cur_plan)  # stage 6
+            commit(buf_updated, cur_plan)  # stage 6 (inline or queued)
             if t + 1 < num_steps:
                 carry = PipelineCarry(nxt_buf, nxt.plan.window)
                 cur_plan, batch = nxt.plan, nxt.batch
             drain.push(t, aux, self._step_event())
             self._maybe_drain(drain, t, num_steps)
+        if self._exec is not None:
+            self._exec.drain()  # every commit applied: the master is final
+            stats.async_repairs = dict(pf.repairs)
         drain.drain()
         return state._replace(table=self.store.release()), stats
 

@@ -1,9 +1,11 @@
 """Embedding storage tiers behind one read surface (``repro.core.store``):
 the device tier, the host-memory master (``HostStore``) and the chunked
 device cache over it (``CachedStore``), its eviction policies, the
-lookahead prefetcher, and the sparse-path wire ledger in its ``off`` mode.
-The async stage executor, the sharded tier and the ``pack`` / ``int8``
-modes are not ported yet (``ROADMAP.md``, port Queue 1)."""
+lookahead prefetcher, the async stage executor (``StageExecutor``,
+``AsyncPrefetcher``) and the sparse-path wire policy (``SparseComm``:
+``off``, ``pack``, ``int8``). The sharded tier is not ported yet
+(``ROADMAP.md``, port Queue 1, item 6)."""
+from .async_exec import AsyncPrefetcher, StageExecutor, resolve_async_stages
 from .base import (
     STAGE_TIMER_KEYS,
     STORES,
@@ -15,7 +17,7 @@ from .base import (
     resolve_store,
 )
 from .cached import CachedStore
-from .comm import SPARSE_COMMS, SparseComm, resolve_sparse_comm
+from .comm import PACK_PAD, SPARSE_COMMS, SparseComm, resolve_sparse_comm
 from .device import DeviceStore
 from .host import HostStore
 from .policy import CACHE_POLICIES, CachePolicy, make_cache_policy, \
@@ -23,6 +25,10 @@ from .policy import CACHE_POLICIES, CachePolicy, make_cache_policy, \
 from .prefetch import PrefetchEntry, Prefetcher
 
 __all__ = [
+    "AsyncPrefetcher",
+    "StageExecutor",
+    "resolve_async_stages",
+    "PACK_PAD",
     "SPARSE_COMMS",
     "SparseComm",
     "resolve_sparse_comm",

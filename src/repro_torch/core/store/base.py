@@ -23,8 +23,9 @@ The consistency argument lives in the buffer domain, so the tier never
 changes a value: training replays bit for bit through all three.
 
 Selection: ``NestPipeConfig.store`` (``"auto"`` resolves ``$REPRO_STORE``,
-then ``"device"``). The mesh-sharded tier is not ported (``ROADMAP.md``,
-port Queue 1).
+then ``"device"``). The async stage executor (``async_exec.py``) runs the
+host-side stages of any tier on worker threads. The mesh-sharded tier is
+not ported (``ROADMAP.md``, port Queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -89,7 +90,9 @@ class EmbeddingStore(Protocol):
     ``plan`` / ``retrieve`` / ``commit`` per step, may ``export_table`` (a
     snapshot) and ``release``s the master back at the end.
     ``plan == plan_from_window(route(keys))``: routing is device work, the
-    second half pulls what a host tier needs to the host.
+    second half pulls what a host tier needs to the host, after the CUDA
+    event ``after`` when one is given (the async executor records it on
+    the driver thread after the routing).
     """
 
     tier: str
@@ -100,7 +103,7 @@ class EmbeddingStore(Protocol):
 
     def route(self, keys) -> WindowPlan: ...
 
-    def plan_from_window(self, window: WindowPlan) -> "FetchPlan": ...
+    def plan_from_window(self, window: WindowPlan, after=None) -> "FetchPlan": ...
 
     def plan(self, keys) -> "FetchPlan": ...
 

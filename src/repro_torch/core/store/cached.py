@@ -27,6 +27,13 @@ kernel on the card) and every cache write ``dispatch.scatter_rows``
 order, so the assembly reads the cache as it was before admission writes
 it, and an eviction's pull is queued before the scatter that reuses its
 slots. Host copies wait on the events of their own device work only.
+Under the async stage executor the current stream is the executor's own,
+shared by every worker and taken under the master lock, so the same order
+holds across threads (``async_exec.py``). Under ``pack`` the staged index
+vectors cross the bus in their narrow wire dtype and are cast to int32 on
+the card before a kernel reads them; under ``int8`` the cold rows' commit
+goes through ``SparseComm.writeback``, while eviction write-back and
+``flush`` stay full precision in every mode.
 
 The directory and the policy's state are chunk-keyed dicts (host memory
 scales with the chunks a run touches). The cache decides only WHERE a
@@ -214,7 +221,7 @@ class CachedStore(HostStore):
         src = np.full(keys.shape[0], cap + pm, np.int32)  # sentinel -> zero row
         src[valid] = np.where(hit_v, slot_v * R + voffs,
                               cap + j_v * R + voffs).astype(np.int32)
-        src = self.comm.pack_index(src, cap + pm)
+        src = self.comm.pack_index(src, cap + pm)  # the wire dtype under pack
 
         self.hits += int(hit_v.sum())
         self.misses += int(miss_v.sum())
@@ -222,6 +229,7 @@ class CachedStore(HostStore):
             stage_rows_d, stage_accum_d, src_d, keys_d = self.copies.to_device(
                 stage_rows, stage_accum, self.copies.host(src),
                 self.copies.host(keys.astype(np.int32)))
+        src_d = src_d.to(torch.int32)
         # assemble BEFORE admission scatters: it reads the pre-admission
         # cache (program order on the stream)
         buf = self._assemble(src_d, keys_d, stage_rows_d, stage_accum_d)
@@ -288,9 +296,9 @@ class CachedStore(HostStore):
         slots = self.comm.pack_index(slots, cap)
         idx_d, slots_d = self.copies.to_device(self.copies.host(idx),
                                                self.copies.host(slots))
-        rows_d, accum_d = _pull(stage_rows_d, stage_accum_d, idx_d)
-        dispatch.scatter_rows(self.cache_rows, self.cache_accum, slots_d,
-                              rows_d, accum_d)
+        rows_d, accum_d = _pull(stage_rows_d, stage_accum_d, idx_d.to(torch.int32))
+        dispatch.scatter_rows(self.cache_rows, self.cache_accum,
+                              slots_d.to(torch.int32), rows_d, accum_d)
 
     # -- DBP epilogue: split commit (cache scatter + compact D2H) --------
 
@@ -324,11 +332,18 @@ class CachedStore(HostStore):
             idx = self.comm.pack_index(idx, k)
             (idx_d,) = self.copies.to_device(self.copies.host(idx))
             rows, accum = self.copies.to_host(*_pull(buffer.rows, buffer.accum,
-                                                     idx_d))
-            self.d2h_bytes += int(rows.nbytes) + int(accum.nbytes)
-            cold = torch.from_numpy(keys[host_pos].astype(np.int64))
-            self.rows.index_copy_(0, cold, rows[:nh])
-            self.accum.index_copy_(0, cold, accum[:nh])
+                                                     idx_d.to(torch.int32)))
+            if self.comm.lossy:
+                # int8: the cold rows are the infrequent set selective sync
+                # targets; cache-resident rows moved no bytes above
+                self.d2h_bytes += self.comm.writeback(
+                    keys[host_pos], rows.numpy()[:nh], accum.numpy()[:nh],
+                    self.rows.numpy(), self.accum.numpy())
+            else:
+                self.d2h_bytes += int(rows.nbytes) + int(accum.nbytes)
+                cold = torch.from_numpy(keys[host_pos].astype(np.int64))
+                self.rows.index_copy_(0, cold, rows[:nh])
+                self.accum.index_copy_(0, cold, accum[:nh])
 
     def set_admission_block(self, keys: Optional[np.ndarray]) -> None:
         """Bar the chunks containing ``keys`` from admission for the next
@@ -393,7 +408,8 @@ class CachedStore(HostStore):
         idx = self.comm.pack_index(idx, self.capacity)
         (idx_d,) = self.copies.to_device(self.copies.host(idx))
         rows, accum = self.copies.to_host(*_pull(self.cache_rows,
-                                                 self.cache_accum, idx_d))
+                                                 self.cache_accum,
+                                                 idx_d.to(torch.int32)))
         self.d2h_bytes += int(rows.nbytes) + int(accum.nbytes)
         self.d2h_bursts += n
         ridx = self._chunk_slice_rows(chunks)
@@ -414,7 +430,8 @@ class CachedStore(HostStore):
         fewer than ``chunk_rows``)."""
         R = self.chunk_rows
         pr = self.spec.padded_rows
-        return sum(min(R, pr - c * R) for c in self._slot_of_chunk)
+        # a copy of the keys: a stage worker may admit while metrics read
+        return sum(min(R, pr - c * R) for c in list(self._slot_of_chunk))
 
     def flush(self) -> None:
         """Refresh the host master from the cache (the cache stays valid)."""

@@ -56,7 +56,7 @@ class DeviceStore:
                                    device=self.engine.device)
             return self.engine.route_window(keys, self.n_micro)
 
-    def plan_from_window(self, window) -> FetchPlan:
+    def plan_from_window(self, window, after=None) -> FetchPlan:
         return FetchPlan(window, None)
 
     def plan(self, keys) -> FetchPlan:

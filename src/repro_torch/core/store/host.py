@@ -13,24 +13,37 @@ on ``device="cpu"`` it is a plain CPU tensor (pinning needs a CUDA build).
 Retrieval gathers with ``torch.index_select`` (multithreaded) into a fresh
 staging tensor, zeroes the sentinel slots and copies it to the card with
 ``non_blocking=True`` on a side CUDA stream; the consuming stream waits on
-the copy's event. Staging tensors are fresh on every call: PyTorch's
-caching host allocator keeps a pinned block until the copies that read it
-are done, which a buffer reused by hand would not be. On the CPU the staged
-tensors are the buffer, so they are never views of the master, which the
+the copy's event. Staging tensors are fresh on every call, also on the
+async executor's workers: PyTorch's caching host allocator keeps a pinned
+block until the copies that read it are done and then reuses it, which a
+buffer reused by hand would not be. On the CPU the staged tensors are the
+buffer, so they are never views of the master, which the
 commit mutates.
 
 The commit copies the buffer to the host on the side stream after an event
 that marks the window's update, waits for that copy's event alone, and
-scatters the rows into the master at the unique valid keys.
+scatters the rows into the master at the unique valid keys; under the
+``int8`` sparse-comm mode it applies the quantized deltas of the rows it
+selects (``SparseComm.writeback``) instead.
 
-Not ported yet: the async stage executor's staging pool and the fault
-injection and retry seam (``ROADMAP.md``, port Queue 1, items 2 and 3).
-The method split (``route`` / ``plan_from_window``, ``gather_host`` /
-``scatter_host``, the ``_retrieve_body`` and ``_commit_body`` behind
-``retrieve`` and ``commit``) is kept so that they can wrap it.
+The stage-3 key pull (``plan_from_window``) copies the window's key list
+to a pinned tensor on the side stream after an event recorded when the
+routing was queued (``after``; the async stage executor records it on the
+driver thread), so it waits for the routing and not for later windows.
+
+Under the async stage executor (``async_exec.py``) these methods run on
+worker threads, with the executor's stream current: every copy's consumer
+is then that stream, not the driver's.
+
+Not ported yet: the fault injection and retry seam (``ROADMAP.md``, port
+Queue 1, item 3). The method split (``route`` / ``plan_from_window``,
+``gather_host`` / ``scatter_host``, the ``_retrieve_body`` and
+``_commit_body`` behind ``retrieve`` and ``commit``) is kept so that it can
+wrap them.
 """
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -46,12 +59,14 @@ from .comm import SparseComm
 class SideStreamCopies:
     """Host <-> device copies on a side CUDA stream, with their device time
     read from CUDA events (``h2d_copy_ms``, ``d2h_copy_ms``). On the CPU
-    both directions hand the tensors back as they are."""
+    both directions hand the tensors back as they are. Safe for the async
+    executor's threads: the open events and the times take a lock."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.pinned = device.type == "cuda"
         self.stream = torch.cuda.Stream(device) if self.pinned else None
+        self._lock = threading.Lock()
         self.ms = {"h2d_copy_ms": 0.0, "d2h_copy_ms": 0.0}
         self._open: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
 
@@ -80,7 +95,8 @@ class SideStreamCopies:
         consumer.wait_event(end)
         for t in out:  # allocated on the side stream, used on the consumer
             t.record_stream(consumer)
-        self._open.append((start, end))
+        with self._lock:
+            self._open.append((start, end))
         return out
 
     def to_host(self, *dev: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -102,20 +118,41 @@ class SideStreamCopies:
         # ``dev`` was made on the current stream and stays referenced until
         # this returns, after the copy: no record_stream is needed
         end.synchronize()
-        self.ms["d2h_copy_ms"] += start.elapsed_time(end)
+        with self._lock:
+            self.ms["d2h_copy_ms"] += start.elapsed_time(end)
         return out
+
+    def keys_to_host(self, keys: torch.Tensor,
+                     after: Optional[torch.cuda.Event]) -> np.ndarray:
+        """``keys`` on the host, copied on the side stream after ``after``
+        (default: an event recorded now on the current stream), waiting for
+        that copy only. Not timed: it is the stage-3 pull, not staging."""
+        if self.stream is None:
+            return keys.cpu().numpy()
+        if after is None:
+            after = torch.cuda.Event()
+            after.record(torch.cuda.current_stream(self.device))
+        out = self.empty(keys.shape, keys.dtype)
+        self.stream.wait_event(after)
+        with torch.cuda.stream(self.stream):
+            out.copy_(keys, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        done.synchronize()
+        return out.numpy()
 
     def times(self) -> Dict[str, float]:
         """Device ms of the copies so far (H2D copies still in flight are
         counted when they are done)."""
-        still = []
-        for start, end in self._open:
-            if end.query():
-                self.ms["h2d_copy_ms"] += start.elapsed_time(end)
-            else:
-                still.append((start, end))
-        self._open = still
-        return dict(self.ms)
+        with self._lock:
+            still = []
+            for start, end in self._open:
+                if end.query():
+                    self.ms["h2d_copy_ms"] += start.elapsed_time(end)
+                else:
+                    still.append((start, end))
+            self._open = still
+            return dict(self.ms)
 
 
 class HostStore:
@@ -191,11 +228,12 @@ class HostStore:
             keys = torch.as_tensor(keys, dtype=torch.int32, device=self.device)
             return self.engine.route_window(keys, self.n_micro)
 
-    def plan_from_window(self, window) -> FetchPlan:
+    def plan_from_window(self, window, after=None) -> FetchPlan:
         """Stage-3 host half: pull the owner-side union key list to the
-        host, through the wire policy."""
+        host after the event ``after`` (default: now), through the wire
+        policy."""
         with self.stage_timers.timed("plan_ms"):
-            host_keys = window.buffer_keys.cpu().numpy()
+            host_keys = self.copies.keys_to_host(window.buffer_keys, after)
             return FetchPlan(window, self.comm.exchange_keys(host_keys))
 
     def plan(self, keys) -> FetchPlan:
@@ -235,7 +273,8 @@ class HostStore:
 
     def stage(self, buffer_keys: np.ndarray) -> DualBuffer:
         """Gather master rows for ``buffer_keys`` into fresh host tensors
-        and stage them to the card as a new buffer."""
+        and stage them to the card as a new buffer; under int8 the staged
+        rows quantize in place first."""
         rows, accum = self.gather_host(buffer_keys)
         self.h2d_bytes += self.comm.stage_payload(rows, accum)
         keys = self.copies.host(buffer_keys.astype(np.int32))
@@ -259,8 +298,16 @@ class HostStore:
                      plan: Optional[FetchPlan]) -> None:
         keys = plan.host_keys if plan is not None else buffer.keys.cpu().numpy()
         rows, accum = self.copies.to_host(buffer.rows, buffer.accum)
-        self.d2h_bytes += int(rows.nbytes) + int(accum.nbytes)
-        self.scatter_host(keys, rows, accum)
+        if self.comm.lossy:
+            # int8: selective sync of quantized deltas with error feedback,
+            # into the master's numpy views
+            valid = keys != SENTINEL
+            self.d2h_bytes += self.comm.writeback(
+                keys[valid], rows.numpy()[valid], accum.numpy()[valid],
+                self.rows.numpy(), self.accum.numpy())
+        else:
+            self.d2h_bytes += int(rows.nbytes) + int(accum.nbytes)
+            self.scatter_host(keys, rows, accum)
 
     # -- metrics ---------------------------------------------------------
 

@@ -20,6 +20,7 @@ touches CUDA at import.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
@@ -28,8 +29,10 @@ from ..utils import cdiv
 from . import build
 
 # Launches of the kernel in this process. Incremented only where the
-# kernel launches, so a run can show that its path went through it.
+# kernel launches, so a run can show that its path went through it. The
+# async stage executor's workers launch it too: the count takes a lock.
 launches = 0
+_launches_lock = threading.Lock()
 
 LANE_BYTES = 64  # the loads a lane keeps in flight: four 16-byte vectors
 MAX_WARPS_PER_BLOCK = 8
@@ -130,5 +133,6 @@ def embedding_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                  plan.blocks, stream)
     if err != 0:
         raise RuntimeError(f"embedding_gather launch failed: CUDA error {err}")
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return out

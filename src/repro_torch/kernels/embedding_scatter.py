@@ -16,14 +16,17 @@ touches CUDA at import.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from . import build
 
 # Launches of the kernel in this process. Incremented only where the
-# kernel launches, so a run can show that its path went through it.
+# kernel launches, so a run can show that its path went through it. The
+# async stage executor's workers launch it too: the count takes a lock.
 launches = 0
+_launches_lock = threading.Lock()
 
 _fn = None
 
@@ -69,4 +72,5 @@ def embedding_scatter(table: torch.Tensor, table_accum: torch.Tensor,
                  idx.data_ptr(), rows.data_ptr(), accum.data_ptr(), n, stream)
     if err != 0:
         raise RuntimeError(f"embedding_scatter launch failed: CUDA error {err}")
-    launches += 1
+    with _launches_lock:
+        launches += 1

@@ -48,8 +48,8 @@ class FrozenStoreView:
     def route(self, keys) -> Any:
         return self._store.route(keys)
 
-    def plan_from_window(self, window) -> FetchPlan:
-        return self._store.plan_from_window(window)
+    def plan_from_window(self, window, after=None) -> FetchPlan:
+        return self._store.plan_from_window(window, after)
 
     def plan(self, keys) -> FetchPlan:
         return self._store.plan(keys)

@@ -38,7 +38,8 @@ from test_torch_store import COUNTERS, _jax_run, _max_diff, _port_run_from, \
 
 @pytest.fixture(autouse=True)
 def _no_policy_env(monkeypatch):
-    for var in ("REPRO_STORE", "REPRO_CACHE_POLICY", "REPRO_SPARSE_COMM"):
+    for var in ("REPRO_STORE", "REPRO_CACHE_POLICY", "REPRO_SPARSE_COMM",
+                "REPRO_ASYNC_STAGES"):
         monkeypatch.delenv(var, raising=False)
 
 

@@ -751,3 +751,81 @@ def test_cached_tier_serves_exactly_on_the_card(cuda_device):
     assert rep.summary["exact"] == 1 and rep.summary["store"] == "frozen-cached"
     assert rep.summary["cache_hits"] > 0
     assert eg.launches > before[0] and es.launches > before[1]
+
+
+# ---------------------------------------------------------------------------
+# the async stage executor and the sparse-comm modes on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("tier", ["device", "host", "cached"])
+def test_async_stages_give_the_sync_bits_on_the_card(cuda_device, tier):
+    """Worker threads, the executor's stream and the event handoffs replay
+    the synchronous loop bit for bit at lookahead 1 and 3: losses, master
+    rows and adagrad state."""
+    for lookahead in (1, 3):
+        sync, = _tier_sessions(tier, prefetch_ahead=lookahead)
+        want = sync.train(6)
+        before = (eg.launches, bs.launches)
+        asyn, = _tier_sessions(tier, prefetch_ahead=lookahead, async_stages="on")
+        got = asyn.train(6)
+        assert got.summary["async_stages"] and not want.summary["async_stages"]
+        assert got.stats.losses == want.stats.losses, lookahead
+        assert torch.equal(got.state.table.rows, want.state.table.rows)
+        assert torch.equal(got.state.table.accum, want.state.table.accum)
+        assert eg.launches > before[0] and bs.launches >= before[1] + 5
+
+
+@pytest.mark.parametrize("tier", ["host", "cached"])
+def test_forced_race_repairs_on_the_card(cuda_device, tier):
+    """Window 5's retrieve held until commit 3 is submitted (lookahead 3):
+    the deferred repairs run as extra buffer_sync launches and the run
+    keeps the synchronous bits."""
+    import threading
+
+    gate, events = threading.Event(), []
+
+    def on_retrieve_start(w):
+        if w == 5:
+            assert gate.wait(timeout=60)
+        events.append(("retrieve", w))
+
+    def on_commit_submit(epoch):
+        events.append(("commit_submit", epoch))
+        if epoch == 3:
+            gate.set()
+
+    sync, = _tier_sessions(tier, prefetch_ahead=3)
+    want = sync.train(7)
+    sess, = _tier_sessions(tier, prefetch_ahead=3, async_stages="on")
+    driver = sess.strategy.build_driver(
+        sess.fns, resolve_stream(sess.workload, sess.seed), sess.workload,
+        stage_hooks={"retrieve_start": on_retrieve_start,
+                     "commit_submit": on_commit_submit})
+    before = bs.launches
+    state, stats = driver.run(sess._take_state(), 7)
+    assert stats.losses == want.stats.losses
+    assert torch.equal(state.table.rows, want.state.table.rows)
+    assert torch.equal(state.table.accum, want.state.table.accum)
+    r5 = events.index(("retrieve", 5))
+    assert ("commit_submit", 3) in events[:r5]
+    assert bs.launches - before > 6  # more than one sync a step: repairs ran
+
+
+@pytest.mark.parametrize("async_on", ["off", "on"])
+def test_pack_and_int8_on_the_card(cuda_device, async_on):
+    """``pack`` crosses the bus with narrow index vectors and casts them
+    back on the card: the ``off`` bits, fewer index bytes. ``int8`` runs
+    with its ledger and finite losses."""
+    off, pack, int8 = (
+        _tier_sessions("cached", cache_rows=64, cache_chunk_rows=4,
+                       sparse_comm=m, async_stages=async_on)[0]
+        for m in ("off", "pack", "int8"))
+    want, got, q = off.train(6), pack.train(6), int8.train(6)
+    assert got.stats.losses == want.stats.losses
+    assert torch.equal(got.state.table.rows, want.state.table.rows)
+    assert torch.equal(got.state.table.accum, want.state.table.accum)
+    assert got.summary["idx_bytes"] < want.summary["idx_bytes"]
+    assert got.summary["wire_bytes"] < want.summary["wire_bytes"]
+    assert all(np.isfinite(q.stats.losses))
+    assert q.summary["comm_rows_synced"] + q.summary["comm_rows_deferred"] > 0

@@ -170,8 +170,11 @@ def test_default_device_raises_without_a_gpu(monkeypatch):
 
 
 def test_unported_store_tiers_raise():
-    """The host and cached tiers serve; what of them is not ported yet (the
-    ``pack`` and ``int8`` sparse-comm modes) raises, naming the roadmap."""
+    """The host and cached tiers serve, and so do their sparse-comm modes,
+    ported since: ``pack`` exactly (``exact`` 1, from the config and from
+    ``serve_embeddings(sparse_comm=...)``), ``int8`` approximately (its
+    staged rows are quantized), each labelled. A mode outside the three
+    still raises."""
     sess = Session.from_arch(ARCH, reduced=True, device="cpu")
     for tier in ("host", "cached"):
         rep = sess.serve_embeddings(num_requests=8, max_batch=8, store=tier,
@@ -180,8 +183,17 @@ def test_unported_store_tiers_raise():
         for mode in ("pack", "int8"):
             packed = Session.from_arch(ARCH, reduced=True, device="cpu",
                                        npcfg=NestPipeConfig(sparse_comm=mode))
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                packed.serve_embeddings(num_requests=8, max_batch=8, store=tier)
+            for rep in (packed.serve_embeddings(num_requests=8, max_batch=8,
+                                                store=tier, check_exact=True),
+                        sess.serve_embeddings(num_requests=8, max_batch=8,
+                                              store=tier, sparse_comm=mode,
+                                              check_exact=True)):
+                assert rep.summary["sparse_comm"] == mode
+                assert rep.summary["exact"] == (mode == "pack")
+                assert rep.summary["max_abs_diff"] < 1e-3
+        with pytest.raises(ValueError, match="sparse_comm"):
+            sess.serve_embeddings(num_requests=8, max_batch=8, store=tier,
+                                  sparse_comm="zstd")
 
 
 # ---------------------------------------------------------------------------

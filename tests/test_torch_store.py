@@ -70,7 +70,8 @@ def _np(x):
 
 @pytest.fixture(autouse=True)
 def _no_tier_env(monkeypatch):
-    for var in ("REPRO_STORE", "REPRO_CACHE_POLICY", "REPRO_SPARSE_COMM"):
+    for var in ("REPRO_STORE", "REPRO_CACHE_POLICY", "REPRO_SPARSE_COMM",
+                "REPRO_ASYNC_STAGES"):
         monkeypatch.delenv(var, raising=False)
 
 
@@ -340,10 +341,9 @@ def test_build_store_builds_every_tier_and_validates():
     with pytest.raises(ValueError, match="cache_policy"):
         build_store("device", eng, cache_policy="sideways")
     for mode in ("pack", "int8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_store("host", eng, sparse_comm=mode)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SparseComm(mode)
+        assert build_store("host", eng, sparse_comm=mode).sparse_comm == mode
+        assert SparseComm(mode).mode == mode
+        assert build_store("device", eng, sparse_comm=mode).sparse_comm == "off"
     with pytest.raises(ValueError, match="sparse_comm"):
         build_store("device", eng, sparse_comm="zstd")
 
