@@ -12,7 +12,8 @@ hand-written kernel on it against its plain PyTorch version:
    way from it, timed by CUDA events (``pin_probe``);
 2. build: compiles every kernel from ``src/repro_torch/csrc`` with nvcc, one
    process per source, all at once; each source's nvcc seconds, ptxas's
-   registers and spills (the ``hstu_attention`` forward's by head dim), the
+   registers and spills (the ``hstu_attention`` forward's by head dim, and
+   each ``flash_attention`` backward kernel's), the
    HGMMA instructions in the wgmma ``flash_attention`` library and the HMMA
    (``mma.sync``) instructions of each ``hstu_attention`` kernel, the
    forward and the two backward kernels apart (``cuobjdump -sass``; none
@@ -139,6 +140,36 @@ hand-written kernel on it against its plain PyTorch version:
    as in phase 7;
 11. release: every earlier session gone (the memory still allocated is
    printed);
+11a. ``flash_attention`` backward edges: the backward kernel
+   (``csrc/flash_attention_bwd.cu``) on the general forward's output and
+   row logsumexp and a random output gradient, against
+   ``ref.flash_attention_bwd_ref`` within ``ref.flash_attention_bwd_bound``
+   (1e-5 of each gradient's sum of magnitudes + 1e-7, plus one bf16 ulp in
+   bf16) at T in {1, 33, 64, 257, 512}, hd in {16, 64, 80, 128}, H/KV in
+   {1, 4}, causal and full, f32, and bf16 at hd 16 and 80; Tq 33 against
+   Tk 100 and a strided view; the forward's lse against
+   ``ref.flash_attention_lse_ref`` within ``ref.flash_attention_lse_bound``;
+   every check runs each kernel twice for the same bits;
+11b. full-size FuXi training: ``fuxi-kuairand`` at every published width
+   and its full vocabularies (d_model 512, 4 layers, 8 heads of 64, T 512,
+   dim 256, bf16 lookups; a 32.80 GB master), through
+   ``Session.from_arch`` with ``mode="nestpipe"``, batch 256, N = 4,
+   ``bucket_slack=1.5``, after the HSTU session is gone: one warm-up step,
+   two steps whose kernel calls are captured (the first general
+   ``flash_attention`` forward and backward, and the embedding kernels'
+   calls as in phase 4), the embedding kernels' calls checked and timed as
+   in phase 4, then ``train(6)`` with every launch counted (exactly 32
+   general forward and 16 backward launches a step, none of the wgmma
+   kernel); finite losses, no routing overflow, peak memory, samples/s,
+   tokens/s, step p50 and p99 (``--profile``: the device idle share over 2
+   more steps and the top device ops); then, with the session released,
+   the captured attention calls checked at full shape against the plain
+   versions and timed beside them, SDPA (its forward, and
+   ``torch.autograd.grad`` through it for the backward) and their f32
+   bound;
+11c. consistency at ``fuxi-reduced``: nestpipe = serial = the reference
+   trainer within 1e-5 over 6 steps at the configuration's own step sizes,
+   and async diverges; the reference gives the same bits twice;
 12. ``flash_attention`` edges: both kernels against the plain version at
    T in {1, 33, 64, 257, 2048}, hd in {16, 64, 80, 128, 160, 192, 256},
    H/KV in {1, 4}, causal and not, f32 and bf16 (bf16 at the wgmma kernel's
@@ -167,7 +198,9 @@ hand-written kernel on it against its plain PyTorch version:
    runs the plain version agrees on the last-token logits within 5e-2 of
    max |logit| (``--profile``: the device idle share of a prefill and of 8
    decode steps);
-14. a ``{"kernels": [...]}`` line (the gather's LM serve as its 96 calls,
+14. a ``{"kernels": [...]}`` line (the general ``flash_attention`` kernel and
+   the backward at FuXi's main-path shape, the general one also at the
+   LM's; the gather's LM serve as its 96 calls,
    and apart as the prefill's three and one decode step's three; the
    gather's and the scatter's cached-path calls of 6b as
    ``dlrm_cached_train_calls``; launches by path, the host and cached
@@ -180,8 +213,8 @@ non-zero. Run from the repo root: ``python3 chip_smoke.py`` (``--profile``
 adds a host breakdown and a ``torch.profiler`` pass over 4 training steps
 and over the serving path, one over 4 more steps of the host and of the
 cached tier (read between a run's first stage after its ingest and its
-release), one over 2 HSTU steps, and one over an LM prefill and 8 decode
-steps).
+release), one over 2 HSTU steps, one over 2 FuXi steps, and one over an LM
+prefill and 8 decode steps). The phases from 11a on print their seconds.
 """
 from __future__ import annotations
 
@@ -260,6 +293,13 @@ HSTU_RTOL, HSTU_ATOL = 1e-5, 1e-7
 # hold rows and dense params within 1e-5 and the adagrad accumulator within
 # 1e-4 of 1 + accum.
 HSTU_SMALL_STEPS = {"sparse_lr": 0.002, "adam_eps": 1e-6}
+FUXI_ARCH = "fuxi-kuairand"
+FUXI_BATCH = 256  # HSTU's batch: the per-worker share of 65,536 over 256 workers
+FUXI_STEPS = 6
+# the general flash_attention forward's calls a step: 4 layers x 4
+# micro-batches x 2 (per-layer remat), and the backward's: 4 x 4
+FUXI_FWD_CALLS_PER_STEP = 32
+FUXI_BWD_CALLS_PER_STEP = 16
 LM_ARCH = "stablelm-12b"
 # one card's share of decode_32k (batch 128 over 32,768 positions, an
 # 859 GB cache at 204,800 B a token): batch 8, 2,048-token prompts, 32 new
@@ -288,6 +328,10 @@ KERNELS = {  # name -> (source, the Pallas kernel it replaces)
                               "src/repro/kernels/flash_attention.py:70"),
     "flash_attention_simple": ("src/repro_torch/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:70"),
+    # the TPU kernel is forward only; JAX differentiates chunked_attention
+    # (src/repro/models/layers.py:160)
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention.py:70"),
 }
 # the paths each kernel must run on (launched at least once there); 6e's and
 # 6f's runs are paths of their own
@@ -298,19 +342,21 @@ CACHED_PATHS = tuple(TIER_PATHS[run] for run, store, _ in ASYNC_RUNS + COMM_RUNS
 RUNS_ON = {
     "embedding_gather": ("dlrm_train", "dlrm_serve", "dlrm_host_train",
                          "dlrm_cached_train", "dlrm_cached_serve", "hstu_train",
-                         "lm_serve", "dlrm_cached_pack_serve") + tuple(TIER_PATHS.values()),
-    "segment_rowsum": ("dlrm_train", "dlrm_host_train", "dlrm_cached_train",
-                       "hstu_train") + tuple(TIER_PATHS.values()),
-    "buffer_sync": ("dlrm_train", "dlrm_host_train", "dlrm_cached_train", "hstu_train")
+                         "fuxi_train", "lm_serve", "dlrm_cached_pack_serve")
     + tuple(TIER_PATHS.values()),
+    "segment_rowsum": ("dlrm_train", "dlrm_host_train", "dlrm_cached_train",
+                       "hstu_train", "fuxi_train") + tuple(TIER_PATHS.values()),
+    "buffer_sync": ("dlrm_train", "dlrm_host_train", "dlrm_cached_train", "hstu_train",
+                    "fuxi_train") + tuple(TIER_PATHS.values()),
     # the host tier writes its master back on the host: no device scatter
     "embedding_scatter": ("dlrm_train", "dlrm_cached_train", "dlrm_cached_serve",
-                          "hstu_train") + CACHED_PATHS,
+                          "hstu_train", "fuxi_train") + CACHED_PATHS,
     "hstu_attention_fwd": ("hstu_train",),
     "hstu_attention_bwd": ("hstu_train",),
     "flash_attention_wgmma": ("lm_serve",),
-    # f32 and other head dims (phase 12); no main path gives it such inputs
-    "flash_attention_simple": (),
+    # FuXi's f32 attention, forward and backward
+    "flash_attention_simple": ("fuxi_train",),
+    "flash_attention_bwd": ("fuxi_train",),
 }
 
 
@@ -368,6 +414,17 @@ def flash_work(q, k, causal):
         pairs_per_head = tq * tk
     nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
     return 4 * hd * b * h * pairs_per_head, nbytes
+
+
+def flash_bwd_work(q, k, causal):
+    """(operations, bytes) of the ``flash_attention`` backward for these
+    inputs: 10 hd per unmasked (query, key) pair (the score and dP again,
+    dV, dQ and dK); q, k, v, the output, its gradient and the lse read
+    once, dq, dk and dv written once."""
+    ops, _ = flash_work(q, k, causal)
+    b, tq, h, _ = q.shape
+    nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel()) + 4 * b * h * tq
+    return ops // 4 * 10, nbytes
 
 
 def hstu_work(q, dv, causal):
@@ -548,14 +605,15 @@ def main() -> int:
         for m in mods.values():
             m.launches = 0
         ha.launches_fwd = ha.launches_bwd = 0
-        fa.launches = fa.launches_wgmma = fa.launches_simple = 0
+        fa.launches = fa.launches_wgmma = fa.launches_simple = fa.launches_bwd = 0
 
     def counts():
         return {**{k: m.launches for k, m in mods.items()},
                 "hstu_attention_fwd": ha.launches_fwd,
                 "hstu_attention_bwd": ha.launches_bwd,
                 "flash_attention_wgmma": fa.launches_wgmma,
-                "flash_attention_simple": fa.launches_simple}
+                "flash_attention_simple": fa.launches_simple,
+                "flash_attention_bwd": fa.launches_bwd}
 
     # -- 1. environment ---------------------------------------------------
     smi = subprocess.run(
@@ -636,10 +694,17 @@ def main() -> int:
     fwd_ptxas = {"d" + re.search(r"ILi(\d+)E", fn).group(1): v for fn, v in ptxas_by_kernel(
         build.build_log.get("hstu_attention", {}).get("ptxas", "")).items()
         if "hstu_fwd_kernel" in fn}
+    # each flash_attention backward kernel's registers and spills, by type
+    # and columns a thread (kernel<T, kC>)
+    bwd_ptxas = {re.sub(r".*flash_bwd_(\w+?)_kernel.*?I(f|13__nv_bfloat16)(?:Li(\d+)E)?.*",
+                        lambda m: f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}"
+                                  + (f",{m.group(3)}>" if m.group(3) else ">"), fn): v
+                 for fn, v in ptxas_by_kernel(build.build_log.get(
+                     "flash_attention_bwd", {}).get("ptxas", "")).items()}
     emit("build", seconds=round(build_s, 3), sources=list(build.SOURCES),
          nvcc_seconds={k: round(v["seconds"], 3) for k, v in build.build_log.items()},
          flash_wgmma_hgmma_instructions=hgmma, hstu_hmma_instructions=hmma,
-         hstu_fwd_ptxas=fwd_ptxas,
+         hstu_fwd_ptxas=fwd_ptxas, flash_bwd_ptxas=bwd_ptxas,
          ptxas={k: [ln.strip() for ln in v["ptxas"].splitlines()
                     if "registers" in ln or "spill" in ln]
                 for k, v in build.build_log.items()})
@@ -1106,7 +1171,8 @@ def main() -> int:
             "segment_rowsum": (N_MICRO + 1) * TRAIN_STEPS,
             "buffer_sync": TRAIN_STEPS - 1, "embedding_scatter": TRAIN_STEPS,
             "hstu_attention_fwd": 0, "hstu_attention_bwd": 0,
-            "flash_attention_wgmma": 0, "flash_attention_simple": 0}
+            "flash_attention_wgmma": 0, "flash_attention_simple": 0,
+            "flash_attention_bwd": 0}
     if train_launches != want:
         raise SystemExit(f"training launches {train_launches} != {want}")
 
@@ -1926,7 +1992,8 @@ def main() -> int:
                  # each layer's forward runs again in the backward (per-layer remat)
                  "hstu_attention_fwd": 2 * n_layers * N_MICRO * HSTU_STEPS,
                  "hstu_attention_bwd": n_layers * N_MICRO * HSTU_STEPS,
-                 "flash_attention_wgmma": 0, "flash_attention_simple": 0}
+                 "flash_attention_wgmma": 0, "flash_attention_simple": 0,
+                 "flash_attention_bwd": 0}
     if hstu_launches != hstu_want:
         raise SystemExit(f"HSTU launches {hstu_launches} != {hstu_want}")
     if hstu_launches["hstu_attention_fwd"] != HSTU_FWD_CALLS_PER_STEP * HSTU_STEPS:
@@ -1988,15 +2055,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 10. consistency at hstu-reduced -------------------------------------
-    def hstu_gaps(sparse_lr=None, adam_eps=None):
+    def reduced_gaps(sparse_lr=None, adam_eps=None, arch="hstu-industrial"):
         """Per mode, the gap to the reference trainer after
         CONSISTENCY_STEPS steps from one state, at the configuration's own
-        step sizes unless ``sparse_lr`` and ``adam_eps`` are given."""
+        step sizes unless ``sparse_lr`` and ``adam_eps`` are given; the
+        reduced ``arch`` (HSTU's, or FuXi's in phase 11c)."""
         opt_cfg = OptimizerConfig() if adam_eps is None else OptimizerConfig(eps=adam_eps)
         kw = dict(reduced=True, global_batch=16, n_micro=N_MICRO, seed=1, opt_cfg=opt_cfg)
         runs = {}
         for mode in ("nestpipe", "serial", "async"):
-            runs[mode] = Session.from_arch("hstu-industrial", mode=mode, **kw)
+            runs[mode] = Session.from_arch(arch, mode=mode, **kw)
             if sparse_lr is not None:
                 runs[mode].workload.engine.sparse_lr = sparse_lr
         first = runs["nestpipe"]
@@ -2020,7 +2088,8 @@ def main() -> int:
             parts = [a.table.rows - b.table.rows] + [a.dense[k] - b.dense[k] for k in a.dense]
             accum = (a.table.accum - b.table.accum).abs() / (1 + b.table.accum.abs())
             return {"rows_dense": max(float(x.abs().max()) for x in parts),
-                    "accum_rel": float(accum.max())}
+                    "accum_rel": float(accum.max()),
+                    "accum_abs": float((a.table.accum - b.table.accum).abs().max())}
 
         gaps = {mode: two(r.state, ref_state) for mode, r in finals.items()}
         gaps["nestpipe_vs_serial"] = two(finals["nestpipe"].state, finals["serial"].state)
@@ -2031,8 +2100,8 @@ def main() -> int:
                 "longest_key_run": longest_key_run(batches), "segment_rowsum_chunk": sr.CHUNK,
                 "losses": {m: r.stats.losses for m, r in finals.items()}}
 
-    hstu_runs = {"default_step_sizes": hstu_gaps(),
-                 "small_step_sizes": hstu_gaps(**HSTU_SMALL_STEPS)}
+    hstu_runs = {"default_step_sizes": reduced_gaps(),
+                 "small_step_sizes": reduced_gaps(**HSTU_SMALL_STEPS)}
     emit("hstu_consistency", arch="hstu-industrial (reduced)", steps=CONSISTENCY_STEPS,
          **hstu_runs, bounds="rows and dense within 1e-5, accum within 1e-4 of "
          "1 + accum; async more than 1e-6 from the reference")
@@ -2052,6 +2121,292 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit("release", memory_allocated_gb=torch.cuda.memory_allocated() / 1e9,
          memory_reserved_gb=torch.cuda.memory_reserved() / 1e9)
+
+    # -- 11a. flash_attention backward against its plain version ---------------
+    t_phase = time.perf_counter()
+    bworst = {}
+
+    def check_flash_bwd(label, q, k, v, causal, chunk=None, given=None):
+        """The general forward's output and lse (or ``given`` (o, do, lse)),
+        then the backward kernel on a random output gradient, against the
+        plain versions, ``chunk`` batch rows at a time: the lse within
+        ref.flash_attention_lse_bound, dq, dk and dv within
+        ref.flash_attention_bwd_bound; the same bits on a second run of
+        each kernel. Returns the largest errors."""
+        if given is None:
+            out, lse = fa.flash_attention_lse(q, k, v, causal)
+            do = torch.empty(out.shape, device=dev).normal_(generator=g).to(q.dtype)
+            out2, lse2 = fa.flash_attention_lse(q, k, v, causal)
+            if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+                raise SystemExit(f"flash_attention forward is not deterministic at {label}")
+            del out2, lse2
+        else:
+            out, do, lse = given
+        before = fa.launches_bwd
+        got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal)
+        if not all(torch.equal(a, b) for a, b in
+                   zip(got, fa.flash_attention_bwd(q, k, v, out, do, lse, causal))):
+            raise SystemExit(f"flash_attention_bwd is not deterministic at {label}")
+        if fa.launches_bwd != before + 2:
+            raise SystemExit(f"{label}: the backward's counter moved by "
+                             f"{fa.launches_bwd - before}, not 2")
+        dname = str(q.dtype).removeprefix("torch.")
+        errs = {}
+        step = chunk or q.shape[0]
+        for b0 in range(0, q.shape[0], step):
+            sl = slice(b0, b0 + step)
+            qs, ks, vs, os_, dos, ls = q[sl], k[sl], v[sl], out[sl], do[sl], lse[sl]
+            if given is None:
+                lse_want = ref.flash_attention_lse_ref(qs, ks, causal)
+                lerr = (ls - lse_want).abs()
+                if not bool((lerr <= ref.flash_attention_lse_bound(qs, ks, lse_want,
+                                                                   causal)).all()):
+                    raise SystemExit(f"the forward's lse beyond its bound at {label}: "
+                                     f"{float(lerr.max())}")
+                errs["lse"] = max(errs.get("lse", 0.0), float(lerr.max()))
+            want = ref.flash_attention_bwd_ref(qs, ks, vs, os_, dos, ls, causal)
+            bounds = ref.flash_attention_bwd_bound(qs, ks, vs, os_, dos, ls, want, causal)
+            for name, got_, w, bd in zip(("dq", "dk", "dv"), got, want, bounds):
+                err = (got_[sl].float() - w.float()).abs()
+                if not bool((err <= bd).all()):
+                    raise SystemExit(f"flash_attention_bwd {name} beyond its bound at "
+                                     f"{label}: {float(err.max())}")
+                errs[name] = max(errs.get(name, 0.0), float(err.max()))
+            del want, bounds
+        for name, err in errs.items():
+            key = f"{'lse' if name == 'lse' else 'flash_attention_bwd'} {dname}"
+            bworst[key] = max(bworst.get(key, 0.0), err)
+        return errs
+
+    def flash_inputs(b, tq, tk, h, kv, hd, dtype):
+        return [torch.empty((b, t, n, hd), device=dev).normal_(generator=g).to(dtype)
+                for t, n in ((tq, h), (tk, kv), (tk, kv))]
+
+    bedge = []
+    for dtype, dims in ((torch.float32, (16, 64, 80, 128)), (torch.bfloat16, (16, 80))):
+        dname = str(dtype).removeprefix("torch.")
+        for t in (1, 33, 64, 257, 512):
+            for hd in dims:
+                for kv in (4, 1):  # H/KV 1 and 4
+                    for causal in (True, False):
+                        check_flash_bwd(f"T={t} hd={hd} H/KV={4 // kv} causal={causal} "
+                                        f"{dname}", *flash_inputs(1, t, t, 4, kv, hd, dtype),
+                                        causal)
+        bedge.append(f"{dname} T in {{1,33,64,257,512}} hd in {dims} H/KV in {{1,4}} "
+                     "causal and not")
+    for causal in (True, False):
+        check_flash_bwd(f"Tq=33 Tk=100 causal={causal}",
+                        *flash_inputs(2, 33, 100, 4, 1, 64, torch.float32), causal)
+    bedge.append("float32 Tq=33 Tk=100 hd=64 H/KV=4 causal and not")
+    # q, k, v column slices of one wider tensor, off 16-byte alignment
+    wide = torch.empty((2, 100, 4, 3 * 64 + 3), device=dev).normal_(generator=g)
+    check_flash_bwd("strided", wide[..., 3:67], wide[..., 67:131], wide[..., 131:195], True)
+    bedge.append("float32 strided q, k, v (T=100, hd=64, 3 elements in)")
+    del wide
+    torch.cuda.synchronize()
+    emit("flash_bwd_edges", cases=bedge, max_abs_err=bworst,
+         seconds=time.perf_counter() - t_phase,
+         tolerance="dq, dk, dv: |kernel - plain| <= 1e-5 M + 1e-7 (+ one bf16 ulp of the "
+                   "plain gradient in bf16), M each gradient's sum of magnitudes "
+                   "(ref.flash_attention_bwd_bound); lse: ref.flash_attention_lse_bound; "
+                   "the same bits on two runs")
+
+    # -- 11b. main path: full-size fuxi-kuairand training --------------------------
+    t_phase = time.perf_counter()
+    fsess = Session.from_arch(FUXI_ARCH, mode="nestpipe", global_batch=FUXI_BATCH,
+                              n_micro=N_MICRO, bucket_slack=SLACK, seed=0)
+    fwl, fcfg = fsess.workload, fsess.workload.cfg
+    fdims = fwl.engine.dims(fwl.batch_shapes["keys"][0][1:], N_MICRO)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ftable = fsess.state.table.rows
+    torch.cuda.synchronize()
+    emit("fuxi_init", seconds=round(time.perf_counter() - t0, 3),
+         config={k: getattr(fcfg, k) for k in ("d_model", "n_layers", "n_heads", "d_ff",
+                                               "seq_len", "compute_dtype")},
+         tables={t.name: t.vocab_size for t in fcfg.tables},
+         table_rows=ftable.shape[0], dim=ftable.shape[1],
+         table_gb=round(ftable.numel() * 4 / 1e9, 3),
+         dense_params=sum(p_.numel() for p_ in fsess.state.dense.values()),
+         dims={"L": fdims.l_local, "U": fdims.u_max, "C": fdims.cap,
+               "K": fdims.buffer_cap, "N": fdims.n_micro},
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if tuple(ftable.shape) != (32_027_000, 256) or ftable.device.type != "cuda":
+        raise SystemExit(f"the fuxi-kuairand master is {tuple(ftable.shape)} on "
+                         f"{ftable.device}, not the full 32,027,000 x 256 on the card")
+    del ftable
+    fsess.train(1)  # unchecked warm-up step
+    torch.cuda.synchronize()
+
+    # two steps with the first general forward and backward call kept (every
+    # call counted) and, as on the DLRM path, the embedding kernels' calls
+    seen = {"fwd": 0, "bwd": 0}
+    fkept = {}
+    real_lse, real_fbwd = fa.flash_attention_lse, fa.flash_attention_bwd
+
+    def lse_spy(q, k, v, causal=True):
+        seen["fwd"] += 1
+        if "fwd" not in fkept:
+            fkept["fwd"] = (q.clone(), k.clone(), v.clone(), causal)
+        return real_lse(q, k, v, causal)
+
+    def fbwd_spy(q, k, v, o, do, lse, causal=True):
+        seen["bwd"] += 1
+        if "bwd" not in fkept:
+            fkept["bwd"] = (*(x.clone() for x in (q, k, v, o, do, lse)), causal)
+        return real_fbwd(q, k, v, o, do, lse, causal)
+
+    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)  # evicts the L2 (time_ms)
+    fa.flash_attention_lse, fa.flash_attention_bwd = lse_spy, fbwd_spy
+    try:
+        fcaptured = capture_calls(fsess)
+    finally:
+        fa.flash_attention_lse, fa.flash_attention_bwd = real_lse, real_fbwd
+    if seen != {"fwd": 2 * FUXI_FWD_CALLS_PER_STEP, "bwd": 2 * FUXI_BWD_CALLS_PER_STEP}:
+        raise SystemExit(f"two FuXi steps made {seen} attention calls")
+    # the embedding kernels at this path's shapes (D = 256, f32 retrieve and
+    # buffer rows, bf16 assembly), while the master lives
+    fshapes = check_and_time("fuxi_train", fcaptured, fsess.state.table)
+    del fcaptured
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    frep = fsess.train(FUXI_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fuxi_launches = counts()
+    s = frep.summary
+    samples_per_s = FUXI_BATCH * FUXI_STEPS / wall
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emit("fuxi_train", arch=FUXI_ARCH, mode="nestpipe", global_batch=FUXI_BATCH,
+         n_micro=N_MICRO, bucket_slack=SLACK, steps=FUXI_STEPS, losses=frep.stats.losses,
+         overflow_max=s["overflow_max"], samples_per_s=samples_per_s,
+         tokens_per_s=samples_per_s * fcfg.seq_len, wall_s=wall,
+         step_ms=[x * 1e3 for x in frep.stats.step_times],
+         step_p50_ms=s["p50_step_s"] * 1e3, step_p99_ms=s["p99_step_s"] * 1e3,
+         mean_input_wait_ms=s["mean_input_wait_s"] * 1e3,
+         stage_host_ms={k: s[k] for k in ("plan_ms", "retrieve_ms", "commit_ms")},
+         launches=fuxi_launches, max_memory_allocated_gb=peak_gb,
+         device_memory_gb=torch.cuda.get_device_properties(0).total_memory / 1e9)
+    if not all(np.isfinite(frep.stats.losses)) or len(frep.stats.losses) != FUXI_STEPS:
+        raise SystemExit(f"FuXi losses are not {FUXI_STEPS} finite values")
+    if s["overflow_max"] != 0:
+        raise SystemExit(f"FuXi routing overflowed: {s['overflow_max']}")
+    fuxi_want = {k: 0 for k in KERNELS}
+    fuxi_want.update(embedding_gather=(1 + 3 * N_MICRO) * FUXI_STEPS,
+                     segment_rowsum=(N_MICRO + 1) * FUXI_STEPS,
+                     buffer_sync=FUXI_STEPS - 1, embedding_scatter=FUXI_STEPS,
+                     flash_attention_simple=FUXI_FWD_CALLS_PER_STEP * FUXI_STEPS,
+                     flash_attention_bwd=FUXI_BWD_CALLS_PER_STEP * FUXI_STEPS)
+    if fuxi_launches != fuxi_want:
+        raise SystemExit(f"FuXi launches {fuxi_launches} != {fuxi_want}")
+
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fsess.train(2)
+            torch.cuda.synchronize()
+            span = time.perf_counter() - t0
+        emit_profile(prof, "fuxi_train_profile", span, steps=2)
+        del prof
+    del fsess, fwl, frep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the captured main-path attention calls, on the card alone now: checked
+    # at full shape and timed beside the plain versions, SDPA (the yardstick;
+    # the port never calls it) and their f32 bound
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fuxi_attn, fuxi_err = {}, {}
+    q, k, v, causal = fkept["fwd"]
+    out, lse = fa.flash_attention_lse(q, k, v, causal)
+    if not torch.equal(out, fa.flash_attention_lse(q, k, v, causal)[0]):
+        raise SystemExit("the main-path forward call is not deterministic")
+    err_max = 0.0
+    for b0 in range(0, q.shape[0], 8):
+        sl = slice(b0, b0 + 8)
+        want = ref.flash_attention_ref(q[sl], k[sl], v[sl], causal)
+        err = (out[sl] - want).abs()
+        if not bool((err <= ref.flash_attention_bound(q[sl], k[sl], v[sl], want,
+                                                      causal)).all()):
+            raise SystemExit(f"the main-path forward call beyond its bound: {float(err.max())}")
+        lse_want = ref.flash_attention_lse_ref(q[sl], k[sl], causal)
+        if not bool(((lse[sl] - lse_want).abs() <= ref.flash_attention_lse_bound(
+                q[sl], k[sl], lse_want, causal)).all()):
+            raise SystemExit("the main-path forward call's lse beyond its bound")
+        err_max = max(err_max, float(err.max()))
+        del want, err, lse_want
+    fuxi_err["flash_attention_simple"] = err_max
+    del out, lse
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    ops, nbytes = flash_work(q, k, causal)
+    by_ops, by_bytes = ops / peak_fp32 * 1e3, nbytes / peak * 1e3
+    fuxi_attn["flash_attention_simple"] = row = {
+        "kernel": "flash_attention_simple", "call": "fuxi layer 0 forward (with its lse)",
+        "shape": list(q.shape), "kv_heads": k.shape[2], "causal": causal,
+        "dtype": str(q.dtype).removeprefix("torch."), "operations": ops, "bytes": nbytes,
+        "ms": time_ms(torch, lambda: fa.flash_attention_lse(q, k, v, causal), flush),
+        "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal), flush),
+        "library_ms": time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal), flush),
+        "library_call": "scaled_dot_product_attention(is_causal) on (B, H, T, hd) views",
+        "bound_ms": max(by_ops, by_bytes),
+        "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+    row["achieved_tflops"] = ops / row["ms"] / 1e9
+    emit("kernel_shape", path="fuxi_train", **row)
+    del qt, kt, vt
+
+    q, k, v, o, do, lse, causal = fkept["bwd"]
+    errs = check_flash_bwd("main-path backward call", q, k, v, causal, chunk=8,
+                           given=(o, do, lse))
+    fuxi_err["flash_attention_bwd"] = max(errs.values())
+    ops, nbytes = flash_bwd_work(q, k, causal)
+    by_ops, by_bytes = ops / peak_fp32 * 1e3, nbytes / peak * 1e3
+    leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    lib_out = sdpa(*leaves, is_causal=causal)
+    do_t = do.transpose(1, 2)
+    fuxi_attn["flash_attention_bwd"] = row = {
+        "kernel": "flash_attention_bwd", "call": "fuxi layer 3 backward",
+        "shape": list(q.shape), "kv_heads": k.shape[2], "causal": causal,
+        "dtype": str(q.dtype).removeprefix("torch."), "operations": ops, "bytes": nbytes,
+        "ms": time_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, do, lse, causal),
+                      flush),
+        "plain_ms": time_ms(torch, lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
+                                                                       causal), flush),
+        "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, leaves, do_t, retain_graph=True), flush),
+        "library_call": "torch.autograd.grad through scaled_dot_product_attention"
+                        "(is_causal) on (B, H, T, hd) views (its backward alone)",
+        "bound_ms": max(by_ops, by_bytes),
+        "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+    row["achieved_tflops"] = ops / row["ms"] / 1e9
+    emit("kernel_shape", path="fuxi_train", **row)
+    del fkept, q, k, v, o, do, lse, leaves, lib_out, do_t, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("fuxi_phase", seconds=time.perf_counter() - t_phase)
+
+    # -- 11c. consistency at fuxi-reduced ----------------------------------------
+    t_phase = time.perf_counter()
+    fuxi_run = reduced_gaps(arch=FUXI_ARCH)
+    emit("fuxi_consistency", arch="fuxi-kuairand (reduced)", steps=CONSISTENCY_STEPS,
+         **fuxi_run, seconds=time.perf_counter() - t_phase,
+         bounds="rows, dense and accum within 1e-5; async more than 1e-6 from the "
+                "reference")
+    if not fuxi_run["reference_same_bits_twice"]:
+        raise SystemExit("the FuXi reference gave other bits on a second run")
+    fgaps = fuxi_run["max_diff_to_reference"]
+    for key in ("nestpipe", "serial", "nestpipe_vs_serial"):
+        if fgaps[key]["rows_dense"] > 1e-5 or fgaps[key]["accum_abs"] > 1e-5:
+            raise SystemExit(f"FuXi {key} differs from the reference: {fgaps}")
+    if fgaps["async"]["rows_dense"] <= 1e-6:
+        raise SystemExit(f"FuXi async did not diverge: {fgaps}")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- 12. flash_attention against its plain version -----------------------
     fworst = {"flash_attention_wgmma bfloat16": 0.0, "flash_attention_simple float32": 0.0,
@@ -2087,10 +2442,6 @@ def main() -> int:
             fworst[key] = max(fworst[key], float(err.max()))
             del want, err, bound
         return kname
-
-    def flash_inputs(b, tq, tk, h, kv, hd, dtype):
-        return [torch.empty((b, t, n, hd), device=dev).normal_(generator=g).to(dtype)
-                for t, n in ((tq, h), (tk, kv), (tk, kv))]
 
     fedge = []
     head_dims = (16, 64, 80, 128, 160, 192, 256)
@@ -2382,25 +2733,43 @@ def main() -> int:
                    **{path: path_launches[run][kname]
                       for run, path in TIER_PATHS.items()},
                    "hstu_train": hstu_launches[kname],
+                   "fuxi_train": fuxi_launches[kname],
                    "lm_serve": lm_launches[kname]}
         for path in RUNS_ON[kname]:
             if by_path[path] == 0:
                 raise SystemExit(f"{kname} was not launched on the {path} path")
-        if kname.startswith("flash_attention_"):
+        if kname == "flash_attention_wgmma":
             row = frows[0]
-            ms_key = "ms" if kname == "flash_attention_wgmma" else "simple_ms"
             entry = {
                 "name": kname, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "max_abs_err": max(v for k, v in fworst.items() if k.startswith(kname)),
-                "ms": row[ms_key], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                 "ms_of": "one call at the main-path shape " + str(row["shape"])
                          + f" over {row['kv_heads']} kv heads, bf16, causal",
                 "calls_per_serve": lm_launches[kname],
-                "last_layer": {k: frows[-1][k] for k in (ms_key, "plain_ms", "library_ms",
+                "last_layer": {k: frows[-1][k] for k in ("ms", "plain_ms", "library_ms",
                                                          "bound_ms")},
             }
+        elif kname in fuxi_attn:  # FuXi's f32 attention: the general forward, the backward
+            row = fuxi_attn[kname]
+            entry = {
+                "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "max_abs_err": max([fuxi_err[kname]] + [
+                    v for k, v in {**fworst, **bworst}.items() if k.startswith(kname)]),
+                "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "ms_of": f"one call at the main-path shape {row['shape']} over "
+                         f"{row['kv_heads']} kv heads, f32, causal ({row['call']})",
+                "calls_per_step": fuxi_want[kname] // FUXI_STEPS,
+                "achieved_tflops": row["achieved_tflops"],
+            }
+            if kname == "flash_attention_simple":  # the LM prefill's shape, bf16
+                entry["lm_serve_shape"] = {
+                    "ms": frows[0]["simple_ms"],
+                    **{k: frows[0][k] for k in ("plain_ms", "library_ms", "bound_ms")}}
         elif kname in hrows_out:
             row = hrows_out[kname]
             entry = {
@@ -2427,11 +2796,12 @@ def main() -> int:
                 "library_ms": (None if any(x["library_ms"] is None for x in rows)
                                else sum(x["library_ms"] for x in rows)),
                 "ms_of": "one dlrm-ctr training step: " + ", ".join(x["call"] for x in rows),
-                "hstu_train_step": {
-                    **{k: (None if any(x[k] is None for x in hshapes[kname])
-                           else sum(x[k] for x in hshapes[kname]))
+                **{f"{path}_step": {
+                    **{k: (None if any(x[k] is None for x in calls[kname])
+                           else sum(x[k] for x in calls[kname]))
                        for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
-                    "calls": [x["call"] for x in hshapes[kname]]},
+                    "calls": [x["call"] for x in calls[kname]]}
+                   for path, calls in (("hstu_train", hshapes), ("fuxi_train", fshapes))},
             }
         if kname == "embedding_gather":
             times = ("ms", "plain_ms", "library_ms", "bound_ms")
@@ -2452,7 +2822,8 @@ def main() -> int:
                    for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
                 "calls": [x["call"] for x in calls]}
         if kname == "segment_rowsum":  # the op's parts per step: sort, starts, sum, combine
-            for step, calls in ((entry, rows), (entry["hstu_train_step"], hshapes[kname])):
+            for step, calls in ((entry, rows), (entry["hstu_train_step"], hshapes[kname]),
+                                (entry["fuxi_train_step"], fshapes[kname])):
                 step["parts_ms"] = {k: sum(x["parts_ms"][k] for x in calls)
                                     for k in calls[0]["parts_ms"]}
         kernels.append(entry)

@@ -13,8 +13,8 @@
     lm = Session.from_arch("stablelm-12b")             # a dense LM
     print(lm.serve(batch=8, prompt_len=2048, gen=32).summary)
 
-Training runs any ported recsys backbone (DLRM, HSTU); recsys serving has
-a DLRM head only, as in the JAX package. A dense LM serves (batched
+Training runs any ported recsys backbone (DLRM, HSTU, FuXi); recsys
+serving has a DLRM head only, as in the JAX package. A dense LM serves (batched
 prefill, then greedy KV-cache decode) and does not train yet. A config
 outside the registry goes through ``launch.build.assemble_workload`` and
 :meth:`Session.from_workload`. ``device`` defaults to ``cuda`` and raises

@@ -3,7 +3,7 @@ recsys branches): the one place that maps a workload to a synthetic input
 iterator.
 
 - ``dlrm`` backbone: ``SyntheticRecsysStream`` (multi-table zipf CTR);
-- sequential backbones (HSTU): ``SyntheticLMStream``, zipf item-id
+- sequential backbones (HSTU, FuXi): ``SyntheticLMStream``, zipf item-id
   sequences drawn from the first table's vocabulary, at the stream's
   default zipf exponent 1.1 (not ``cfg.zipf_a``), as JAX draws them.
 

@@ -5,8 +5,10 @@ its master (151 M rows of dim 512, 309 GB of f32) does not fit one card,
 so a run on one card keeps every width and cuts the vocabularies
 (``HSTU_INDUSTRIAL_ONE_CARD``). ``dlrm-ctr`` is the Criteo-like DLRM at its published
 widths; its 26 tables pack into 57,012,000 rows of dim 128, a 29.19 GB f32
-master that fits one 80 GB card. The other configs are the CPU-runnable
-bench cells. FuXi is not ported.
+master that fits one 80 GB card. ``fuxi-kuairand`` is the paper's FuXi
+backbone at its published widths and full vocabularies: its two tables
+pack into 32,027,000 rows of dim 256, a 32.80 GB f32 master that fits one
+card whole. The other configs are the CPU-runnable bench cells.
 """
 import dataclasses
 
@@ -39,6 +41,23 @@ HSTU_INDUSTRIAL_ONE_CARD = dataclasses.replace(HSTU_INDUSTRIAL, tables=tuple(
 HSTU_REDUCED = RecsysModelConfig(
     name="hstu-reduced", backbone="hstu",
     tables=(SparseTableConfig("items", vocab_size=4096, dim=32),),
+    d_model=64, n_layers=2, n_heads=4, d_ff=128, seq_len=32,
+)
+
+# FUXI on KuaiRand-27K-like scale (paper Table II GPU-cluster setting).
+FUXI_KUAIRAND = RecsysModelConfig(
+    name="fuxi-kuairand", backbone="fuxi",
+    tables=(
+        SparseTableConfig("videos", vocab_size=32_000_000, dim=256),
+        SparseTableConfig("users", vocab_size=27_000, dim=256),
+    ),
+    d_model=512, n_layers=4, n_heads=8, d_ff=2048, seq_len=512,
+    compute_dtype="bfloat16",
+)
+
+FUXI_REDUCED = RecsysModelConfig(
+    name="fuxi-reduced", backbone="fuxi",
+    tables=(SparseTableConfig("videos", vocab_size=4096, dim=32),),
     d_model=64, n_layers=2, n_heads=4, d_ff=128, seq_len=32,
 )
 

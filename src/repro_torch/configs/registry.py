@@ -1,5 +1,5 @@
 """Architecture registry: ``--arch <id>`` -> full/reduced configs. Ported:
-the recsys archs (DLRM, HSTU; FuXi is not) and the dense LM archs whose
+the recsys archs (DLRM, HSTU, FuXi; training) and the dense LM archs whose
 (attn, mlp) stacks the port's layers cover (``kind="lm"``, serving)."""
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ _LM_MODULES = {
 
 _RECSYS = {
     "hstu-industrial": ("HSTU_INDUSTRIAL", "HSTU_REDUCED"),
+    "fuxi-kuairand": ("FUXI_KUAIRAND", "FUXI_REDUCED"),
     "dlrm-ctr": ("DLRM_CTR", "DLRM_REDUCED"),
     "dlrm-routing": ("DLRM_ROUTING", "DLRM_ROUTING"),
     "dlrm-cached": ("DLRM_CACHED", "DLRM_CACHED"),

@@ -3,7 +3,7 @@ numpy arrays.
 
 JAX's threefry ``jax.random`` cannot be reproduced with ``torch.Generator``,
 so a port that must serve or train from the same weights takes them over:
-the DLRM or HSTU dense pytree as a state dict, the master table as an
+the DLRM, HSTU or FuXi dense pytree as a state dict, the master table as an
 ``EmbeddingTableState`` (hand both to ``Session.ingest``), or a whole
 train state, AdamW moments and step included (assign it to
 ``Session.state``). A dense LM's params (``lm_params_from_jax``) keep
@@ -58,12 +58,25 @@ def hstu_params_from_jax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor
     return out
 
 
+def fuxi_params_from_jax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """FuXi's ``{"layers": {"norm1", "attn": {"wq", "wk", "wv", "wo"},
+    "norm2", "w_up", "w_fi0".."w_fi2", "w_down"} stacked (L, ...), "in_proj",
+    "final_norm"}`` -> a ``FuXi`` state dict (``layers.{i}.attn.wq``, ...,
+    ``final_norm.scale``): HSTU's unstacking, which follows the keys."""
+    return hstu_params_from_jax(params_np)
+
+
 def dense_params_from_jax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The dense pytree of either ported backbone as a state dict: HSTU's
-    (it has ``layers``) or DLRM's (``bottom`` and ``top``)."""
-    if "layers" in params_np:
+    """The dense pytree of a ported backbone as a state dict, told apart by
+    its keys: DLRM's ``bottom`` and ``top``, HSTU's layers (``w_uvqk``) or
+    FuXi's (``w_fi0``)."""
+    if "layers" not in params_np:
+        return dlrm_params_from_jax(params_np)
+    if "w_uvqk" in params_np["layers"]:
         return hstu_params_from_jax(params_np)
-    return dlrm_params_from_jax(params_np)
+    if "w_fi0" in params_np["layers"]:
+        return fuxi_params_from_jax(params_np)
+    raise ValueError(f"no ported backbone has the layer keys {sorted(params_np['layers'])}")
 
 
 def _tensor_keep_dtype(x) -> torch.Tensor:
@@ -107,7 +120,7 @@ def table_from_jax(rows_np: np.ndarray, accum_np: np.ndarray,
 
 
 def train_state_from_jax(state_np, device: torch.device | str) -> TrainState:
-    """A JAX ``TrainState`` of numpy arrays (DLRM or HSTU dense pytree,
+    """A JAX ``TrainState`` of numpy arrays (DLRM, HSTU or FuXi dense pytree,
     AdamW ``AdamState(step, mu, nu)``, master table, step) -> the port's, on
     ``device``, so both packages start from one state."""
     def params(tree):

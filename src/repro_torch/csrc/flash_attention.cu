@@ -5,7 +5,10 @@
 // (B, Tq, H, hd); k and v are (B, Tk, KV, hd) with H % KV == 0, query head h
 // reading kv head h / (H / KV), so grouped-query attention never builds the
 // repeated copies. The output is contiguous (B, Tq, H, hd) in the inputs'
-// type.
+// type. When asked (a non-null `lse`), the kernel also writes each row's
+// logsumexp m + log d of the masked, scaled scores, f32 (B, H, Tq), which
+// the backward (csrc/flash_attention_bwd.cu) reads; the output and its bits
+// are the same either way.
 //
 // Replaces the Pallas TPU kernel `flash_attention`
 // (src/repro/kernels/flash_attention.py:70), and computes what it computes:
@@ -243,8 +246,8 @@ __device__ void accumulate(const float* p, const float* v, float* o, const Layou
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(View qv, View kv, View vv, T* __restrict__ out, int Tq, int Tk, int H,
-                 int KV, int hd, int causal, float scale, bool vec) {
+flash_fwd_kernel(View qv, View kv, View vv, T* __restrict__ out, float* __restrict__ lse,
+                 int Tq, int Tk, int H, int KV, int hd, int causal, float scale, bool vec) {
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
   const Layout l = layout<T>(hd);
@@ -313,7 +316,11 @@ flash_fwd_kernel(View qv, View kv, View vv, T* __restrict__ out, int Tq, int Tk,
     __syncthreads();  // P, V and the scaled O are whole
     accumulate(p, kvs, o, l, hd);
   }
-  if (part == 0) denom[row] = fmaxf(d_run, 1e-30f);
+  if (part == 0) {
+    denom[row] = fmaxf(d_run, 1e-30f);
+    if (lse != nullptr && qi < Tq)
+      lse[(static_cast<int64_t>(b) * H + h) * Tq + qi] = m_run + logf(d_run);
+  }
   __syncthreads();
   for (int u = threadIdx.x; u < kTile * hd; u += kThreads) {
     const int r = u / hd, c = u - r * hd;
@@ -335,8 +342,8 @@ bool vec_ok(const void* p, int64_t sb, int64_t st, int64_t sh, int64_t hd) {
 template <typename T>
 int launch(const void* q, int64_t qsb, int64_t qst, int64_t qsh, const void* k,
            int64_t ksb, int64_t kst, int64_t ksh, const void* v, int64_t vsb, int64_t vst,
-           int64_t vsh, void* out, int64_t B, int64_t Tq, int64_t Tk, int64_t H, int64_t KV,
-           int64_t hd, int causal, float scale, void* stream) {
+           int64_t vsh, void* out, void* lse, int64_t B, int64_t Tq, int64_t Tk, int64_t H,
+           int64_t KV, int64_t hd, int causal, float scale, void* stream) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || hd <= 0 ||
       hd > kMaxD || B * H > INT_MAX || Tq > INT_MAX - kTile || Tk > INT_MAX - kTile ||
       (Tq + kTile - 1) / kTile > 65535)
@@ -351,7 +358,7 @@ int launch(const void* q, int64_t qsb, int64_t qst, int64_t qsh, const void* k,
   const dim3 grid(static_cast<unsigned>(B * H), static_cast<unsigned>((Tq + kTile - 1) / kTile));
   flash_fwd_kernel<T><<<grid, kThreads, l.bytes, static_cast<cudaStream_t>(stream)>>>(
       View{q, qsb, qst, qsh}, View{k, ksb, kst, ksh}, View{v, vsb, vst, vsh},
-      static_cast<T*>(out), static_cast<int>(Tq), static_cast<int>(Tk),
+      static_cast<T*>(out), static_cast<float*>(lse), static_cast<int>(Tq), static_cast<int>(Tk),
       static_cast<int>(H), static_cast<int>(KV), static_cast<int>(hd), causal, scale, vec);
   return static_cast<int>(cudaGetLastError());
 }
@@ -361,17 +368,18 @@ int launch(const void* q, int64_t qsb, int64_t qst, int64_t qsh, const void* k,
 // q (B, Tq, H, hd), k and v (B, Tk, KV, hd) are strided views (element
 // strides sb, st, sh; unit stride along hd) of one type; out is a
 // contiguous (B, Tq, H, hd) output of that type, every element of which is
-// written. 1 <= hd <= 256, H % KV == 0. Launches on `stream` and returns
+// written; lse is null or a contiguous f32 (B, H, Tq) output, every element
+// of which is written. 1 <= hd <= 256, H % KV == 0. Launches on `stream` and returns
 // cudaGetLastError() (0 on success). The caller checks shapes, types and
 // devices.
 #define REPRO_FLASH_ENTRY(NAME, T)                                                          \
   extern "C" int NAME(const void* q, int64_t qsb, int64_t qst, int64_t qsh, const void* k, \
                       int64_t ksb, int64_t kst, int64_t ksh, const void* v, int64_t vsb,    \
-                      int64_t vst, int64_t vsh, void* out, int64_t B, int64_t Tq,           \
-                      int64_t Tk, int64_t H, int64_t KV, int64_t hd, int causal,            \
+                      int64_t vst, int64_t vsh, void* out, void* lse, int64_t B,            \
+                      int64_t Tq, int64_t Tk, int64_t H, int64_t KV, int64_t hd, int causal, \
                       float scale, void* stream) {                                          \
-    return launch<T>(q, qsb, qst, qsh, k, ksb, kst, ksh, v, vsb, vst, vsh, out, B, Tq, Tk,  \
-                     H, KV, hd, causal, scale, stream);                                     \
+    return launch<T>(q, qsb, qst, qsh, k, ksb, kst, ksh, v, vsb, vst, vsh, out, lse, B, Tq, \
+                     Tk, H, KV, hd, causal, scale, stream);                                 \
   }
 
 REPRO_FLASH_ENTRY(repro_flash_attention_fwd_f32, float)

@@ -23,8 +23,11 @@ Contract (the sentinel conventions of ``repro.kernels.dispatch``):
   differentiable: the CUDA forward and backward kernels on the card, the
   plain version under autograd on the CPU.
 - ``flash_attention(q, k, v, causal)`` is softmax attention for q
-  ``(B, Tq, H, hd)`` and k, v ``(B, Tk, KV, hd)`` with ``H % KV == 0``
-  (forward only: the serving path).
+  ``(B, Tq, H, hd)`` and k, v ``(B, Tk, KV, hd)`` with ``H % KV == 0``,
+  differentiable: on the card, when grad is on and an input requires it,
+  the general forward kernel and the backward kernel
+  (``FlashAttention``; FuXi's training), else the forward kernel alone
+  (the serving path); the plain version under autograd on the CPU.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from . import ref
 from .buffer_sync import buffer_sync as _buffer_sync_kernel
 from .embedding_gather import embedding_gather
 from .embedding_scatter import embedding_scatter
+from .flash_attention import FlashAttention
 from .flash_attention import flash_attention as _flash_attention_kernel
 from .hstu_attention import HSTUAttention
 from .segment_rowsum import segment_rowsum as _segment_rowsum_kernel
@@ -114,6 +118,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     when ``causal``; q ``(B, Tq, H, hd)``, k and v ``(B, Tk, KV, hd)``, query
     head ``h`` reading kv head ``h // (H // KV)``."""
     if q.is_cuda:
+        if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+            return FlashAttention.apply(q, k, v, causal)
         return _flash_attention_kernel(q, k, v, causal)
     if _on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal)

@@ -31,27 +31,48 @@ TPU kernel does:
 Inputs are bf16 or f32 strided views with a unit stride along hd and
 ``1 <= hd <= 256``; the output is contiguous. The CUDA libraries build at
 first use (``kernels/build.py``); nothing here touches CUDA at import.
+
+The gradient is a kernel too: ``csrc/flash_attention_bwd.cu``
+(``flash_attention_bwd``) computes dq, dk and dv from q, k, v, the output,
+its gradient and the row logsumexp that the general forward writes beside
+its output. :class:`FlashAttention` joins the two for autograd. The wgmma
+forward has no logsumexp output yet, so a bf16 input at a wgmma head dim
+that needs a gradient raises (``ROADMAP.md``, Queue 1, item 4b: LM
+training); it is never sent to the general kernel instead.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from . import build
 
-# Launches of each kernel in this process, and their sum. Incremented only
-# where a kernel launches, so a run can show that its path went through it.
+# Launches of each kernel in this process, and their sum (of the forward
+# kernels). Incremented only where a kernel launches, so a run can show
+# that its path went through it. The backward's count takes a lock, as the
+# gather's does.
 launches_wgmma = 0
 launches_simple = 0
 launches = 0
+launches_bwd = 0
+_bwd_lock = threading.Lock()
+
+# What a bf16 input at a wgmma head dim answers when it needs a gradient.
+WGMMA_NO_GRAD = (
+    "flash_attention: the wgmma forward (bf16 at head dims {dims}) writes no "
+    "logsumexp, so it has no backward yet (ROADMAP.md, Queue 1, item 4b: LM "
+    "training, which gives it one)")
 
 MAX_HEAD_DIM = 256
 WGMMA_HEAD_DIMS = (64, 80, 128, 160, 192, 256)
 _SYMBOLS = {("simple", torch.float32): ("flash_attention", "repro_flash_attention_fwd_f32"),
             ("simple", torch.bfloat16): ("flash_attention", "repro_flash_attention_fwd_bf16"),
             ("wgmma", torch.bfloat16): ("flash_attention_wgmma",
-                                        "repro_flash_attention_fwd_wgmma")}
+                                        "repro_flash_attention_fwd_wgmma"),
+            ("bwd", torch.float32): ("flash_attention_bwd", "repro_flash_attention_bwd_f32"),
+            ("bwd", torch.bfloat16): ("flash_attention_bwd", "repro_flash_attention_bwd_bf16")}
 _fns = {}
 
 
@@ -60,9 +81,14 @@ def _kernel(kind: str, dtype: torch.dtype):
     if fn is None:
         p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
         view = [p, i64, i64, i64]
-        fn = _fns[(kind, dtype)] = build.function(
-            *_SYMBOLS[(kind, dtype)],
-            [*view * 3, p, i64, i64, i64, i64, i64, i64, i32, f32, p])
+        sizes = [i64] * 6  # B, Tq, Tk, H, KV, hd
+        if kind == "wgmma":  # q, k, v; out
+            args = [*view * 3, p, *sizes, i32, f32, p]
+        elif kind == "simple":  # q, k, v; out, lse
+            args = [*view * 3, p, p, *sizes, i32, f32, p]
+        else:  # q, k, v, o, do; lse, delta scratch, dq, dk, dv
+            args = [*view * 5, p, p, p, p, p, *sizes, i32, f32, p]
+        fn = _fns[(kind, dtype)] = build.function(*_SYMBOLS[(kind, dtype)], args)
     return fn
 
 
@@ -125,19 +151,23 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _launch(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool) -> torch.Tensor:
+            causal: bool, lse: bool = False):
+    """The output, or ``(out, lse)`` when ``lse`` (the general kernel only):
+    the row logsumexp, contiguous f32 ``(B, H, Tq)``."""
     global launches, launches_wgmma, launches_simple
     b, tq, h, hd = q.shape
     tk, kv = k.shape[1], k.shape[2]
     out = torch.empty((b, tq, h, hd), dtype=q.dtype, device=q.device)
+    rows = torch.empty((b, h, tq), dtype=torch.float32, device=q.device) if lse else None
     if out.numel() == 0:
-        return out
+        return (out, rows) if lse else out
     fn = _kernel(kind, q.dtype)
+    extra = () if kind == "wgmma" else (0 if rows is None else rows.data_ptr(),)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), *_strides(q), k.data_ptr(), *_strides(k),
-                 v.data_ptr(), *_strides(v), out.data_ptr(), b, tq, tk, h, kv, hd,
-                 int(causal), hd ** -0.5, stream)
+                 v.data_ptr(), *_strides(v), out.data_ptr(), *extra, b, tq, tk, h, kv,
+                 hd, int(causal), hd ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention ({kind}) launch failed: CUDA error {err}")
     if kind == "wgmma":
@@ -145,7 +175,7 @@ def _launch(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         launches_simple += 1
     launches += 1
-    return out
+    return (out, rows) if lse else out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -168,3 +198,80 @@ def flash_attention_simple(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (to hold the two kernels against each other and time them)."""
     _check(q, k, v)
     return _launch("simple", q, k, v, causal)
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True):
+    """``(out, lse)`` through the general kernel: the output, and the row
+    logsumexp ``m + log d`` of the masked, scaled scores, f32 ``(B, H,
+    Tq)``, which the backward reads. The output has the bits
+    ``flash_attention_simple`` gives."""
+    _check(q, k, v)
+    return _launch("simple", q, k, v, causal, lse=True)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        causal: bool = True):
+    """``(dq, dk, dv)``, contiguous and in q's type, of the forward for the
+    output gradient ``do``: ``o`` is the forward's output and ``lse`` its
+    row logsumexp (``flash_attention_lse``); o and do are ``(B, Tq, H,
+    hd)`` views with a unit stride along hd, of q's type."""
+    global launches_bwd
+    _check(q, k, v)
+    b, tq, h, hd = q.shape
+    tk, kv = k.shape[1], k.shape[2]
+    for name, x in (("o", o), ("do", do)):
+        if x.device != q.device or x.dtype != q.dtype or tuple(x.shape) != tuple(q.shape) \
+                or x.stride(-1) != 1:
+            raise ValueError(f"flash_attention backward: {name} must be a "
+                             f"{tuple(q.shape)} {q.dtype} view with unit stride along hd "
+                             f"on {q.device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
+    if lse.device != q.device or lse.dtype != torch.float32 \
+            or tuple(lse.shape) != (b, h, tq) or not lse.is_contiguous():
+        raise ValueError(f"flash_attention backward: lse must be a contiguous float32 "
+                         f"{(b, h, tq)} tensor on {q.device}, got {tuple(lse.shape)} "
+                         f"{lse.dtype} on {lse.device}")
+    dq = torch.empty((b, tq, h, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, tk, kv, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    fn = _kernel("bwd", q.dtype)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), *_strides(q), k.data_ptr(), *_strides(k),
+                 v.data_ptr(), *_strides(v), o.data_ptr(), *_strides(o),
+                 do.data_ptr(), *_strides(do), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, tq, tk, h, kv, hd,
+                 int(causal), hd ** -0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: CUDA error {err}")
+    with _bwd_lock:
+        launches_bwd += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The forward through the kernel ``variant`` picks, saving q, k, v, the
+    output and its row logsumexp; the backward through
+    ``flash_attention_bwd``. The wgmma variant raises: its forward writes no
+    logsumexp yet."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool = True):
+        if variant(q, k, v) == "wgmma":
+            raise NotImplementedError(WGMMA_NO_GRAD.format(dims=WGMMA_HEAD_DIMS))
+        out, lse = flash_attention_lse(q, k, v, causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse, ctx.causal)
+        return dq, dk, dv, None

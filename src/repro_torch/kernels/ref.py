@@ -209,16 +209,23 @@ def hstu_attention_magnitudes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              torch.einsum("bhqk,bqhd->bkhd", a_mag, da)))
 
 
+def _flash_scores(q: torch.Tensor, k: torch.Tensor, causal: bool):
+    """f32 ``(B, H, Tq, Tk)`` scaled scores ``q_i . k_j / sqrt(hd)`` (k with
+    H heads already) and the keep mask (None when nothing is masked)."""
+    tq, tk, hd = q.shape[1], k.shape[1], q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) * hd ** -0.5
+    return s, (_causal_mask_rect(tq, tk, q.device) if causal else None)
+
+
 def _softmax_weights(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
     """f32 ``(B, H, Tq, Tk)`` weights ``softmax_j(scale q_i . k_j)`` with
     ``scale = 1/sqrt(hd)``, the scores taken in f32 from the inputs' values
     and set to -1e30 at keys after the query when ``causal`` (positions from
     0 on both sides); k has H heads already."""
-    tq, tk, hd = q.shape[1], k.shape[1], q.shape[-1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
-                     k.to(torch.float32)) * hd ** -0.5
-    if causal:
-        s = torch.where(_causal_mask_rect(tq, tk, q.device), s, s.new_full((), -1e30))
+    s, keep = _flash_scores(q, k, causal)
+    if keep is not None:
+        s = torch.where(keep, s, s.new_full((), -1e30))
     return torch.softmax(s, dim=-1)
 
 
@@ -265,3 +272,100 @@ def flash_attention_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return 1e-5 * mag + 1e-7
     _, exp = torch.frexp(plain.to(torch.float32))
     return 2.0 ** -8 * mag + torch.ldexp(torch.ones_like(mag), exp - 8)
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            causal: bool = True) -> torch.Tensor:
+    """The row logsumexp ``m + log d`` of the scaled scores, -1e30 at keys
+    after the query when ``causal``: f32 ``(B, H, Tq)``, what the general
+    forward kernel writes beside its output for the backward."""
+    s, keep = _flash_scores(q, repeat_kv(k, q.shape[2]), causal)
+    if keep is not None:
+        s = torch.where(keep, s, s.new_full((), -1e30))
+    return torch.logsumexp(s, dim=-1)
+
+
+def _group_sum(x: torch.Tensor, kv: int) -> torch.Tensor:
+    """(B, T, H, hd) -> (B, T, KV, hd): each kv head's sum over its query
+    group, in head order (the transpose of ``repeat_kv``)."""
+    b, t, h, hd = x.shape
+    return x.reshape(b, t, kv, h // kv, hd).sum(3)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                            causal: bool = True):
+    """``(dq, dk, dv)`` of ``flash_attention_ref`` for the output gradient
+    ``do``, by the explicit formulas, in f32 and returned in the inputs'
+    type: ``P = exp(S - lse)`` (0 where masked), ``delta = rowsum(dO o O)``,
+    ``dV = P^T dO``, ``dS = P o (dO V^T - delta)``, ``dQ = dS K scale`` and
+    ``dK = dS^T Q scale``; each kv head's dk and dv summed over its query
+    group. ``o`` is the forward's output and ``lse`` its row logsumexp
+    (``flash_attention_lse_ref``)."""
+    h, kv, hd = q.shape[2], k.shape[2], q.shape[-1]
+    scale = hd ** -0.5
+    kr, vr = repeat_kv(k, h).to(torch.float32), repeat_kv(v, h).to(torch.float32)
+    qf, of, dof = (x.to(torch.float32) for x in (q, o, do))
+    s, keep = _flash_scores(qf, kr, causal)
+    p = torch.exp(s - lse[..., None])
+    if keep is not None:
+        p = torch.where(keep, p, p.new_zeros(()))
+    delta = (dof * of).sum(-1).transpose(1, 2)  # (B, H, Tq)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vr)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    return dq.to(q.dtype), _group_sum(dk, kv).to(k.dtype), _group_sum(dv, kv).to(v.dtype)
+
+
+def flash_attention_bwd_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                              plain, causal: bool = True):
+    """How far the backward kernel's ``(dq, dk, dv)`` may lie from ``plain``
+    (``flash_attention_bwd_ref`` on the same inputs), per element, in f32:
+    ``1e-5 M + 1e-7`` with ``M`` each gradient's sum of magnitudes, the same
+    terms added in another order, plus one ulp of ``plain`` in its type for
+    bf16 inputs (both round an f32 sum to bf16). ``M`` carries every
+    term's own rounding: ``|dS| <= P (|dO| . |v| + |dO| . |O|) = dS_mag``,
+    and P's relative error from the rounding of its exponent's argument,
+    ``1 + scale |q| . |k| + |lse|`` eps. ``M_dv = P^T |dO|``, ``M_dq =
+    scale dS_mag |K|``, ``M_dk = scale dS_mag^T |Q|``, group-summed as the
+    gradients are."""
+    h, kv, hd = q.shape[2], k.shape[2], q.shape[-1]
+    scale = hd ** -0.5
+    kr, vr = repeat_kv(k, h).to(torch.float32), repeat_kv(v, h).to(torch.float32)
+    qf, of, dof = (x.to(torch.float32) for x in (q, o, do))
+    s, keep = _flash_scores(qf, kr, causal)
+    p = torch.exp(s - lse[..., None])
+    dpa = torch.einsum("bqhd,bkhd->bhqk", dof.abs(), vr.abs())
+    da = (dof.abs() * of.abs()).sum(-1).transpose(1, 2)[..., None]
+    arg = 1 + torch.einsum("bqhd,bkhd->bhqk", qf.abs(), kr.abs()) * scale \
+        + lse.abs()[..., None]
+    ds_mag = p * (dpa + da) * arg
+    if keep is not None:
+        p = torch.where(keep, p, p.new_zeros(()))
+        ds_mag = torch.where(keep, ds_mag, ds_mag.new_zeros(()))
+    mags = (torch.einsum("bhqk,bkhd->bqhd", ds_mag, kr.abs()) * scale,
+            _group_sum(torch.einsum("bhqk,bqhd->bkhd", ds_mag, qf.abs()) * scale, kv),
+            _group_sum(torch.einsum("bhqk,bqhd->bkhd", p * arg, dof.abs()), kv))
+    bounds = []
+    for mag, want in zip(mags, plain):
+        bound = 1e-5 * mag + 1e-7
+        if want.dtype != torch.float32:
+            _, exp = torch.frexp(want.to(torch.float32))
+            bound = bound + torch.ldexp(torch.ones_like(mag), exp - 8)
+        bounds.append(bound)
+    return tuple(bounds)
+
+
+def flash_attention_lse_bound(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor,
+                              causal: bool = True) -> torch.Tensor:
+    """How far the forward kernel's lse may lie from ``lse``
+    (``flash_attention_lse_ref``), per row: ``1e-5 (|lse| + max_j scale
+    |q_i| . |k_j| + 1)``, the scores' own rounding and the running sum's
+    taken in another order."""
+    s, keep = _flash_scores(q.abs(), repeat_kv(k, q.shape[2]).abs(), causal)
+    if keep is not None:
+        s = torch.where(keep, s, s.new_zeros(()))
+    return 1e-5 * (lse.abs() + s.amax(-1) + 1)

@@ -1,7 +1,7 @@
 """Workload resolution: (arch x shape x mode x device) -> the mega-table
 spec, the engine, the batch shapes and, for a recsys arch, the step
 functions and the initial train state. A recsys dense model is picked by
-the config's backbone (``dlrm`` or ``hstu``); a dense LM (``kind == "lm"``)
+the config's backbone (``dlrm``, ``hstu`` or ``fuxi``); a dense LM (``kind == "lm"``)
 resolves to its serving bundle over a single-vocab table."""
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from ..configs.registry import ArchSpec, get_arch
 from ..core.embedding import EmbeddingEngine, init_table_state, make_mega_table_spec
 from ..core.embedding.table import MegaTableSpec
 from ..models.dlrm import DLRM, LossFn, make_dlrm_loss_fn, num_feature_slots
+from ..models.fuxi import FuXi, make_fuxi_loss_fn
 from ..models.hstu import HSTU, make_hstu_loss_fn
 from ..models.zoo import LMBundle, build_lm_bundle
 from ..train import (
@@ -39,8 +40,8 @@ RECSYS_GLOBAL_BATCH = 65536
 # LMs, and their training is a later slice.
 LM_TRAINING_NOT_PORTED = (
     "LM training is not ported: the port serves dense LMs only "
-    "(ROADMAP.md, Queue 1, item 6a: LM training with a flash_attention "
-    "backward kernel)")
+    "(ROADMAP.md, Queue 1, item 4b: LM training, which needs a logsumexp "
+    "output from the wgmma flash_attention forward)")
 
 
 @dataclass
@@ -88,7 +89,8 @@ class Workload:
 
 
 # backbone -> (dense module, loss-function factory)
-BACKBONES = {"dlrm": (DLRM, make_dlrm_loss_fn), "hstu": (HSTU, make_hstu_loss_fn)}
+BACKBONES = {"dlrm": (DLRM, make_dlrm_loss_fn), "hstu": (HSTU, make_hstu_loss_fn),
+             "fuxi": (FuXi, make_fuxi_loss_fn)}
 
 
 def _backbone(cfg: RecsysModelConfig):

@@ -4,10 +4,13 @@
         --steps 8 --bucket-slack 1.5
     python -m repro_torch.launch.train --arch hstu-industrial --reduced \\
         --device cpu --global-batch 16 --steps 4
+    python -m repro_torch.launch.train --arch fuxi-kuairand --global-batch 256 \\
+        --bucket-slack 1.5 --steps 6
 
 runs on the GPU (``--device cpu`` for the plain PyTorch path, with
 ``--reduced`` for a CPU-sized model). ``--arch`` takes any ported registry
-arch (``dlrm-*``, ``hstu-industrial``); ``--store`` picks the embedding
+arch (``dlrm-*``, ``hstu-industrial``, ``fuxi-kuairand``, whose full
+32.80 GB master fits one card); ``--store`` picks the embedding
 tier (``device``, ``host``: the master in host memory, ``cached``: a
 device cache over it):
 

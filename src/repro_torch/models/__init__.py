@@ -1,5 +1,5 @@
-"""Models: the DLRM dense head, the HSTU backbone and their losses, and the
-dense LM serving path (prefill + KV-cache decode)."""
+"""Models: the DLRM dense head, the HSTU and FuXi backbones and their
+losses, and the dense LM serving path (prefill + KV-cache decode)."""
 from .dlrm import (
     DLRM,
     dlrm_forward,
@@ -7,6 +7,7 @@ from .dlrm import (
     num_feature_slots,
     pool_tables,
 )
+from .fuxi import FuXi, fuxi_forward, fuxi_layer, make_fuxi_loss_fn
 from .hstu import (
     HSTU,
     hstu_forward,
@@ -19,7 +20,8 @@ from .transformer import LMCache, init_lm_cache, init_lm_params, lm_decode_step,
 from .zoo import LMBundle, build_lm_bundle
 
 __all__ = ["DLRM", "dlrm_forward", "make_dlrm_loss_fn", "num_feature_slots",
-           "pool_tables", "HSTU", "hstu_forward", "hstu_layer",
+           "pool_tables", "FuXi", "fuxi_forward", "fuxi_layer",
+           "make_fuxi_loss_fn", "HSTU", "hstu_forward", "hstu_layer",
            "make_hstu_loss_fn", "sequence_infonce", "apply_norm", "init_norm",
            "LMCache", "init_lm_cache", "init_lm_params", "lm_decode_step",
            "lm_prefill", "LMBundle", "build_lm_bundle"]

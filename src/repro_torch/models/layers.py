@@ -2,8 +2,9 @@
 (swiglu / relu² / gelu) and GQA attention, pure functions over parameter
 dicts (``{"scale"}`` for RMSNorm, ``{"scale", "bias"}`` for LayerNorm,
 ``wq``/``wk``/``wv``/``wo`` and ``wi``/``wg``/``wo`` in (in, out) layout).
-Full-sequence attention runs ``kernels.dispatch.flash_attention``; decode
-attention is plain PyTorch, as in JAX. MoE is not ported."""
+Full-sequence attention runs ``kernels.dispatch.flash_attention``, forward
+and backward; decode attention is plain PyTorch, as in JAX. MoE is not
+ported."""
 from __future__ import annotations
 
 from typing import Dict, Mapping, Optional, Tuple
@@ -163,12 +164,14 @@ def _qkv(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: AttentionConf
 def gqa_attention(params: Mapping[str, torch.Tensor], x: torch.Tensor,
                   cfg: AttentionConfig, *, positions: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Full-sequence GQA attention (prefill-style) of x (B, T, D). Returns
-    ``(out, k, v)``: the output and the rotated k and v (B, T, KV, hd) that
-    a prefill keeps in its cache. JAX's ``cfg.impl`` ("naive" | "chunked" |
-    "pallas") picks one of three ways to the same function; the port has
-    one, ``dispatch.flash_attention`` (the CUDA kernel on the card, which
-    reads the kv heads in place)."""
+    """Full-sequence GQA attention of x (B, T, D): an LM prefill, or a FuXi
+    layer in training. Returns ``(out, k, v)``: the output and the rotated
+    k and v (B, T, KV, hd) that a prefill keeps in its cache. JAX's
+    ``cfg.impl`` ("naive" | "chunked" | "pallas") picks one of three ways
+    to the same function, and JAX differentiates it; the port has one,
+    ``dispatch.flash_attention``: on the card the CUDA forward kernel, which
+    reads the kv heads in place, and under autograd the backward kernel
+    too; the plain version on the CPU."""
     b, t, _ = x.shape
     if positions is None:
         positions = torch.arange(t, device=x.device).expand(b, t)

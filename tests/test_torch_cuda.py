@@ -1,6 +1,7 @@
 """The port on the card: the hand-written CUDA kernels, the serving paths
-(DLRM embeddings, dense-LM prefill and decode), the training paths (DLRM
-and HSTU) and the host and cached embedding tiers.
+(DLRM embeddings, dense-LM prefill and decode), the training paths (DLRM,
+HSTU and FuXi, whose attention runs the flash_attention backward kernel)
+and the host and cached embedding tiers.
 
 Every test here needs an NVIDIA GPU, carries the ``cuda`` marker and skips
 without one (the kernels have no CPU mode). The file imports no jax, so it
@@ -565,6 +566,119 @@ def test_flash_attention_raises_rather_than_falling_back(cuda_device):
         with pytest.raises((TypeError, ValueError)):
             dispatch.flash_attention(*args)
     assert fa.launches == before
+
+
+FLASH_BWD_CASES = [(1, 1, 1, 2, 1, 16, True), (2, 33, 33, 4, 1, 80, True),
+                   (1, 130, 130, 4, 4, 160, True), (1, 33, 100, 4, 2, 64, False),
+                   (1, 33, 100, 4, 1, 16, True), (2, 70, 70, 2, 2, 8, False),
+                   (1, 65, 65, 2, 1, 256, True), (1, 100, 33, 2, 2, 5, True)]
+
+
+def _flash_fwd_with_lse(dev, b, tq, tk, h, kv, hd, causal, dtype, seed):
+    q, k, v = _flash_case(dev, b, tq, tk, h, kv, hd, dtype, seed)
+    out, lse = fa.flash_attention_lse(q, k, v, causal)
+    g = torch.Generator(dev).manual_seed(seed + 1)
+    do = torch.randn(out.shape, device=dev, generator=g).to(dtype)
+    return q, k, v, out, lse, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,tq,tk,h,kv,hd,causal", FLASH_BWD_CASES)
+def test_flash_attention_bwd_kernel_equals_plain(cuda_device, b, tq, tk, h, kv, hd, causal,
+                                                 dtype):
+    """dq, dk and dv within ``ref.flash_attention_bwd_bound`` of the plain
+    backward on the same inputs (1e-5 of each gradient's sum of magnitudes
+    + 1e-7, plus one bf16 ulp in bf16), the same bits twice, one launch a
+    call."""
+    q, k, v, o, lse, do = _flash_fwd_with_lse(cuda_device, b, tq, tk, h, kv, hd, causal,
+                                              dtype, seed=tq + hd)
+    before = fa.launches_bwd
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal)
+    again = fa.flash_attention_bwd(q, k, v, o, do, lse, causal)
+    torch.cuda.synchronize()
+    assert fa.launches_bwd == before + 2
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal)
+    bounds = ref.flash_attention_bwd_bound(q, k, v, o, do, lse, want, causal)
+    for g_, w, bd in zip(got, want, bounds):
+        assert g_.shape == w.shape and g_.dtype == w.dtype == dtype
+        assert bool(((g_.float() - w.float()).abs() <= bd).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_lse_equals_plain(cuda_device, dtype):
+    """The general forward's row logsumexp within
+    ``ref.flash_attention_lse_bound`` of the plain one, and its output the
+    bits it gives without the lse."""
+    for b, tq, tk, h, kv, hd, causal in FLASH_BWD_CASES:
+        q, k, v = _flash_case(cuda_device, b, tq, tk, h, kv, hd, dtype, seed=hd)
+        out, lse = fa.flash_attention_lse(q, k, v, causal)
+        assert lse.shape == (b, h, tq) and lse.dtype == torch.float32
+        assert torch.equal(out, fa.flash_attention_simple(q, k, v, causal))
+        want = ref.flash_attention_lse_ref(q, k, causal)
+        assert bool(((lse - want).abs() <= ref.flash_attention_lse_bound(q, k, want,
+                                                                         causal)).all())
+
+
+def test_flash_attention_autograd_runs_the_kernels(cuda_device):
+    """Small f32 inputs through ``dispatch.flash_attention`` under autograd:
+    one general forward and one backward launch, the gradients the backward
+    kernel gives, and within its bound of autograd of the plain version."""
+    q, k, v = _flash_case(cuda_device, 2, 9, 9, 4, 2, 8, torch.float32, seed=3)
+    do = torch.randn(q.shape, device=cuda_device)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (fa.launches_simple, fa.launches_wgmma, fa.launches_bwd)
+    out = dispatch.flash_attention(*leaves, True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (fa.launches_simple, fa.launches_wgmma, fa.launches_bwd) == \
+        (before[0] + 1, before[1], before[2] + 1)
+    o, lse = fa.flash_attention_lse(q, k, v, True)
+    for leaf, w in zip(leaves, fa.flash_attention_bwd(q, k, v, o, do, lse, True)):
+        assert torch.equal(leaf.grad, w)
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref.flash_attention_ref(*plain, True).backward(do)
+    bounds = ref.flash_attention_bwd_bound(q, k, v, o, do, lse,
+                                           [x.grad for x in plain], True)
+    for leaf, p_, bd in zip(leaves, plain, bounds):
+        assert bool(((leaf.grad - p_.grad).abs() <= bd).all())
+    counts = (fa.launches_simple, fa.launches_bwd)
+    with torch.no_grad():  # no grad wanted: the forward kernel alone
+        dispatch.flash_attention(*leaves, True)
+    assert (fa.launches_simple, fa.launches_bwd) == (counts[0] + 1, counts[1])
+
+
+def test_flash_attention_wgmma_with_grad_raises(cuda_device):
+    """bf16 at a wgmma head dim has no backward yet (its forward writes no
+    lse): it raises and never runs the general kernel in its place."""
+    q, k, v = _flash_case(cuda_device, 1, 16, 16, 2, 1, 64, torch.bfloat16, seed=4)
+    assert fa.variant(q, k, v) == "wgmma"
+    before = (fa.launches, fa.launches_bwd)
+    with pytest.raises(NotImplementedError, match="item 4b"):
+        dispatch.flash_attention(q.requires_grad_(), k, v)
+    assert (fa.launches, fa.launches_bwd) == before
+
+
+def test_fuxi_training_on_the_card_runs_the_kernels_and_matches_cpu(cuda_device):
+    """``fuxi-reduced`` (2 layers, N = 4): 2 x 2 x 4 general forward and
+    2 x 4 backward launches a step (each layer's forward runs again in the
+    backward), no wgmma launch, and the CPU's trajectory within 1e-5 at
+    the configuration's own step sizes."""
+    kw = dict(reduced=True, global_batch=16, n_micro=4, seed=3)
+    gpu = Session.from_arch("fuxi-kuairand", **kw)
+    cpu = Session.from_arch("fuxi-kuairand", device="cpu", **kw)
+    cpu.state = clone_state(gpu.state, "cpu")
+    before = (fa.launches_simple, fa.launches_wgmma, fa.launches_bwd)
+    steps = 4
+    got, want = gpu.train(steps), cpu.train(steps)
+    assert (fa.launches_simple - before[0], fa.launches_wgmma - before[1],
+            fa.launches_bwd - before[2]) == (16 * steps, 0, 8 * steps)
+    assert got.summary["overflow_max"] == 0
+    np.testing.assert_allclose(got.stats.losses, want.stats.losses, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got.state.table.rows.cpu(), want.state.table.rows,
+                               rtol=0, atol=1e-5)
+    for k, v in want.state.dense.items():
+        torch.testing.assert_close(got.state.dense[k].cpu(), v, rtol=0, atol=1e-5)
 
 
 def test_lm_serving_on_the_card_runs_the_kernel_and_matches_cpu(cuda_device):

@@ -366,7 +366,7 @@ def test_every_kernel_source_builds_into_build():
     assert set(build.SOURCES) == {"embedding_gather", "segment_rowsum",
                                   "buffer_sync", "embedding_scatter",
                                   "hstu_attention", "flash_attention",
-                                  "flash_attention_wgmma"}
+                                  "flash_attention_wgmma", "flash_attention_bwd"}
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").exists()
         assert build.library_path(name).parent == build.BUILD_DIR

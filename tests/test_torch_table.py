@@ -5,8 +5,9 @@
 - ``MegaTableSpec.scramble`` reproduces JAX's uint32 wrap bit for bit,
   including at Vp = 135,000 and 57,012,000 where the wrap disagrees with the
   exact affine form and is not a bijection (pinned here, not fixed);
-- the copied configs (DLRM and HSTU) and integer helpers match field for
-  field;
+- the copied configs (DLRM, HSTU and FuXi) and integer helpers match
+  field for field; ``fuxi-kuairand`` packs into its published 32,027,000
+  rows of dim 256;
 - the HSTU configuration trained on one card (``HSTU_INDUSTRIAL_ONE_CARD``)
   keeps every published width of ``hstu-industrial`` and cuts only its
   vocabularies;
@@ -42,7 +43,8 @@ from repro_torch.core.embedding.table import (
 )
 
 CASES = [("dlrm-ctr", False), ("dlrm-ctr", True), ("dlrm-cached", False),
-         ("hstu-industrial", False), ("hstu-industrial", True)]
+         ("hstu-industrial", False), ("hstu-industrial", True),
+         ("fuxi-kuairand", False), ("fuxi-kuairand", True)]
 
 
 def _specs(arch, reduced):
@@ -80,6 +82,18 @@ def test_scramble_reproduces_uint32_wrap_bitwise(arch, reduced):
         np.testing.assert_array_equal(
             ts.scramble(torch.from_numpy(sub) + off).numpy(),
             np.asarray(js.global_keys(t, jnp.asarray(sub))))
+
+
+def test_fuxi_kuairand_is_full_width_and_fits_one_card():
+    """Both tables at their published vocabularies and dim 256: 32,027,000
+    rows, a 32.80 GB f32 master, and d_model 512, 4 layers, 8 heads, T 512,
+    bf16 lookups."""
+    js, ts = _specs("fuxi-kuairand", False)
+    assert (ts.padded_rows, ts.dim) == (32_027_000, 256)
+    assert ts.padded_rows * ts.dim * 4 == 32_795_648_000
+    cfg = tget_arch("fuxi-kuairand").config
+    assert (cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.d_ff, cfg.seq_len,
+            cfg.compute_dtype) == (512, 4, 8, 2048, 512, "bfloat16")
 
 
 @pytest.mark.parametrize("arch", ["dlrm-cached", "dlrm-ctr"])

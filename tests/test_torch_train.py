@@ -456,9 +456,9 @@ def test_hand_assembled_hstu_workload_trains_and_does_not_serve():
         sess.weights()
     with pytest.raises(NotImplementedError, match="DLRM head"):
         sess.serve_embeddings(num_requests=4, max_batch=2)
-    fuxi = dataclasses.replace(cfg, backbone="fuxi")
+    unported = dataclasses.replace(cfg, backbone="sasrec")
     with pytest.raises(NotImplementedError, match="not ported"):
-        assemble_workload(ArchSpec("fuxi", "recsys", fuxi, fuxi), fuxi,
+        assemble_workload(ArchSpec("sasrec", "recsys", unported, unported), unported,
                           device="cpu", global_batch=8)
 
 
