@@ -12,12 +12,13 @@ hand-written kernel on it against its plain PyTorch version:
    way from it, timed by CUDA events (``pin_probe``);
 2. build: compiles every kernel from ``src/repro_torch/csrc`` with nvcc, one
    process per source, all at once; each source's nvcc seconds, ptxas's
-   registers and spills (the ``hstu_attention`` forward's by head dim, and
-   each ``flash_attention`` backward kernel's), the
+   registers and spills (the ``hstu_attention`` forward's and the tf32x3
+   ``flash_attention`` forward's by head dim, and each ``flash_attention``
+   backward kernel's), the
    HGMMA instructions in the wgmma ``flash_attention`` library and the HMMA
-   (``mma.sync``) instructions of each ``hstu_attention`` kernel, the
-   forward and the two backward kernels apart (``cuobjdump -sass``; none
-   fails);
+   (``mma.sync``) instructions of the tf32x3 ``flash_attention`` library
+   and of each ``hstu_attention`` kernel, the forward and the two backward
+   kernels apart (``cuobjdump -sass``; none may be 0);
 3. kernel edges: ``embedding_gather``, ``segment_rowsum``, ``buffer_sync``
    and ``embedding_scatter`` against their plain versions at edge cases
    (empty, one segment, drop ids and sentinels, negative sources, D in
@@ -131,7 +132,8 @@ hand-written kernel on it against its plain PyTorch version:
    samples/s, tokens/s, step p50 and p99 (``--profile``: the device idle
    share over 2 more steps); then, with the session released, the captured
    attention calls checked against the plain versions and timed beside
-   their FP32 and 3xTF32 bounds, the forward also in TF32 MMA TFLOP/s and
+   their bound (operations at the faster of the f32 cores and 3xTF32 on
+   the tensor cores; the f32-core time beside it), the forward also in TF32 MMA TFLOP/s and
    its share of the TF32 peak (exactly 32 forward calls a step);
 10. consistency at ``hstu-reduced``: nestpipe = serial = the reference
    trainer over 6 steps, and async diverges, at the configuration's own
@@ -141,8 +143,9 @@ hand-written kernel on it against its plain PyTorch version:
 11. release: every earlier session gone (the memory still allocated is
    printed);
 11a. ``flash_attention`` backward edges: the backward kernel
-   (``csrc/flash_attention_bwd.cu``) on the general forward's output and
-   row logsumexp and a random output gradient, against
+   (``csrc/flash_attention_bwd.cu``) on the forward's output and row
+   logsumexp (the tf32x3 kernel's in f32, the general kernel's in bf16;
+   each checked by its counter) and a random output gradient, against
    ``ref.flash_attention_bwd_ref`` within ``ref.flash_attention_bwd_bound``
    (1e-5 of each gradient's sum of magnitudes + 1e-7, plus one bf16 ulp in
    bf16) at T in {1, 33, 64, 257, 512}, hd in {16, 64, 80, 128}, H/KV in
@@ -155,34 +158,48 @@ hand-written kernel on it against its plain PyTorch version:
    dim 256, bf16 lookups; a 32.80 GB master), through
    ``Session.from_arch`` with ``mode="nestpipe"``, batch 256, N = 4,
    ``bucket_slack=1.5``, after the HSTU session is gone: one warm-up step,
-   two steps whose kernel calls are captured (the first general
-   ``flash_attention`` forward and backward, and the embedding kernels'
-   calls as in phase 4), the embedding kernels' calls checked and timed as
-   in phase 4, then ``train(6)`` with every launch counted (exactly 32
-   general forward and 16 backward launches a step, none of the wgmma
-   kernel); finite losses, no routing overflow, peak memory, samples/s,
-   tokens/s, step p50 and p99 (``--profile``: the device idle share over 2
-   more steps and the top device ops); then, with the session released,
-   the captured attention calls checked at full shape against the plain
-   versions and timed beside them, SDPA (its forward, and
-   ``torch.autograd.grad`` through it for the backward) and their f32
-   bound;
+   two steps whose kernel calls are captured (the first
+   ``flash_attention`` forward with its lse and backward, and the
+   embedding kernels' calls as in phase 4), the embedding kernels' calls
+   checked and timed as in phase 4, then ``train(6)`` with every launch
+   counted (exactly 32 tf32x3 forward and 16 backward launches a step,
+   none of the general or the wgmma forward); finite losses, no routing
+   overflow, peak memory, samples/s, tokens/s, step p50 and p99
+   (``--profile``: the device idle share over 2 more steps and the top
+   device ops); then, with the session released, the captured attention
+   calls checked at full shape against the plain versions (the forward
+   and its lse through the tf32x3 kernel and through the general one) and
+   timed beside them, SDPA (its forward, and ``torch.autograd.grad``
+   through it for the backward), their bound (operations in 3xTF32 on the
+   tensor cores, the f32-core time beside it; the two forwards in turns:
+   general, tf32x3, tf32x3, general;
+   the tf32x3 one also in TF32 MMA TFLOP/s and its share of the TF32
+   peak);
 11c. consistency at ``fuxi-reduced``: nestpipe = serial = the reference
    trainer within 1e-5 over 6 steps at the configuration's own step sizes,
    and async diverges; the reference gives the same bits twice;
-12. ``flash_attention`` edges: both kernels against the plain version at
-   T in {1, 33, 64, 257, 2048}, hd in {16, 64, 80, 128, 160, 192, 256},
-   H/KV in {1, 4}, causal and not, f32 and bf16 (bf16 at the wgmma kernel's
-   head dims goes to it, and to the general kernel too at T 33 and 257; the
-   rest to the general kernel, each asserted by its counter), Tq 33 against
-   Tk 100, and strided views (off 16-byte alignment, and 16-byte aligned),
-   within ``ref.flash_attention_bound``
+12. ``flash_attention`` edges: the three forward kernels against the plain
+   version at T in {1, 33, 64, 257, 2048}, hd in {16, 64, 80, 128, 160,
+   192, 256}, H/KV in {1, 4}, causal and not, f32 and bf16 (bf16 at the
+   wgmma kernel's head dims goes to it, and to the general kernel too at T
+   33 and 257; f32 at hd <= 128 to the tf32x3 kernel, and to the general
+   kernel too; the rest to the general kernel, each asserted by the
+   counters), Tq 33 against Tk 100 (hd 160, and hd 64 in f32), and strided
+   views (off 16-byte alignment, and 16-byte aligned; hd 160, and hd 64 in
+   f32), within ``ref.flash_attention_bound``
    (f32: 1e-5 of each output's sum of |w v| + 1e-7; bf16: 2**-8 of it plus
    one bf16 ulp); the same bits on two runs; the same values give the same
    bits through ``flash_attention`` in a contiguous layout and in each
    layout a TMA map cannot describe (off 16-byte alignment, a row stride of
    164, heads outside positions), each through the wgmma kernel (its
-   counter moves); a CUDA tensor beside a CPU one raises;
+   counter moves), and in f32 at hd 64 off alignment and with heads
+   outside positions through the tf32x3 kernel; values of one sign at
+   FuXi's shape (v plus 2; q and k times 1, 2 and 3, three draws each)
+   through both f32 kernels, their shares of the bound against an f64
+   evaluation and the plain version printed (``flash_same_sign``), held
+   within the bound of the f64 evaluation (the tf32x3 kernel at every
+   scale, the general one at times 1 and 2; the first draw at times 2 also
+   of the plain version); a CUDA tensor beside a CPU one raises;
 13. full-width ``stablelm-12b`` serving (40 layers, d_model 5,120, 32
    heads over 8 kv heads of 160, bf16; 23.26 GB of weights and a 2.06 GB
    master drawn from a seed): ``serve(batch=8, prompt_len=2048, gen=32)``
@@ -198,9 +215,9 @@ hand-written kernel on it against its plain PyTorch version:
    runs the plain version agrees on the last-token logits within 5e-2 of
    max |logit| (``--profile``: the device idle share of a prefill and of 8
    decode steps);
-14. a ``{"kernels": [...]}`` line (the general ``flash_attention`` kernel and
-   the backward at FuXi's main-path shape, the general one also at the
-   LM's; the gather's LM serve as its 96 calls,
+14. a ``{"kernels": [...]}`` line (the tf32x3 and the general
+   ``flash_attention`` forward and the backward at FuXi's main-path shape,
+   the general one also at the LM's; the gather's LM serve as its 96 calls,
    and apart as the prefill's three and one decode step's three; the
    gather's and the scatter's cached-path calls of 6b as
    ``dlrm_cached_train_calls``; launches by path, the host and cached
@@ -296,7 +313,7 @@ HSTU_SMALL_STEPS = {"sparse_lr": 0.002, "adam_eps": 1e-6}
 FUXI_ARCH = "fuxi-kuairand"
 FUXI_BATCH = 256  # HSTU's batch: the per-worker share of 65,536 over 256 workers
 FUXI_STEPS = 6
-# the general flash_attention forward's calls a step: 4 layers x 4
+# the tf32x3 flash_attention forward's calls a step: 4 layers x 4
 # micro-batches x 2 (per-layer remat), and the backward's: 4 x 4
 FUXI_FWD_CALLS_PER_STEP = 32
 FUXI_BWD_CALLS_PER_STEP = 16
@@ -328,6 +345,9 @@ KERNELS = {  # name -> (source, the Pallas kernel it replaces)
                               "src/repro/kernels/flash_attention.py:70"),
     "flash_attention_simple": ("src/repro_torch/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:70"),
+    # f32 at head dims up to 128: FuXi's forward
+    "flash_attention_tf32x3": ("src/repro_torch/csrc/flash_attention_tf32.cu",
+                               "src/repro/kernels/flash_attention.py:70"),
     # the TPU kernel is forward only; JAX differentiates chunked_attention
     # (src/repro/models/layers.py:160)
     "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -354,8 +374,11 @@ RUNS_ON = {
     "hstu_attention_fwd": ("hstu_train",),
     "hstu_attention_bwd": ("hstu_train",),
     "flash_attention_wgmma": ("lm_serve",),
+    # f32 above hd 128 and bf16 off the wgmma head dims: no main path sends
+    # it inputs; phases 11a-13 hold it against the plain version and time it
+    "flash_attention_simple": (),
     # FuXi's f32 attention, forward and backward
-    "flash_attention_simple": ("fuxi_train",),
+    "flash_attention_tf32x3": ("fuxi_train",),
     "flash_attention_bwd": ("fuxi_train",),
 }
 
@@ -393,6 +416,19 @@ def tf32_flops(name: str) -> float:
     if "H100" in name or "H200" in name:
         return 495e12
     raise SystemExit(f"chip_smoke: no TF32 figure for {name!r}")
+
+
+def f32_work_bound(ops, nbytes, name, bandwidth, peak_fp32) -> dict:
+    """The bound of f32 products at f32 accuracy: the larger of the bytes
+    over the memory rate and the operations over the card's fastest
+    f32-accurate rate, the f32 CUDA cores or 3xTF32 on the tensor cores
+    (three TF32 operations an f32 one: 165 TFLOP/s on an H100 against the
+    cores' 66.9); the f32-core time beside it."""
+    by_ops = min(ops / peak_fp32, ops * 3 / tf32_flops(name)) * 1e3
+    by_bytes = nbytes / bandwidth * 1e3
+    return {"bound_ms": max(by_ops, by_bytes),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "f32_core_bound_ms": ops / peak_fp32 * 1e3}
 
 
 def bf16_flops(name: str) -> float:
@@ -448,6 +484,24 @@ def hstu_fwd_mma_ops(q, dv, causal):
     warp_steps = 0
     for row0 in range(0, t, 16):
         block_steps = -(-(min(t, row0 // 128 * 128 + 128) if causal else t) // 32)
+        warp_steps += min(block_steps, (row0 + 15) // 32 + 1) if causal else block_steps
+    return b * h * warp_steps * 2 * (2 * 16 * 32 * kd) * 3
+
+
+def flash_tf32_mma_ops(q, k, causal):
+    """TF32 MMA operations the tf32x3 ``flash_attention`` forward issues for
+    these inputs, its three passes included: each warp (16 query rows of a
+    128-row block, below Tq) runs, per step of 32 keys up to Tk (causal: up
+    to the block's last row below Tq, skipping steps wholly after the
+    warp's rows), two products of 16 x 32 x kD, kD the head dim padded to
+    16, 32, 64 or 128."""
+    b, tq, h, hd = q.shape
+    tk = k.shape[1]
+    kd = next(p for p in (16, 32, 64, 128) if p >= hd)
+    warp_steps = 0
+    for row0 in range(0, tq, 16):
+        q0 = row0 // 128 * 128
+        block_steps = -(-(min(tk, tq, q0 + 128) if causal else tk) // 32)
         warp_steps += min(block_steps, (row0 + 15) // 32 + 1) if causal else block_steps
     return b * h * warp_steps * 2 * (2 * 16 * 32 * kd) * 3
 
@@ -606,6 +660,7 @@ def main() -> int:
             m.launches = 0
         ha.launches_fwd = ha.launches_bwd = 0
         fa.launches = fa.launches_wgmma = fa.launches_simple = fa.launches_bwd = 0
+        fa.launches_tf32x3 = 0
 
     def counts():
         return {**{k: m.launches for k, m in mods.items()},
@@ -613,6 +668,7 @@ def main() -> int:
                 "hstu_attention_bwd": ha.launches_bwd,
                 "flash_attention_wgmma": fa.launches_wgmma,
                 "flash_attention_simple": fa.launches_simple,
+                "flash_attention_tf32x3": fa.launches_tf32x3,
                 "flash_attention_bwd": fa.launches_bwd}
 
     # -- 1. environment ---------------------------------------------------
@@ -690,6 +746,18 @@ def main() -> int:
         raise SystemExit(f"an hstu_attention kernel holds no HMMA instruction: {hmma}")
     if per_fn is not None and len([fn for fn in per_fn if "hstu_fwd_kernel" in fn]) != 4:
         raise SystemExit(f"the hstu_attention library's kernels: {sorted(per_fn)}")
+    # the tf32x3 flash forward: its HMMA, and its registers and spills by
+    # padded head dim (kernel<kD>)
+    per_fn = sass_counts(build.library_path("flash_attention_tf32"), "HMMA")
+    flash_hmma = None if per_fn is None else sum(per_fn.values())
+    if flash_hmma == 0:
+        raise SystemExit("the tf32x3 flash_attention library holds no HMMA instruction")
+    if per_fn is not None and len(per_fn) != 4:
+        raise SystemExit(f"the tf32x3 flash_attention library's kernels: {sorted(per_fn)}")
+    flash_tf32_ptxas = {"d" + re.search(r"ILi(\d+)E", fn).group(1): v
+                        for fn, v in ptxas_by_kernel(build.build_log.get(
+                            "flash_attention_tf32", {}).get("ptxas", "")).items()
+                        if "flash_tf32_fwd_kernel" in fn}
     # the forward's registers and spills by padded head dim (kernel<kD>)
     fwd_ptxas = {"d" + re.search(r"ILi(\d+)E", fn).group(1): v for fn, v in ptxas_by_kernel(
         build.build_log.get("hstu_attention", {}).get("ptxas", "")).items()
@@ -704,6 +772,7 @@ def main() -> int:
     emit("build", seconds=round(build_s, 3), sources=list(build.SOURCES),
          nvcc_seconds={k: round(v["seconds"], 3) for k, v in build.build_log.items()},
          flash_wgmma_hgmma_instructions=hgmma, hstu_hmma_instructions=hmma,
+         flash_tf32x3_hmma_instructions=flash_hmma, flash_tf32x3_ptxas=flash_tf32_ptxas,
          hstu_fwd_ptxas=fwd_ptxas, flash_bwd_ptxas=bwd_ptxas,
          ptxas={k: [ln.strip() for ln in v["ptxas"].splitlines()
                     if "registers" in ln or "spill" in ln]
@@ -1172,7 +1241,7 @@ def main() -> int:
             "buffer_sync": TRAIN_STEPS - 1, "embedding_scatter": TRAIN_STEPS,
             "hstu_attention_fwd": 0, "hstu_attention_bwd": 0,
             "flash_attention_wgmma": 0, "flash_attention_simple": 0,
-            "flash_attention_bwd": 0}
+            "flash_attention_tf32x3": 0, "flash_attention_bwd": 0}
     if train_launches != want:
         raise SystemExit(f"training launches {train_launches} != {want}")
 
@@ -1993,7 +2062,7 @@ def main() -> int:
                  "hstu_attention_fwd": 2 * n_layers * N_MICRO * HSTU_STEPS,
                  "hstu_attention_bwd": n_layers * N_MICRO * HSTU_STEPS,
                  "flash_attention_wgmma": 0, "flash_attention_simple": 0,
-                 "flash_attention_bwd": 0}
+                 "flash_attention_tf32x3": 0, "flash_attention_bwd": 0}
     if hstu_launches != hstu_want:
         raise SystemExit(f"HSTU launches {hstu_launches} != {hstu_want}")
     if hstu_launches["hstu_attention_fwd"] != HSTU_FWD_CALLS_PER_STEP * HSTU_STEPS:
@@ -2041,14 +2110,10 @@ def main() -> int:
                             flush),
         "operations": bwd_ops, "bytes": bwd_bytes}
     for kname, row in hrows_out.items():
-        by_ops = row["operations"] / peak_fp32 * 1e3
-        by_bytes = row["bytes"] / peak * 1e3
         row.update(shape=list(q.shape), dv=v.shape[-1], causal=causal,
-                   bound_ms=max(by_ops, by_bytes),
-                   bound_by="operations" if by_ops >= by_bytes else "bytes",
+                   **f32_work_bound(row["operations"], row["bytes"], name, peak, peak_fp32),
                    peak_fp32_flops=peak_fp32, achieved_tflops=row["operations"]
-                   / row["ms"] / 1e9, tf32x3_bound_ms=row["operations"] * 3
-                   / tf32_flops(name) * 1e3, library_ms=None)
+                   / row["ms"] / 1e9, library_ms=None)
         emit("kernel_shape", path="hstu_train", kernel=kname, **row)
     del kept, q, k, v, do, flush
     gc.collect()
@@ -2127,18 +2192,24 @@ def main() -> int:
     bworst = {}
 
     def check_flash_bwd(label, q, k, v, causal, chunk=None, given=None):
-        """The general forward's output and lse (or ``given`` (o, do, lse)),
-        then the backward kernel on a random output gradient, against the
-        plain versions, ``chunk`` batch rows at a time: the lse within
+        """The forward's output and lse through ``fa.flash_attention_lse``
+        (the tf32x3 kernel for f32 at hd <= 128, else the general one; its
+        counter must move) or ``given`` (o, do, lse), then the backward
+        kernel on a random output gradient, against the plain versions,
+        ``chunk`` batch rows at a time: the lse within
         ref.flash_attention_lse_bound, dq, dk and dv within
         ref.flash_attention_bwd_bound; the same bits on a second run of
         each kernel. Returns the largest errors."""
         if given is None:
+            fwd = f"flash_attention_{fa.lse_variant(q, k, v)}"
+            fwd_before = counts()[fwd]
             out, lse = fa.flash_attention_lse(q, k, v, causal)
             do = torch.empty(out.shape, device=dev).normal_(generator=g).to(q.dtype)
             out2, lse2 = fa.flash_attention_lse(q, k, v, causal)
             if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
                 raise SystemExit(f"flash_attention forward is not deterministic at {label}")
+            if counts()[fwd] != fwd_before + 2:
+                raise SystemExit(f"{label}: the forward did not run {fwd}")
             del out2, lse2
         else:
             out, do, lse = given
@@ -2174,7 +2245,8 @@ def main() -> int:
                 errs[name] = max(errs.get(name, 0.0), float(err.max()))
             del want, bounds
         for name, err in errs.items():
-            key = f"{'lse' if name == 'lse' else 'flash_attention_bwd'} {dname}"
+            key = (f"lse of flash_attention_{fa.lse_variant(q, k, v)} {dname}" if name == "lse"
+                   else f"flash_attention_bwd {dname}")
             bworst[key] = max(bworst.get(key, 0.0), err)
         return errs
 
@@ -2205,6 +2277,8 @@ def main() -> int:
     del wide
     torch.cuda.synchronize()
     emit("flash_bwd_edges", cases=bedge, max_abs_err=bworst,
+         forward="the tf32x3 kernel's output and lse for f32 (hd <= 128), the general "
+                 "kernel's for bf16",
          seconds=time.perf_counter() - t_phase,
          tolerance="dq, dk, dv: |kernel - plain| <= 1e-5 M + 1e-7 (+ one bf16 ulp of the "
                    "plain gradient in bf16), M each gradient's sum of magnitudes "
@@ -2238,8 +2312,8 @@ def main() -> int:
     fsess.train(1)  # unchecked warm-up step
     torch.cuda.synchronize()
 
-    # two steps with the first general forward and backward call kept (every
-    # call counted) and, as on the DLRM path, the embedding kernels' calls
+    # two steps with the first forward (with its lse) and backward call kept
+    # (every call counted) and, as on the DLRM path, the embedding kernels' calls
     seen = {"fwd": 0, "bwd": 0}
     fkept = {}
     real_lse, real_fbwd = fa.flash_attention_lse, fa.flash_attention_bwd
@@ -2299,7 +2373,7 @@ def main() -> int:
     fuxi_want.update(embedding_gather=(1 + 3 * N_MICRO) * FUXI_STEPS,
                      segment_rowsum=(N_MICRO + 1) * FUXI_STEPS,
                      buffer_sync=FUXI_STEPS - 1, embedding_scatter=FUXI_STEPS,
-                     flash_attention_simple=FUXI_FWD_CALLS_PER_STEP * FUXI_STEPS,
+                     flash_attention_tf32x3=FUXI_FWD_CALLS_PER_STEP * FUXI_STEPS,
                      flash_attention_bwd=FUXI_BWD_CALLS_PER_STEP * FUXI_STEPS)
     if fuxi_launches != fuxi_want:
         raise SystemExit(f"FuXi launches {fuxi_launches} != {fuxi_want}")
@@ -2320,44 +2394,72 @@ def main() -> int:
 
     # the captured main-path attention calls, on the card alone now: checked
     # at full shape and timed beside the plain versions, SDPA (the yardstick;
-    # the port never calls it) and their f32 bound
+    # the port never calls it) and their f32 bound; the forward through the
+    # main path's tf32x3 kernel and through the general kernel, both with
+    # the lse, timed in turns (general, tf32x3, tf32x3, general)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    fuxi_attn, fuxi_err = {}, {}
+    fuxi_attn, fuxi_err, fwd_checks = {}, {}, {}
     q, k, v, causal = fkept["fwd"]
-    out, lse = fa.flash_attention_lse(q, k, v, causal)
-    if not torch.equal(out, fa.flash_attention_lse(q, k, v, causal)[0]):
-        raise SystemExit("the main-path forward call is not deterministic")
-    err_max = 0.0
-    for b0 in range(0, q.shape[0], 8):
-        sl = slice(b0, b0 + 8)
-        want = ref.flash_attention_ref(q[sl], k[sl], v[sl], causal)
-        err = (out[sl] - want).abs()
-        if not bool((err <= ref.flash_attention_bound(q[sl], k[sl], v[sl], want,
-                                                      causal)).all()):
-            raise SystemExit(f"the main-path forward call beyond its bound: {float(err.max())}")
-        lse_want = ref.flash_attention_lse_ref(q[sl], k[sl], causal)
-        if not bool(((lse[sl] - lse_want).abs() <= ref.flash_attention_lse_bound(
-                q[sl], k[sl], lse_want, causal)).all()):
-            raise SystemExit("the main-path forward call's lse beyond its bound")
-        err_max = max(err_max, float(err.max()))
-        del want, err, lse_want
-    fuxi_err["flash_attention_simple"] = err_max
-    del out, lse
+    if fa.lse_variant(q, k, v) != "tf32x3":
+        raise SystemExit("FuXi's main-path forward call is not the tf32x3 kernel's")
+    fwd_fns = {"flash_attention_tf32x3": lambda: fa.flash_attention_lse(q, k, v, causal),
+               "flash_attention_simple": lambda: fa.flash_attention_simple(q, k, v, causal,
+                                                                           lse=True)}
+    for kname, fn in fwd_fns.items():
+        before = counts()[kname]
+        out, lse = fn()
+        again = fn()
+        if counts()[kname] != before + 2:
+            raise SystemExit(f"the main-path forward call did not run {kname}")
+        if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+            raise SystemExit(f"the main-path forward call is not deterministic ({kname})")
+        del again
+        err_max = lse_max = share = 0.0
+        for b0 in range(0, q.shape[0], 8):
+            sl = slice(b0, b0 + 8)
+            want = ref.flash_attention_ref(q[sl], k[sl], v[sl], causal)
+            err = (out[sl] - want).abs()
+            bound = ref.flash_attention_bound(q[sl], k[sl], v[sl], want, causal)
+            if not bool((err <= bound).all()):
+                raise SystemExit(f"the main-path forward call beyond its bound ({kname}): "
+                                 f"{float(err.max())}")
+            share = max(share, float((err / bound).max()))
+            lse_want = ref.flash_attention_lse_ref(q[sl], k[sl], causal)
+            lerr = (lse[sl] - lse_want).abs()
+            if not bool((lerr <= ref.flash_attention_lse_bound(q[sl], k[sl], lse_want,
+                                                               causal)).all()):
+                raise SystemExit(f"the main-path forward call's lse beyond its bound ({kname})")
+            err_max = max(err_max, float(err.max()))
+            lse_max = max(lse_max, float(lerr.max()))
+            del want, err, bound, lse_want, lerr
+        fuxi_err[kname] = err_max
+        fwd_checks[kname] = {"max_abs_err": err_max, "lse_max_abs_err": lse_max,
+                             "max_share_of_bound": share}
+        del out, lse
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     ops, nbytes = flash_work(q, k, causal)
-    by_ops, by_bytes = ops / peak_fp32 * 1e3, nbytes / peak * 1e3
-    fuxi_attn["flash_attention_simple"] = row = {
-        "kernel": "flash_attention_simple", "call": "fuxi layer 0 forward (with its lse)",
-        "shape": list(q.shape), "kv_heads": k.shape[2], "causal": causal,
-        "dtype": str(q.dtype).removeprefix("torch."), "operations": ops, "bytes": nbytes,
-        "ms": time_ms(torch, lambda: fa.flash_attention_lse(q, k, v, causal), flush),
-        "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal), flush),
-        "library_ms": time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal), flush),
-        "library_call": "scaled_dot_product_attention(is_causal) on (B, H, T, hd) views",
-        "bound_ms": max(by_ops, by_bytes),
-        "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
-    row["achieved_tflops"] = ops / row["ms"] / 1e9
-    emit("kernel_shape", path="fuxi_train", **row)
+    mma_ops = flash_tf32_mma_ops(q, k, causal)
+    turns = {kname: [] for kname in fwd_fns}
+    for kname in ("flash_attention_simple", "flash_attention_tf32x3",
+                  "flash_attention_tf32x3", "flash_attention_simple"):
+        turns[kname].append(time_ms(torch, fwd_fns[kname], flush))
+    plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal), flush)
+    library_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal), flush)
+    for kname, times in turns.items():
+        fuxi_attn[kname] = row = {
+            "kernel": kname, "call": "fuxi layer 0 forward (with its lse)",
+            "shape": list(q.shape), "kv_heads": k.shape[2], "causal": causal,
+            "dtype": str(q.dtype).removeprefix("torch."), "operations": ops,
+            "bytes": nbytes, "ms": statistics.mean(times), "ms_turns": times,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_call": "scaled_dot_product_attention(is_causal) on (B, H, T, hd) views",
+            **f32_work_bound(ops, nbytes, name, peak, peak_fp32), **fwd_checks[kname]}
+        row["achieved_tflops"] = ops / row["ms"] / 1e9
+        if kname == "flash_attention_tf32x3":
+            row["tf32_mma_operations"] = mma_ops
+            row["tf32_mma_tflops"] = mma_ops / row["ms"] / 1e9
+            row["tf32_peak_share"] = row["tf32_mma_tflops"] * 1e12 / tf32_flops(name)
+        emit("kernel_shape", path="fuxi_train", **row)
     del qt, kt, vt
 
     q, k, v, o, do, lse, causal = fkept["bwd"]
@@ -2365,7 +2467,6 @@ def main() -> int:
                            given=(o, do, lse))
     fuxi_err["flash_attention_bwd"] = max(errs.values())
     ops, nbytes = flash_bwd_work(q, k, causal)
-    by_ops, by_bytes = ops / peak_fp32 * 1e3, nbytes / peak * 1e3
     leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
     lib_out = sdpa(*leaves, is_causal=causal)
     do_t = do.transpose(1, 2)
@@ -2381,8 +2482,7 @@ def main() -> int:
             lib_out, leaves, do_t, retain_graph=True), flush),
         "library_call": "torch.autograd.grad through scaled_dot_product_attention"
                         "(is_causal) on (B, H, T, hd) views (its backward alone)",
-        "bound_ms": max(by_ops, by_bytes),
-        "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+        **f32_work_bound(ops, nbytes, name, peak, peak_fp32)}
     row["achieved_tflops"] = ops / row["ms"] / 1e9
     emit("kernel_shape", path="fuxi_train", **row)
     del fkept, q, k, v, o, do, lse, leaves, lib_out, do_t, flush
@@ -2409,8 +2509,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 12. flash_attention against its plain version -----------------------
-    fworst = {"flash_attention_wgmma bfloat16": 0.0, "flash_attention_simple float32": 0.0,
-              "flash_attention_simple bfloat16": 0.0}
+    fworst = {"flash_attention_wgmma bfloat16": 0.0, "flash_attention_tf32x3 float32": 0.0,
+              "flash_attention_simple float32": 0.0, "flash_attention_simple bfloat16": 0.0}
+    fshare = dict.fromkeys(fworst, 0.0)  # the largest |kernel - plain| / bound
+    flash_kernels = ("flash_attention_wgmma", "flash_attention_tf32x3", "flash_attention_simple")
 
     def check_flash(label, q, k, v, causal, chunk=None, simple=False):
         """The kernel ``fa.variant`` picks (or the general one when
@@ -2421,12 +2523,12 @@ def main() -> int:
         kind = "simple" if simple else fa.variant(q, k, v)
         kname = f"flash_attention_{kind}"
         fn = fa.flash_attention_simple if simple else fa.flash_attention
-        before = (fa.launches_wgmma, fa.launches_simple)
+        before = counts()
         got = fn(q, k, v, causal)
         if not torch.equal(got, fn(q, k, v, causal)):
             raise SystemExit(f"{kname} is not deterministic at {label}")
-        moved = (fa.launches_wgmma - before[0], fa.launches_simple - before[1])
-        if moved != ((2, 0) if kind == "wgmma" else (0, 2)):
+        moved = {kn: counts()[kn] - before[kn] for kn in flash_kernels}
+        if moved != {kn: 2 * (kn == kname) for kn in flash_kernels}:
             raise SystemExit(f"{label}: {kname} chosen, but launches moved by {moved}")
         step = chunk or q.shape[0]
         for b0 in range(0, q.shape[0], step):
@@ -2440,6 +2542,7 @@ def main() -> int:
                                  f"{float(bound.flatten()[int((err - bound).argmax())])})")
             key = f"{kname} {str(q.dtype).removeprefix('torch.')}"
             fworst[key] = max(fworst[key], float(err.max()))
+            fshare[key] = max(fshare[key], float((err / bound).max()))
             del want, err, bound
         return kname
 
@@ -2454,40 +2557,109 @@ def main() -> int:
                         case = (f"T={t} hd={hd} H/KV={4 // kv} causal={causal} {dname}",
                                 *flash_inputs(1, t, t, 4, kv, hd, dtype), causal)
                         kname = check_flash(*case)
-                        want = ("flash_attention_wgmma" if dtype == torch.bfloat16
-                                and hd in fa.WGMMA_HEAD_DIMS else "flash_attention_simple")
+                        if dtype == torch.bfloat16:
+                            want = ("flash_attention_wgmma" if hd in fa.WGMMA_HEAD_DIMS
+                                    else "flash_attention_simple")
+                        else:
+                            want = ("flash_attention_tf32x3" if hd <= fa.TF32X3_MAX_HEAD_DIM
+                                    else "flash_attention_simple")
                         if kname != want:
                             raise SystemExit(f"{case[0]} went to {kname}, not {want}")
-                        if kname == "flash_attention_wgmma" and t in (33, 257):
-                            check_flash(*case, simple=True)  # the general kernel in bf16
+                        if (kname == "flash_attention_tf32x3"
+                                or (kname == "flash_attention_wgmma" and t in (33, 257))):
+                            check_flash(*case, simple=True)  # the general kernel too
             fedge.append(f"{dname} T={t} hd in {head_dims} H/KV in {{1,4}} causal and not"
                          + (" (wgmma; the general kernel too at T 33, 257)"
-                            if dtype == torch.bfloat16 else ""))
-        for causal in (False, True):
-            case = (f"Tq=33 Tk=100 causal={causal} {dname}",
-                    *flash_inputs(2, 33, 100, 4, 1, 160, dtype), causal)
-            check_flash(*case)
-            if dtype == torch.bfloat16:
-                check_flash(*case, simple=True)
-        fedge.append(f"{dname} Tq=33 Tk=100 hd=160 H/KV=4 causal and not")
+                            if dtype == torch.bfloat16 else
+                            " (tf32x3 at hd <= 128, and the general kernel too)"))
+        for hd in ((64, 160) if dtype == torch.float32 else (160,)):
+            for causal in (False, True):
+                case = (f"Tq=33 Tk=100 hd={hd} causal={causal} {dname}",
+                        *flash_inputs(2, 33, 100, 4, 1, hd, dtype), causal)
+                kname = check_flash(*case)
+                if kname != "flash_attention_simple":
+                    check_flash(*case, simple=True)
+            fedge.append(f"{dname} Tq=33 Tk=100 hd={hd} H/KV=4 causal and not")
         # strided views: column slices of one wider tensor, 16-byte loads off
         # (in bf16, copied for the wgmma kernel), and 16-byte aligned as a
         # fused projection makes them (read in place)
-        for off in (3, 8):
-            wide = torch.empty((2, 100, 4, 3 * 160 + off), device=dev).normal_(
-                generator=g).to(dtype)
-            kname = check_flash(f"strided {dname} offset {off}", wide[..., off:off + 160],
-                                wide[..., off + 160:off + 320], wide[..., off + 320:off + 480],
-                                True)
-            fedge.append(f"{dname} strided q, k, v (T=100, hd=160, {off} elements in): "
-                         f"{kname}")
+        for hd in ((64, 160) if dtype == torch.float32 else (160,)):
+            for off in (3, 8):
+                wide = torch.empty((2, 100, 4, 3 * hd + off), device=dev).normal_(
+                    generator=g).to(dtype)
+                kname = check_flash(f"strided {dname} hd {hd} offset {off}",
+                                    wide[..., off:off + hd], wide[..., off + hd:off + 2 * hd],
+                                    wide[..., off + 2 * hd:off + 3 * hd], True)
+                fedge.append(f"{dname} strided q, k, v (T=100, hd={hd}, {off} elements in): "
+                             f"{kname}")
+    # values of one sign at FuXi's shape (v shifted by 2; q and k times 1, 2
+    # and 3: scores of std ~1, 4 and 9), where MMA sums run long in one
+    # direction, three draws each, through both f32 kernels, each draw's
+    # share of the bound against an f64 evaluation and against the plain f32
+    # version printed (the plain version's own score rounding grows with
+    # |q . k|, so the second share carries both errors). The first draw at
+    # x 2 goes through check_flash. Held within the bound of the f64
+    # evaluation: the tf32x3 kernel at every scale, the general kernel at
+    # x 1 and 2. The bound leaves out the scores' own rounding, and the
+    # general kernel's f32 FFMA scores at x 3 lie past it (1.43 of it in
+    # its first run), so there its share is printed, not held
+    def exact_attention(q, k, v):
+        """Causal softmax attention of (B, T, H, hd) inputs in f64."""
+        s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * q.shape[-1] ** -0.5
+        t = q.shape[1]
+        keep = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+        return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v.double())
+
+    same_sign = []
+    for scale in (1, 2, 3):
+        for draw in range(3):
+            q, k, v = flash_inputs(64, 512, 512, 8, 8, 64, torch.float32)
+            q, k, v = scale * q, scale * k, v + 2
+            for simple in (False, True):
+                if scale == 2 and draw == 0:
+                    check_flash("same-sign f32 at FuXi's shape", q, k, v, True, chunk=8,
+                                simple=simple)
+                kname = "flash_attention_simple" if simple else "flash_attention_tf32x3"
+                fn = fa.flash_attention_simple if simple else fa.flash_attention
+                got = fn(q, k, v, True)
+                of_plain = of_exact = 0.0
+                for b0 in range(0, q.shape[0], 8):
+                    sl = slice(b0, b0 + 8)
+                    want = ref.flash_attention_ref(q[sl], k[sl], v[sl], True)
+                    bound = ref.flash_attention_bound(q[sl], k[sl], v[sl], want, True)
+                    of_plain = max(of_plain, float(((got[sl] - want).abs() / bound).max()))
+                    exact = exact_attention(q[sl], k[sl], v[sl])
+                    of_exact = max(of_exact, float(((got[sl].double() - exact).abs()
+                                                    / bound).max()))
+                    del want, bound, exact
+                same_sign.append({"kernel": kname, "scale": scale, "draw": draw,
+                                  "share_of_bound_vs_plain": of_plain,
+                                  "share_of_bound_vs_f64": of_exact,
+                                  "held": not simple or scale < 3})
+                del got
+            del q, k, v
+    fedge.append("float32 64 x 512 x 8 x 64 causal, q and k x 1, 2, 3 (3 draws each), v + 2: "
+                 "within the bound of an f64 evaluation: tf32x3 at every scale, the general "
+                 "kernel at x 1 and 2 (x 2, draw 0: of the plain version too)")
+    emit("flash_same_sign", shape=[64, 512, 8, 64], causal=True, cases=same_sign,
+         headroom={kn: {str(sc): {ref_: 1 - max(c[f"share_of_bound_vs_{ref_}"]
+                                                for c in same_sign
+                                                if c["kernel"] == kn and c["scale"] == sc)
+                                  for ref_ in ("plain", "f64")}
+                        for sc in (1, 2, 3)}
+                   for kn in ("flash_attention_tf32x3", "flash_attention_simple")})
+    for case in same_sign:
+        if case["held"] and case["share_of_bound_vs_f64"] > 1:
+            raise SystemExit(f"{case['kernel']} beyond its bound of the f64 evaluation on "
+                             f"values of one sign: {case}")
     # the layout never picks the kernel: the same values give the same bits
     # in a contiguous layout and in each layout TMA cannot describe (copied)
     base = flash_inputs(2, 100, 100, 4, 1, 160, torch.bfloat16)
 
     def off_alignment(x):
         flat = torch.zeros(x.numel() + 3, dtype=x.dtype, device=dev)
-        return flat[3:].view(x.shape).copy_(x)  # 6 bytes off 16-byte alignment
+        return flat[3:].view(x.shape).copy_(x)  # 3 elements off 16-byte alignment
 
     def stride_164(x):
         return torch.zeros((*x.shape[:-1], 164), dtype=x.dtype, device=dev)[..., :160].copy_(x)
@@ -2512,6 +2684,22 @@ def main() -> int:
                                  f"(causal={causal})")
             fedge.append(f"bf16 T=100 hd=160 {layout.__name__} (causal={causal}): the "
                          "contiguous layout's bits through the wgmma kernel")
+    # the same for the tf32x3 kernel in f32: cp.async on 16-byte aligned
+    # views, element loads off alignment, the same bits
+    base = flash_inputs(2, 100, 100, 4, 1, 64, torch.float32)
+    for causal in (True, False):
+        want_bits = fa.flash_attention(*base, causal)
+        for layout in (off_alignment, heads_outside):
+            views = [layout(x) for x in base]
+            before = fa.launches_tf32x3
+            got = fa.flash_attention(*views, causal)
+            if fa.launches_tf32x3 != before + 1:
+                raise SystemExit(f"the {layout.__name__} layout did not run the tf32x3 kernel")
+            if not torch.equal(got, want_bits):
+                raise SystemExit(f"the {layout.__name__} layout changed the tf32x3 kernel's "
+                                 f"bits (causal={causal})")
+            fedge.append(f"f32 T=100 hd=64 {layout.__name__} (causal={causal}): the "
+                         "contiguous layout's bits through the tf32x3 kernel")
     del base, want_bits, got, views
     try:
         x = torch.zeros((1, 8, 2, 16), device=dev)
@@ -2522,6 +2710,7 @@ def main() -> int:
         raise SystemExit("flash_attention took a CPU tensor beside CUDA ones")
     torch.cuda.synchronize()
     emit("flash_kernel_edges", cases=fedge, max_abs_err=dict(fworst),
+         max_share_of_bound=fshare,
          tolerance="|kernel - plain| <= 1e-5 M + 1e-7 (f32) or 2**-8 M + one bf16 ulp of "
                    "the plain output (bf16), M = sum_j w_ij |v_j|; the same bits on two runs")
 
@@ -2752,7 +2941,7 @@ def main() -> int:
                 "last_layer": {k: frows[-1][k] for k in ("ms", "plain_ms", "library_ms",
                                                          "bound_ms")},
             }
-        elif kname in fuxi_attn:  # FuXi's f32 attention: the general forward, the backward
+        elif kname in fuxi_attn:  # FuXi's f32 attention: the forwards, the backward
             row = fuxi_attn[kname]
             entry = {
                 "name": kname, "route": "cuda", "source": source, "replaces": replaces,
@@ -2766,6 +2955,8 @@ def main() -> int:
                 "calls_per_step": fuxi_want[kname] // FUXI_STEPS,
                 "achieved_tflops": row["achieved_tflops"],
             }
+            entry.update({k: row[k] for k in ("ms_turns", "f32_core_bound_ms", "tf32_mma_tflops",
+                                              "tf32_peak_share") if k in row})
             if kname == "flash_attention_simple":  # the LM prefill's shape, bf16
                 entry["lm_serve_shape"] = {
                     "ms": frows[0]["simple_ms"],
@@ -2780,7 +2971,7 @@ def main() -> int:
                 "bound_by": row["bound_by"], "library_ms": None,
                 "ms_of": "one call at the main-path shape " + str(row["shape"]),
                 "calls_per_step": hstu_want[kname] // HSTU_STEPS,
-                "tf32x3_bound_ms": row["tf32x3_bound_ms"],
+                "f32_core_bound_ms": row["f32_core_bound_ms"],
             }
             entry.update({k: row[k] for k in ("tf32_mma_tflops", "tf32_peak_share") if k in row})
         else:

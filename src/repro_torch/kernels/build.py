@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, ``build/lib<name>-<hash>.so`` at the repo
-root, and is loaded with ``ctypes``. The hash covers the source and the
-flags, so an edited source rebuilds and a stale library is never loaded.
+root, and is loaded with ``ctypes``. The hash covers the source, every
+header in ``csrc/`` and the flags, so an edited source or header rebuilds
+and a stale library is never loaded.
 All requested sources compile in parallel, one ``nvcc`` each.
 
 Nothing here runs at import: the CPU tests import every module of the
@@ -25,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("embedding_gather", "segment_rowsum", "buffer_sync",
            "embedding_scatter", "hstu_attention", "flash_attention",
-           "flash_attention_wgmma", "flash_attention_bwd")
+           "flash_attention_wgmma", "flash_attention_bwd", "flash_attention_tf32")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,8 +50,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # what a source may include
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -25,8 +25,9 @@ Contract (the sentinel conventions of ``repro.kernels.dispatch``):
 - ``flash_attention(q, k, v, causal)`` is softmax attention for q
   ``(B, Tq, H, hd)`` and k, v ``(B, Tk, KV, hd)`` with ``H % KV == 0``,
   differentiable: on the card, when grad is on and an input requires it,
-  the general forward kernel and the backward kernel
-  (``FlashAttention``; FuXi's training), else the forward kernel alone
+  a forward kernel that writes the row logsumexp (f32 at hd <= 128: the
+  3xTF32 kernel) and the backward kernel (``FlashAttention``; FuXi's
+  training), else the forward kernel alone
   (the serving path); the plain version under autograd on the CPU.
 """
 from __future__ import annotations

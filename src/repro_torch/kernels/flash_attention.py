@@ -1,5 +1,5 @@
-"""Softmax attention on the card: the wrapper of ``csrc/flash_attention_wgmma.cu``
-and ``csrc/flash_attention.cu``.
+"""Softmax attention on the card: the wrapper of ``csrc/flash_attention_wgmma.cu``,
+``csrc/flash_attention_tf32.cu`` and ``csrc/flash_attention.cu``.
 
 Replaces the Pallas TPU kernel ``flash_attention``
 (``src/repro/kernels/flash_attention.py``): for q ``(B, Tq, H, hd)`` and k,
@@ -12,21 +12,25 @@ q's type. Query head ``h`` reads kv head ``h // (H // KV)``, so grouped
 heads are never repeated in memory. The function is bound by its
 products; the source notes say how each design meets that.
 
-Two kernels compute it, chosen by ``variant`` from the inputs' type and
+Three kernels compute it, chosen by ``variant`` from the inputs' type and
 head dim alone (never from their layout, nor from a build or launch
 error), so the same values give the same bits in every layout, as the
 TPU kernel does:
 
-- ``csrc/flash_attention_wgmma.cu`` (``"wgmma"``), the main path: bf16 at
-  hd in ``WGMMA_HEAD_DIMS``. It reads views that a TMA tensor map describes
-  (16-byte aligned bases, every stride a multiple of 8 elements and
-  nested: heads inside positions inside batches) in place; any other view
-  is copied into a fresh contiguous tensor first. wgmma products with S, P
-  and O in registers, TMA loads into a two-stage ring, a producer
+- ``csrc/flash_attention_wgmma.cu`` (``"wgmma"``), the LM serving path:
+  bf16 at hd in ``WGMMA_HEAD_DIMS``. It reads views that a TMA tensor map
+  describes (16-byte aligned bases, every stride a multiple of 8 elements
+  and nested: heads inside positions inside batches) in place; any other
+  view is copied into a fresh contiguous tensor first. wgmma products with
+  S, P and O in registers, TMA loads into a two-stage ring, a producer
   warpgroup.
-- ``csrc/flash_attention.cu`` (``"simple"``), the general path: f32, or
-  another ``1 <= hd <= 256``, any view with a unit stride along hd; and
-  ``flash_attention_simple`` for any inputs.
+- ``csrc/flash_attention_tf32.cu`` (``"tf32x3"``), FuXi's training path:
+  f32 at ``hd <= TF32X3_MAX_HEAD_DIM``, any view with a unit stride along
+  hd. Both products on the TF32 tensor cores in split precision (3xTF32
+  ``mma.sync``), the online softmax in the score registers.
+- ``csrc/flash_attention.cu`` (``"simple"``), the general path: f32 at
+  head dims above 128, bf16 outside ``WGMMA_HEAD_DIMS``, any view with a
+  unit stride along hd; and ``flash_attention_simple`` for any inputs.
 
 Inputs are bf16 or f32 strided views with a unit stride along hd and
 ``1 <= hd <= 256``; the output is contiguous. The CUDA libraries build at
@@ -34,11 +38,11 @@ first use (``kernels/build.py``); nothing here touches CUDA at import.
 
 The gradient is a kernel too: ``csrc/flash_attention_bwd.cu``
 (``flash_attention_bwd``) computes dq, dk and dv from q, k, v, the output,
-its gradient and the row logsumexp that the general forward writes beside
-its output. :class:`FlashAttention` joins the two for autograd. The wgmma
-forward has no logsumexp output yet, so a bf16 input at a wgmma head dim
-that needs a gradient raises (``ROADMAP.md``, Queue 1, item 4b: LM
-training); it is never sent to the general kernel instead.
+its gradient and the row logsumexp that the tf32x3 and general forwards
+write beside their output. :class:`FlashAttention` joins the two for
+autograd. The wgmma forward has no logsumexp output yet, so a bf16 input
+at a wgmma head dim that needs a gradient raises (``ROADMAP.md``, Queue 1,
+item 4b: LM training); it is never sent to the general kernel instead.
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ from . import build
 # that its path went through it. The backward's count takes a lock, as the
 # gather's does.
 launches_wgmma = 0
+launches_tf32x3 = 0
 launches_simple = 0
 launches = 0
 launches_bwd = 0
@@ -67,7 +72,10 @@ WGMMA_NO_GRAD = (
 
 MAX_HEAD_DIM = 256
 WGMMA_HEAD_DIMS = (64, 80, 128, 160, 192, 256)
-_SYMBOLS = {("simple", torch.float32): ("flash_attention", "repro_flash_attention_fwd_f32"),
+TF32X3_MAX_HEAD_DIM = 128
+_SYMBOLS = {("tf32x3", torch.float32): ("flash_attention_tf32",
+                                        "repro_flash_attention_fwd_tf32x3"),
+            ("simple", torch.float32): ("flash_attention", "repro_flash_attention_fwd_f32"),
             ("simple", torch.bfloat16): ("flash_attention", "repro_flash_attention_fwd_bf16"),
             ("wgmma", torch.bfloat16): ("flash_attention_wgmma",
                                         "repro_flash_attention_fwd_wgmma"),
@@ -84,7 +92,7 @@ def _kernel(kind: str, dtype: torch.dtype):
         sizes = [i64] * 6  # B, Tq, Tk, H, KV, hd
         if kind == "wgmma":  # q, k, v; out
             args = [*view * 3, p, *sizes, i32, f32, p]
-        elif kind == "simple":  # q, k, v; out, lse
+        elif kind in ("simple", "tf32x3"):  # q, k, v; out, lse
             args = [*view * 3, p, p, *sizes, i32, f32, p]
         else:  # q, k, v, o, do; lse, delta scratch, dq, dk, dv
             args = [*view * 5, p, p, p, p, p, *sizes, i32, f32, p]
@@ -104,11 +112,14 @@ def _strides(x: torch.Tensor):
 
 
 def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """``"wgmma"`` for bf16 inputs at a head dim in ``WGMMA_HEAD_DIMS``, else
+    """``"wgmma"`` for bf16 inputs at a head dim in ``WGMMA_HEAD_DIMS``,
+    ``"tf32x3"`` for f32 inputs at ``hd <= TF32X3_MAX_HEAD_DIM``, else
     ``"simple"``: a function of the type and the head dim only, never of
     the layout. It runs on CPU tensors too."""
     if q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_HEAD_DIMS:
         return "wgmma"
+    if q.dtype == torch.float32 and q.shape[-1] <= TF32X3_MAX_HEAD_DIM:
+        return "tf32x3"
     return "simple"
 
 
@@ -152,9 +163,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def _launch(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool, lse: bool = False):
-    """The output, or ``(out, lse)`` when ``lse`` (the general kernel only):
+    """The output, or ``(out, lse)`` when ``lse`` (not the wgmma kernel):
     the row logsumexp, contiguous f32 ``(B, H, Tq)``."""
-    global launches, launches_wgmma, launches_simple
+    global launches, launches_wgmma, launches_tf32x3, launches_simple
     b, tq, h, hd = q.shape
     tk, kv = k.shape[1], k.shape[2]
     out = torch.empty((b, tq, h, hd), dtype=q.dtype, device=q.device)
@@ -172,6 +183,8 @@ def _launch(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention ({kind}) launch failed: CUDA error {err}")
     if kind == "wgmma":
         launches_wgmma += 1
+    elif kind == "tf32x3":
+        launches_tf32x3 += 1
     else:
         launches_simple += 1
     launches += 1
@@ -193,21 +206,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_simple(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           causal: bool = True) -> torch.Tensor:
+                           causal: bool = True, lse: bool = False):
     """``flash_attention`` through the general kernel whatever the inputs
-    (to hold the two kernels against each other and time them)."""
+    (to hold the kernels against each other and time them); ``(out,
+    lse)`` when ``lse``, as ``flash_attention_lse`` returns them."""
     _check(q, k, v)
-    return _launch("simple", q, k, v, causal)
+    return _launch("simple", q, k, v, causal, lse=lse)
+
+
+def lse_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel ``flash_attention_lse`` launches: ``variant``'s, or the
+    general kernel's where that is the wgmma kernel (which writes no lse)."""
+    kind = variant(q, k, v)
+    return "simple" if kind == "wgmma" else kind
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True):
-    """``(out, lse)`` through the general kernel: the output, and the row
-    logsumexp ``m + log d`` of the masked, scaled scores, f32 ``(B, H,
-    Tq)``, which the backward reads. The output has the bits
-    ``flash_attention_simple`` gives."""
+    """``(out, lse)`` through the kernel ``lse_variant`` picks: the output,
+    and the row logsumexp ``m + log d`` of the masked, scaled scores, f32
+    ``(B, H, Tq)``, which the backward reads. The output has the bits that
+    kernel gives without the lse."""
     _check(q, k, v)
-    return _launch("simple", q, k, v, causal, lse=True)
+    return _launch(lse_variant(q, k, v), q, k, v, causal, lse=True)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -254,10 +275,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class FlashAttention(torch.autograd.Function):
-    """The forward through the kernel ``variant`` picks, saving q, k, v, the
-    output and its row logsumexp; the backward through
-    ``flash_attention_bwd``. The wgmma variant raises: its forward writes no
-    logsumexp yet."""
+    """The forward through the kernel ``variant`` picks (``tf32x3`` or
+    ``simple``), saving q, k, v, the output and its row logsumexp; the
+    backward through ``flash_attention_bwd``. The wgmma variant raises: its
+    forward writes no logsumexp yet."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool = True):

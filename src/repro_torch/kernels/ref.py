@@ -285,6 +285,128 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
     return torch.logsumexp(s, dim=-1)
 
 
+def _f32_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """f64 ``x`` to f32, rounded toward zero (truncated)."""
+    f = x.to(torch.float32)
+    over = f.to(torch.float64).abs() > x.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _mma(acc: torch.Tensor, eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One m16n8k8 TF32 ``mma.sync`` as this model takes it: ``acc`` plus
+    the exact sum of the 8 products of TF32 ``a`` and ``b`` (``eq``),
+    truncated to f32 once. The tensor cores add truncating, not rounding;
+    how many bits they carry inside the sum is not modelled, so the model is
+    the mildest form of the truncation (at most one ulp of the result an
+    MMA, always toward zero)."""
+    exact = acc.to(torch.float64) + torch.einsum(eq, a.to(torch.float64), b.to(torch.float64))
+    return _f32_toward_zero(exact)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 ``a b + c`` rounded once (``fmaf``)."""
+    return (a.to(torch.float64) * b.to(torch.float64) + c.to(torch.float64)).to(torch.float32)
+
+
+def flash_attention_fwd_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             causal: bool = True, passes: int = 3, ties: str = "even",
+                             chains: str = "short"):
+    """``(out, lse)``: ``flash_attention_ref`` and ``flash_attention_lse_ref``
+    as the CUDA ``tf32x3`` forward computes them. A model of the kernel's
+    arithmetic for the CPU, not a kernel:
+
+    - every product is a chain of m16n8k8 MMAs (``_mma``: products exact,
+      the sum truncated to f32 at each MMA) over 8 columns of hd (S = q k^T)
+      or 8 keys (P v) at a time, each operand split into TF32 hi and lo
+      with ``ties`` (``tf32_round``), in ``passes``: 3 is split precision
+      (``hi lo'``, ``lo hi'``, then ``hi hi'``), 1 one TF32 pass (``hi hi'``);
+    - the keys come 32 a step with an online softmax in f32: the running max
+      ``m`` from -1e30, ``alpha = exp(m_old - m_new)``, ``p = exp(z - m_new)``
+      (z the scaled score, -1e30 where masked); each of a row's four lanes
+      keeps its part of the denominator (keys ``8 nb + 2 t`` and ``+ 1`` of
+      the step, added in order, then ``d alpha + sum`` by one fma), the four
+      added as ``(d0 + d1) + (d2 + d3)`` at the end;
+    - ``chains="short"`` (the kernel): S's small products run in a chain of
+      their own, added to the hi.hi' chain at the end, and each step's P v
+      is summed from zero (12 MMAs) and added to O by ``fma(O, alpha, .)``;
+      ``chains="long"`` (the first form, which drifted on values of one
+      sign): one chain per S entry, and O scaled by alpha then carrying
+      every MMA of every step;
+    - the output is ``O / max(d, 1e-30)``, the lse ``m + log d``.
+
+    A warp's skipped causal steps are not skipped here: they add exact
+    zeros with alpha 1, which changes nothing."""
+    if chains not in ("short", "long"):
+        raise ValueError(f"chains is 'short' or 'long', got {chains!r}")
+    h, tq, tk, hd = q.shape[2], q.shape[1], k.shape[1], q.shape[-1]
+    qt, kt, vt = (x.to(torch.float32).transpose(1, 2)
+                  for x in (q, repeat_kv(k, h), repeat_kv(v, h)))  # (B, H, T, hd)
+
+    def split(x):
+        hi = tf32_round(x, ties)
+        return hi, tf32_round(x - hi, ties)
+
+    def product(acc, small, eq, a, b):
+        """One k step of 3xTF32 (or one-pass) MMAs: small += hi.lo' +
+        lo.hi', then acc += hi.hi' (``mma_tf32x3_apart``); with small None
+        all three into acc (``mma_tf32x3``). Returns (acc, small)."""
+        (a_hi, a_lo), (b_hi, b_lo) = split(a), split(b)
+        if passes == 3:
+            x = acc if small is None else small
+            x = _mma(_mma(x, eq, a_hi, b_lo), eq, a_lo, b_hi)
+            acc, small = (x, None) if small is None else (acc, x)
+        elif passes != 1:
+            raise ValueError(f"passes is 1 or 3, got {passes}")
+        return _mma(acc, eq, a_hi, b_hi), small
+
+    s_shape = (*qt.shape[:3], tk)
+    s = qt.new_zeros(s_shape)
+    small = qt.new_zeros(s_shape) if chains == "short" else None
+    for c in range(0, hd, 8):
+        s, small = product(s, small, "bhqd,bhkd->bhqk", qt[..., c:c + 8], kt[..., c:c + 8])
+    if small is not None:
+        s = s + small
+    keep = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        keep = _causal_mask_rect(tq, tk, q.device)
+    z = torch.where(keep, s * hd ** -0.5, s.new_full((), -1e30))
+
+    steps = -(-tk // 32)
+    pad = steps * 32 - tk
+    z = torch.nn.functional.pad(z, (0, pad), value=-1e30)
+    vt = torch.nn.functional.pad(vt, (0, 0, 0, pad))
+    m = z.new_full(z.shape[:3], -1e30)
+    d = z.new_zeros((*z.shape[:3], 4))  # a row's four lanes t
+    acc = qt.new_zeros(qt.shape[:3] + (hd,))
+    for step in range(steps):
+        zs = z[..., 32 * step:32 * step + 32]
+        m_new = torch.maximum(m, zs.amax(-1))
+        alpha = torch.exp(m - m_new)
+        m = m_new
+        p = torch.exp(zs - m[..., None])
+        lanes = p.reshape(*p.shape[:3], 4, 4, 2)  # (nb, t, e & 1)
+        part = torch.zeros_like(d)
+        for nb in range(4):
+            for e in range(2):
+                part = part + lanes[..., nb, :, e]
+        d = _fma(d, alpha[..., None], part)
+        vs = vt[..., 32 * step:32 * step + 32, :]
+        if chains == "short":
+            pv = acc.new_zeros(acc.shape)
+            for kc in range(0, 32, 8):
+                pv, _ = product(pv, None, "bhqk,bhkd->bhqd", p[..., kc:kc + 8],
+                                vs[..., kc:kc + 8, :])
+            acc = _fma(acc, alpha[..., None], pv)
+        else:
+            acc = acc * alpha[..., None]
+            for kc in range(0, 32, 8):
+                acc, _ = product(acc, None, "bhqk,bhkd->bhqd", p[..., kc:kc + 8],
+                                 vs[..., kc:kc + 8, :])
+    den = (d[..., 0] + d[..., 1]) + (d[..., 2] + d[..., 3])
+    out = acc / den.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2), m + torch.log(den)
+
+
 def _group_sum(x: torch.Tensor, kv: int) -> torch.Tensor:
     """(B, T, H, hd) -> (B, T, KV, hd): each kv head's sum over its query
     group, in head order (the transpose of ``repeat_kv``)."""

@@ -9,9 +9,9 @@ FuXi layer (pre-norm):
     x = x + v_3 W_down
 
 The attention runs through ``kernels.dispatch.flash_attention``: on the
-card the general ``flash_attention`` forward kernel (FuXi's activations
-are f32) and the backward kernel, behind ``FlashAttention``; the plain
-version on the CPU. JAX runs ``chunked_attention`` and differentiates it;
+card the 3xTF32 ``flash_attention`` forward kernel (FuXi's activations are
+f32, its head dim 64) and the backward kernel, behind ``FlashAttention``;
+the plain version on the CPU. JAX runs ``chunked_attention`` and differentiates it;
 the function is the same.
 
 The JAX layout is kept so weights carry across unchanged: ``x @ w``

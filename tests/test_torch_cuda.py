@@ -1,6 +1,7 @@
 """The port on the card: the hand-written CUDA kernels, the serving paths
 (DLRM embeddings, dense-LM prefill and decode), the training paths (DLRM,
-HSTU and FuXi, whose attention runs the flash_attention backward kernel)
+HSTU and FuXi, whose attention runs the tf32x3 flash_attention forward and
+the flash_attention backward kernel)
 and the host and cached embedding tiers.
 
 Every test here needs an NVIDIA GPU, carries the ``cuda`` marker and skips
@@ -464,6 +465,75 @@ def test_flash_attention_kernel_equals_plain(cuda_device, b, tq, tk, h, kv, hd, 
     assert bool((err <= ref.flash_attention_bound(q, k, v, want, causal)).all())
 
 
+FLASH_TF32X3_CASES = [(1, 1, 1, 2, 1, 16, True), (2, 33, 33, 4, 1, 80, True),
+                      (1, 33, 100, 4, 2, 64, False), (2, 70, 70, 2, 2, 8, False),
+                      (1, 512, 512, 4, 4, 64, True), (1, 512, 512, 4, 4, 64, False),
+                      (1, 512, 512, 4, 1, 128, True), (1, 512, 512, 4, 1, 128, False),
+                      (2, 33, 100, 4, 4, 64, True), (2, 33, 100, 4, 1, 128, True),
+                      (2, 33, 100, 4, 1, 64, False), (1, 100, 33, 2, 2, 5, True)]
+
+
+@pytest.mark.parametrize("b,tq,tk,h,kv,hd,causal", FLASH_TF32X3_CASES)
+def test_flash_attention_tf32x3_kernel_equals_plain(cuda_device, b, tq, tk, h, kv, hd,
+                                                    causal):
+    """The tf32x3 kernel (f32 at hd <= 128) within ``ref.flash_attention_bound``
+    of the plain version, its lse within ``ref.flash_attention_lse_bound``;
+    the same bits twice and with or without the lse; only its counter moves."""
+    q, k, v = _flash_case(cuda_device, b, tq, tk, h, kv, hd, torch.float32, seed=tq + hd)
+    assert fa.variant(q, k, v) == fa.lse_variant(q, k, v) == "tf32x3"
+    before = (fa.launches_tf32x3, fa.launches_simple, fa.launches_wgmma, fa.launches)
+    got = dispatch.flash_attention(q, k, v, causal)
+    again = fa.flash_attention(q, k, v, causal)
+    out, lse = fa.flash_attention_lse(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert (fa.launches_tf32x3, fa.launches_simple, fa.launches_wgmma, fa.launches) == (
+        before[0] + 3, before[1], before[2], before[3] + 3)
+    assert got.shape == (b, tq, h, hd) and got.is_contiguous()
+    assert torch.equal(got, again) and torch.equal(got, out)
+    want = ref.flash_attention_ref(q, k, v, causal)
+    err = (got - want).abs()
+    assert bool((err <= ref.flash_attention_bound(q, k, v, want, causal)).all()), \
+        float(err.max())
+    lse_want = ref.flash_attention_lse_ref(q, k, causal)
+    assert bool(((lse - lse_want).abs()
+                 <= ref.flash_attention_lse_bound(q, k, lse_want, causal)).all())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_tf32x3_holds_the_bound_on_same_sign_values(cuda_device, causal):
+    """Scores of std ~4 and v shifted by 2 at FuXi's T and hd: MMA sums whose
+    terms share a sign, which drift when one running sum takes them all
+    (the tensor cores truncate), stay within ``ref.flash_attention_bound``."""
+    q, k, v = _flash_case(cuda_device, 8, 512, 512, 8, 8, 64, torch.float32, seed=9)
+    q, k, v = 2 * q, 2 * k, v + 2
+    got = fa.flash_attention(q, k, v, causal)
+    want = ref.flash_attention_ref(q, k, v, causal)
+    err = (got - want).abs()
+    assert bool((err <= ref.flash_attention_bound(q, k, v, want, causal)).all()), \
+        float(err.max())
+
+
+def test_flash_attention_tf32x3_same_bits_in_every_layout(cuda_device):
+    """The same values as contiguous tensors and as column slices of wider
+    tensors (16-byte aligned, read by cp.async, and 3 elements in, read
+    element by element) give the tf32x3 kernel's same bits."""
+    q, k, v = _flash_case(cuda_device, 2, 70, 70, 4, 1, 64, torch.float32, seed=8)
+
+    def sliced(x, off):
+        wide = torch.zeros((*x.shape[:-1], 64 + off + 4), device=x.device)
+        return wide[..., off:off + 64].copy_(x)
+
+    for causal in (True, False):
+        want = fa.flash_attention(q, k, v, causal)
+        for off in (4, 3):
+            views = [sliced(x, off) for x in (q, k, v)]
+            before = fa.launches_tf32x3
+            got, lse = fa.flash_attention_lse(*views, causal)
+            assert fa.launches_tf32x3 == before + 1
+            assert torch.equal(got, want), (off, causal)
+            assert torch.equal(lse, fa.flash_attention_lse(q, k, v, causal)[1])
+
+
 @pytest.mark.parametrize("hd", fa.WGMMA_HEAD_DIMS)
 def test_flash_attention_wgmma_kernel_equals_plain(cuda_device, hd):
     """The main-path kernel at every head dim it takes: causal and not, T 1,
@@ -607,14 +677,17 @@ def test_flash_attention_bwd_kernel_equals_plain(cuda_device, b, tq, tk, h, kv, 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_lse_equals_plain(cuda_device, dtype):
-    """The general forward's row logsumexp within
-    ``ref.flash_attention_lse_bound`` of the plain one, and its output the
-    bits it gives without the lse."""
+    """The forward's row logsumexp within ``ref.flash_attention_lse_bound``
+    of the plain one, and its output the bits the same kernel gives without
+    the lse (``fa.lse_variant``: the tf32x3 kernel for f32 at hd <= 128,
+    else the general one)."""
     for b, tq, tk, h, kv, hd, causal in FLASH_BWD_CASES:
         q, k, v = _flash_case(cuda_device, b, tq, tk, h, kv, hd, dtype, seed=hd)
         out, lse = fa.flash_attention_lse(q, k, v, causal)
         assert lse.shape == (b, h, tq) and lse.dtype == torch.float32
-        assert torch.equal(out, fa.flash_attention_simple(q, k, v, causal))
+        kind = fa.lse_variant(q, k, v)
+        alone = fa.flash_attention if kind == fa.variant(q, k, v) else fa.flash_attention_simple
+        assert torch.equal(out, alone(q, k, v, causal))
         want = ref.flash_attention_lse_ref(q, k, causal)
         assert bool(((lse - want).abs() <= ref.flash_attention_lse_bound(q, k, want,
                                                                          causal)).all())
@@ -622,17 +695,18 @@ def test_flash_attention_lse_equals_plain(cuda_device, dtype):
 
 def test_flash_attention_autograd_runs_the_kernels(cuda_device):
     """Small f32 inputs through ``dispatch.flash_attention`` under autograd:
-    one general forward and one backward launch, the gradients the backward
-    kernel gives, and within its bound of autograd of the plain version."""
+    one tf32x3 forward and one backward launch (none of the general or the
+    wgmma forward), the gradients the backward kernel gives, and within its
+    bound of autograd of the plain version."""
     q, k, v = _flash_case(cuda_device, 2, 9, 9, 4, 2, 8, torch.float32, seed=3)
     do = torch.randn(q.shape, device=cuda_device)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    before = (fa.launches_simple, fa.launches_wgmma, fa.launches_bwd)
+    before = (fa.launches_tf32x3, fa.launches_simple, fa.launches_wgmma, fa.launches_bwd)
     out = dispatch.flash_attention(*leaves, True)
     out.backward(do)
     torch.cuda.synchronize()
-    assert (fa.launches_simple, fa.launches_wgmma, fa.launches_bwd) == \
-        (before[0] + 1, before[1], before[2] + 1)
+    assert (fa.launches_tf32x3, fa.launches_simple, fa.launches_wgmma, fa.launches_bwd) == \
+        (before[0] + 1, before[1], before[2], before[3] + 1)
     o, lse = fa.flash_attention_lse(q, k, v, True)
     for leaf, w in zip(leaves, fa.flash_attention_bwd(q, k, v, o, do, lse, True)):
         assert torch.equal(leaf.grad, w)
@@ -642,10 +716,10 @@ def test_flash_attention_autograd_runs_the_kernels(cuda_device):
                                            [x.grad for x in plain], True)
     for leaf, p_, bd in zip(leaves, plain, bounds):
         assert bool(((leaf.grad - p_.grad).abs() <= bd).all())
-    counts = (fa.launches_simple, fa.launches_bwd)
+    counts = (fa.launches_tf32x3, fa.launches_bwd)
     with torch.no_grad():  # no grad wanted: the forward kernel alone
         dispatch.flash_attention(*leaves, True)
-    assert (fa.launches_simple, fa.launches_bwd) == (counts[0] + 1, counts[1])
+    assert (fa.launches_tf32x3, fa.launches_bwd) == (counts[0] + 1, counts[1])
 
 
 def test_flash_attention_wgmma_with_grad_raises(cuda_device):
@@ -660,19 +734,20 @@ def test_flash_attention_wgmma_with_grad_raises(cuda_device):
 
 
 def test_fuxi_training_on_the_card_runs_the_kernels_and_matches_cpu(cuda_device):
-    """``fuxi-reduced`` (2 layers, N = 4): 2 x 2 x 4 general forward and
+    """``fuxi-reduced`` (2 layers, N = 4): 2 x 2 x 4 tf32x3 forward and
     2 x 4 backward launches a step (each layer's forward runs again in the
-    backward), no wgmma launch, and the CPU's trajectory within 1e-5 at
-    the configuration's own step sizes."""
+    backward), no launch of the general or the wgmma forward, and the CPU's
+    trajectory within 1e-5 at the configuration's own step sizes."""
     kw = dict(reduced=True, global_batch=16, n_micro=4, seed=3)
     gpu = Session.from_arch("fuxi-kuairand", **kw)
     cpu = Session.from_arch("fuxi-kuairand", device="cpu", **kw)
     cpu.state = clone_state(gpu.state, "cpu")
-    before = (fa.launches_simple, fa.launches_wgmma, fa.launches_bwd)
+    before = (fa.launches_tf32x3, fa.launches_simple, fa.launches_wgmma, fa.launches_bwd)
     steps = 4
     got, want = gpu.train(steps), cpu.train(steps)
-    assert (fa.launches_simple - before[0], fa.launches_wgmma - before[1],
-            fa.launches_bwd - before[2]) == (16 * steps, 0, 8 * steps)
+    assert (fa.launches_tf32x3 - before[0], fa.launches_simple - before[1],
+            fa.launches_wgmma - before[2], fa.launches_bwd - before[3]) == \
+        (16 * steps, 0, 0, 8 * steps)
     assert got.summary["overflow_max"] == 0
     np.testing.assert_allclose(got.stats.losses, want.stats.losses, rtol=0, atol=1e-5)
     torch.testing.assert_close(got.state.table.rows.cpu(), want.state.table.rows,

@@ -16,8 +16,18 @@
   the reordering bound on normal grads, hot keys included; it equals the
   input-order plain version bit for bit on runs of at most one chunk, and
   a loop over the chunks at any chunk size;
-- the choice between the two ``flash_attention`` kernels is a function of
-  type, head dim, strides and alignment, checked on CPU tensors;
+- the choice between the three ``flash_attention`` kernels is a function
+  of type and head dim alone, never of strides or alignment, checked on
+  CPU tensors;
+- a CPU model of the ``tf32x3`` flash forward's arithmetic
+  (``ref.flash_attention_fwd_tf32``: both products in split-precision
+  TF32, either tie rule) holds ``ref.flash_attention_bound`` against the
+  plain version and JAX's oracle, and its lse
+  ``ref.flash_attention_lse_bound``, at hd 64 with H/KV 1 and 4 and on
+  the port's ``fuxi-reduced`` layer 0 inputs, causal and full; one TF32
+  pass misses the bound. The model truncates at each MMA as the tensor
+  cores do: on values of one sign the kernel's short MMA chains hold the
+  bound and the first form's long ones miss it;
 - the plain buffer sync equals JAX ``dispatch.buffer_sync`` under both
   backends bit for bit, misses at ``Ka`` and ``SENTINEL`` and negative
   sources included (both JAX backends wrap -1 to the last active row), and
@@ -36,6 +46,7 @@
   equals the plain version bit for bit, sentinels and negative indices
   included.
 """
+import functools
 import os
 import sys
 
@@ -48,6 +59,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
 from repro.kernels import dispatch as jdispatch
 from repro.kernels import ref as jref
+from repro_torch.configs.registry import get_arch
 from repro_torch.core.embedding.routing import SENTINEL
 from repro_torch.kernels import build, dispatch, ref
 from repro_torch.kernels import buffer_sync as bs
@@ -55,6 +67,7 @@ from repro_torch.kernels import embedding_gather as eg
 from repro_torch.kernels import embedding_scatter as es
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import segment_rowsum as sr
+from repro_torch.models import FuXi
 
 
 def _case(rows, d, n, seed=0):
@@ -132,6 +145,25 @@ def test_library_path_tracks_source_and_lives_in_build():
     assert p.parent == build.BUILD_DIR
     assert p.parent.parent == build.CSRC.parents[2]  # the repo root
     assert p == build.library_path("embedding_gather")
+
+
+def test_library_path_tracks_the_headers(tmp_path, monkeypatch):
+    """An edited header in ``csrc/`` changes every library's path, so the
+    next use rebuilds it; the path comes back with the header's bytes. The
+    two f32 tensor-core sources include the shared one."""
+    for name in ("hstu_attention", "flash_attention_tf32"):
+        assert '#include "tf32_mma.cuh"' in (build.CSRC / f"{name}.cu").read_text()
+    (tmp_path / "a.cu").write_text('#include "shared.cuh"\n')
+    header = tmp_path / "shared.cuh"
+    header.write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build.library_path("a")
+    header.write_text("// two\n")
+    assert build.library_path("a") != first
+    header.write_text("// one\n")
+    assert build.library_path("a") == first
+    (tmp_path / "other.cuh").write_text("// a second header\n")
+    assert build.library_path("a") != first
 
 
 def _emulate_gather(plan, table, idx, batch=1024):
@@ -366,7 +398,8 @@ def test_every_kernel_source_builds_into_build():
     assert set(build.SOURCES) == {"embedding_gather", "segment_rowsum",
                                   "buffer_sync", "embedding_scatter",
                                   "hstu_attention", "flash_attention",
-                                  "flash_attention_wgmma", "flash_attention_bwd"}
+                                  "flash_attention_wgmma", "flash_attention_bwd",
+                                  "flash_attention_tf32"}
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").exists()
         assert build.library_path(name).parent == build.BUILD_DIR
@@ -458,7 +491,12 @@ def _view(shape, dtype, offset=0, pad=0):
     (_view((2, 9, 4, 160), torch.bfloat16, 8, 320), _view((2, 9, 1, 160), torch.bfloat16, 8, 8),
      "wgmma"),                                            # aligned column slices
     (_view((8, 64, 32, 160), torch.float32), _view((8, 64, 8, 160), torch.float32),
-     "simple"),                                           # f32
+     "simple"),                                           # f32 above hd 128
+    *[(_view((2, 9, 4, hd), torch.float32), _view((2, 9, 1, hd), torch.float32), want)
+      for hd, want in ((8, "tf32x3"), (64, "tf32x3"), (128, "tf32x3"), (160, "simple"),
+                       (256, "simple"))],
+    (_view((2, 9, 4, 64), torch.float32, 3, 5), _view((2, 9, 1, 64), torch.float32, 1),
+     "tf32x3"),                                           # f32 off 16-byte alignment
     (_view((2, 9, 4, 8), torch.bfloat16), _view((2, 9, 1, 8), torch.bfloat16), "simple"),
     (_view((2, 9, 4, 96), torch.bfloat16), _view((2, 9, 1, 96), torch.bfloat16), "simple"),
     # views TMA cannot describe: the layout does not pick the kernel (they
@@ -576,3 +614,124 @@ def test_one_pass_tf32_forward_misses_the_kernel_limit(causal, ties):
     want = ref.hstu_attention_ref(q, k, v, causal)
     mag, _ = ref.hstu_attention_magnitudes(q, k, v, torch.zeros_like(v), causal)
     assert not bool(((got - want).abs() <= 1e-5 * mag + 1e-7).all())
+
+
+@functools.lru_cache(maxsize=None)
+def _fuxi_layer0_qkv():
+    """q, k, v as the port's ``fuxi-reduced`` layer 0 hands them to
+    ``dispatch.flash_attention`` on the CPU (seeded weights and lookups;
+    (2, 32, 4, 16), causal)."""
+    cfg = get_arch("fuxi-kuairand").reduced
+    model = FuXi(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    emb = np.random.default_rng(4).normal(size=(2, cfg.seq_len, cfg.max_table_dim)) * 0.1
+    kept, real = [], dispatch.flash_attention
+
+    def spy(q, k, v, causal=True):
+        kept.append((q.clone(), k.clone(), v.clone()))
+        return real(q, k, v, causal)
+
+    dispatch.flash_attention = spy
+    try:
+        with torch.no_grad():
+            model(torch.from_numpy(emb.astype(np.float32)))
+    finally:
+        dispatch.flash_attention = real
+    return kept[0]
+
+
+def _flash_tf32_case(name):
+    if name == "fuxi-reduced layer 0":
+        return _fuxi_layer0_qkv()
+    kv = {"hd 64, H/KV 1": 4, "hd 64, H/KV 4": 1}[name]
+    rng = np.random.default_rng(13)
+    return [torch.from_numpy(rng.normal(size=(2, 64, n, 64)).astype(np.float32))
+            for n in (4, kv, kv)]
+
+
+FLASH_TF32_CASES = ["hd 64, H/KV 1", "hd 64, H/KV 4", "fuxi-reduced layer 0"]
+
+
+@pytest.mark.parametrize("ties", ["even", "away"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", FLASH_TF32_CASES)
+def test_tf32x3_flash_forward_holds_the_kernel_limit(case, causal, ties):
+    """The ``tf32x3`` flash forward's two products in split precision (as
+    the CUDA kernel takes them, split with either tie rule) stay within the
+    limits chip_smoke holds the kernel to: the output within
+    ``ref.flash_attention_bound`` (1e-5 of sum_j w_ij |v_j| + 1e-7) of the
+    plain version and of JAX's ``flash_attention_ref``, the lse within
+    ``ref.flash_attention_lse_bound``."""
+    q, k, v = _flash_tf32_case(case)
+    out, lse = ref.flash_attention_fwd_tf32(q, k, v, causal, passes=3, ties=ties)
+    want = ref.flash_attention_ref(q, k, v, causal)
+    bound = ref.flash_attention_bound(q, k, v, want, causal)
+    assert out.shape == want.shape and lse.shape == (q.shape[0], q.shape[2], q.shape[1])
+    assert bool(((out - want).abs() <= bound).all())
+    h = q.shape[2]
+    oracle = jref.flash_attention_ref(*(jnp.asarray(x.numpy()) for x in (
+        q, ref.repeat_kv(k, h), ref.repeat_kv(v, h))), causal=causal)
+    assert bool(((out - torch.from_numpy(np.array(oracle))).abs() <= bound).all())
+    lse_want = ref.flash_attention_lse_ref(q, k, causal)
+    assert bool(((lse - lse_want).abs()
+                 <= ref.flash_attention_lse_bound(q, k, lse_want, causal)).all())
+
+
+def test_mma_model_truncates_toward_zero():
+    """``ref._mma`` adds the exact sum of its 8 products to the accumulator
+    and truncates once: a product below half an ulp leaves a positive sum
+    where it was and takes a negative one an ulp toward zero, where
+    rounding to nearest would leave both."""
+    one = torch.ones((1, 1))
+    a = torch.zeros((1, 8))
+    a[0, 0] = 2.0 ** -30
+    b = torch.ones((1, 8))
+    eq = "qk,dk->qd"
+    assert float(ref._mma(one, eq, a, b)) == 1.0
+    assert float(ref._mma(-one, eq, a, b)) == -1.0 + 2.0 ** -24
+    assert float(ref._mma(one, eq, -a, b)) == 1.0 - 2.0 ** -24
+    assert float(ref._mma(one, eq, 4 * a, b * 2.0 ** 8)) == 1.0 + 2.0 ** -20  # exact
+
+
+def _same_sign_case(seed):
+    """Values of one sign at FuXi's hd 64 and 1024 keys: q and k x 2
+    (scores of std ~4), v shifted by 2, so every MMA sum of P v runs one
+    way."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 1024, 2, 64)).astype(np.float32))
+               for _ in range(3))
+    return 2 * q, 2 * k, v + 2
+
+
+@pytest.mark.parametrize("ties", ["even", "away"])
+def test_short_mma_chains_hold_the_limit_where_long_ones_miss_it(ties):
+    """The tensor cores add truncating, so a sum that runs through one MMA
+    chain drifts toward zero. On values of one sign the kernel's short
+    chains (S's small products apart, each step's P v from zero) hold
+    ``ref.flash_attention_bound`` and the lse bound; the first form's long
+    chains (one chain a sum through every step) miss the bound. The model
+    truncates at most one ulp an MMA, less than the tensor cores lose (on
+    an H100 the long form read past the bound on such values at 512 keys),
+    so the case takes 1024 keys for the drift to show here."""
+    q, k, v = _same_sign_case(seed=21)
+    want = ref.flash_attention_ref(q, k, v, True)
+    bound = ref.flash_attention_bound(q, k, v, want, True)
+    out, lse = ref.flash_attention_fwd_tf32(q, k, v, True, ties=ties)
+    assert bool(((out - want).abs() <= bound).all())
+    lse_want = ref.flash_attention_lse_ref(q, k, True)
+    assert bool(((lse - lse_want).abs()
+                 <= ref.flash_attention_lse_bound(q, k, lse_want, True)).all())
+    long_out, _ = ref.flash_attention_fwd_tf32(q, k, v, True, ties=ties, chains="long")
+    assert not bool(((long_out - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("ties", ["even", "away"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", FLASH_TF32_CASES)
+def test_one_pass_tf32_flash_forward_misses_the_kernel_limit(case, causal, ties):
+    """One TF32 pass misses ``ref.flash_attention_bound``: the reason the
+    kernel takes three."""
+    q, k, v = _flash_tf32_case(case)
+    out, _ = ref.flash_attention_fwd_tf32(q, k, v, causal, passes=1, ties=ties)
+    want = ref.flash_attention_ref(q, k, v, causal)
+    assert not bool(((out - want).abs()
+                     <= ref.flash_attention_bound(q, k, v, want, causal)).all())
