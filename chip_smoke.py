@@ -12,13 +12,15 @@ hand-written kernel on it against its plain PyTorch version:
    way from it, timed by CUDA events (``pin_probe``);
 2. build: compiles every kernel from ``src/repro_torch/csrc`` with nvcc, one
    process per source, all at once; each source's nvcc seconds, ptxas's
-   registers and spills (the ``hstu_attention`` forward's and the tf32x3
-   ``flash_attention`` forward's by head dim, and each ``flash_attention``
-   backward kernel's), the
+   registers and spills (the ``hstu_attention`` forward's, the tf32x3
+   ``flash_attention`` forward's and the tf32x3 backward's dq and dk/dv
+   kernels' by head dim, and each general ``flash_attention`` backward
+   kernel's), the
    HGMMA instructions in the wgmma ``flash_attention`` library and the HMMA
-   (``mma.sync``) instructions of the tf32x3 ``flash_attention`` library
-   and of each ``hstu_attention`` kernel, the forward and the two backward
-   kernels apart (``cuobjdump -sass``; none may be 0);
+   (``mma.sync``) instructions of the tf32x3 ``flash_attention`` library,
+   of the tf32x3 backward's dq and dk/dv kernels apart, and of each
+   ``hstu_attention`` kernel, the forward and the two backward kernels
+   apart (``cuobjdump -sass``; none may be 0);
 3. kernel edges: ``embedding_gather``, ``segment_rowsum``, ``buffer_sync``
    and ``embedding_scatter`` against their plain versions at edge cases
    (empty, one segment, drop ids and sentinels, negative sources, D in
@@ -142,15 +144,27 @@ hand-written kernel on it against its plain PyTorch version:
    as in phase 7;
 11. release: every earlier session gone (the memory still allocated is
    printed);
-11a. ``flash_attention`` backward edges: the backward kernel
-   (``csrc/flash_attention_bwd.cu``) on the forward's output and row
-   logsumexp (the tf32x3 kernel's in f32, the general kernel's in bf16;
-   each checked by its counter) and a random output gradient, against
-   ``ref.flash_attention_bwd_ref`` within ``ref.flash_attention_bwd_bound``
-   (1e-5 of each gradient's sum of magnitudes + 1e-7, plus one bf16 ulp in
-   bf16) at T in {1, 33, 64, 257, 512}, hd in {16, 64, 80, 128}, H/KV in
-   {1, 4}, causal and full, f32, and bf16 at hd 16 and 80; Tq 33 against
-   Tk 100 and a strided view; the forward's lse against
+11a. ``flash_attention`` backward edges: the backward kernel that
+   ``flash_attention.bwd_variant`` picks (``csrc/flash_attention_bwd_tf32.cu``
+   for f32 at hd <= 128, ``csrc/flash_attention_bwd.cu`` for the rest) and,
+   for every f32 case at hd <= 128, the general one too
+   (``flash_attention_bwd_simple``), each checked by its counter, on the
+   forward's output and row logsumexp (the tf32x3 kernel's in f32 at
+   hd <= 128, the general kernel's otherwise; its counter checked) and a
+   random output gradient, against ``ref.flash_attention_bwd_ref`` within
+   ``ref.flash_attention_bwd_bound`` (1e-5 of each gradient's sum of
+   magnitudes + 1e-7, plus one bf16 ulp in bf16) at T in {1, 33, 64, 257,
+   512}, hd in {16, 64, 80, 128, 160}, H/KV in {1, 4}, causal and full,
+   f32, and bf16 at hd 16 and 80; Tq 33 against Tk 100 and the reverse, and
+   a strided view off 16-byte alignment; the same values off alignment and
+   with heads outside positions give the contiguous layout's bits through
+   the tf32x3 backward; values of one sign at FuXi's shape (v and do plus
+   2; q and k times 1, 2 and 3, three draws each) through both backward
+   kernels, their shares of the bound against an f64 evaluation and the
+   plain version printed (``flash_bwd_same_sign``), the tf32x3 kernel held
+   within the bound of the f64 evaluation at every scale where the general
+   kernel holds it (the first draw at times 1 through both kernels against
+   the plain version too); the forward's lse against
    ``ref.flash_attention_lse_ref`` within ``ref.flash_attention_lse_bound``;
    every check runs each kernel twice for the same bits;
 11b. full-size FuXi training: ``fuxi-kuairand`` at every published width
@@ -162,19 +176,20 @@ hand-written kernel on it against its plain PyTorch version:
    ``flash_attention`` forward with its lse and backward, and the
    embedding kernels' calls as in phase 4), the embedding kernels' calls
    checked and timed as in phase 4, then ``train(6)`` with every launch
-   counted (exactly 32 tf32x3 forward and 16 backward launches a step,
-   none of the general or the wgmma forward); finite losses, no routing
+   counted (exactly 32 tf32x3 forward and 16 tf32x3 backward launches a
+   step, none of the general or the wgmma forward nor of the general
+   backward); finite losses, no routing
    overflow, peak memory, samples/s, tokens/s, step p50 and p99
    (``--profile``: the device idle share over 2 more steps and the top
    device ops); then, with the session released, the captured attention
    calls checked at full shape against the plain versions (the forward
-   and its lse through the tf32x3 kernel and through the general one) and
-   timed beside them, SDPA (its forward, and ``torch.autograd.grad``
-   through it for the backward), their bound (operations in 3xTF32 on the
-   tensor cores, the f32-core time beside it; the two forwards in turns:
-   general, tf32x3, tf32x3, general;
-   the tf32x3 one also in TF32 MMA TFLOP/s and its share of the TF32
-   peak);
+   and its lse through the tf32x3 kernel and through the general one, the
+   backward through the tf32x3 backward and the general one) and timed
+   beside them, SDPA (its forward, and ``torch.autograd.grad`` through it
+   for the backward), their bound (operations in 3xTF32 on the tensor
+   cores, the f32-core time beside it; the two forwards, and the two
+   backwards, in turns: general, tf32x3, tf32x3, general; the tf32x3 ones
+   also in TF32 MMA TFLOP/s and their share of the TF32 peak);
 11c. consistency at ``fuxi-reduced``: nestpipe = serial = the reference
    trainer within 1e-5 over 6 steps at the configuration's own step sizes,
    and async diverges; the reference gives the same bits twice;
@@ -216,7 +231,7 @@ hand-written kernel on it against its plain PyTorch version:
    max |logit| (``--profile``: the device idle share of a prefill and of 8
    decode steps);
 14. a ``{"kernels": [...]}`` line (the tf32x3 and the general
-   ``flash_attention`` forward and the backward at FuXi's main-path shape,
+   ``flash_attention`` forward and backward at FuXi's main-path shape,
    the general one also at the LM's; the gather's LM serve as its 96 calls,
    and apart as the prefill's three and one decode step's three; the
    gather's and the scatter's cached-path calls of 6b as
@@ -314,7 +329,7 @@ FUXI_ARCH = "fuxi-kuairand"
 FUXI_BATCH = 256  # HSTU's batch: the per-worker share of 65,536 over 256 workers
 FUXI_STEPS = 6
 # the tf32x3 flash_attention forward's calls a step: 4 layers x 4
-# micro-batches x 2 (per-layer remat), and the backward's: 4 x 4
+# micro-batches x 2 (per-layer remat), and the tf32x3 backward's: 4 x 4
 FUXI_FWD_CALLS_PER_STEP = 32
 FUXI_BWD_CALLS_PER_STEP = 16
 LM_ARCH = "stablelm-12b"
@@ -349,9 +364,12 @@ KERNELS = {  # name -> (source, the Pallas kernel it replaces)
     "flash_attention_tf32x3": ("src/repro_torch/csrc/flash_attention_tf32.cu",
                                "src/repro/kernels/flash_attention.py:70"),
     # the TPU kernel is forward only; JAX differentiates chunked_attention
-    # (src/repro/models/layers.py:160)
-    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
-                            "src/repro/kernels/flash_attention.py:70"),
+    # (src/repro/models/layers.py:160): f32 at head dims up to 128 (FuXi's
+    # backward), and the general backward (bf16, larger head dims)
+    "flash_attention_bwd_tf32x3": ("src/repro_torch/csrc/flash_attention_bwd_tf32.cu",
+                                   "src/repro/kernels/flash_attention.py:70"),
+    "flash_attention_bwd_simple": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                   "src/repro/kernels/flash_attention.py:70"),
 }
 # the paths each kernel must run on (launched at least once there); 6e's and
 # 6f's runs are paths of their own
@@ -379,7 +397,11 @@ RUNS_ON = {
     "flash_attention_simple": (),
     # FuXi's f32 attention, forward and backward
     "flash_attention_tf32x3": ("fuxi_train",),
-    "flash_attention_bwd": ("fuxi_train",),
+    "flash_attention_bwd_tf32x3": ("fuxi_train",),
+    # bf16 and head dims above 128: no main path sends it inputs since the
+    # tf32x3 backward; phase 11a holds it against the plain version, 11b
+    # times it at FuXi's call
+    "flash_attention_bwd_simple": (),
 }
 
 
@@ -504,6 +526,30 @@ def flash_tf32_mma_ops(q, k, causal):
         block_steps = -(-(min(tk, tq, q0 + 128) if causal else tk) // 32)
         warp_steps += min(block_steps, (row0 + 15) // 32 + 1) if causal else block_steps
     return b * h * warp_steps * 2 * (2 * 16 * 32 * kd) * 3
+
+
+def flash_bwd_tf32_mma_ops(q, k, causal):
+    """TF32 MMA operations the tf32x3 ``flash_attention`` backward issues for
+    these inputs, its three passes included. In the dq kernel each warp (16
+    query rows of a 128-row block, below Tq) runs, per step of 32 keys up to
+    Tk (causal: up to the block's last row below Tq, skipping steps wholly
+    after the warp's rows), three products of 16 x 32 x kD (S, dP, dS K);
+    in the dk/dv kernel each warp (16 key rows of a 128-row block, below
+    Tk) runs, for each query head of its group, per step of 32 queries from
+    the block's first key (causal) or 0 up to Tq, skipping steps wholly
+    before the warp's keys, four (S^T, dP^T, P^T dO, dS^T Q). kD is the head
+    dim padded to 16, 32, 64 or 128."""
+    b, tq, h, hd = q.shape
+    tk = k.shape[1]
+    kd = next(p for p in (16, 32, 64, 128) if p >= hd)
+    dq_steps = sum(1 for row0 in range(0, tq, 16)
+                   for k0 in range(0, min(tk, tq, row0 // 128 * 128 + 128) if causal else tk,
+                                   32)
+                   if not (causal and k0 > row0 + 15))
+    kv_steps = sum(1 for key0 in range(0, tk, 16)
+                   for i0 in range(key0 // 128 * 128 if causal else 0, tq, 32)
+                   if not (causal and i0 + 31 < key0))
+    return b * h * (3 * dq_steps + 4 * kv_steps) * (2 * 16 * 32 * kd) * 3
 
 
 def sass_counts(path, op: str) -> dict:
@@ -660,7 +706,7 @@ def main() -> int:
             m.launches = 0
         ha.launches_fwd = ha.launches_bwd = 0
         fa.launches = fa.launches_wgmma = fa.launches_simple = fa.launches_bwd = 0
-        fa.launches_tf32x3 = 0
+        fa.launches_tf32x3 = fa.launches_bwd_tf32x3 = fa.launches_bwd_simple = 0
 
     def counts():
         return {**{k: m.launches for k, m in mods.items()},
@@ -669,7 +715,8 @@ def main() -> int:
                 "flash_attention_wgmma": fa.launches_wgmma,
                 "flash_attention_simple": fa.launches_simple,
                 "flash_attention_tf32x3": fa.launches_tf32x3,
-                "flash_attention_bwd": fa.launches_bwd}
+                "flash_attention_bwd_tf32x3": fa.launches_bwd_tf32x3,
+                "flash_attention_bwd_simple": fa.launches_bwd_simple}
 
     # -- 1. environment ---------------------------------------------------
     smi = subprocess.run(
@@ -758,6 +805,22 @@ def main() -> int:
                         for fn, v in ptxas_by_kernel(build.build_log.get(
                             "flash_attention_tf32", {}).get("ptxas", "")).items()
                         if "flash_tf32_fwd_kernel" in fn}
+    # the tf32x3 flash backward: the HMMA of its dq and dk/dv kernels (each
+    # summed over its head-dim instantiations), and their registers and
+    # spills by padded head dim (kernel<kD>)
+    per_fn = sass_counts(build.library_path("flash_attention_bwd_tf32"), "HMMA")
+    bwd_tf32_hmma = None if per_fn is None else {
+        kn: sum(c for fn, c in per_fn.items() if kn in fn)
+        for kn in ("flash_tf32_bwd_dq_kernel", "flash_tf32_bwd_dkdv_kernel")}
+    if bwd_tf32_hmma is not None and min(bwd_tf32_hmma.values()) == 0:
+        raise SystemExit(f"a tf32x3 flash_attention backward kernel holds no HMMA "
+                         f"instruction: {bwd_tf32_hmma}")
+    bwd_tf32_ptxas = {}
+    for fn, v in ptxas_by_kernel(build.build_log.get("flash_attention_bwd_tf32", {}).get(
+            "ptxas", "")).items():
+        m = re.search(r"flash_tf32_bwd_(dq|dkdv)_kernelILi(\d+)E", fn)
+        if m:
+            bwd_tf32_ptxas[f"{m.group(1)}<{m.group(2)}>"] = v
     # the forward's registers and spills by padded head dim (kernel<kD>)
     fwd_ptxas = {"d" + re.search(r"ILi(\d+)E", fn).group(1): v for fn, v in ptxas_by_kernel(
         build.build_log.get("hstu_attention", {}).get("ptxas", "")).items()
@@ -773,6 +836,8 @@ def main() -> int:
          nvcc_seconds={k: round(v["seconds"], 3) for k, v in build.build_log.items()},
          flash_wgmma_hgmma_instructions=hgmma, hstu_hmma_instructions=hmma,
          flash_tf32x3_hmma_instructions=flash_hmma, flash_tf32x3_ptxas=flash_tf32_ptxas,
+         flash_bwd_tf32x3_hmma_instructions=bwd_tf32_hmma,
+         flash_bwd_tf32x3_ptxas=bwd_tf32_ptxas,
          hstu_fwd_ptxas=fwd_ptxas, flash_bwd_ptxas=bwd_ptxas,
          ptxas={k: [ln.strip() for ln in v["ptxas"].splitlines()
                     if "registers" in ln or "spill" in ln]
@@ -1241,7 +1306,8 @@ def main() -> int:
             "buffer_sync": TRAIN_STEPS - 1, "embedding_scatter": TRAIN_STEPS,
             "hstu_attention_fwd": 0, "hstu_attention_bwd": 0,
             "flash_attention_wgmma": 0, "flash_attention_simple": 0,
-            "flash_attention_tf32x3": 0, "flash_attention_bwd": 0}
+            "flash_attention_tf32x3": 0, "flash_attention_bwd_tf32x3": 0,
+            "flash_attention_bwd_simple": 0}
     if train_launches != want:
         raise SystemExit(f"training launches {train_launches} != {want}")
 
@@ -2062,7 +2128,8 @@ def main() -> int:
                  "hstu_attention_fwd": 2 * n_layers * N_MICRO * HSTU_STEPS,
                  "hstu_attention_bwd": n_layers * N_MICRO * HSTU_STEPS,
                  "flash_attention_wgmma": 0, "flash_attention_simple": 0,
-                 "flash_attention_tf32x3": 0, "flash_attention_bwd": 0}
+                 "flash_attention_tf32x3": 0, "flash_attention_bwd_tf32x3": 0,
+                 "flash_attention_bwd_simple": 0}
     if hstu_launches != hstu_want:
         raise SystemExit(f"HSTU launches {hstu_launches} != {hstu_want}")
     if hstu_launches["hstu_attention_fwd"] != HSTU_FWD_CALLS_PER_STEP * HSTU_STEPS:
@@ -2189,17 +2256,35 @@ def main() -> int:
 
     # -- 11a. flash_attention backward against its plain version ---------------
     t_phase = time.perf_counter()
-    bworst = {}
+    bworst, bshare = {}, {}  # the largest |kernel - plain| and |kernel - plain| / bound
+    bwd_kernels = ("flash_attention_bwd_tf32x3", "flash_attention_bwd_simple")
+
+    def run_bwd(label, kind, q, k, v, out, do, lse, causal):
+        """The backward kernel ``kind`` (``fa.flash_attention_bwd`` where
+        ``fa.bwd_variant`` picks it, else ``fa.flash_attention_bwd_simple``)
+        twice: the same bits, and only its counter moved, by 2."""
+        fn = (fa.flash_attention_bwd if fa.bwd_variant(q, k, v) == kind
+              else fa.flash_attention_bwd_simple)
+        before = counts()
+        got = fn(q, k, v, out, do, lse, causal)
+        if not all(torch.equal(a, b) for a, b in zip(got, fn(q, k, v, out, do, lse, causal))):
+            raise SystemExit(f"flash_attention_bwd_{kind} is not deterministic at {label}")
+        moved = {kn: counts()[kn] - before[kn] for kn in bwd_kernels}
+        if moved != {kn: 2 * (kn == f"flash_attention_bwd_{kind}") for kn in bwd_kernels}:
+            raise SystemExit(f"{label}: flash_attention_bwd_{kind} run, but launches moved "
+                             f"by {moved}")
+        return got
 
     def check_flash_bwd(label, q, k, v, causal, chunk=None, given=None):
         """The forward's output and lse through ``fa.flash_attention_lse``
         (the tf32x3 kernel for f32 at hd <= 128, else the general one; its
         counter must move) or ``given`` (o, do, lse), then the backward
-        kernel on a random output gradient, against the plain versions,
-        ``chunk`` batch rows at a time: the lse within
+        kernel ``fa.bwd_variant`` picks on a random output gradient and,
+        where that is the tf32x3 kernel, the general one too, each against
+        the plain versions, ``chunk`` batch rows at a time: the lse within
         ref.flash_attention_lse_bound, dq, dk and dv within
         ref.flash_attention_bwd_bound; the same bits on a second run of
-        each kernel. Returns the largest errors."""
+        each kernel. Returns the largest errors by backward kernel."""
         if given is None:
             fwd = f"flash_attention_{fa.lse_variant(q, k, v)}"
             fwd_before = counts()[fwd]
@@ -2213,16 +2298,11 @@ def main() -> int:
             del out2, lse2
         else:
             out, do, lse = given
-        before = fa.launches_bwd
-        got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal)
-        if not all(torch.equal(a, b) for a, b in
-                   zip(got, fa.flash_attention_bwd(q, k, v, out, do, lse, causal))):
-            raise SystemExit(f"flash_attention_bwd is not deterministic at {label}")
-        if fa.launches_bwd != before + 2:
-            raise SystemExit(f"{label}: the backward's counter moved by "
-                             f"{fa.launches_bwd - before}, not 2")
+        kinds = ("tf32x3", "simple") if fa.bwd_variant(q, k, v) == "tf32x3" else ("simple",)
+        grads = {kind: run_bwd(label, kind, q, k, v, out, do, lse, causal) for kind in kinds}
         dname = str(q.dtype).removeprefix("torch.")
-        errs = {}
+        errs = {kind: {} for kind in kinds}
+        lerr_max = 0.0
         step = chunk or q.shape[0]
         for b0 in range(0, q.shape[0], step):
             sl = slice(b0, b0 + step)
@@ -2234,20 +2314,25 @@ def main() -> int:
                                                                    causal)).all()):
                     raise SystemExit(f"the forward's lse beyond its bound at {label}: "
                                      f"{float(lerr.max())}")
-                errs["lse"] = max(errs.get("lse", 0.0), float(lerr.max()))
+                lerr_max = max(lerr_max, float(lerr.max()))
             want = ref.flash_attention_bwd_ref(qs, ks, vs, os_, dos, ls, causal)
             bounds = ref.flash_attention_bwd_bound(qs, ks, vs, os_, dos, ls, want, causal)
-            for name, got_, w, bd in zip(("dq", "dk", "dv"), got, want, bounds):
-                err = (got_[sl].float() - w.float()).abs()
-                if not bool((err <= bd).all()):
-                    raise SystemExit(f"flash_attention_bwd {name} beyond its bound at "
-                                     f"{label}: {float(err.max())}")
-                errs[name] = max(errs.get(name, 0.0), float(err.max()))
+            for kind, got in grads.items():
+                for name, got_, w, bd in zip(("dq", "dk", "dv"), got, want, bounds):
+                    err = (got_[sl].float() - w.float()).abs()
+                    if not bool((err <= bd).all()):
+                        raise SystemExit(f"flash_attention_bwd_{kind} {name} beyond its "
+                                         f"bound at {label}: {float(err.max())}")
+                    errs[kind][name] = max(errs[kind].get(name, 0.0), float(err.max()))
+                    key = f"flash_attention_bwd_{kind} {dname}"
+                    bshare[key] = max(bshare.get(key, 0.0), float((err / bd).max()))
             del want, bounds
-        for name, err in errs.items():
-            key = (f"lse of flash_attention_{fa.lse_variant(q, k, v)} {dname}" if name == "lse"
-                   else f"flash_attention_bwd {dname}")
-            bworst[key] = max(bworst.get(key, 0.0), err)
+        if given is None:
+            key = f"lse of flash_attention_{fa.lse_variant(q, k, v)} {dname}"
+            bworst[key] = max(bworst.get(key, 0.0), lerr_max)
+        for kind, e in errs.items():
+            key = f"flash_attention_bwd_{kind} {dname}"
+            bworst[key] = max([bworst.get(key, 0.0), *e.values()])
         return errs
 
     def flash_inputs(b, tq, tk, h, kv, hd, dtype):
@@ -2255,7 +2340,7 @@ def main() -> int:
                 for t, n in ((tq, h), (tk, kv), (tk, kv))]
 
     bedge = []
-    for dtype, dims in ((torch.float32, (16, 64, 80, 128)), (torch.bfloat16, (16, 80))):
+    for dtype, dims in ((torch.float32, (16, 64, 80, 128, 160)), (torch.bfloat16, (16, 80))):
         dname = str(dtype).removeprefix("torch.")
         for t in (1, 33, 64, 257, 512):
             for hd in dims:
@@ -2265,20 +2350,124 @@ def main() -> int:
                                         f"{dname}", *flash_inputs(1, t, t, 4, kv, hd, dtype),
                                         causal)
         bedge.append(f"{dname} T in {{1,33,64,257,512}} hd in {dims} H/KV in {{1,4}} "
-                     "causal and not")
+                     "causal and not" + (" (tf32x3 at hd <= 128, and the general kernel too)"
+                                         if dtype == torch.float32 else " (general)"))
     for causal in (True, False):
         check_flash_bwd(f"Tq=33 Tk=100 causal={causal}",
                         *flash_inputs(2, 33, 100, 4, 1, 64, torch.float32), causal)
-    bedge.append("float32 Tq=33 Tk=100 hd=64 H/KV=4 causal and not")
+        check_flash_bwd(f"Tq=100 Tk=33 causal={causal}",
+                        *flash_inputs(2, 100, 33, 4, 1, 64, torch.float32), causal)
+    bedge.append("float32 Tq=33 Tk=100 and Tq=100 Tk=33, hd=64 H/KV=4 causal and not "
+                 "(both kernels)")
     # q, k, v column slices of one wider tensor, off 16-byte alignment
     wide = torch.empty((2, 100, 4, 3 * 64 + 3), device=dev).normal_(generator=g)
     check_flash_bwd("strided", wide[..., 3:67], wide[..., 67:131], wide[..., 131:195], True)
-    bedge.append("float32 strided q, k, v (T=100, hd=64, 3 elements in)")
+    bedge.append("float32 strided q, k, v (T=100, hd=64, 3 elements in; both kernels)")
     del wide
+    # the layout never picks the kernel: the same values as contiguous
+    # tensors, 3 elements off 16-byte alignment (element loads) and with
+    # heads outside positions (cp.async at other strides) give the tf32x3
+    # backward's same bits
+    layouts = {
+        "off_alignment": lambda x: torch.zeros(x.numel() + 3, device=dev)[3:].view(
+            x.shape).copy_(x),
+        "heads_outside": lambda x: x.transpose(1, 2).contiguous().transpose(1, 2)}
+    base = flash_inputs(2, 100, 100, 4, 1, 64, torch.float32)
+    base_do = torch.empty((2, 100, 4, 64), device=dev).normal_(generator=g)
+    for causal in (True, False):
+        out, lse = fa.flash_attention_lse(*base, causal)
+        want_bits = fa.flash_attention_bwd(*base, out, base_do, lse, causal)
+        for lname, layout in layouts.items():
+            views = [layout(x) for x in (*base, out, base_do)]
+            before = fa.launches_bwd_tf32x3
+            got = fa.flash_attention_bwd(*views, lse, causal)
+            if fa.launches_bwd_tf32x3 != before + 1:
+                raise SystemExit(f"the {lname} layout did not run the tf32x3 backward")
+            if not all(torch.equal(a, b) for a, b in zip(got, want_bits)):
+                raise SystemExit(f"the {lname} layout changed the tf32x3 backward's bits "
+                                 f"(causal={causal})")
+            bedge.append(f"f32 T=100 hd=64 {lname} (causal={causal}): the contiguous "
+                         "layout's bits through the tf32x3 backward")
+    del base, base_do, out, lse, want_bits, got, views
+
+    # values of one sign at FuXi's shape (v and do shifted by 2; q and k
+    # times 1, 2 and 3: scores of std ~1, 4 and 9), where the MMA sums of
+    # dv run long in one direction, three draws each, through both backward
+    # kernels on the tf32x3 forward's output and lse; each draw's share of
+    # ref.flash_attention_bwd_bound against an f64 evaluation of the same
+    # formulas on the same inputs and against the plain f32 version
+    # printed. The first draw at x 1 goes through check_flash_bwd. The
+    # tf32x3 backward is held within the bound of the f64 evaluation at
+    # every scale where the general (f32 FFMA) kernel holds it in all three
+    # draws; the rest is printed
+    def exact_bwd(q, k, v, o, do, lse):
+        """dq, dk, dv of causal attention of (B, T, H, hd) inputs (H = KV)
+        in f64, from the forward's o and lse."""
+        qd, kd, vd, od, dod = (x.double() for x in (q, k, v, o, do))
+        scale = q.shape[-1] ** -0.5
+        t = q.shape[1]
+        keep = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
+        s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) * scale
+        p = torch.exp(s - lse.double()[..., None]).masked_fill(~keep, 0.0)
+        delta = (dod * od).sum(-1).transpose(1, 2)
+        ds = p * (torch.einsum("bqhd,bkhd->bhqk", dod, vd) - delta[..., None])
+        return (torch.einsum("bhqk,bkhd->bqhd", ds, kd) * scale,
+                torch.einsum("bhqk,bqhd->bkhd", ds, qd) * scale,
+                torch.einsum("bhqk,bqhd->bkhd", p, dod))
+
+    bwd_same_sign = []
+    for scale in (1, 2, 3):
+        for draw in range(3):
+            q, k, v = flash_inputs(64, 512, 512, 8, 8, 64, torch.float32)
+            q, k, v = scale * q, scale * k, v + 2
+            out, lse = fa.flash_attention_lse(q, k, v, True)
+            do = torch.empty(out.shape, device=dev).normal_(generator=g) + 2
+            if scale == 1 and draw == 0:
+                check_flash_bwd("same-sign f32 at FuXi's shape", q, k, v, True, chunk=8,
+                                given=(out, do, lse))
+            grads = {kind: run_bwd("same-sign", kind, q, k, v, out, do, lse, True)
+                     for kind in ("tf32x3", "simple")}
+            shares = {kind: {"plain": 0.0, "f64": 0.0} for kind in grads}
+            for b0 in range(0, q.shape[0], 8):
+                sl = slice(b0, b0 + 8)
+                inputs = (q[sl], k[sl], v[sl], out[sl], do[sl], lse[sl])
+                want = ref.flash_attention_bwd_ref(*inputs, True)
+                bounds = ref.flash_attention_bwd_bound(*inputs, want, True)
+                exact = exact_bwd(*inputs)
+                for kind, got in grads.items():
+                    for ref_, w in (("plain", want), ("f64", exact)):
+                        shares[kind][ref_] = max([shares[kind][ref_]] + [
+                            float(((g_[sl].double() - w_.double()).abs() / bd).max())
+                            for g_, w_, bd in zip(got, w, bounds)])
+                del want, bounds, exact
+            for kind, sh in shares.items():
+                bwd_same_sign.append({"kernel": f"flash_attention_bwd_{kind}", "scale": scale,
+                                      "draw": draw, "share_of_bound_vs_plain": sh["plain"],
+                                      "share_of_bound_vs_f64": sh["f64"]})
+            del q, k, v, out, lse, do, grads
+    for case in bwd_same_sign:
+        case["held"] = case["kernel"] == "flash_attention_bwd_tf32x3" and all(
+            c["share_of_bound_vs_f64"] <= 1 for c in bwd_same_sign
+            if c["kernel"] == "flash_attention_bwd_simple" and c["scale"] == case["scale"])
+    bedge.append("float32 64 x 512 x 8 x 64 causal, q and k x 1, 2, 3 (3 draws each), v and "
+                 "do + 2: both kernels' shares of the bound printed, the tf32x3 backward "
+                 "within the bound of an f64 evaluation wherever the general kernel is "
+                 "(x 1, draw 0: both within it of the plain version)")
+    emit("flash_bwd_same_sign", shape=[64, 512, 8, 64], causal=True, cases=bwd_same_sign,
+         headroom={kn: {str(sc): {ref_: 1 - max(c[f"share_of_bound_vs_{ref_}"]
+                                                for c in bwd_same_sign
+                                                if c["kernel"] == kn and c["scale"] == sc)
+                                  for ref_ in ("plain", "f64")}
+                        for sc in (1, 2, 3)}
+                   for kn in bwd_kernels})
+    for case in bwd_same_sign:
+        if case["held"] and case["share_of_bound_vs_f64"] > 1:
+            raise SystemExit(f"{case['kernel']} beyond its bound of the f64 evaluation on "
+                             f"values of one sign: {case}")
     torch.cuda.synchronize()
-    emit("flash_bwd_edges", cases=bedge, max_abs_err=bworst,
+    emit("flash_bwd_edges", cases=bedge, max_abs_err=bworst, max_share_of_bound=bshare,
          forward="the tf32x3 kernel's output and lse for f32 (hd <= 128), the general "
-                 "kernel's for bf16",
+                 "kernel's for bf16 and f32 at hd 160",
          seconds=time.perf_counter() - t_phase,
          tolerance="dq, dk, dv: |kernel - plain| <= 1e-5 M + 1e-7 (+ one bf16 ulp of the "
                    "plain gradient in bf16), M each gradient's sum of magnitudes "
@@ -2374,7 +2563,7 @@ def main() -> int:
                      segment_rowsum=(N_MICRO + 1) * FUXI_STEPS,
                      buffer_sync=FUXI_STEPS - 1, embedding_scatter=FUXI_STEPS,
                      flash_attention_tf32x3=FUXI_FWD_CALLS_PER_STEP * FUXI_STEPS,
-                     flash_attention_bwd=FUXI_BWD_CALLS_PER_STEP * FUXI_STEPS)
+                     flash_attention_bwd_tf32x3=FUXI_BWD_CALLS_PER_STEP * FUXI_STEPS)
     if fuxi_launches != fuxi_want:
         raise SystemExit(f"FuXi launches {fuxi_launches} != {fuxi_want}")
 
@@ -2462,29 +2651,49 @@ def main() -> int:
         emit("kernel_shape", path="fuxi_train", **row)
     del qt, kt, vt
 
+    # the backward call: through the main path's tf32x3 kernel and through
+    # the general one, timed in turns (general, tf32x3, tf32x3, general)
     q, k, v, o, do, lse, causal = fkept["bwd"]
+    if fa.bwd_variant(q, k, v) != "tf32x3":
+        raise SystemExit("FuXi's main-path backward call is not the tf32x3 kernel's")
     errs = check_flash_bwd("main-path backward call", q, k, v, causal, chunk=8,
                            given=(o, do, lse))
-    fuxi_err["flash_attention_bwd"] = max(errs.values())
     ops, nbytes = flash_bwd_work(q, k, causal)
+    mma_ops = flash_bwd_tf32_mma_ops(q, k, causal)
+    bwd_fns = {
+        "flash_attention_bwd_tf32x3": lambda: fa.flash_attention_bwd(q, k, v, o, do, lse,
+                                                                     causal),
+        "flash_attention_bwd_simple": lambda: fa.flash_attention_bwd_simple(q, k, v, o, do,
+                                                                            lse, causal)}
+    turns = {kname: [] for kname in bwd_fns}
+    for kname in ("flash_attention_bwd_simple", "flash_attention_bwd_tf32x3",
+                  "flash_attention_bwd_tf32x3", "flash_attention_bwd_simple"):
+        turns[kname].append(time_ms(torch, bwd_fns[kname], flush))
+    plain_ms = time_ms(torch, lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal),
+                       flush)
     leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
     lib_out = sdpa(*leaves, is_causal=causal)
     do_t = do.transpose(1, 2)
-    fuxi_attn["flash_attention_bwd"] = row = {
-        "kernel": "flash_attention_bwd", "call": "fuxi layer 3 backward",
-        "shape": list(q.shape), "kv_heads": k.shape[2], "causal": causal,
-        "dtype": str(q.dtype).removeprefix("torch."), "operations": ops, "bytes": nbytes,
-        "ms": time_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, do, lse, causal),
-                      flush),
-        "plain_ms": time_ms(torch, lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
-                                                                       causal), flush),
-        "library_ms": time_ms(torch, lambda: torch.autograd.grad(
-            lib_out, leaves, do_t, retain_graph=True), flush),
-        "library_call": "torch.autograd.grad through scaled_dot_product_attention"
-                        "(is_causal) on (B, H, T, hd) views (its backward alone)",
-        **f32_work_bound(ops, nbytes, name, peak, peak_fp32)}
-    row["achieved_tflops"] = ops / row["ms"] / 1e9
-    emit("kernel_shape", path="fuxi_train", **row)
+    library_ms = time_ms(torch, lambda: torch.autograd.grad(lib_out, leaves, do_t,
+                                                            retain_graph=True), flush)
+    for kname, times in turns.items():
+        fuxi_err[kname] = max(errs[kname.removeprefix("flash_attention_bwd_")].values())
+        fuxi_attn[kname] = row = {
+            "kernel": kname, "call": "fuxi layer 3 backward",
+            "shape": list(q.shape), "kv_heads": k.shape[2], "causal": causal,
+            "dtype": str(q.dtype).removeprefix("torch."), "operations": ops, "bytes": nbytes,
+            "ms": statistics.mean(times), "ms_turns": times, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library_call": "torch.autograd.grad through scaled_dot_product_attention"
+                            "(is_causal) on (B, H, T, hd) views (its backward alone)",
+            "max_abs_err": fuxi_err[kname],
+            **f32_work_bound(ops, nbytes, name, peak, peak_fp32)}
+        row["achieved_tflops"] = ops / row["ms"] / 1e9
+        if kname == "flash_attention_bwd_tf32x3":
+            row["tf32_mma_operations"] = mma_ops
+            row["tf32_mma_tflops"] = mma_ops / row["ms"] / 1e9
+            row["tf32_peak_share"] = row["tf32_mma_tflops"] * 1e12 / tf32_flops(name)
+        emit("kernel_shape", path="fuxi_train", **row)
     del fkept, q, k, v, o, do, lse, leaves, lib_out, do_t, flush
     gc.collect()
     torch.cuda.empty_cache()
@@ -3064,7 +3273,7 @@ def emit_profile(prof, phase, span, window=None, **fields):
          device_kernels_ms=sum(us for _, us in per_kernel.values()) / 1e3,
          host_torch_ops_ms=sum(e.self_cpu_time_total for e in host) / 1e3,
          top_device=[{"name": k[:70], "count": n, "ms": us / 1e3}
-                     for k, (n, us) in device[:12]],
+                     for k, (n, us) in device[:16]],
          top_host=[{"name": e.key[:70], "count": e.count,
                     "ms": e.self_cpu_time_total / 1e3} for e in host[:10]])
 

@@ -50,11 +50,17 @@
 // zero, most where the values share a sign. Two sums are therefore kept
 // short: S's small products (hi.lo' + lo.hi') are summed apart from its
 // hi.hi' ones, and each step's P V is summed from zero (12 MMAs) and added
-// to O by one fmaf. ref.flash_attention_fwd_tf32 models the truncation
-// (its chains="long" is the one-chain form, which misses the limit), and
-// chip_smoke's phase 12 holds values of one sign at FuXi's shape (v
-// shifted by 2, scores of std ~1, 4 and 9) within the limit of an f64
-// evaluation.
+// to O by one fmaf. S's hi.hi' products also run from zero for each 8
+// columns of hd and are added to S by an f32 add (product_abt's
+// kRoundSteps): a weight's relative error is its score's absolute error,
+// and at scores of std ~9 one chain of 8 truncating MMAs a score put the
+// output past the limit of an f64 evaluation on one of chip_smoke's phase
+// 12 draws (1.11 of it; 0.87 at most on the same draws with the rounding
+// adds, for about 9% more time).
+// ref.flash_attention_fwd_tf32 models the truncation (its chains="long" is
+// the one-chain form, which misses the limit), and chip_smoke's phase 12
+// holds values of one sign at FuXi's shape (v shifted by 2, scores of std
+// ~1, 4 and 9) within the limit of an f64 evaluation.
 //
 // ptxas -v (nvcc 12.9, sm_90a; chip_smoke's build phase prints it): hd 16
 // 119 registers, no spill; hd 32, 64 and 128 the two-blocks cap of
@@ -83,7 +89,9 @@ constexpr float kNegInf = -1e30f;
 // fragment layouts are set out: the accumulator (16 x 8) of lane 4 g + t
 // holds (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1), and product_ab
 // takes it as its A operand without moving it. S = Q K^T runs
-// product_abt with kApart: its small products in a chain of their own.
+// product_abt with kApart (its small products in a chain of their own)
+// and kRoundSteps (each 8 columns' hi.hi' products from zero, added by an
+// f32 add).
 
 // One step of the online softmax in the registers of a 16 x 32 score block
 // s (q . k, not yet scaled) of queries r0 .. r0 + 15 and keys c0 .. c0 + 31:
@@ -179,7 +187,7 @@ flash_tf32_fwd_kernel(View q, View k, View v, float* __restrict__ o,
     const bool live = row0 < Tq && !(causal && k0 > row0 + 15);
     float s[4][4] = {}, alpha[2];
     if (live) {
-      product_abt<kD, true>(s, qs + 16 * warp * kLd, ks, lane);
+      product_abt<kD, true, true>(s, qs + 16 * warp * kLd, ks, lane);
       softmax_step(s, m, d, alpha, row0, k0, Tk, causal, scale, g, t);
     }
     cp_async_wait<0>();  // this step's V rows have landed

@@ -51,9 +51,9 @@ namespace {
 
 constexpr int kMaxD = 128;  // head dims up to 128
 
-// The split, the MMA, FragA, cp.async, ldmatrix, the tile load and both
-// products (the view, the block shape and the fragment layouts too) are
-// csrc/tf32_mma.cuh's. Every product here runs in one MMA chain a sum
+// The split, the MMA, FragA, cp.async, ldmatrix, the tile load, both
+// products and the row store (the view, the block shape and the fragment
+// layouts too) are csrc/tf32_mma.cuh's. Every product here runs in one MMA chain a sum
 // (product_abt without kApart).
 
 // sig(z) to about 1e-7 relative; 0 where exp(-z) overflows.
@@ -99,36 +99,6 @@ __device__ __forceinline__ void grads_of_frags(float (&s)[4][4], float (&da)[4][
       const float sg = sigmoid(z);
       s[nb][e] = keep ? da[nb][e] * inv_t * (sg * (1.f + z * (1.f - sg))) * scale : 0.f;
       if (want_a) da[nb][e] = keep ? z * sg * inv_t : 0.f;
-    }
-  }
-}
-
-// Rows r0 + g (+ 8) of the warp's 16 x kD accumulators (columns as
-// product_ab leaves them: 16p + 4t .. 16p + 4t + 3 from acc[2p], acc[2p + 1])
-// into a contiguous (B, T, H, D) output, below T and D; a float4 a row and
-// p where D % 4 == 0.
-template <int kD>
-__device__ __forceinline__ void store_frags(float* out, const float (&acc)[kD / 8][4], int b,
-                                            int h, int r0, int T, int H, int D, int g,
-                                            int t) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = r0 + g + 8 * half;
-    if (row >= T) continue;
-    float* dst = out + ((static_cast<int64_t>(b) * T + row) * H + h) * D;
-#pragma unroll
-    for (int pr = 0; pr < kD / 16; ++pr) {
-      const int c = 16 * pr + 4 * t;
-      const float x[4] = {acc[2 * pr][2 * half], acc[2 * pr + 1][2 * half],
-                          acc[2 * pr][2 * half + 1], acc[2 * pr + 1][2 * half + 1]};
-      if (D % 4 == 0 && c < D) {
-        *reinterpret_cast<float4*>(dst + c) = make_float4(x[0], x[1], x[2], x[3]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (c + j < D) dst[c + j] = x[j];
-        }
-      }
     }
   }
 }
@@ -201,7 +171,7 @@ hstu_fwd_kernel(View q, View k, View v, float* __restrict__ o, int T, int H, int
     if (step + 1 < steps) load_tile<kD, kStep>(vs, vb, v.st, k0 + kStep, T, dv, vec_v);
     cp_async_commit();
   }
-  store_frags<kD>(o, acc, b, h, row0, T, H, dv, g, t);
+  store_rows<kD>(o, acc, 1.f, b, h, row0, T, H, dv, g, t);
 }
 
 
@@ -257,7 +227,7 @@ hstu_bwd_dq_kernel(View q, View k, View v, View dout, float* __restrict__ dq, in
     }
     __syncthreads();  // every warp is done with this stage
   }
-  store_frags<kD>(dq, acc, b, h, row0, T, H, dqk, g, t);
+  store_rows<kD>(dq, acc, 1.f, b, h, row0, T, H, dqk, g, t);
 }
 
 // dK and dV for 128 key rows of one (b, h): S^T = K Q^T and dA^T = V dO^T
@@ -313,8 +283,8 @@ hstu_bwd_dkdv_kernel(View q, View k, View v, View dout, float* __restrict__ dk,
     }
     __syncthreads();
   }
-  store_frags<kD>(dk, acc_k, b, h, key0, T, H, dqk, g, t);
-  store_frags<kD>(dvo, acc_v, b, h, key0, T, H, dv, g, t);
+  store_rows<kD>(dk, acc_k, 1.f, b, h, key0, T, H, dqk, g, t);
+  store_rows<kD>(dvo, acc_v, 1.f, b, h, key0, T, H, dv, g, t);
 }
 
 // Dynamic shared memory above 48 KB has to be granted per kernel first.

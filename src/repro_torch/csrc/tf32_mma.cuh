@@ -1,6 +1,7 @@
 // The split-precision TF32 tensor-core pieces (sm_90a, mma.sync) that the
 // f32 attention kernels share: csrc/hstu_attention.cu (forward and
-// backward) and csrc/flash_attention_tf32.cu (the softmax forward). Each
+// backward), csrc/flash_attention_tf32.cu (the softmax forward) and
+// csrc/flash_attention_bwd_tf32.cu (its backward). Each
 // source includes this header and builds into its own library;
 // kernels/build.py hashes the headers with each source, so an edited header
 // rebuilds every library.
@@ -25,7 +26,11 @@
 // a long chain of MMAs into one running sum drifts toward zero, most where
 // the terms share a sign (ref.flash_attention_fwd_tf32 models it).
 // product_abt can therefore keep the small products' sum apart
-// (`kApart`); the flash forward also sums each step's P V from zero.
+// (`kApart`), and also take each k step's hi.hi' products from zero and
+// add them to the sum by an f32 add that rounds (`kRoundSteps`): the flash
+// forward needs its scores that exact (a softmax weight's relative error
+// is its score's absolute error). The flash forward also sums each step's
+// P V from zero.
 
 #pragma once
 
@@ -158,10 +163,14 @@ __device__ __forceinline__ void load_tile(float* dst, const float* base, int64_t
 // distinct banks at a stride of 4 mod 32 words. With kApart the small
 // products (hi.lo' + lo.hi') run in a chain of their own, added to c at the
 // end: a small term added to the large running sum loses its low bits at
-// every MMA. Without it every product runs in c's one chain.
-template <int kD, bool kApart = false>
+// every MMA. Without it every product runs in c's one chain. With
+// kRoundSteps (and kApart) each k step's hi.hi' MMA runs from zero and is
+// added to c by an f32 add: c then carries no truncation of its own, only
+// the rounding of 8-column partial sums.
+template <int kD, bool kApart = false, bool kRoundSteps = false>
 __device__ __forceinline__ void product_abt(float (&c)[4][4], const float* a,
                                             const float* b, int lane) {
+  static_assert(kApart || !kRoundSteps, "kRoundSteps keeps the small products apart too");
   constexpr int kLd = kD + 4;
   float small[4][4] = {};
   const int m = lane >> 3, r = lane & 7;
@@ -178,10 +187,21 @@ __device__ __forceinline__ void product_abt(float (&c)[4][4], const float* a,
     for (int nb = 0; nb < 4; nb += 2) {
       uint32_t y[4];
       ldsm_x4(y, pb + 8 * nb * kLd + k0);
-      mma_tf32x3_apart(c[nb], kApart ? small[nb] : c[nb], fa, __uint_as_float(y[0]),
-                       __uint_as_float(y[1]));
-      mma_tf32x3_apart(c[nb + 1], kApart ? small[nb + 1] : c[nb + 1], fa,
-                       __uint_as_float(y[2]), __uint_as_float(y[3]));
+      if constexpr (kRoundSteps) {
+        float h0[4] = {}, h1[4] = {};
+        mma_tf32x3_apart(h0, small[nb], fa, __uint_as_float(y[0]), __uint_as_float(y[1]));
+        mma_tf32x3_apart(h1, small[nb + 1], fa, __uint_as_float(y[2]), __uint_as_float(y[3]));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          c[nb][e] += h0[e];
+          c[nb + 1][e] += h1[e];
+        }
+      } else {
+        mma_tf32x3_apart(c[nb], kApart ? small[nb] : c[nb], fa, __uint_as_float(y[0]),
+                         __uint_as_float(y[1]));
+        mma_tf32x3_apart(c[nb + 1], kApart ? small[nb + 1] : c[nb + 1], fa,
+                         __uint_as_float(y[2]), __uint_as_float(y[3]));
+      }
     }
   }
   if constexpr (kApart) {
@@ -216,6 +236,36 @@ __device__ __forceinline__ void product_ab(float (&acc)[kD / 8][4], const float 
       const float2 w = *reinterpret_cast<const float2*>(r0 + kLd + 16 * pr);
       mma_tf32x3(acc[2 * pr], fa, u.x, w.x);
       mma_tf32x3(acc[2 * pr + 1], fa, u.y, w.y);
+    }
+  }
+}
+
+// Rows r0 + g (+ 8) of the warp's 16 x kD accumulators times `mul`
+// (columns as product_ab leaves them: 16p + 4t .. 16p + 4t + 3 from
+// acc[2p], acc[2p + 1]) into a contiguous (B, T, heads, hd) output, below
+// T and hd; a float4 a row and p where hd % 4 == 0.
+template <int kD>
+__device__ __forceinline__ void store_rows(float* out, const float (&acc)[kD / 8][4], float mul,
+                                           int b, int h, int r0, int T, int heads, int hd,
+                                           int g, int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + g + 8 * half;
+    if (row >= T) continue;
+    float* dst = out + ((static_cast<int64_t>(b) * T + row) * heads + h) * hd;
+#pragma unroll
+    for (int pr = 0; pr < kD / 16; ++pr) {
+      const int c = 16 * pr + 4 * t;
+      const float x[4] = {acc[2 * pr][2 * half] * mul, acc[2 * pr + 1][2 * half] * mul,
+                          acc[2 * pr][2 * half + 1] * mul, acc[2 * pr + 1][2 * half + 1] * mul};
+      if (hd % 4 == 0 && c < hd) {
+        *reinterpret_cast<float4*>(dst + c) = make_float4(x[0], x[1], x[2], x[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (c + j < hd) dst[c + j] = x[j];
+        }
+      }
     }
   }
 }

@@ -1,5 +1,7 @@
 """Softmax attention on the card: the wrapper of ``csrc/flash_attention_wgmma.cu``,
-``csrc/flash_attention_tf32.cu`` and ``csrc/flash_attention.cu``.
+``csrc/flash_attention_tf32.cu`` and ``csrc/flash_attention.cu`` (the
+forward), and of ``csrc/flash_attention_bwd_tf32.cu`` and
+``csrc/flash_attention_bwd.cu`` (the backward).
 
 Replaces the Pallas TPU kernel ``flash_attention``
 (``src/repro/kernels/flash_attention.py``): for q ``(B, Tq, H, hd)`` and k,
@@ -36,13 +38,26 @@ Inputs are bf16 or f32 strided views with a unit stride along hd and
 ``1 <= hd <= 256``; the output is contiguous. The CUDA libraries build at
 first use (``kernels/build.py``); nothing here touches CUDA at import.
 
-The gradient is a kernel too: ``csrc/flash_attention_bwd.cu``
-(``flash_attention_bwd``) computes dq, dk and dv from q, k, v, the output,
-its gradient and the row logsumexp that the tf32x3 and general forwards
-write beside their output. :class:`FlashAttention` joins the two for
-autograd. The wgmma forward has no logsumexp output yet, so a bf16 input
-at a wgmma head dim that needs a gradient raises (``ROADMAP.md``, Queue 1,
-item 4b: LM training); it is never sent to the general kernel instead.
+The gradient is a kernel too: ``flash_attention_bwd`` computes dq, dk and
+dv from q, k, v, the output, its gradient and the row logsumexp that the
+tf32x3 and general forwards write beside their output, through one of two
+kernels chosen by ``bwd_variant`` from the type and head dim alone (never
+from the layout, nor from which forward wrote the lse):
+
+- ``csrc/flash_attention_bwd_tf32.cu`` (``"tf32x3"``), FuXi's training
+  path: f32 at ``hd <= TF32X3_MAX_HEAD_DIM``. A delta pass, a dq kernel
+  over 128-row query tiles and a dk/dv kernel over 128-row key tiles, every
+  product on the TF32 tensor cores in split precision (3xTF32
+  ``mma.sync``), each MMA chain within one 32-row step.
+- ``csrc/flash_attention_bwd.cu`` (``"simple"``): bf16 (lifted to f32 as
+  it is loaded) and head dims above 128, on the f32 CUDA cores; and
+  ``flash_attention_bwd_simple`` for any inputs.
+
+Both sum in a fixed order with no atomics. :class:`FlashAttention` joins
+forward and backward for autograd. The wgmma forward has no logsumexp
+output yet, so a bf16 input at a wgmma head dim that needs a gradient
+raises (``ROADMAP.md``, Queue 1, item 4b: LM training); it is never sent to
+the general kernel instead.
 """
 from __future__ import annotations
 
@@ -53,14 +68,16 @@ import torch
 
 from . import build
 
-# Launches of each kernel in this process, and their sum (of the forward
-# kernels). Incremented only where a kernel launches, so a run can show
-# that its path went through it. The backward's count takes a lock, as the
-# gather's does.
+# Launches of each kernel in this process, and their sums (``launches``
+# of the forward kernels, ``launches_bwd`` of the backward ones).
+# Incremented only where a kernel launches, so a run can show that its path
+# went through it. The backward's counts take a lock, as the gather's does.
 launches_wgmma = 0
 launches_tf32x3 = 0
 launches_simple = 0
 launches = 0
+launches_bwd_tf32x3 = 0
+launches_bwd_simple = 0
 launches_bwd = 0
 _bwd_lock = threading.Lock()
 
@@ -79,8 +96,12 @@ _SYMBOLS = {("tf32x3", torch.float32): ("flash_attention_tf32",
             ("simple", torch.bfloat16): ("flash_attention", "repro_flash_attention_fwd_bf16"),
             ("wgmma", torch.bfloat16): ("flash_attention_wgmma",
                                         "repro_flash_attention_fwd_wgmma"),
-            ("bwd", torch.float32): ("flash_attention_bwd", "repro_flash_attention_bwd_f32"),
-            ("bwd", torch.bfloat16): ("flash_attention_bwd", "repro_flash_attention_bwd_bf16")}
+            ("bwd_tf32x3", torch.float32): ("flash_attention_bwd_tf32",
+                                            "repro_flash_attention_bwd_tf32x3"),
+            ("bwd_simple", torch.float32): ("flash_attention_bwd",
+                                            "repro_flash_attention_bwd_f32"),
+            ("bwd_simple", torch.bfloat16): ("flash_attention_bwd",
+                                             "repro_flash_attention_bwd_bf16")}
 _fns = {}
 
 
@@ -94,7 +115,7 @@ def _kernel(kind: str, dtype: torch.dtype):
             args = [*view * 3, p, *sizes, i32, f32, p]
         elif kind in ("simple", "tf32x3"):  # q, k, v; out, lse
             args = [*view * 3, p, p, *sizes, i32, f32, p]
-        else:  # q, k, v, o, do; lse, delta scratch, dq, dk, dv
+        else:  # the backward kernels: q, k, v, o, do; lse, delta scratch, dq, dk, dv
             args = [*view * 5, p, p, p, p, p, *sizes, i32, f32, p]
         fn = _fns[(kind, dtype)] = build.function(*_SYMBOLS[(kind, dtype)], args)
     return fn
@@ -118,6 +139,16 @@ def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     the layout. It runs on CPU tensors too."""
     if q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_HEAD_DIMS:
         return "wgmma"
+    if q.dtype == torch.float32 and q.shape[-1] <= TF32X3_MAX_HEAD_DIM:
+        return "tf32x3"
+    return "simple"
+
+
+def bwd_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The backward kernel ``flash_attention_bwd`` launches: ``"tf32x3"``
+    for f32 inputs at ``hd <= TF32X3_MAX_HEAD_DIM``, else ``"simple"``. A
+    function of the type and the head dim only, never of the layout or of
+    which forward wrote the lse; it runs on CPU tensors too."""
     if q.dtype == torch.float32 and q.shape[-1] <= TF32X3_MAX_HEAD_DIM:
         return "tf32x3"
     return "simple"
@@ -231,14 +262,11 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _launch(lse_variant(q, k, v), q, k, v, causal, lse=True)
 
 
-def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
-                        causal: bool = True):
-    """``(dq, dk, dv)``, contiguous and in q's type, of the forward for the
-    output gradient ``do``: ``o`` is the forward's output and ``lse`` its
-    row logsumexp (``flash_attention_lse``); o and do are ``(B, Tq, H,
-    hd)`` views with a unit stride along hd, of q's type."""
-    global launches_bwd
+def _launch_bwd(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor, causal: bool):
+    """``(dq, dk, dv)`` through the backward kernel ``kind`` (``"tf32x3"``
+    or ``"simple"``), after the checks both kernels need."""
+    global launches_bwd, launches_bwd_tf32x3, launches_bwd_simple
     _check(q, k, v)
     b, tq, h, hd = q.shape
     tk, kv = k.shape[1], k.shape[2]
@@ -259,7 +287,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    fn = _kernel("bwd", q.dtype)
+    fn = _kernel(f"bwd_{kind}", q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), *_strides(q), k.data_ptr(), *_strides(k),
@@ -268,17 +296,42 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, tq, tk, h, kv, hd,
                  int(causal), hd ** -0.5, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention backward launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention backward ({kind}) launch failed: CUDA error {err}")
     with _bwd_lock:
+        if kind == "tf32x3":
+            launches_bwd_tf32x3 += 1
+        else:
+            launches_bwd_simple += 1
         launches_bwd += 1
     return dq, dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        causal: bool = True):
+    """``(dq, dk, dv)``, contiguous and in q's type, of the forward for the
+    output gradient ``do``, through the kernel ``bwd_variant`` picks: ``o``
+    is the forward's output and ``lse`` its row logsumexp
+    (``flash_attention_lse``); o and do are ``(B, Tq, H, hd)`` views with a
+    unit stride along hd, of q's type."""
+    return _launch_bwd(bwd_variant(q, k, v), q, k, v, o, do, lse, causal)
+
+
+def flash_attention_bwd_simple(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                               causal: bool = True):
+    """``flash_attention_bwd`` through the general backward kernel
+    (``csrc/flash_attention_bwd.cu``) whatever the inputs, to hold the two
+    backward kernels against each other and time them."""
+    return _launch_bwd("simple", q, k, v, o, do, lse, causal)
 
 
 class FlashAttention(torch.autograd.Function):
     """The forward through the kernel ``variant`` picks (``tf32x3`` or
     ``simple``), saving q, k, v, the output and its row logsumexp; the
-    backward through ``flash_attention_bwd``. The wgmma variant raises: its
-    forward writes no logsumexp yet."""
+    backward through ``flash_attention_bwd``, the kernel ``bwd_variant``
+    picks (FuXi's f32 at hd 64: the tf32x3 backward). The wgmma variant
+    raises: its forward writes no logsumexp yet."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool = True):

@@ -308,6 +308,24 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.to(torch.float64) * b.to(torch.float64) + c.to(torch.float64)).to(torch.float32)
 
 
+def _mma_tf32(acc: torch.Tensor, small, eq: str, a: torch.Tensor, b: torch.Tensor,
+              passes: int, ties: str):
+    """One k step of 3xTF32 (or one-pass) MMAs, each operand split into TF32
+    hi and lo with ``ties`` (``tf32_round``): small += hi.lo' + lo.hi', then
+    acc += hi.hi' (``mma_tf32x3_apart``); with small None all three into
+    acc (``mma_tf32x3``). ``passes`` 1 keeps hi.hi' alone. Each MMA is
+    ``_mma``. Returns (acc, small)."""
+    a_hi, b_hi = tf32_round(a, ties), tf32_round(b, ties)
+    if passes == 3:
+        a_lo, b_lo = tf32_round(a - a_hi, ties), tf32_round(b - b_hi, ties)
+        x = acc if small is None else small
+        x = _mma(_mma(x, eq, a_hi, b_lo), eq, a_lo, b_hi)
+        acc, small = (x, None) if small is None else (acc, x)
+    elif passes != 1:
+        raise ValueError(f"passes is 1 or 3, got {passes}")
+    return _mma(acc, eq, a_hi, b_hi), small
+
+
 def flash_attention_fwd_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              causal: bool = True, passes: int = 3, ties: str = "even",
                              chains: str = "short"):
@@ -327,8 +345,10 @@ def flash_attention_fwd_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       the step, added in order, then ``d alpha + sum`` by one fma), the four
       added as ``(d0 + d1) + (d2 + d3)`` at the end;
     - ``chains="short"`` (the kernel): S's small products run in a chain of
-      their own, added to the hi.hi' chain at the end, and each step's P v
-      is summed from zero (12 MMAs) and added to O by ``fma(O, alpha, .)``;
+      their own, added to the hi.hi' sum at the end, each 8 columns' hi.hi'
+      products are summed from zero and added to S by an f32 add, and each
+      step's P v is summed from zero (12 MMAs) and added to O by
+      ``fma(O, alpha, .)``;
       ``chains="long"`` (the first form, which drifted on values of one
       sign): one chain per S entry, and O scaled by alpha then carrying
       every MMA of every step;
@@ -342,30 +362,10 @@ def flash_attention_fwd_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qt, kt, vt = (x.to(torch.float32).transpose(1, 2)
                   for x in (q, repeat_kv(k, h), repeat_kv(v, h)))  # (B, H, T, hd)
 
-    def split(x):
-        hi = tf32_round(x, ties)
-        return hi, tf32_round(x - hi, ties)
-
     def product(acc, small, eq, a, b):
-        """One k step of 3xTF32 (or one-pass) MMAs: small += hi.lo' +
-        lo.hi', then acc += hi.hi' (``mma_tf32x3_apart``); with small None
-        all three into acc (``mma_tf32x3``). Returns (acc, small)."""
-        (a_hi, a_lo), (b_hi, b_lo) = split(a), split(b)
-        if passes == 3:
-            x = acc if small is None else small
-            x = _mma(_mma(x, eq, a_hi, b_lo), eq, a_lo, b_hi)
-            acc, small = (x, None) if small is None else (acc, x)
-        elif passes != 1:
-            raise ValueError(f"passes is 1 or 3, got {passes}")
-        return _mma(acc, eq, a_hi, b_hi), small
+        return _mma_tf32(acc, small, eq, a, b, passes, ties)
 
-    s_shape = (*qt.shape[:3], tk)
-    s = qt.new_zeros(s_shape)
-    small = qt.new_zeros(s_shape) if chains == "short" else None
-    for c in range(0, hd, 8):
-        s, small = product(s, small, "bhqd,bhkd->bhqk", qt[..., c:c + 8], kt[..., c:c + 8])
-    if small is not None:
-        s = s + small
+    s = _tf32_scores(qt, kt, passes, ties, chains, round_steps=True)
     keep = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
     if causal:
         keep = _causal_mask_rect(tq, tk, q.device)
@@ -407,6 +407,28 @@ def flash_attention_fwd_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2), m + torch.log(den)
 
 
+def _tf32_scores(a: torch.Tensor, b: torch.Tensor, passes: int, ties: str,
+                 chains: str, round_steps: bool = False) -> torch.Tensor:
+    """``a b^T`` of (B, H, M, hd) and (B, H, N, hd) as ``product_abt`` takes
+    it: a chain of MMAs (``_mma_tf32``) over 8 columns of hd at a time; with
+    ``chains="short"`` the small products in a chain of their own, added to
+    the hi.hi' chain at the end (``kApart``), and with ``round_steps`` too
+    each 8 columns' hi.hi' products from zero, added by an f32 add
+    (``kRoundSteps``); else one chain an entry."""
+    shape = (*a.shape[:3], b.shape[2])
+    s = a.new_zeros(shape)
+    small = a.new_zeros(shape) if chains == "short" else None
+    for c in range(0, a.shape[-1], 8):
+        if round_steps and small is not None:
+            part, small = _mma_tf32(a.new_zeros(shape), small, "bhid,bhjd->bhij",
+                                    a[..., c:c + 8], b[..., c:c + 8], passes, ties)
+            s = s + part
+        else:
+            s, small = _mma_tf32(s, small, "bhid,bhjd->bhij", a[..., c:c + 8],
+                                 b[..., c:c + 8], passes, ties)
+    return s if small is None else s + small
+
+
 def _group_sum(x: torch.Tensor, kv: int) -> torch.Tensor:
     """(B, T, H, hd) -> (B, T, KV, hd): each kv head's sum over its query
     group, in head order (the transpose of ``repeat_kv``)."""
@@ -439,6 +461,79 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
     return dq.to(q.dtype), _group_sum(dk, kv).to(k.dtype), _group_sum(dv, kv).to(v.dtype)
+
+
+def flash_attention_bwd_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                             causal: bool = True, passes: int = 3, ties: str = "even",
+                             chains: str = "short"):
+    """``(dq, dk, dv)``: ``flash_attention_bwd_ref`` as the CUDA ``tf32x3``
+    backward computes them, from the forward's ``o`` and ``lse``. A model of
+    the kernels' arithmetic for the CPU, not a kernel:
+
+    - ``delta = do . o`` in f32: each of a warp's 32 lanes sums its columns
+      ``c = lane (mod 32)`` by fma in order, then a shuffle tree adds the
+      lanes 16, 8, 4, 2 and 1 apart;
+    - every product is a chain of m16n8k8 MMAs (``_mma``: products exact,
+      the sum truncated to f32 at each MMA), each operand split into TF32
+      hi and lo with ``ties``, in ``passes`` (``_mma_tf32``): S = q k^T and
+      dP = do v^T over 8 columns of hd at a time (``_tf32_scores``); dq =
+      dS k over 8 keys at a time, dv = P^T do and dk = dS^T q over 8
+      queries at a time, in steps of 32, a kv head's group of query heads
+      in head order;
+    - ``P = exp(scale S - lse)`` and ``dS = P (dP - delta)`` in f32, 0 where
+      masked; dq and dk are multiplied by scale at the end;
+    - ``chains="short"`` (the kernels): S's and dP's small products in a
+      chain of their own, and each step's product summed from zero (12 MMAs)
+      and added to its gradient by one f32 add; ``chains="long"`` (the
+      one-chain form): one chain an S and dP entry, and each gradient's
+      running sum carrying every MMA of every step.
+
+    The steps a kernel skips (causal) add exact zeros here."""
+    if chains not in ("short", "long"):
+        raise ValueError(f"chains is 'short' or 'long', got {chains!r}")
+    h, kv, tq, tk, hd = q.shape[2], k.shape[2], q.shape[1], k.shape[1], q.shape[-1]
+    group, scale = h // kv, hd ** -0.5
+    qt, ot, dot = (x.to(torch.float32).transpose(1, 2) for x in (q, o, do))  # (B, H, Tq, hd)
+    kt, vt = (repeat_kv(x, h).to(torch.float32).transpose(1, 2) for x in (k, v))
+
+    lanes = dot.new_zeros((*dot.shape[:3], 32))
+    for c0 in range(0, hd, 32):
+        n = min(32, hd - c0)
+        lanes[..., :n] = _fma(dot[..., c0:c0 + n], ot[..., c0:c0 + n], lanes[..., :n])
+    for apart in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[..., torch.arange(32, device=q.device) ^ apart]
+    delta = lanes[..., 0]
+
+    s = _tf32_scores(qt, kt, passes, ties, chains)
+    dp = _tf32_scores(dot, vt, passes, ties, chains)
+    keep = _causal_mask_rect(tq, tk, q.device) if causal else torch.ones(
+        (tq, tk), dtype=torch.bool, device=q.device)
+    p = torch.where(keep, torch.exp(s * scale - lse[..., None]), s.new_zeros(()))
+    ds = p * (dp - delta[..., None])
+
+    def chained(pairs):
+        """The sum of a @ b over the pairs in order, each (B, X, M, n) @
+        (B, X, n, hd) over n in steps of 32, 8 at a time."""
+        acc = None
+        for a, b in pairs:
+            acc = a.new_zeros((*a.shape[:3], b.shape[-1])) if acc is None else acc
+            for i0 in range(0, a.shape[-1], 32):
+                part = acc.new_zeros(acc.shape) if chains == "short" else acc
+                for c in range(i0, min(i0 + 32, a.shape[-1]), 8):
+                    part, _ = _mma_tf32(part, None, "bxmn,bxnd->bxmd", a[..., c:c + 8],
+                                        b[..., c:c + 8, :], passes, ties)
+                acc = acc + part if chains == "short" else part
+        return acc
+
+    def by_group(x):  # (B, H, ...) -> the group's heads in order, each (B, KV, ...)
+        return [x.reshape(x.shape[0], kv, group, *x.shape[2:])[:, :, j] for j in range(group)]
+
+    dq = chained([(ds, kt)]) * scale
+    dk = chained(zip(by_group(ds.transpose(-1, -2)), by_group(qt))) * scale
+    dv = chained(zip(by_group(p.transpose(-1, -2)), by_group(dot)))
+    return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
 
 
 def flash_attention_bwd_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

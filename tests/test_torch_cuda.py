@@ -1,7 +1,7 @@
 """The port on the card: the hand-written CUDA kernels, the serving paths
 (DLRM embeddings, dense-LM prefill and decode), the training paths (DLRM,
 HSTU and FuXi, whose attention runs the tf32x3 flash_attention forward and
-the flash_attention backward kernel)
+backward kernels)
 and the host and cached embedding tiers.
 
 Every test here needs an NVIDIA GPU, carries the ``cuda`` marker and skips
@@ -659,20 +659,102 @@ def test_flash_attention_bwd_kernel_equals_plain(cuda_device, b, tq, tk, h, kv, 
     """dq, dk and dv within ``ref.flash_attention_bwd_bound`` of the plain
     backward on the same inputs (1e-5 of each gradient's sum of magnitudes
     + 1e-7, plus one bf16 ulp in bf16), the same bits twice, one launch a
-    call."""
+    call of the kernel ``bwd_variant`` picks (f32 at hd <= 128: tf32x3;
+    bf16, hd 160 and 256: the general one) and none of the other."""
     q, k, v, o, lse, do = _flash_fwd_with_lse(cuda_device, b, tq, tk, h, kv, hd, causal,
                                               dtype, seed=tq + hd)
-    before = fa.launches_bwd
+    kind = fa.bwd_variant(q, k, v)
+    assert kind == ("tf32x3" if dtype == torch.float32 and hd <= 128 else "simple")
+    before = (fa.launches_bwd_tf32x3, fa.launches_bwd_simple, fa.launches_bwd)
     got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal)
     again = fa.flash_attention_bwd(q, k, v, o, do, lse, causal)
     torch.cuda.synchronize()
-    assert fa.launches_bwd == before + 2
+    assert (fa.launches_bwd_tf32x3, fa.launches_bwd_simple, fa.launches_bwd) == (
+        before[0] + 2 * (kind == "tf32x3"), before[1] + 2 * (kind == "simple"), before[2] + 2)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
     want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal)
     bounds = ref.flash_attention_bwd_bound(q, k, v, o, do, lse, want, causal)
     for g_, w, bd in zip(got, want, bounds):
         assert g_.shape == w.shape and g_.dtype == w.dtype == dtype
         assert bool(((g_.float() - w.float()).abs() <= bd).all())
+
+
+FLASH_BWD_TF32X3_CASES = [(1, 1, 1, 2, 1, 16, True), (2, 33, 33, 4, 1, 80, True),
+                          (1, 33, 100, 4, 2, 64, False), (1, 33, 100, 4, 1, 16, True),
+                          (2, 70, 70, 2, 2, 8, False), (1, 100, 33, 2, 2, 5, True),
+                          (1, 512, 512, 4, 4, 64, True), (1, 512, 512, 4, 1, 128, True),
+                          (1, 300, 300, 8, 2, 32, False), (2, 130, 260, 4, 4, 64, True)]
+
+
+@pytest.mark.parametrize("b,tq,tk,h,kv,hd,causal", FLASH_BWD_TF32X3_CASES)
+def test_flash_attention_bwd_tf32x3_beside_the_general_kernel(cuda_device, b, tq, tk, h, kv,
+                                                              hd, causal):
+    """The tf32x3 backward and ``flash_attention_bwd_simple`` (the general
+    kernel, forced) on the same f32 inputs: each within
+    ``ref.flash_attention_bwd_bound`` of the plain backward, the same bits
+    twice, each by its own counter."""
+    q, k, v, o, lse, do = _flash_fwd_with_lse(cuda_device, b, tq, tk, h, kv, hd, causal,
+                                              torch.float32, seed=tq + hd + 1)
+    assert fa.bwd_variant(q, k, v) == "tf32x3"
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal)
+    bounds = ref.flash_attention_bwd_bound(q, k, v, o, do, lse, want, causal)
+    for fn, counted in ((fa.flash_attention_bwd, "launches_bwd_tf32x3"),
+                        (fa.flash_attention_bwd_simple, "launches_bwd_simple")):
+        before = (getattr(fa, counted), fa.launches_bwd)
+        got = fn(q, k, v, o, do, lse, causal)
+        again = fn(q, k, v, o, do, lse, causal)
+        torch.cuda.synchronize()
+        assert (getattr(fa, counted), fa.launches_bwd) == (before[0] + 2, before[1] + 2)
+        assert all(torch.equal(a, b_) for a, b_ in zip(got, again)), counted
+        for name, g_, w, bd in zip(("dq", "dk", "dv"), got, want, bounds):
+            assert g_.is_contiguous() and g_.shape == w.shape
+            assert bool(((g_ - w).abs() <= bd).all()), (counted, name,
+                                                        float((g_ - w).abs().max()))
+
+
+def test_flash_attention_bwd_tf32x3_same_bits_in_every_layout(cuda_device):
+    """The same values as contiguous tensors, as column slices of wider
+    tensors (16-byte aligned, read by cp.async, and 3 elements in, read
+    element by element) and with heads outside positions give the tf32x3
+    backward's same bits."""
+    q, k, v, _, _, do = _flash_fwd_with_lse(cuda_device, 2, 70, 70, 4, 1, 64, True,
+                                            torch.float32, seed=12)
+
+    def sliced(x, off):
+        wide = torch.zeros((*x.shape[:-1], 64 + off + 4), device=x.device)
+        return wide[..., off:off + 64].copy_(x)
+
+    def heads_outside(x):
+        return x.transpose(1, 2).contiguous().transpose(1, 2)
+
+    for causal in (True, False):
+        o, lse = fa.flash_attention_lse(q, k, v, causal)
+        want = fa.flash_attention_bwd(q, k, v, o, do, lse, causal)
+        for layout in (lambda x: sliced(x, 4), lambda x: sliced(x, 3), heads_outside):
+            views = [layout(x) for x in (q, k, v, o, do)]
+            before = fa.launches_bwd_tf32x3
+            got = fa.flash_attention_bwd(*views, lse, causal)
+            assert fa.launches_bwd_tf32x3 == before + 1
+            assert all(torch.equal(a, b_) for a, b_ in zip(got, want)), causal
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_tf32x3_holds_the_bound_on_same_sign_values(cuda_device,
+                                                                        causal):
+    """Scores of std ~4 and v and do shifted by 2 at FuXi's T and hd: MMA
+    sums whose terms share a sign (dv's above all), which drift when one
+    running sum takes them all (the tensor cores truncate), stay within
+    ``ref.flash_attention_bwd_bound``."""
+    q, k, v = _flash_case(cuda_device, 4, 512, 512, 8, 8, 64, torch.float32, seed=9)
+    q, k, v = 2 * q, 2 * k, v + 2
+    out, lse = fa.flash_attention_lse(q, k, v, causal)
+    g = torch.Generator(cuda_device).manual_seed(10)
+    do = torch.randn(out.shape, device=cuda_device, generator=g) + 2
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, do, lse, causal)
+    bounds = ref.flash_attention_bwd_bound(q, k, v, out, do, lse, want, causal)
+    for name, g_, w, bd in zip(("dq", "dk", "dv"), got, want, bounds):
+        assert bool(((g_ - w).abs() <= bd).all()), (name, float((g_ - w).abs().max()))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -695,18 +777,21 @@ def test_flash_attention_lse_equals_plain(cuda_device, dtype):
 
 def test_flash_attention_autograd_runs_the_kernels(cuda_device):
     """Small f32 inputs through ``dispatch.flash_attention`` under autograd:
-    one tf32x3 forward and one backward launch (none of the general or the
-    wgmma forward), the gradients the backward kernel gives, and within its
-    bound of autograd of the plain version."""
+    one tf32x3 forward and one tf32x3 backward launch (none of the general
+    or the wgmma forward, nor of the general backward), the gradients the
+    backward kernel gives, and within its bound of autograd of the plain
+    version."""
     q, k, v = _flash_case(cuda_device, 2, 9, 9, 4, 2, 8, torch.float32, seed=3)
     do = torch.randn(q.shape, device=cuda_device)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    before = (fa.launches_tf32x3, fa.launches_simple, fa.launches_wgmma, fa.launches_bwd)
+    before = (fa.launches_tf32x3, fa.launches_simple, fa.launches_wgmma,
+              fa.launches_bwd_tf32x3, fa.launches_bwd_simple)
     out = dispatch.flash_attention(*leaves, True)
     out.backward(do)
     torch.cuda.synchronize()
-    assert (fa.launches_tf32x3, fa.launches_simple, fa.launches_wgmma, fa.launches_bwd) == \
-        (before[0] + 1, before[1], before[2], before[3] + 1)
+    assert (fa.launches_tf32x3, fa.launches_simple, fa.launches_wgmma,
+            fa.launches_bwd_tf32x3, fa.launches_bwd_simple) == \
+        (before[0] + 1, before[1], before[2], before[3] + 1, before[4])
     o, lse = fa.flash_attention_lse(q, k, v, True)
     for leaf, w in zip(leaves, fa.flash_attention_bwd(q, k, v, o, do, lse, True)):
         assert torch.equal(leaf.grad, w)
@@ -735,19 +820,21 @@ def test_flash_attention_wgmma_with_grad_raises(cuda_device):
 
 def test_fuxi_training_on_the_card_runs_the_kernels_and_matches_cpu(cuda_device):
     """``fuxi-reduced`` (2 layers, N = 4): 2 x 2 x 4 tf32x3 forward and
-    2 x 4 backward launches a step (each layer's forward runs again in the
-    backward), no launch of the general or the wgmma forward, and the CPU's
-    trajectory within 1e-5 at the configuration's own step sizes."""
+    2 x 4 tf32x3 backward launches a step (each layer's forward runs again
+    in the backward), no launch of the general or the wgmma forward nor of
+    the general backward, and the CPU's trajectory within 1e-5 at the
+    configuration's own step sizes."""
     kw = dict(reduced=True, global_batch=16, n_micro=4, seed=3)
     gpu = Session.from_arch("fuxi-kuairand", **kw)
     cpu = Session.from_arch("fuxi-kuairand", device="cpu", **kw)
     cpu.state = clone_state(gpu.state, "cpu")
-    before = (fa.launches_tf32x3, fa.launches_simple, fa.launches_wgmma, fa.launches_bwd)
+    before = (fa.launches_tf32x3, fa.launches_simple, fa.launches_wgmma,
+              fa.launches_bwd_tf32x3, fa.launches_bwd_simple)
     steps = 4
     got, want = gpu.train(steps), cpu.train(steps)
     assert (fa.launches_tf32x3 - before[0], fa.launches_simple - before[1],
-            fa.launches_wgmma - before[2], fa.launches_bwd - before[3]) == \
-        (16 * steps, 0, 0, 8 * steps)
+            fa.launches_wgmma - before[2], fa.launches_bwd_tf32x3 - before[3],
+            fa.launches_bwd_simple - before[4]) == (16 * steps, 0, 0, 8 * steps, 0)
     assert got.summary["overflow_max"] == 0
     np.testing.assert_allclose(got.stats.losses, want.stats.losses, rtol=0, atol=1e-5)
     torch.testing.assert_close(got.state.table.rows.cpu(), want.state.table.rows,

@@ -46,7 +46,6 @@
   equals the plain version bit for bit, sentinels and negative indices
   included.
 """
-import functools
 import os
 import sys
 
@@ -57,9 +56,9 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
+from _torch_fuxi_inputs import fuxi_layer0_qkv
 from repro.kernels import dispatch as jdispatch
 from repro.kernels import ref as jref
-from repro_torch.configs.registry import get_arch
 from repro_torch.core.embedding.routing import SENTINEL
 from repro_torch.kernels import build, dispatch, ref
 from repro_torch.kernels import buffer_sync as bs
@@ -67,7 +66,6 @@ from repro_torch.kernels import embedding_gather as eg
 from repro_torch.kernels import embedding_scatter as es
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import segment_rowsum as sr
-from repro_torch.models import FuXi
 
 
 def _case(rows, d, n, seed=0):
@@ -150,8 +148,8 @@ def test_library_path_tracks_source_and_lives_in_build():
 def test_library_path_tracks_the_headers(tmp_path, monkeypatch):
     """An edited header in ``csrc/`` changes every library's path, so the
     next use rebuilds it; the path comes back with the header's bytes. The
-    two f32 tensor-core sources include the shared one."""
-    for name in ("hstu_attention", "flash_attention_tf32"):
+    three f32 tensor-core sources include the shared one."""
+    for name in ("hstu_attention", "flash_attention_tf32", "flash_attention_bwd_tf32"):
         assert '#include "tf32_mma.cuh"' in (build.CSRC / f"{name}.cu").read_text()
     (tmp_path / "a.cu").write_text('#include "shared.cuh"\n')
     header = tmp_path / "shared.cuh"
@@ -399,7 +397,7 @@ def test_every_kernel_source_builds_into_build():
                                   "buffer_sync", "embedding_scatter",
                                   "hstu_attention", "flash_attention",
                                   "flash_attention_wgmma", "flash_attention_bwd",
-                                  "flash_attention_tf32"}
+                                  "flash_attention_tf32", "flash_attention_bwd_tf32"}
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").exists()
         assert build.library_path(name).parent == build.BUILD_DIR
@@ -616,32 +614,9 @@ def test_one_pass_tf32_forward_misses_the_kernel_limit(causal, ties):
     assert not bool(((got - want).abs() <= 1e-5 * mag + 1e-7).all())
 
 
-@functools.lru_cache(maxsize=None)
-def _fuxi_layer0_qkv():
-    """q, k, v as the port's ``fuxi-reduced`` layer 0 hands them to
-    ``dispatch.flash_attention`` on the CPU (seeded weights and lookups;
-    (2, 32, 4, 16), causal)."""
-    cfg = get_arch("fuxi-kuairand").reduced
-    model = FuXi(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
-    emb = np.random.default_rng(4).normal(size=(2, cfg.seq_len, cfg.max_table_dim)) * 0.1
-    kept, real = [], dispatch.flash_attention
-
-    def spy(q, k, v, causal=True):
-        kept.append((q.clone(), k.clone(), v.clone()))
-        return real(q, k, v, causal)
-
-    dispatch.flash_attention = spy
-    try:
-        with torch.no_grad():
-            model(torch.from_numpy(emb.astype(np.float32)))
-    finally:
-        dispatch.flash_attention = real
-    return kept[0]
-
-
 def _flash_tf32_case(name):
     if name == "fuxi-reduced layer 0":
-        return _fuxi_layer0_qkv()
+        return fuxi_layer0_qkv()
     kv = {"hd 64, H/KV 1": 4, "hd 64, H/KV 4": 1}[name]
     rng = np.random.default_rng(13)
     return [torch.from_numpy(rng.normal(size=(2, 64, n, 64)).astype(np.float32))
@@ -702,6 +677,18 @@ def _same_sign_case(seed):
     return 2 * q, 2 * k, v + 2
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for a test of many small tensor ops: with the
+    suite's workers sharing the cores, more threads only contend (this
+    file's same-sign case took 200-280 s of what one thread does in a few)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("ties", ["even", "away"])
 def test_short_mma_chains_hold_the_limit_where_long_ones_miss_it(ties):
     """The tensor cores add truncating, so a sum that runs through one MMA
