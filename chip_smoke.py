@@ -108,6 +108,23 @@ hand-written kernel on it against its plain PyTorch version:
    bytes, its losses finite; one more synchronous ``int8`` run syncs every
    cold row (``min_sync_p`` = 1, none deferred, required) and prints its
    deviation, which is the quantization's alone;
+6g. checkpoints at full width (``checkpoint``): a ``dlrm-ctr`` session as in
+   phase 5 (``data_seed=0``, ``ckpt_every=3``) trains 5 steps and saves at
+   step 3 through the driver's seam into ``build/ckpt_smoke`` (29.42 GB:
+   the checkout's own disk; the phase fails if it cannot hold one
+   checkpoint and 5%); its session goes, and one drawn from seed 1
+   restores the newest verifiable checkpoint (step 3, every leaf's CRC32
+   checked) into its own tensors and trains steps 4-5, counted; the two
+   losses, the dense params and AdamW state, the rows and adagrad state at
+   every key steps 4-5 touched and at 1,048,576 sampled keys equal the
+   first session's bit for bit; the save's seconds (D2H, write and CRC)
+   and the restore's (verify, load and H2D) with GB/s, the device's peak
+   memory over each (one master), both sessions' step times and p50, and
+   no step after the save flagged a straggler; the directory is removed.
+   Then ``dlrm-cached`` (its full size) on the cached tier with a 1,024-row
+   cache that evicts, batch 1,024, exports at steps 2 and 4 of 5 to the
+   driver's checkpoint callback with async stages off and on: the same
+   bits (``checkpoint_async_export``);
 7. consistency at the reduced ``dlrm-ctr``: nestpipe = serial = the naive
    reference trainer within 1e-5 over 6 steps, and async diverges; the
    reference, run twice from the same state, gives the same bits (its sum
@@ -236,8 +253,8 @@ hand-written kernel on it against its plain PyTorch version:
    and apart as the prefill's three and one decode step's three; the
    gather's and the scatter's cached-path calls of 6b as
    ``dlrm_cached_train_calls``; launches by path, the host and cached
-   tiers' training, every run of 6e and 6f, and the cached tier's serving
-   with and without ``pack`` among them) and, last,
+   tiers' training, every run of 6e and 6f, the cached tier's serving
+   with and without ``pack`` and 6g's resumed steps among them) and, last,
    the ``{"ok": true, ...}`` line.
 
 Every phase prints one JSON line. Nothing is caught: any failure exits
@@ -255,6 +272,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -310,6 +328,14 @@ TIER_RUNS = (("host", "host", {}),
 # their reduced one, with a cache small enough to evict
 POLICY_ARCHS = ("dlrm-cached", "dlrm-drift", "dlrm-growth")
 POLICY_BATCH, POLICY_STEPS, POLICY_CACHE_ROWS = 1024, 6, 1024
+# phase 6g: full-width dlrm-ctr saves at step CKPT_AT of CKPT_STEPS, and a
+# session from another seed restores it and trains the rest; the checkpoint
+# lives beside the kernels' build, on the checkout's own disk (a 9p mount
+# with 75 GB free on the card's machine; /dev/shm is RAM)
+CKPT_AT, CKPT_STEPS = 3, 5
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "ckpt_smoke"
+# then the cached tier's mid-run exports, sync against async
+EXPORT_EVERY, EXPORT_STEPS = 2, 5
 HSTU_BATCH = 256  # the per-worker share of the 65,536 recsys batch over 256 workers
 HSTU_STEPS = 6
 # the hstu_attention forward's calls a step: 4 layers x 4 micro-batches x 2
@@ -377,18 +403,21 @@ TIER_PATHS = {run: "dlrm_" + run.replace("-", "_") + "_train"
               for run, _, _ in ASYNC_RUNS + COMM_RUNS}
 CACHED_PATHS = tuple(TIER_PATHS[run] for run, store, _ in ASYNC_RUNS + COMM_RUNS
                      if store == "cached") + ("dlrm_cached_pack_serve",)
+# phase 6g's resumed run (steps 4-5 after a restore) is a path of its own
 RUNS_ON = {
     "embedding_gather": ("dlrm_train", "dlrm_serve", "dlrm_host_train",
                          "dlrm_cached_train", "dlrm_cached_serve", "hstu_train",
-                         "fuxi_train", "lm_serve", "dlrm_cached_pack_serve")
-    + tuple(TIER_PATHS.values()),
+                         "fuxi_train", "lm_serve", "dlrm_cached_pack_serve",
+                         "dlrm_ckpt_resume_train") + tuple(TIER_PATHS.values()),
     "segment_rowsum": ("dlrm_train", "dlrm_host_train", "dlrm_cached_train",
-                       "hstu_train", "fuxi_train") + tuple(TIER_PATHS.values()),
+                       "hstu_train", "fuxi_train", "dlrm_ckpt_resume_train")
+    + tuple(TIER_PATHS.values()),
     "buffer_sync": ("dlrm_train", "dlrm_host_train", "dlrm_cached_train", "hstu_train",
-                    "fuxi_train") + tuple(TIER_PATHS.values()),
+                    "fuxi_train", "dlrm_ckpt_resume_train") + tuple(TIER_PATHS.values()),
     # the host tier writes its master back on the host: no device scatter
     "embedding_scatter": ("dlrm_train", "dlrm_cached_train", "dlrm_cached_serve",
-                          "hstu_train", "fuxi_train") + CACHED_PATHS,
+                          "hstu_train", "fuxi_train", "dlrm_ckpt_resume_train")
+    + CACHED_PATHS,
     "hstu_attention_fwd": ("hstu_train",),
     "hstu_attention_bwd": ("hstu_train",),
     "flash_attention_wgmma": ("lm_serve",),
@@ -678,6 +707,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.api import InferenceStrategy, Session, resolve_stream
+    from repro_torch.api import session as session_mod
     from repro_torch.configs import ArchSpec, NestPipeConfig, OptimizerConfig, get_arch
     from repro_torch.configs.recsys_archs import HSTU_INDUSTRIAL_ONE_CARD, HSTU_ROW_CUT
     from repro_torch.core.consistency import build_reference_step
@@ -685,6 +715,7 @@ def main() -> int:
     from repro_torch.core.embedding.routing import SENTINEL, sorted_lookup
     from repro_torch.core.store import CACHE_POLICIES, CachedStore, HostStore, SparseComm
     from repro_torch.data.pipeline import make_cluster_transform, stage_to_device
+    from repro_torch.dist.checkpoint import flatten_state
     from repro_torch.kernels import build, dispatch, ref
     from repro_torch.kernels import buffer_sync as bs
     from repro_torch.kernels import embedding_gather as eg
@@ -736,7 +767,9 @@ def main() -> int:
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
          peak_bytes_per_s=peak, host_mem_total_gb=meminfo["MemTotal"] / 1e9,
          host_mem_available_gb=meminfo["MemAvailable"] / 1e9,
-         cpu_count=os.cpu_count(), cpus_usable=len(os.sched_getaffinity(0)))
+         cpu_count=os.cpu_count(), cpus_usable=len(os.sched_getaffinity(0)),
+         checkpoint_dir=str(CKPT_DIR),
+         checkpoint_disk_free_bytes=shutil.disk_usage(Path(__file__).resolve().parent).free)
 
     # the host tier's master, pinned: how long pinning a tensor of its size
     # takes, and one step's buffer (K rows x 128 f32) copied each way
@@ -1902,6 +1935,186 @@ def main() -> int:
     del sync_ref, keys_t, exec_runs
     gc.collect()
     torch.cuda.empty_cache()
+
+    # -- 6g. checkpoints at full width: save, restore, resume ---------------
+    # A trains 5 steps and saves at step 3 through the driver's seam; B,
+    # drawn from another seed, restores it and trains steps 4-5, which must
+    # equal A's bit for bit. One master on the card at a time: A's goes
+    # before B is drawn, and the restore copies into B's in place.
+    t_phase = time.perf_counter()
+    start_gb = torch.cuda.memory_allocated() / 1e9  # what earlier phases left
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    CKPT_DIR.mkdir(parents=True)
+    ckpt_kw = dict(mode="nestpipe", global_batch=TRAIN_BATCH, n_micro=N_MICRO,
+                   bucket_slack=SLACK, data_seed=0, ckpt_dir=str(CKPT_DIR))
+    a = Session.from_arch(ARCH, seed=0, ckpt_every=CKPT_AT, **ckpt_kw)
+    master_bytes = a.state.table.rows.numel() * 4
+    need = sum(t.numel() * t.element_size() for _, t in flatten_state(a.state))
+    free = shutil.disk_usage(CKPT_DIR).free
+    if free < 1.05 * need:
+        raise SystemExit(f"{CKPT_DIR} has {free} bytes free; one checkpoint and "
+                         f"5% need {1.05 * need:.0f}")
+    ckpt_io = {}
+
+    def timed_io(kind, real):
+        """The session's checkpoint call, timed (its own split into
+        timings), with the device's peak memory over it."""
+        def run(*a_, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tm = {}
+            t0 = time.perf_counter()
+            out = real(*a_, timings=tm, **kw)
+            torch.cuda.synchronize()
+            ckpt_io[kind] = {**tm, "seconds": time.perf_counter() - t0,
+                             "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+            return out
+        return run
+
+    real_io = {k: getattr(session_mod, k) for k in
+               ("save_checkpoint", "restore_latest_verifiable")}
+    session_mod.save_checkpoint = timed_io("save", real_io["save_checkpoint"])
+    try:
+        rep_a = a.train(CKPT_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        session_mod.save_checkpoint = real_io["save_checkpoint"]
+    step_dir = CKPT_DIR / f"step_{CKPT_AT:08d}"
+    ckpt_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+    manifest = json.loads((step_dir / "manifest.json").read_text())
+    if sorted(os.listdir(CKPT_DIR)) != [step_dir.name] or manifest["step"] != CKPT_AT \
+            or not all("crc32" in e for e in manifest["leaves"]):
+        raise SystemExit(f"the checkpoint directory holds {os.listdir(CKPT_DIR)}, "
+                         f"step {manifest['step']}")
+    # what steps 4-5 wrote: the rows and adagrad state at their windows'
+    # keys, the dense params and the optimizer state
+    stream = resolve_stream(a.workload, 0, start_step=CKPT_AT)
+    transform = make_cluster_transform(N_MICRO, a.workload.npcfg.clustering)
+    wkeys = []
+    for _ in range(CKPT_STEPS - CKPT_AT):
+        bk = a.workload.engine.route_window(
+            torch.as_tensor(transform(next(stream))["keys"], device=dev), N_MICRO).buffer_keys
+        wkeys.append(bk[bk != SENTINEL])
+    touched_ck = torch.unique(torch.cat(wkeys)).long()
+    # a generator of its own: the later phases' draws stay as they were
+    untouched_ck = torch.randint(0, a.workload.spec.padded_rows, (1 << 20,), device=dev,
+                                 generator=torch.Generator(dev).manual_seed(CKPT_AT))
+    a_final = {"rows": a.state.table.rows[touched_ck].cpu(),
+               "accum": a.state.table.accum[touched_ck].cpu(),
+               "sample_rows": a.state.table.rows[untouched_ck].cpu(),
+               "sample_accum": a.state.table.accum[untouched_ck].cpu(),
+               "rest": [(k, t.cpu()) for k, t in flatten_state(a.state._replace(table=None))]}
+    a_losses, a_stats = rep_a.stats.losses, rep_a.stats
+    a_summary = rep_a.summary
+    del a, rep_a  # every reference to A's master
+    gc.collect()
+    torch.cuda.empty_cache()
+    after_a_gb = torch.cuda.memory_allocated() / 1e9
+
+    b = Session.from_arch(ARCH, seed=1, **ckpt_kw)
+    session_mod.restore_latest_verifiable = timed_io(
+        "restore", real_io["restore_latest_verifiable"])
+    try:
+        restored_at = b.restore_if_available()
+    finally:
+        session_mod.restore_latest_verifiable = real_io["restore_latest_verifiable"]
+    if restored_at != CKPT_AT or int(b.state.step) != CKPT_AT:
+        raise SystemExit(f"restore_if_available gave {restored_at}, step "
+                         f"{int(b.state.step)}, not {CKPT_AT}")
+    torch.cuda.synchronize()
+    reset_counts()
+    rep_b = b.train(CKPT_STEPS - CKPT_AT)
+    torch.cuda.synchronize()
+    ckpt_launches = counts()
+    b_rest = flatten_state(b.state._replace(table=None))
+    same = {
+        "losses": rep_b.stats.losses == a_losses[CKPT_AT:],
+        "touched_rows": torch.equal(b.state.table.rows[touched_ck].cpu(), a_final["rows"]),
+        "touched_accum": torch.equal(b.state.table.accum[touched_ck].cpu(), a_final["accum"]),
+        "sampled_rows": torch.equal(b.state.table.rows[untouched_ck].cpu(),
+                                    a_final["sample_rows"]),
+        "sampled_accum": torch.equal(b.state.table.accum[untouched_ck].cpu(),
+                                     a_final["sample_accum"]),
+        "dense_and_optimizer": [k for k, _ in b_rest] == [k for k, _ in a_final["rest"]]
+        and all(torch.equal(t.cpu(), u) for (_, t), (_, u) in zip(b_rest, a_final["rest"]))}
+    after_save = [t for t in a_stats.straggler_steps if t >= CKPT_AT] \
+        + rep_b.stats.straggler_steps
+    save, restore = ckpt_io["save"], ckpt_io["restore"]
+    ckpt_want = {"embedding_gather": (1 + 3 * N_MICRO) * (CKPT_STEPS - CKPT_AT),
+                 "segment_rowsum": (N_MICRO + 1) * (CKPT_STEPS - CKPT_AT),
+                 "buffer_sync": CKPT_STEPS - CKPT_AT - 1,
+                 "embedding_scatter": CKPT_STEPS - CKPT_AT}
+    emit("checkpoint", arch=ARCH, global_batch=TRAIN_BATCH, steps=CKPT_STEPS,
+         saved_at=CKPT_AT, dir=str(CKPT_DIR), free_bytes=free,
+         checkpoint_bytes=ckpt_bytes, checkpoint_gb=ckpt_bytes / 1e9,
+         leaves=len(manifest["leaves"]), master_gb=master_bytes / 1e9,
+         save_s=save["seconds"], save_d2h_s=save.get("d2h_s", 0.0),
+         save_write_crc_s=save.get("write_s", 0.0),
+         save_gb_per_s=ckpt_bytes / save["seconds"] / 1e9,
+         save_d2h_gb_per_s=master_bytes / save["d2h_s"] / 1e9,
+         save_write_crc_gb_per_s=ckpt_bytes / save["write_s"] / 1e9,
+         save_peak_device_gb=save["peak_device_gb"],
+         restore_s=restore["seconds"], restore_verify_s=restore["verify_s"],
+         restore_load_h2d_s=restore["load_s"],
+         restore_gb_per_s=ckpt_bytes / restore["seconds"] / 1e9,
+         restore_verify_gb_per_s=ckpt_bytes / restore["verify_s"] / 1e9,
+         restore_load_h2d_gb_per_s=ckpt_bytes / restore["load_s"] / 1e9,
+         restore_peak_device_gb=restore["peak_device_gb"],
+         device_gb_at_start=start_gb, device_gb_after_a=after_a_gb,
+         a_losses=a_losses, b_losses=rep_b.stats.losses,
+         a_step_ms=[x * 1e3 for x in a_stats.step_times],
+         b_step_ms=[x * 1e3 for x in rep_b.stats.step_times],
+         a_step_p50_ms=a_summary["p50_step_s"] * 1e3,
+         b_step_p50_ms=rep_b.summary["p50_step_s"] * 1e3,
+         stragglers_after_save=after_save, touched_keys=touched_ck.numel(),
+         sampled_keys=untouched_ck.numel(), bit_equal=same, launches=ckpt_launches)
+    if not all(same.values()):
+        raise SystemExit(f"the resumed run differs from the uninterrupted one: {same}")
+    if not all(np.isfinite(a_losses + rep_b.stats.losses)):
+        raise SystemExit("the checkpoint runs' losses are not finite")
+    if after_save:
+        raise SystemExit(f"steps after the save flagged as stragglers: {after_save}")
+    for kind, io in (("save", save), ("restore", restore)):
+        if (io["peak_device_gb"] - start_gb) * 1e9 > 1.5 * master_bytes:
+            raise SystemExit(f"the {kind} peaked at {io['peak_device_gb']:.2f} GB on "
+                             f"the card: more than one master")
+    if any(ckpt_launches[k] != v for k, v in ckpt_want.items()):
+        raise SystemExit(f"resumed-run launches {ckpt_launches}, want {ckpt_want}")
+    del b, rep_b, b_rest, a_final
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(CKPT_DIR)
+
+    # a mid-run export under async stages holds every submitted commit: the
+    # cached tier of dlrm-cached (its full size; a cache that evicts), the
+    # tables handed to the checkpoint callback at steps 2 and 4, sync and
+    # async, bit for bit
+    exports, evictions = {}, {}
+    for on in ("off", "on"):
+        esess = Session.from_arch("dlrm-cached", store="cached", async_stages=on,
+                                  mode="nestpipe", global_batch=POLICY_BATCH,
+                                  n_micro=N_MICRO, cache_rows=POLICY_CACHE_ROWS, seed=0)
+        got = exports[on] = {}
+        driver = esess.strategy.build_driver(
+            esess.fns, resolve_stream(esess.workload, esess.data_seed), esess.workload,
+            on_checkpoint=lambda st, n, got=got: got.__setitem__(
+                n, (st.table.rows.clone(), st.table.accum.clone())),
+            ckpt_every=EXPORT_EVERY)
+        driver.run(esess._take_state(), EXPORT_STEPS)
+        evictions[on] = driver.store.evictions
+        del esess, driver
+    export_equal = {n: torch.equal(exports["on"][n][0], exports["off"][n][0])
+                    and torch.equal(exports["on"][n][1], exports["off"][n][1])
+                    for n in exports["off"]}
+    emit("checkpoint_async_export", arch="dlrm-cached", store="cached",
+         global_batch=POLICY_BATCH, cache_rows=POLICY_CACHE_ROWS, steps=EXPORT_STEPS,
+         every=EXPORT_EVERY, exported_at=sorted(exports["off"]),
+         evictions=evictions, bit_equal=export_equal)
+    if sorted(exports["off"]) != [2, 4] or sorted(exports["on"]) != [2, 4] \
+            or not all(export_equal.values()) or not evictions["off"]:
+        raise SystemExit(f"async mid-run exports differ from sync: {export_equal}")
+    del exports
+    emit("checkpoint_phase", seconds=time.perf_counter() - t_phase)
 
     # -- 7. consistency at the reduced size ---------------------------------
     kw = dict(reduced=True, global_batch=32, n_micro=N_MICRO, seed=1)
@@ -3130,6 +3343,7 @@ def main() -> int:
                    "dlrm_cached_pack_serve": cached_pack_serve_launches[kname],
                    **{path: path_launches[run][kname]
                       for run, path in TIER_PATHS.items()},
+                   "dlrm_ckpt_resume_train": ckpt_launches[kname],
                    "hstu_train": hstu_launches[kname],
                    "fuxi_train": fuxi_launches[kname],
                    "lm_serve": lm_launches[kname]}

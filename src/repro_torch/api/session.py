@@ -13,8 +13,11 @@
     lm = Session.from_arch("stablelm-12b")             # a dense LM
     print(lm.serve(batch=8, prompt_len=2048, gen=32).summary)
 
-Training runs any ported recsys backbone (DLRM, HSTU, FuXi); recsys
-serving has a DLRM head only, as in the JAX package. A dense LM serves (batched
+Training runs any ported recsys backbone (DLRM, HSTU, FuXi) and
+checkpoints it (``ckpt_dir``, ``ckpt_every``; :meth:`Session.save`,
+:meth:`Session.restore`, :meth:`Session.restore_if_available`,
+``train(resume=True)``); recsys serving has a DLRM head only, as in the
+JAX package. A dense LM serves (batched
 prefill, then greedy KV-cache decode) and does not train yet. A config
 outside the registry goes through ``launch.build.assemble_workload`` and
 :meth:`Session.from_workload`. ``device`` defaults to ``cuda`` and raises
@@ -33,6 +36,12 @@ import torch
 from ..configs.base import NestPipeConfig, OptimizerConfig
 from ..core.dbp.pipeline import PipelineStats
 from ..core.embedding.table import EmbeddingTableState, init_table_state
+from ..dist.checkpoint import (
+    latest_step,
+    restore_checkpoint,
+    restore_latest_verifiable,
+    save_checkpoint,
+)
 from ..launch.build import LM_TRAINING_NOT_PORTED, RECSYS_GLOBAL_BATCH, Workload, resolve
 from ..models.dlrm import DLRM
 from ..train.state import TrainState
@@ -75,9 +84,14 @@ class Session:
     The session owns the workload, the execution strategy and the train
     state (dense params, optimizer state, master table, step): drawn on the
     device from ``seed`` on first use, replaced by :meth:`ingest` (weights
-    from elsewhere, fresh optimizer state) or by assigning ``state`` (e.g.
-    a JAX train state carried over by ``repro_torch.convert``). Training
-    updates the master in place; serving reads the current weights.
+    from elsewhere, fresh optimizer state), by assigning ``state`` (e.g.
+    a JAX train state carried over by ``repro_torch.convert``) or by a
+    restore from ``ckpt_dir``. Training reads the stream drawn from
+    ``data_seed`` (default: ``seed``) from batch index ``state.step``, so a
+    restored session, whatever its init seed, resumes the run it came
+    from; it saves every ``ckpt_every`` steps when ``ckpt_dir`` is set.
+    Training updates the master in place; serving reads the current
+    weights.
 
     A dense LM session holds no train state: :meth:`serve` draws the
     params and the master table only (no optimizer moments), from the
@@ -85,11 +99,16 @@ class Session:
     """
 
     def __init__(self, workload: Workload, *, opt_cfg: Optional[OptimizerConfig] = None,
-                 seed: int = 0, strategy=None, reduced: bool = False):
+                 seed: int = 0, data_seed: Optional[int] = None,
+                 ckpt_dir: str = "", ckpt_every: int = 0, strategy=None,
+                 reduced: bool = False):
         self.workload = workload
         self.strategy = strategy or get_strategy(workload.mode)
         self.opt_cfg = opt_cfg or OptimizerConfig()
-        self.seed = seed  # draws the weights and the data stream
+        self.seed = seed  # draws the weights
+        self.data_seed = seed if data_seed is None else data_seed  # the stream
+        self.ckpt_dir = ckpt_dir
+        self.ckpt_every = ckpt_every
         self.reduced = reduced
         self.device = workload.device
         self._fns = None
@@ -126,6 +145,9 @@ class Session:
         opt_cfg: Optional[OptimizerConfig] = None,
         lr: Optional[float] = None,
         seed: int = 0,
+        data_seed: Optional[int] = None,
+        ckpt_dir: str = "",
+        ckpt_every: int = 0,
         device: Optional[str | torch.device] = None,
     ) -> "Session":
         """Resolve a registry arch into a ready session on ``device``.
@@ -153,7 +175,12 @@ class Session:
         ``async_stages`` runs the host-side plan / retrieve / commit stages
         on worker threads, the same bits as without (``"auto"`` resolves
         ``$REPRO_ASYNC_STAGES``, then off), and ``stage_workers`` sizes its
-        plan / retrieve pool."""
+        plan / retrieve pool.
+
+        ``seed`` draws the weights, ``data_seed`` (default: ``seed``) the
+        batch stream. ``ckpt_dir`` is where :meth:`save` and
+        :meth:`restore` write and read, and ``ckpt_every`` (with a
+        ``ckpt_dir``) saves every that many steps of a run."""
         strategy = get_strategy(mode)  # fail fast on unknown modes
         device = resolve_device(device)
         npcfg = npcfg or NestPipeConfig(fwp_microbatches=n_micro,
@@ -183,7 +210,8 @@ class Session:
                      global_batch=global_batch or RECSYS_GLOBAL_BATCH)
         if lr is not None:
             opt_cfg = dataclasses.replace(opt_cfg or OptimizerConfig(), lr=lr)
-        return cls(wl, opt_cfg=opt_cfg, seed=seed, strategy=strategy,
+        return cls(wl, opt_cfg=opt_cfg, seed=seed, data_seed=data_seed,
+                   ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, strategy=strategy,
                    reduced=reduced)
 
     @classmethod
@@ -282,18 +310,76 @@ class Session:
         self._state_taken = False
 
     # ------------------------------------------------------------------
+    # checkpoints
+    # ------------------------------------------------------------------
+
+    def save(self, step: Optional[int] = None) -> str:
+        """Checkpoint the current state under ``ckpt_dir`` (an atomic
+        manifest write; ``repro_torch.dist.checkpoint``) at ``step``
+        (default: ``state.step``); returns its directory."""
+        if not self.ckpt_dir:
+            raise ValueError("Session has no ckpt_dir configured")
+        s = int(self.state.step) if step is None else int(step)
+        return save_checkpoint(self.ckpt_dir, self.state, s)
+
+    def restore(self, step: Optional[int] = None) -> TrainState:
+        """Restore the state from ``ckpt_dir`` (the latest step by default)
+        into the current state's tensors, in place; the next ``train()``
+        resumes the stream at batch index ``state.step``. A restore that
+        raises leaves the state as it was."""
+        if not self.ckpt_dir:
+            raise ValueError("Session has no ckpt_dir configured")
+        return self._restored(restore_checkpoint(self.ckpt_dir, self.state, step))
+
+    def restore_if_available(self) -> Optional[int]:
+        """Restore the newest checkpoint that verifies (manifest structure
+        and every leaf's CRC32) when one exists; returns its step, or None
+        when ``ckpt_dir`` holds nothing usable. Damaged checkpoints (a torn
+        write, bit rot) are walked past: falling back a step is safe,
+        because the trajectory is deterministic."""
+        if not self.ckpt_dir or latest_step(self.ckpt_dir) is None:
+            return None
+        try:
+            state, step = restore_latest_verifiable(self.ckpt_dir, self.state)
+        except FileNotFoundError:
+            return None
+        self._restored(state)
+        return step
+
+    def _restored(self, state: TrainState) -> TrainState:
+        self._state, self._state_taken = state, False
+        self._model = self._model_of = None  # weights() rebuilds from it
+        return state
+
+    # ------------------------------------------------------------------
     # train
     # ------------------------------------------------------------------
 
-    def train(self, steps: int) -> TrainReport:
+    def train(self, steps: int, *, resume: bool = False,
+              checkpoint_final: bool = False) -> TrainReport:
         """Run ``steps`` training steps from the current state. The stream
-        starts at batch index ``state.step``. The master table is updated
-        in place; ``self.state`` is rebound to the returned state."""
+        (drawn from ``data_seed``) starts at batch index ``state.step``.
+        The master table is updated in place; ``self.state`` is rebound to
+        the returned state.
+
+        With ``ckpt_dir`` set, the run saves every ``ckpt_every`` steps
+        through the driver's checkpoint seam (at the state's own step) and,
+        with ``checkpoint_final``, once more at the end. ``resume`` first
+        restores the newest verifiable checkpoint, if there is one."""
         if self.is_lm:
             raise NotImplementedError(LM_TRAINING_NOT_PORTED)
+        if resume:
+            self.restore_if_available()
         start = int(self.state.step)
-        stream = resolve_stream(self.workload, self.seed, start_step=start)
-        driver = self.strategy.build_driver(self.fns, stream, self.workload)
+        stream = resolve_stream(self.workload, self.data_seed, start_step=start)
+
+        def on_ckpt(state, _steps_done):
+            save_checkpoint(self.ckpt_dir, state, int(state.step))
+
+        driver = self.strategy.build_driver(
+            self.fns, stream, self.workload,
+            on_checkpoint=on_ckpt if self.ckpt_dir else None,
+            ckpt_every=self.ckpt_every if self.ckpt_dir else 0)
         t0 = time.perf_counter()
         # the run takes the state over (as a JAX run takes it donated): no
         # reference stays here, so a host tier frees the device master
@@ -301,6 +387,8 @@ class Session:
         state, stats = driver.run(self._take_state(), max(int(steps), 0))
         wall = time.perf_counter() - t0
         self._state, self._state_taken = state, False
+        if self.ckpt_dir and checkpoint_final:
+            self.save()
         summary = stats.summary()
         gb = self.workload.global_batch
         summary.update({

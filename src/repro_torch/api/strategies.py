@@ -56,6 +56,9 @@ class DriverStrategy:
         return npcfg
 
     def build_driver(self, fns, stream, workload, **driver_kw) -> DBPDriver:
+        """A driver for this mode over ``stream``; ``driver_kw`` reaches
+        :class:`DBPDriver` (the checkpoint seam ``on_checkpoint`` and
+        ``ckpt_every``, a ``store``, ...) over the workload's defaults."""
         driver_kw.setdefault("clustering", workload.npcfg.clustering)
         driver_kw.setdefault("device_fields", list(workload.batch_shapes))
         driver_kw.setdefault("metrics_every", self.metrics_every)

@@ -7,16 +7,22 @@ the DLRM, HSTU or FuXi dense pytree as a state dict, the master table as an
 ``EmbeddingTableState`` (hand both to ``Session.ingest``), or a whole
 train state, AdamW moments and step included (assign it to
 ``Session.state``). A dense LM's params (``lm_params_from_jax``) keep
-their dtypes: bf16 stays bf16.
+their dtypes: bf16 stays bf16. A checkpoint directory the JAX package
+wrote (``repro.dist.checkpoint``) reads into a port train state with
+``train_state_from_jax_checkpoint``, through numpy alone.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Sequence
+import ast
+import re
+from types import SimpleNamespace
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .core.embedding.table import EmbeddingTableState
+from .dist.checkpoint import read_manifest, verify_leaf
 from .train.optim import AdamState
 from .train.state import TrainState
 
@@ -136,3 +142,65 @@ def train_state_from_jax(state_np, device: torch.device | str) -> TrainState:
         step=torch.tensor(int(np.asarray(state_np.step)), dtype=torch.int32,
                           device=device),
     )
+
+
+_KEY = re.compile(r"\.(\w+)|\['((?:[^'\\]|\\.)*)'\]|\[(\d+)\]")
+
+
+def _parse_keystr(path: str) -> List[Any]:
+    """A JAX keystr (``.dense['bottom'][0]['w']``) as its keys: an
+    attribute as ``("attr", name)``, a dict key as its string, a sequence
+    index as its int."""
+    keys, pos = [], 0
+    for m in _KEY.finditer(path):
+        if m.start() != pos:
+            break
+        attr, key, idx = m.groups()
+        keys.append(("attr", attr) if attr is not None else
+                    ast.literal_eval(f"'{key}'") if key is not None else int(idx))
+        pos = m.end()
+    if pos != len(path) or not keys:
+        raise ValueError(f"not a JAX keystr: {path!r}")
+    return keys
+
+
+def _unflatten_keystr(leaves: Sequence[Tuple[str, Any]]) -> Any:
+    """Nest ``(keystr, leaf)`` pairs back into a tree: attributes become
+    ``SimpleNamespace`` fields, dict keys dicts, indices lists (in order)."""
+    root: Dict[Any, Any] = {}
+    for path, leaf in leaves:
+        keys = _parse_keystr(path)
+        node = root
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf
+
+    def build(node):
+        if not isinstance(node, dict):
+            return node
+        if all(isinstance(k, tuple) for k in node):
+            return SimpleNamespace(**{k[1]: build(v) for k, v in node.items()})
+        if all(isinstance(k, int) for k in node):
+            if sorted(node) != list(range(len(node))):
+                raise ValueError(f"indices {sorted(node)} are not 0..{len(node) - 1}")
+            return [build(node[i]) for i in range(len(node))]
+        if all(isinstance(k, str) for k in node):
+            return {k: build(v) for k, v in node.items()}
+        raise ValueError(f"mixed key kinds in one node: {sorted(map(repr, node))}")
+
+    return build(root)
+
+
+def train_state_from_jax_checkpoint(ckpt_dir: str, device: torch.device | str,
+                                    step: Optional[int] = None) -> TrainState:
+    """A checkpoint the JAX package wrote (``repro.dist.checkpoint``: a
+    ``step_%08d`` directory, its manifest and ``.npy`` leaves) at ``step``
+    (default: the latest) -> the port's train state on ``device``. Each
+    leaf's CRC32 is verified and every file read by numpy alone (no
+    pickle); JAX's keystr paths rebuild the numpy tree that
+    ``train_state_from_jax`` takes (HSTU's and FuXi's stacked ``layers``
+    leaves are unstacked there)."""
+    d, manifest = read_manifest(ckpt_dir, step)
+    leaves = [(e["path"], np.load(verify_leaf(d, e), allow_pickle=False))
+              for e in manifest["leaves"]]
+    return train_state_from_jax(_unflatten_keystr(leaves), device)

@@ -44,9 +44,13 @@ The store is a seam: the device, host and cached tiers ride the same loop.
 a host tier frees the device copy while it runs, as long as the caller
 keeps no reference to it.
 
-Not ported (``ROADMAP.md``, port Queue 1, item 3): checkpoints (the
-mid-run export under the executor's lock comes with them), the preemption
-guard and the watchdog.
+Checkpoints: every ``ckpt_every`` steps the driver drains the pending
+metrics, exports the master from the store (under async stages after the
+executor's commits are applied, under its master lock) and hands the state
+to ``on_checkpoint(state, steps_done)``; then it re-marks the step clock,
+so the save's seconds stay out of the next step's span. Not ported
+(``ROADMAP.md``, port Queue 1, item 3b): the preemption guard and the step
+watchdog.
 """
 from __future__ import annotations
 
@@ -149,8 +153,10 @@ class _MetricsDrain:
         self._event_mark: Optional[torch.cuda.Event] = None
 
     def start(self, device: torch.device) -> None:
-        """Mark the run's start (an event on CUDA)."""
+        """Mark the start of the next span (an event on CUDA): the run's
+        start, and again after work that is no step's, such as a save."""
         self._t_mark = time.perf_counter()
+        self._wait_mark = self.stats.input_wait_total
         if device.type == "cuda":
             self._event_mark = torch.cuda.Event(enable_timing=True)
             self._event_mark.record()
@@ -215,6 +221,8 @@ class DBPDriver:
         stage_workers: int = 1,  # plan / retrieve threads (>1: values exact,
         # cache placement and counters may vary from run to run)
         stage_hooks=None,  # StageExecutor test seam (schedule injection)
+        on_checkpoint=None,  # (state with the master, steps done) -> None
+        ckpt_every: int = 0,  # steps between checkpoints (0: none)
     ):
         if mode not in MODES:
             raise ValueError(f"unknown driver mode {mode!r}; expected one of {MODES}")
@@ -239,6 +247,8 @@ class DBPDriver:
         self.fence_slack = self.lookahead + 1 \
             if (mode == "nestpipe" and store.tier != "device") else 0
         self.stage_hooks = stage_hooks
+        self.on_checkpoint = on_checkpoint
+        self.ckpt_every = max(int(ckpt_every), 0)
         self._exec: Optional[StageExecutor] = None  # live only inside run()
         # Key-centric clustering only shapes FWP micro-batch locality; the
         # serial baseline has no window to cluster for.
@@ -295,6 +305,7 @@ class DBPDriver:
             state = state._replace(table=self.fns.commit_packets(state.table, pkts))
             drain.push(t, aux, self._step_event())
             self._maybe_drain(drain, t, num_steps)
+            self._maybe_ckpt(state, t, drain)
         drain.drain()
         return state, stats
 
@@ -336,6 +347,7 @@ class DBPDriver:
                 cur_plan, batch = nxt.plan, nxt.batch
             drain.push(t, aux, self._step_event())
             self._maybe_drain(drain, t, num_steps)
+            self._maybe_ckpt(state, t, drain)
         if self._exec is not None:
             self._exec.drain()  # every commit applied: the master is final
             stats.async_repairs = dict(pf.repairs)
@@ -347,3 +359,24 @@ class DBPDriver:
         # out of the steady-state span (summary() drops step 0)
         if t == 0 or (t + 1) % self.metrics_every == 0 or t == num_steps - 1:
             drain.drain()
+
+    def _ckpt_state(self, state: TrainState) -> TrainState:
+        """``state`` with the master exported from the store."""
+        if not self.store.owns_master:
+            return state
+        if self._exec is None:
+            return state._replace(table=self.store.export_table())
+        # every queued commit reaches the master first (and the driver's
+        # stream waits for the executor's); the lock keeps retrieves out
+        # while the cached tier's export flushes its hot rows
+        self._exec.drain()
+        with self._exec.lock:
+            return state._replace(table=self.store.export_table())
+
+    def _maybe_ckpt(self, state, t: int, drain: _MetricsDrain) -> None:
+        if self.on_checkpoint is None or not self.ckpt_every \
+                or (t + 1) % self.ckpt_every:
+            return
+        drain.drain()  # the steps so far are timed before the save
+        self.on_checkpoint(self._ckpt_state(state), t + 1)
+        drain.start(self.device)  # the save is no step's: a fresh mark

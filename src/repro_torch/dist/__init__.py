@@ -1,5 +1,15 @@
-"""Distributed-path pieces of the port (``repro.dist``): so far the host
-codecs of the sparse data path."""
+"""Distributed-path pieces of the port (``repro.dist``): atomic manifest
+checkpoints (``checkpoint``) and the host codecs of the sparse data path
+(``compressed``). The fault policies and the fault injector (the
+preemption guard, the step watchdog, ``retry_step``) are not ported yet
+(``ROADMAP.md``, port Queue 1, item 3b), nor is the quantized ring
+all-reduce (item 6)."""
+from .checkpoint import (
+    latest_step,
+    restore_checkpoint,
+    restore_latest_verifiable,
+    save_checkpoint,
+)
 from .compressed import (
     PACK_HEADER_BYTES,
     PackedKeys,
@@ -11,6 +21,10 @@ from .compressed import (
 )
 
 __all__ = [
+    "latest_step",
+    "restore_checkpoint",
+    "restore_latest_verifiable",
+    "save_checkpoint",
     "PACK_HEADER_BYTES",
     "PackedKeys",
     "dequantize_rows_np",

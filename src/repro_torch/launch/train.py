@@ -19,7 +19,16 @@ device cache over it):
 
 The full ``hstu-industrial`` master (309 GB) needs the host tier at a
 size this launcher does not reach yet, so on one card it runs
-``--reduced``. No checkpoint flags: checkpoints are not ported yet.
+``--reduced``.
+
+``--ckpt-dir`` with ``--ckpt-every n`` saves every n steps; ``--resume``
+restores the newest verifiable checkpoint there and trains the steps left
+to ``--steps``, so a stopped run continues where it was saved:
+
+    python -m repro_torch.launch.train --arch dlrm-ctr --reduced \
+        --device cpu --global-batch 32 --steps 4 --ckpt-dir ck --ckpt-every 2
+    python -m repro_torch.launch.train --arch dlrm-ctr --reduced \
+        --device cpu --global-batch 32 --steps 6 --ckpt-dir ck --resume
 """
 from __future__ import annotations
 
@@ -42,6 +51,11 @@ def train(argv=None):
     p.add_argument("--bucket-slack", type=float, default=4.0)
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--ckpt-dir", default="")
+    p.add_argument("--ckpt-every", type=int, default=0)
+    p.add_argument("--resume", action="store_true",
+                   help="restore the newest verifiable checkpoint in "
+                        "--ckpt-dir and train the steps left to --steps")
     p.add_argument("--store", default="auto", choices=("auto", *STORES),
                    help="embedding storage tier (auto: $REPRO_STORE, then "
                         "device); the cached tier's policy is "
@@ -57,8 +71,11 @@ def train(argv=None):
         global_batch=args.global_batch, n_micro=args.n_micro,
         bucket_slack=args.bucket_slack, lr=args.lr, seed=args.seed,
         store=args.store, prefetch_ahead=args.prefetch_ahead,
-        device=args.device)
-    report = sess.train(args.steps)
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, device=args.device)
+    if args.resume and args.ckpt_dir:
+        if sess.restore_if_available() is not None:
+            print(f"[train] resumed from step {int(sess.state.step)}")
+    report = sess.train(max(args.steps - int(sess.state.step), 0))
     print("[train] summary:", json.dumps(report.summary))
     return report.state, report.stats
 

@@ -1,7 +1,8 @@
 """The port's async host-stage executor (``repro_torch.core.store
 .async_exec``) against the port's own synchronous loop, case for case with
-``tests/test_async_exec.py`` (its checkpoint case comes with the port's
-checkpoints).
+``tests/test_async_exec.py`` (its checkpoint case,
+``test_checkpoint_export_drains_pending_commits``, is in
+``tests/test_torch_checkpoint.py``).
 
 Workload: the reduced ``dlrm-ctr`` (``global_batch=32``, N = 4,
 ``bucket_slack=4.0``), 5 steps (7 for the forced race), on the CPU.

@@ -1,8 +1,9 @@
 """The port on the card: the hand-written CUDA kernels, the serving paths
 (DLRM embeddings, dense-LM prefill and decode), the training paths (DLRM,
 HSTU and FuXi, whose attention runs the tf32x3 flash_attention forward and
-backward kernels)
-and the host and cached embedding tiers.
+backward kernels),
+the host and cached embedding tiers, and checkpoints (chunked writes from
+the card, an in-place restore, the save's time kept out of the steps).
 
 Every test here needs an NVIDIA GPU, carries the ``cuda`` marker and skips
 without one (the kernels have no CPU mode). The file imports no jax, so it
@@ -1105,3 +1106,53 @@ def test_pack_and_int8_on_the_card(cuda_device, async_on):
     assert got.summary["wire_bytes"] < want.summary["wire_bytes"]
     assert all(np.isfinite(q.stats.losses))
     assert q.summary["comm_rows_synced"] + q.summary["comm_rows_deferred"] > 0
+
+
+def test_checkpoint_round_trip_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """A device-tier state saved from the card through many small chunks:
+    each leaf file holds np.save's bytes of the tensor; a session from
+    another seed restores it in place (the same tensors, still on the
+    card) with the same bits, and both train on alike."""
+    import io
+    import json
+
+    from repro_torch.dist import checkpoint as ck
+
+    monkeypatch.setattr(ck, "CHUNK_BYTES", 4096)
+    kw = dict(reduced=True, global_batch=32, n_micro=4, ckpt_dir=str(tmp_path))
+    a = Session.from_arch("dlrm-ctr", seed=0, **kw)
+    a.train(2)
+    path = a.save()
+    manifest = json.loads(open(os.path.join(path, "manifest.json")).read())
+    leaves = ck.flatten_state(a.state)
+    for e, (name, t) in zip(manifest["leaves"], leaves):
+        assert t.device.type == "cuda", name
+        buf = io.BytesIO()
+        np.save(buf, t.cpu().numpy())
+        assert open(os.path.join(path, e["file"]), "rb").read() == buf.getvalue(), name
+    b = Session.from_arch("dlrm-ctr", seed=1, data_seed=0, **kw)
+    ptrs = [t.data_ptr() for _, t in ck.flatten_state(b.state)]
+    assert b.restore_if_available() == 2
+    got = ck.flatten_state(b.state)
+    assert [t.data_ptr() for _, t in got] == ptrs  # in place
+    for (name, x), (_, y) in zip(got, leaves):
+        assert x.device.type == "cuda" and torch.equal(x, y), name
+    assert b.train(2).stats.losses == a.train(2).stats.losses
+    assert torch.equal(b.state.table.rows, a.state.table.rows)
+
+
+def test_save_time_stays_out_of_the_step_spans_on_the_card(cuda_device):
+    """A step's span on the card runs from the previous step's event: after
+    a slow save the driver records a fresh mark, so the save's seconds land
+    in no step and flag no straggler."""
+    import time
+
+    sess = Session.from_arch("dlrm-ctr", reduced=True, global_batch=32, n_micro=4)
+    pause = 0.5
+    driver = sess.strategy.build_driver(
+        sess.fns, resolve_stream(sess.workload, sess.data_seed), sess.workload,
+        on_checkpoint=lambda state, n: time.sleep(pause), ckpt_every=2,
+        metrics_every=1)
+    _, stats = driver.run(sess._take_state(), 5)
+    assert stats.straggler_steps == []
+    assert max(stats.step_times[1:]) < pause / 2, stats.step_times
