@@ -125,6 +125,26 @@ hand-written kernel on it against its plain PyTorch version:
    cache that evicts, batch 1,024, exports at steps 2 and 4 of 5 to the
    driver's checkpoint callback with async stages off and on: the same
    bits (``checkpoint_async_export``);
+6h. faults at full width: (``chaos``) 6a's host tier and evicting cache,
+   async stages off and on, each as in 6a with
+   ``fault_inject="plan:step=1;retrieve:step=2;commit:step=3;h2d:step=1;
+   d2h:step=5"`` (every store site once in the counted run): the losses,
+   the rows and adagrad state at every touched key and at 1,048,576
+   sampled keys, the dense params and AdamW state equal 6a's synchronous
+   fault-free run of the tier bit for bit, with ``faults_injected`` 5, ``stage_retries`` at least 3 and
+   ``commit_rollbacks`` at least 2; each run's step p50 and p99 beside the
+   fault-free run's, the steps the watchdog flagged and its seconds; then
+   (``preemption``) the async host tier with a guard on SIGTERM and no
+   periodic save: the batch source sends a real SIGTERM as it yields batch
+   3 of 5, the driver stops at the next step boundary (``preempted_at``
+   from 1 to 4 required) and saves on its way out into
+   ``build/ckpt_smoke`` (the phase fails if the disk cannot hold one
+   checkpoint and 5%), the guard gives SIGTERM back its handler (required),
+   and a session from seed 1 restores the save and trains the steps left:
+   the losses, dense params, AdamW state and the rows and adagrad state at
+   the touched and sampled keys equal an uninterrupted 5-step run bit for
+   bit, and the two runs launch what it launches; the save's and the restore's seconds and GB/s and the device's peak
+   memory over each (one master) are printed, and the directory removed;
 7. consistency at the reduced ``dlrm-ctr``: nestpipe = serial = the naive
    reference trainer within 1e-5 over 6 steps, and async diverges; the
    reference, run twice from the same state, gives the same bits (its sum
@@ -254,8 +274,9 @@ hand-written kernel on it against its plain PyTorch version:
    gather's and the scatter's cached-path calls of 6b as
    ``dlrm_cached_train_calls``; launches by path, the host and cached
    tiers' training, every run of 6e and 6f, the cached tier's serving
-   with and without ``pack`` and 6g's resumed steps among them) and, last,
-   the ``{"ok": true, ...}`` line.
+   with and without ``pack``, 6g's resumed steps, 6h's four chaos runs and
+   its preempted and resumed run among them) and, last, the ``{"ok": true,
+   ...}`` line.
 
 Every phase prints one JSON line. Nothing is caught: any failure exits
 non-zero. Run from the repo root: ``python3 chip_smoke.py`` (``--profile``
@@ -273,6 +294,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -336,6 +358,25 @@ CKPT_AT, CKPT_STEPS = 3, 5
 CKPT_DIR = Path(__file__).resolve().parent / "build" / "ckpt_smoke"
 # then the cached tier's mid-run exports, sync against async
 EXPORT_EVERY, EXPORT_STEPS = 2, 5
+# phase 6h: a fault at every store site, each once (step=N counts the calls
+# to its own site; the d2h pull of commit 5 needs 6 commits), on the host
+# tier and 6a's evicting cache, async stages off and on, each held to 6a's
+# synchronous run of its tier; 6a keeps those runs' rows at SAMPLED_KEYS
+# random keys besides the touched ones
+CHAOS_SPEC = "plan:step=1;retrieve:step=2;commit:step=3;h2d:step=1;d2h:step=5"
+CHAOS_SITES = 5
+CHAOS_RUNS = (("host-chaos", "host", {}),
+              ("host-async-chaos", "host", {"async_stages": "on"}),
+              ("cached-evicting-chaos", "cached", COMM_CACHE),
+              ("cached-evicting-async-chaos", "cached", {**COMM_CACHE, "async_stages": "on"}))
+# the async chaos runs' fault-free counterparts in 6e and 6f (pack replays
+# off bit for bit), whose step p50 they print beside 6a's synchronous one
+CHAOS_ASYNC_TWIN = {"host-async-chaos": "host-async",
+                    "cached-evicting-async-chaos": "cached-evicting-pack-async"}
+SAMPLED_KEYS = 1 << 20
+# then a real SIGTERM preempts the async host tier: the batch source sends
+# it as it yields batch PREEMPT_SIGNAL_AT of PREEMPT_STEPS
+PREEMPT_STEPS, PREEMPT_SIGNAL_AT = 5, 3
 HSTU_BATCH = 256  # the per-worker share of the 65,536 recsys batch over 256 workers
 HSTU_STEPS = 6
 # the hstu_attention forward's calls a step: 4 layers x 4 micro-batches x 2
@@ -400,20 +441,23 @@ KERNELS = {  # name -> (source, the Pallas kernel it replaces)
 # the paths each kernel must run on (launched at least once there); 6e's and
 # 6f's runs are paths of their own
 TIER_PATHS = {run: "dlrm_" + run.replace("-", "_") + "_train"
-              for run, _, _ in ASYNC_RUNS + COMM_RUNS}
-CACHED_PATHS = tuple(TIER_PATHS[run] for run, store, _ in ASYNC_RUNS + COMM_RUNS
+              for run, _, _ in ASYNC_RUNS + COMM_RUNS + CHAOS_RUNS}
+CACHED_PATHS = tuple(TIER_PATHS[run] for run, store, _ in ASYNC_RUNS + COMM_RUNS + CHAOS_RUNS
                      if store == "cached") + ("dlrm_cached_pack_serve",)
-# phase 6g's resumed run (steps 4-5 after a restore) is a path of its own
+# phase 6g's resumed run (steps 4-5 after a restore) is a path of its own,
+# and so are 6h's preempted run and its resumption together
 RUNS_ON = {
     "embedding_gather": ("dlrm_train", "dlrm_serve", "dlrm_host_train",
                          "dlrm_cached_train", "dlrm_cached_serve", "hstu_train",
                          "fuxi_train", "lm_serve", "dlrm_cached_pack_serve",
-                         "dlrm_ckpt_resume_train") + tuple(TIER_PATHS.values()),
-    "segment_rowsum": ("dlrm_train", "dlrm_host_train", "dlrm_cached_train",
-                       "hstu_train", "fuxi_train", "dlrm_ckpt_resume_train")
+                         "dlrm_ckpt_resume_train", "dlrm_preempt_resume_train")
     + tuple(TIER_PATHS.values()),
+    "segment_rowsum": ("dlrm_train", "dlrm_host_train", "dlrm_cached_train",
+                       "hstu_train", "fuxi_train", "dlrm_ckpt_resume_train",
+                       "dlrm_preempt_resume_train") + tuple(TIER_PATHS.values()),
     "buffer_sync": ("dlrm_train", "dlrm_host_train", "dlrm_cached_train", "hstu_train",
-                    "fuxi_train", "dlrm_ckpt_resume_train") + tuple(TIER_PATHS.values()),
+                    "fuxi_train", "dlrm_ckpt_resume_train", "dlrm_preempt_resume_train")
+    + tuple(TIER_PATHS.values()),
     # the host tier writes its master back on the host: no device scatter
     "embedding_scatter": ("dlrm_train", "dlrm_cached_train", "dlrm_cached_serve",
                           "hstu_train", "fuxi_train", "dlrm_ckpt_resume_train")
@@ -1463,6 +1507,38 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    def window_keys(sess, start, steps):
+        """The keys the windows of steps [start, start + steps) of the
+        session's stream (its data seed) touch, unique."""
+        stream = resolve_stream(sess.workload, sess.data_seed, start_step=start)
+        transform = make_cluster_transform(N_MICRO, sess.workload.npcfg.clustering)
+        keys = []
+        for _ in range(steps):
+            bk = sess.workload.engine.route_window(
+                torch.as_tensor(transform(next(stream))["keys"], device=dev),
+                N_MICRO).buffer_keys
+            keys.append(bk[bk != SENTINEL])
+        return torch.unique(torch.cat(keys)).long()
+
+    def final_state(state, touched, sampled):
+        """What a run is held to, on the host: the rows and adagrad state
+        at the touched and the sampled keys, the dense params and the
+        optimizer state."""
+        return {"touched_rows": state.table.rows[touched].cpu(),
+                "touched_accum": state.table.accum[touched].cpu(),
+                "sampled_rows": state.table.rows[sampled].cpu(),
+                "sampled_accum": state.table.accum[sampled].cpu(),
+                "dense_and_optimizer": [(k, t.cpu()) for k, t in
+                                        flatten_state(state._replace(table=None))]}
+
+    def same_final(got, want):
+        """Bit for bit, by part, two ``final_state`` results."""
+        out = {k: torch.equal(got[k], want[k]) for k in want if k != "dense_and_optimizer"}
+        g, w = got["dense_and_optimizer"], want["dense_and_optimizer"]
+        out["dense_and_optimizer"] = [k for k, _ in g] == [k for k, _ in w] \
+            and all(torch.equal(t, u) for (_, t), (_, u) in zip(g, w))
+        return out
+
     # -- 6a. full-width dlrm-ctr training through the host and cached tiers
     # the same seed and steps through each tier, then the device tier: the
     # same losses and the same master rows and adagrad state, bit for bit,
@@ -1622,9 +1698,12 @@ def main() -> int:
                    stage_workers=kw.get("stage_workers", 1),
                    prefetch_ahead=kw.get("prefetch_ahead", 1),
                    buffer_sync_launches=launches["buffer_sync"],
+                   straggler_steps=trep.stats.straggler_steps,
                    **{k: s[k] for k in ("async_repairs_at_commit", "async_repairs_deferred",
                                         "async_repairs_ring", "comm_rows_synced",
-                                        "comm_rows_deferred") if k in s})
+                                        "comm_rows_deferred", "faults_injected",
+                                        "stage_retries", "commit_rollbacks",
+                                        "stragglers_flagged") if k in s})
         # pinned host memory the counted steps allocated: the caching host
         # allocator's new blocks (cudaHostAlloc)
         row["host_alloc_in_counted_steps"] = {
@@ -1645,14 +1724,20 @@ def main() -> int:
     for m, fn in tier_patches:
         setattr(HostStore, m, fn)
     try:
-        tiers = {}
+        tiers, chaos_ref = {}, {}
         for run, store, kw in TIER_RUNS:
             tsess, losses, row = tier_run(run, store, **kw)
             if run == "host":
                 keys_t = np.unique(np.concatenate(touched))
                 keys_t = torch.from_numpy(keys_t[keys_t != SENTINEL].astype(np.int64)).to(dev)
+                # a generator of its own: the later phases' draws stay as they were
+                keys_s = torch.randint(0, tsess.workload.spec.padded_rows, (SAMPLED_KEYS,),
+                                       device=dev, generator=torch.Generator(dev).manual_seed(6))
             table = tsess.state.table
             tiers[run] = (losses, table.rows[keys_t], table.accum[keys_t], row)
+            if run in ("host", "cached-evicting"):  # what 6h's chaos runs are held to
+                chaos_ref[run] = {"losses": losses, "row": row,
+                                  "final": final_state(tsess.state, keys_t, keys_s)}
             del table  # the next run of this session frees it
             gc.collect()
             torch.cuda.empty_cache()
@@ -1850,7 +1935,7 @@ def main() -> int:
     side_keys = ("step_p50_ms", "step_p99_ms", "samples_per_s", "stage_host_ms_per_step",
                  "h2d_bytes", "d2h_bytes", "h2d_gb_per_s", "d2h_gb_per_s", "wire_bytes",
                  "idx_bytes", "buffer_sync_launches", "host_alloc_in_counted_steps")
-    path_launches = {}
+    path_launches, exec_p50 = {}, {}
     exec_runs = {"async": [], "comm": []}
     for m, fn in tier_patches:
         setattr(HostStore, m, fn)
@@ -1903,6 +1988,7 @@ def main() -> int:
                     raise SystemExit(f"the forced race ran no deferred repairs: {row}")
             exec_runs["comm" if "sparse_comm" in kw else "async"].append(rec)
             path_launches[run] = row["launches"]
+            exec_p50[run] = row["step_p50_ms"]
             if args.profile and run in ("host-async", "cached-async"):
                 # 4 more steps, beside 6a's synchronous tier_profile lines
                 marker["on"] = True
@@ -1932,7 +2018,7 @@ def main() -> int:
                                if r["run"] == "cached-evicting-pack") / off[k]
                         for k in ("wire_bytes", "idx_bytes", "h2d_bytes", "d2h_bytes")
                         if off.get(k)})
-    del sync_ref, keys_t, exec_runs
+    del sync_ref, exec_runs
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1988,22 +2074,11 @@ def main() -> int:
                          f"step {manifest['step']}")
     # what steps 4-5 wrote: the rows and adagrad state at their windows'
     # keys, the dense params and the optimizer state
-    stream = resolve_stream(a.workload, 0, start_step=CKPT_AT)
-    transform = make_cluster_transform(N_MICRO, a.workload.npcfg.clustering)
-    wkeys = []
-    for _ in range(CKPT_STEPS - CKPT_AT):
-        bk = a.workload.engine.route_window(
-            torch.as_tensor(transform(next(stream))["keys"], device=dev), N_MICRO).buffer_keys
-        wkeys.append(bk[bk != SENTINEL])
-    touched_ck = torch.unique(torch.cat(wkeys)).long()
+    touched_ck = window_keys(a, CKPT_AT, CKPT_STEPS - CKPT_AT)
     # a generator of its own: the later phases' draws stay as they were
-    untouched_ck = torch.randint(0, a.workload.spec.padded_rows, (1 << 20,), device=dev,
+    untouched_ck = torch.randint(0, a.workload.spec.padded_rows, (SAMPLED_KEYS,), device=dev,
                                  generator=torch.Generator(dev).manual_seed(CKPT_AT))
-    a_final = {"rows": a.state.table.rows[touched_ck].cpu(),
-               "accum": a.state.table.accum[touched_ck].cpu(),
-               "sample_rows": a.state.table.rows[untouched_ck].cpu(),
-               "sample_accum": a.state.table.accum[untouched_ck].cpu(),
-               "rest": [(k, t.cpu()) for k, t in flatten_state(a.state._replace(table=None))]}
+    a_final = final_state(a.state, touched_ck, untouched_ck)
     a_losses, a_stats = rep_a.stats.losses, rep_a.stats
     a_summary = rep_a.summary
     del a, rep_a  # every reference to A's master
@@ -2026,17 +2101,8 @@ def main() -> int:
     rep_b = b.train(CKPT_STEPS - CKPT_AT)
     torch.cuda.synchronize()
     ckpt_launches = counts()
-    b_rest = flatten_state(b.state._replace(table=None))
-    same = {
-        "losses": rep_b.stats.losses == a_losses[CKPT_AT:],
-        "touched_rows": torch.equal(b.state.table.rows[touched_ck].cpu(), a_final["rows"]),
-        "touched_accum": torch.equal(b.state.table.accum[touched_ck].cpu(), a_final["accum"]),
-        "sampled_rows": torch.equal(b.state.table.rows[untouched_ck].cpu(),
-                                    a_final["sample_rows"]),
-        "sampled_accum": torch.equal(b.state.table.accum[untouched_ck].cpu(),
-                                     a_final["sample_accum"]),
-        "dense_and_optimizer": [k for k, _ in b_rest] == [k for k, _ in a_final["rest"]]
-        and all(torch.equal(t.cpu(), u) for (_, t), (_, u) in zip(b_rest, a_final["rest"]))}
+    same = {"losses": rep_b.stats.losses == a_losses[CKPT_AT:],
+            **same_final(final_state(b.state, touched_ck, untouched_ck), a_final)}
     after_save = [t for t in a_stats.straggler_steps if t >= CKPT_AT] \
         + rep_b.stats.straggler_steps
     save, restore = ckpt_io["save"], ckpt_io["restore"]
@@ -2080,7 +2146,7 @@ def main() -> int:
                              f"the card: more than one master")
     if any(ckpt_launches[k] != v for k, v in ckpt_want.items()):
         raise SystemExit(f"resumed-run launches {ckpt_launches}, want {ckpt_want}")
-    del b, rep_b, b_rest, a_final
+    del b, rep_b, a_final
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(CKPT_DIR)
@@ -2115,6 +2181,188 @@ def main() -> int:
         raise SystemExit(f"async mid-run exports differ from sync: {export_equal}")
     del exports
     emit("checkpoint_phase", seconds=time.perf_counter() - t_phase)
+
+    # -- 6h. faults at full width: chaos, then a real SIGTERM ----------------
+    # (a) each run as in 6a (seed 0, one warm-up step, TIER_STEPS counted)
+    # with a fault at every store site, each once in the counted run (every
+    # train() builds its store and its injector; the warm-up's single step
+    # reaches no armed call); the stores' bounded retries replay each stage
+    # before its first CUDA work, so the losses, the rows and adagrad state
+    # at every touched key and at the sampled keys, the dense params and
+    # the optimizer state equal 6a's synchronous run of the tier bit for bit
+    t_phase = time.perf_counter()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    chaos = []
+    for m, fn in tier_patches:
+        setattr(HostStore, m, fn)
+    try:
+        for run, store, kw in CHAOS_RUNS:
+            t0 = time.perf_counter()
+            tsess, losses, row = tier_run(run, store, capture=False,
+                                          fault_inject=CHAOS_SPEC, **kw)
+            ref_run = "cached-evicting" if store == "cached" else "host"
+            sync_base = chaos_ref[ref_run]
+            same = {"losses": losses == sync_base["losses"],
+                    **same_final(final_state(tsess.state, keys_t, keys_s),
+                                 sync_base["final"])}
+            del tsess
+            gc.collect()
+            torch.cuda.empty_cache()
+            rec = {"run": run, "store": store, **kw, "fault_inject": CHAOS_SPEC,
+                   "sync_run": ref_run, "equal_to_sync_run": same,
+                   **{k: row.get(k) for k in (
+                       "faults_injected", "stage_retries", "commit_rollbacks",
+                       "stragglers_flagged", "straggler_steps", "step_p50_ms",
+                       "step_p99_ms", "step_ms", "samples_per_s", "stage_host_ms_per_step",
+                       "h2d_bytes", "d2h_bytes", "wall_s", "launches")},
+                   "sync_step_p50_ms": sync_base["row"]["step_p50_ms"],
+                   "sync_step_p99_ms": sync_base["row"]["step_p99_ms"],
+                   "sync_stragglers_flagged": sync_base["row"].get("stragglers_flagged"),
+                   **({"async_twin": CHAOS_ASYNC_TWIN[run],
+                       "async_twin_step_p50_ms": exec_p50[CHAOS_ASYNC_TWIN[run]]}
+                      if run in CHAOS_ASYNC_TWIN else {}),
+                   "seconds": time.perf_counter() - t0}
+            chaos.append(rec)
+            path_launches[run] = row["launches"]
+            if not all(same.values()):
+                raise SystemExit(f"the {run} run differs from 6a's {ref_run} run: {same}")
+            if row.get("faults_injected") != CHAOS_SITES or row.get("stage_retries", 0) < 3 \
+                    or row.get("commit_rollbacks", 0) < 2:
+                raise SystemExit(f"the {run} run's faults and retries are off: {rec}")
+    finally:
+        for m, fn in real_tier.items():
+            setattr(HostStore, m, fn)
+    emit("chaos", arch=ARCH, global_batch=TRAIN_BATCH, steps=1 + TIER_STEPS,
+         touched_keys=keys_t.numel(), sampled_keys=keys_s.numel(), runs=chaos)
+    del chaos_ref, keys_s
+
+    # (b) full-width dlrm-ctr on the async host tier, a guard on SIGTERM and
+    # no periodic save: the batch source sends a real SIGTERM as it yields
+    # batch PREEMPT_SIGNAL_AT (the handler runs on the main thread), the
+    # driver stops at the next step boundary and saves on its way out, and a
+    # session from seed 1 restores that and trains the steps left; the whole
+    # equals an uninterrupted run bit for bit. One master on the card at a
+    # time: each session goes before the next is drawn
+    t_pre = time.perf_counter()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    CKPT_DIR.mkdir(parents=True)
+    pre_kw = dict(mode="nestpipe", global_batch=TRAIN_BATCH, n_micro=N_MICRO,
+                  bucket_slack=SLACK, data_seed=0, store="host", async_stages="on")
+    u = Session.from_arch(ARCH, seed=0, **pre_kw)
+    rep_u = u.train(PREEMPT_STEPS)
+    torch.cuda.synchronize()
+    touched_pre = window_keys(u, 0, PREEMPT_STEPS)
+    sampled_pre = torch.randint(0, u.workload.spec.padded_rows, (SAMPLED_KEYS,), device=dev,
+                                generator=torch.Generator(dev).manual_seed(PREEMPT_STEPS))
+    u_final = final_state(u.state, touched_pre, sampled_pre)
+    u_losses, u_p50 = rep_u.stats.losses, rep_u.summary["p50_step_s"]
+    del u, rep_u
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    handler_before = signal.getsignal(signal.SIGTERM)
+    a = Session.from_arch(ARCH, seed=0, ckpt_dir=str(CKPT_DIR),
+                          preemption_signals=(signal.SIGTERM,), **pre_kw)
+    master_bytes = a.state.table.rows.numel() * 4
+    need = sum(t.numel() * t.element_size() for _, t in flatten_state(a.state))
+    free = shutil.disk_usage(CKPT_DIR).free
+    if free < 1.05 * need:
+        raise SystemExit(f"{CKPT_DIR} has {free} bytes free; one checkpoint and "
+                         f"5% need {1.05 * need:.0f}")
+    if signal.getsignal(signal.SIGTERM) != a.guard._handler:
+        raise SystemExit("the session's guard is not SIGTERM's handler")
+    real_stream = session_mod.resolve_stream
+    sent = []
+
+    def signalling_stream(*a_, **kw):
+        def batches():
+            for i, batch in enumerate(real_stream(*a_, **kw)):
+                if i == PREEMPT_SIGNAL_AT:
+                    sent.append(threading.current_thread().name)
+                    os.kill(os.getpid(), signal.SIGTERM)
+                yield batch
+        return batches()
+
+    ckpt_io.clear()
+    session_mod.resolve_stream = signalling_stream
+    session_mod.save_checkpoint = timed_io("save", real_io["save_checkpoint"])
+    reset_counts()
+    try:
+        rep_a = a.train(PREEMPT_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        session_mod.resolve_stream = real_stream
+        session_mod.save_checkpoint = real_io["save_checkpoint"]
+        a.guard.restore()
+    pre_launches = counts()
+    handler_after = signal.getsignal(signal.SIGTERM)
+    at = rep_a.stats.preempted_at
+    a_losses, a_p50 = rep_a.stats.losses, rep_a.summary["p50_step_s"]
+    a_stragglers = rep_a.summary["stragglers_flagged"]
+    if handler_after is not handler_before:
+        raise SystemExit(f"SIGTERM's handler is {handler_after}, not {handler_before}")
+    if at is None or not 1 <= at < PREEMPT_STEPS or len(a_losses) != at \
+            or sorted(os.listdir(CKPT_DIR)) != [f"step_{at:08d}"]:
+        raise SystemExit(f"the SIGTERM ({sent}) gave preempted_at {at}, "
+                         f"{len(a_losses)} steps, {os.listdir(CKPT_DIR)}")
+    ckpt_bytes = sum(f.stat().st_size for f in (CKPT_DIR / f"step_{at:08d}").iterdir())
+    del a, rep_a  # every reference to A's master
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    b = Session.from_arch(ARCH, seed=1, ckpt_dir=str(CKPT_DIR), **pre_kw)
+    session_mod.restore_latest_verifiable = timed_io(
+        "restore", real_io["restore_latest_verifiable"])
+    try:
+        restored_at = b.restore_if_available()
+    finally:
+        session_mod.restore_latest_verifiable = real_io["restore_latest_verifiable"]
+    if restored_at != at:
+        raise SystemExit(f"restore_if_available gave {restored_at}, not {at}")
+    reset_counts()
+    rep_b = b.train(PREEMPT_STEPS - at)
+    torch.cuda.synchronize()
+    pre_launches = {k: v + counts()[k] for k, v in pre_launches.items()}
+    path_launches["preempt-resume"] = pre_launches
+    # the two runs launch what one uninterrupted host-tier run does (no
+    # device scatter: the host tier writes its master back on the host)
+    pre_want = {"embedding_gather": 3 * N_MICRO * PREEMPT_STEPS,
+                "segment_rowsum": (N_MICRO + 1) * PREEMPT_STEPS,
+                "buffer_sync": PREEMPT_STEPS - 1, "embedding_scatter": 0}
+    same = {"losses": a_losses + rep_b.stats.losses == u_losses,
+            **same_final(final_state(b.state, touched_pre, sampled_pre), u_final)}
+    save, restore = ckpt_io["save"], ckpt_io["restore"]
+    emit("preemption", arch=ARCH, store="host", async_stages="on", global_batch=TRAIN_BATCH,
+         steps=PREEMPT_STEPS, signal="SIGTERM", signal_at_batch=PREEMPT_SIGNAL_AT,
+         signal_sent_from=sent, preempted_at=at, restored_at=restored_at,
+         handler_restored=handler_after is handler_before, free_bytes=free,
+         checkpoint_bytes=ckpt_bytes, checkpoint_gb=ckpt_bytes / 1e9,
+         master_gb=master_bytes / 1e9, save_s=save["seconds"],
+         save_d2h_s=save.get("d2h_s", 0.0), save_write_crc_s=save.get("write_s", 0.0),
+         save_gb_per_s=ckpt_bytes / save["seconds"] / 1e9,
+         save_peak_device_gb=save["peak_device_gb"], restore_s=restore["seconds"],
+         restore_verify_s=restore["verify_s"], restore_load_h2d_s=restore["load_s"],
+         restore_gb_per_s=ckpt_bytes / restore["seconds"] / 1e9,
+         restore_peak_device_gb=restore["peak_device_gb"], device_gb_at_start=start_gb,
+         uninterrupted_losses=u_losses, a_losses=a_losses, b_losses=rep_b.stats.losses,
+         uninterrupted_step_p50_ms=u_p50 * 1e3, a_step_p50_ms=a_p50 * 1e3,
+         b_step_p50_ms=rep_b.summary["p50_step_s"] * 1e3,
+         a_stragglers_flagged=a_stragglers, touched_keys=touched_pre.numel(),
+         sampled_keys=sampled_pre.numel(), bit_equal=same, launches=pre_launches,
+         seconds=time.perf_counter() - t_pre)
+    if not all(same.values()):
+        raise SystemExit(f"the resumed run differs from the uninterrupted one: {same}")
+    for kind, io in (("save", save), ("restore", restore)):
+        if (io["peak_device_gb"] - start_gb) * 1e9 > 1.5 * master_bytes:
+            raise SystemExit(f"the {kind} peaked at {io['peak_device_gb']:.2f} GB on "
+                             f"the card: more than one master")
+    if any(pre_launches[k] != v for k, v in pre_want.items()):
+        raise SystemExit(f"preempted and resumed launches {pre_launches}, want {pre_want}")
+    del b, rep_b, u_final
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(CKPT_DIR)
+    emit("faults_phase", seconds=time.perf_counter() - t_phase)
 
     # -- 7. consistency at the reduced size ---------------------------------
     kw = dict(reduced=True, global_batch=32, n_micro=N_MICRO, seed=1)
@@ -3344,6 +3592,7 @@ def main() -> int:
                    **{path: path_launches[run][kname]
                       for run, path in TIER_PATHS.items()},
                    "dlrm_ckpt_resume_train": ckpt_launches[kname],
+                   "dlrm_preempt_resume_train": path_launches["preempt-resume"][kname],
                    "hstu_train": hstu_launches[kname],
                    "fuxi_train": fuxi_launches[kname],
                    "lm_serve": lm_launches[kname]}

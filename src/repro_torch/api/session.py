@@ -16,8 +16,11 @@
 Training runs any ported recsys backbone (DLRM, HSTU, FuXi) and
 checkpoints it (``ckpt_dir``, ``ckpt_every``; :meth:`Session.save`,
 :meth:`Session.restore`, :meth:`Session.restore_if_available`,
-``train(resume=True)``); recsys serving has a DLRM head only, as in the
-JAX package. A dense LM serves (batched
+``train(resume=True)``), under the session's fault policy: a preemption
+guard (``preemption_signals``) the driver polls at step boundaries, saving
+before it exits, a step watchdog (``watchdog_factor``) and the fault
+injector of ``fault_inject`` (``repro_torch.dist``). Recsys serving has a
+DLRM head only, as in the JAX package. A dense LM serves (batched
 prefill, then greedy KV-cache decode) and does not train yet. A config
 outside the registry goes through ``launch.build.assemble_workload`` and
 :meth:`Session.from_workload`. ``device`` defaults to ``cuda`` and raises
@@ -42,6 +45,8 @@ from ..dist.checkpoint import (
     restore_latest_verifiable,
     save_checkpoint,
 )
+from ..dist.fault import PreemptionGuard, StepWatchdog
+from ..dist.inject import FaultInjector, resolve_fault_inject
 from ..launch.build import LM_TRAINING_NOT_PORTED, RECSYS_GLOBAL_BATCH, Workload, resolve
 from ..models.dlrm import DLRM
 from ..train.state import TrainState
@@ -93,6 +98,13 @@ class Session:
     Training updates the master in place; serving reads the current
     weights.
 
+    The fault policy is the session's too: ``guard`` (a
+    ``PreemptionGuard`` on ``preemption_signals``; none by default, and
+    ``guard.restore()`` gives the signals back), ``watchdog`` (a
+    ``StepWatchdog`` at ``watchdog_factor``) and ``ckpt_injector``, built
+    from the config's resolved ``fault_inject`` apart from the store's, so
+    its ``ckpt_torn`` / ``ckpt_corrupt`` schedules count saves.
+
     A dense LM session holds no train state: :meth:`serve` draws the
     params and the master table only (no optimizer moments), from the
     seed, once per seed, unless :meth:`ingest` handed it weights.
@@ -101,6 +113,7 @@ class Session:
     def __init__(self, workload: Workload, *, opt_cfg: Optional[OptimizerConfig] = None,
                  seed: int = 0, data_seed: Optional[int] = None,
                  ckpt_dir: str = "", ckpt_every: int = 0, strategy=None,
+                 watchdog_factor: float = 3.0, preemption_signals: tuple = (),
                  reduced: bool = False):
         self.workload = workload
         self.strategy = strategy or get_strategy(workload.mode)
@@ -111,6 +124,10 @@ class Session:
         self.ckpt_every = ckpt_every
         self.reduced = reduced
         self.device = workload.device
+        self.guard = PreemptionGuard(signals=preemption_signals)
+        self.watchdog = StepWatchdog(factor=watchdog_factor)
+        self.ckpt_injector = FaultInjector.from_spec(
+            resolve_fault_inject(workload.npcfg.fault_inject))
         self._fns = None
         self._optimizer = None
         self._state: Optional[TrainState] = None
@@ -141,6 +158,7 @@ class Session:
         sparse_comm: str = "auto",
         async_stages: str = "auto",
         stage_workers: int = 1,
+        fault_inject: str = "auto",
         npcfg: Optional[NestPipeConfig] = None,
         opt_cfg: Optional[OptimizerConfig] = None,
         lr: Optional[float] = None,
@@ -148,6 +166,7 @@ class Session:
         data_seed: Optional[int] = None,
         ckpt_dir: str = "",
         ckpt_every: int = 0,
+        preemption_signals: tuple = (),
         device: Optional[str | torch.device] = None,
     ) -> "Session":
         """Resolve a registry arch into a ready session on ``device``.
@@ -177,6 +196,17 @@ class Session:
         ``$REPRO_ASYNC_STAGES``, then off), and ``stage_workers`` sizes its
         plan / retrieve pool.
 
+        ``fault_inject`` arms deterministic fault injection at the host
+        stores' stage boundaries and the checkpoint writer (a schedule such
+        as ``"retrieve:step=1;commit:step=3"``, ``dist/inject.py``;
+        ``"auto"`` resolves ``$REPRO_FAULT_INJECT``, then off). The stores'
+        bounded retries absorb the stage faults: the run replays the
+        fault-free trajectory bit for bit, and the summary counts
+        ``faults_injected``, ``stage_retries`` and ``commit_rollbacks``.
+        ``preemption_signals`` (e.g. ``(signal.SIGTERM,)``) install the
+        session's preemption guard: a signal makes the run save at the next
+        step boundary and return.
+
         ``seed`` draws the weights, ``data_seed`` (default: ``seed``) the
         batch stream. ``ckpt_dir`` is where :meth:`save` and
         :meth:`restore` write and read, and ``ckpt_every`` (with a
@@ -203,6 +233,8 @@ class Session:
             overlay["async_stages"] = async_stages
         if stage_workers != 1:
             overlay["stage_workers"] = stage_workers
+        if fault_inject != "auto":
+            overlay["fault_inject"] = fault_inject
         if overlay:
             npcfg = dataclasses.replace(npcfg, **overlay)
         npcfg = strategy.configure(npcfg)
@@ -212,7 +244,7 @@ class Session:
             opt_cfg = dataclasses.replace(opt_cfg or OptimizerConfig(), lr=lr)
         return cls(wl, opt_cfg=opt_cfg, seed=seed, data_seed=data_seed,
                    ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, strategy=strategy,
-                   reduced=reduced)
+                   preemption_signals=preemption_signals, reduced=reduced)
 
     @classmethod
     def from_workload(cls, workload: Workload, **kwargs) -> "Session":
@@ -365,7 +397,13 @@ class Session:
         With ``ckpt_dir`` set, the run saves every ``ckpt_every`` steps
         through the driver's checkpoint seam (at the state's own step) and,
         with ``checkpoint_final``, once more at the end. ``resume`` first
-        restores the newest verifiable checkpoint, if there is one."""
+        restores the newest verifiable checkpoint, if there is one.
+
+        The driver polls ``guard`` at every step boundary: on a notice it
+        saves through the same seam and returns early
+        (``stats.preempted_at``); a notice that landed after the last
+        boundary saves here. ``watchdog`` sees every step's time, and
+        ``stragglers_flagged`` counts its events of this run."""
         if self.is_lm:
             raise NotImplementedError(LM_TRAINING_NOT_PORTED)
         if resume:
@@ -374,12 +412,15 @@ class Session:
         stream = resolve_stream(self.workload, self.data_seed, start_step=start)
 
         def on_ckpt(state, _steps_done):
-            save_checkpoint(self.ckpt_dir, state, int(state.step))
+            save_checkpoint(self.ckpt_dir, state, int(state.step),
+                            injector=self.ckpt_injector)
 
         driver = self.strategy.build_driver(
             self.fns, stream, self.workload,
             on_checkpoint=on_ckpt if self.ckpt_dir else None,
-            ckpt_every=self.ckpt_every if self.ckpt_dir else 0)
+            ckpt_every=self.ckpt_every if self.ckpt_dir else 0,
+            guard=self.guard, watchdog=self.watchdog)
+        events_before = len(self.watchdog.events)
         t0 = time.perf_counter()
         # the run takes the state over (as a JAX run takes it donated): no
         # reference stays here, so a host tier frees the device master
@@ -387,7 +428,11 @@ class Session:
         state, stats = driver.run(self._take_state(), max(int(steps), 0))
         wall = time.perf_counter() - t0
         self._state, self._state_taken = state, False
-        if self.ckpt_dir and checkpoint_final:
+        flagged = len(self.watchdog.events) - events_before
+        if self.ckpt_dir and stats.preempted_at is None \
+                and (checkpoint_final or self.guard.should_checkpoint):
+            # a preempted run saved on its way out; this is checkpoint_final
+            # or a notice after the last step boundary
             self.save()
         summary = stats.summary()
         gb = self.workload.global_batch
@@ -399,9 +444,10 @@ class Session:
             "device": str(self.device),
             "wall_s": wall,
             "qps": gb * len(stats.step_times) / max(wall, 1e-9),
+            "stragglers_flagged": flagged,
         })
         return TrainReport(state=state, stats=stats, wall_s=wall,
-                           stragglers=len(stats.straggler_steps), summary=summary)
+                           stragglers=flagged, summary=summary)
 
     def _take_state(self) -> TrainState:
         state, self._state = self.state, None

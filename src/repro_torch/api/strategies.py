@@ -40,7 +40,8 @@ def build_workload_store(workload, *, serial: bool = False):
         cache_chunk_rows=npcfg.cache_chunk_rows,
         cache_policy=npcfg.cache_policy,
         prefetch_ahead=npcfg.prefetch_ahead,
-        sparse_comm=npcfg.sparse_comm)
+        sparse_comm=npcfg.sparse_comm,
+        fault_inject=npcfg.fault_inject)
 
 
 @dataclass(frozen=True)

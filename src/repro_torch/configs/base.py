@@ -229,6 +229,12 @@ class NestPipeConfig:
     # plan / retrieve threads of the executor (1: one FIFO; more keep the
     # values exact, cache counters may vary from run to run)
     stage_workers: int = 1
+    # Deterministic fault injection (dist/inject.py): a schedule such as
+    # "retrieve:step=7;commit:step=12,count=2;h2d:p=0.05,seed=3" arms the
+    # chaos seam at the host stores' stage boundaries and the checkpoint
+    # writer. "auto" resolves $REPRO_FAULT_INJECT, then off; "" | "off"
+    # force it off.
+    fault_inject: str = "auto"
 
 
 @dataclass(frozen=True)

@@ -48,9 +48,24 @@ Checkpoints: every ``ckpt_every`` steps the driver drains the pending
 metrics, exports the master from the store (under async stages after the
 executor's commits are applied, under its master lock) and hands the state
 to ``on_checkpoint(state, steps_done)``; then it re-marks the step clock,
-so the save's seconds stay out of the next step's span. Not ported
-(``ROADMAP.md``, port Queue 1, item 3b): the preemption guard and the step
-watchdog.
+so the save's seconds stay out of the next step's span.
+
+Faults (``dist/fault.py``): a ``guard`` (``PreemptionGuard``) is polled at
+every step boundary, never mid-step. Once it latched a notice, the loop
+breaks after window t's commit was submitted (``preempted_at = t + 1``;
+the last step is no preemption): under async stages the executor applies
+every queued commit and its in-flight lookahead retrieves finish before
+the store releases the master, and ``on_checkpoint(state,
+preempted_at)`` then saves the released state. The master then holds
+exactly ``t + 1`` whole windows and no lookahead buffer was committed, so
+a run resumed from that save retrieves what the uninterrupted run's
+repaired buffers held, and continues its trajectory bit for bit. A
+``watchdog`` (``StepWatchdog``) owns straggler detection when given: the
+metric drain hands it every step's time (on CUDA the step's own
+device-timeline span, idle included, not a span average), and
+``straggler_steps`` are its events. The host stores' retries and the
+injected faults surface as ``stage_retries``, ``commit_rollbacks`` and
+``faults_injected`` in ``summary()``.
 """
 from __future__ import annotations
 
@@ -80,6 +95,9 @@ class PipelineStats:
     store_tier: str = "device"
     sparse_comm: str = "off"
     async_stages: bool = False
+    # the step boundary (1-based, of this run) where a preemption notice
+    # stopped the loop; None for a run that went the distance
+    preempted_at: Optional[int] = None
     # the executor's repairs by kind (AsyncPrefetcher.repairs), async only
     async_repairs: Dict[str, int] = field(default_factory=dict)
     # cumulative store counters at the last drain, and at the first drain
@@ -124,11 +142,14 @@ class PipelineStats:
         }
         for k in ("h2d_bytes", "d2h_bytes", "h2d_bursts", "d2h_bursts",
                   "wire_bytes", "idx_bytes", "comm_rows_synced",
-                  "comm_rows_deferred", "h2d_copy_ms",
-                  "d2h_copy_ms") + STAGE_TIMER_KEYS:
+                  "comm_rows_deferred", "h2d_copy_ms", "d2h_copy_ms",
+                  "stage_retries", "commit_rollbacks",
+                  "faults_injected") + STAGE_TIMER_KEYS:
             if k in self.store_metrics:
                 out[k] = self.store_metrics[k]
         out.update(self._cache_rates())
+        if self.preempted_at is not None:
+            out["preempted_at"] = self.preempted_at
         return out
 
 
@@ -137,15 +158,18 @@ class _MetricsDrain:
 
     ``push`` keeps a step's aux dict (and, on CUDA, the event recorded when
     the step's work was queued) pending; ``drain`` syncs once, converts the
-    whole span, records step times and the straggler EMA, and snapshots the
-    store's host-side counters.
+    whole span, records step times and the straggler EMA (or hands each
+    step's time to the ``watchdog``, which then owns straggler detection:
+    its events and ``straggler_steps`` agree by construction), and
+    snapshots the store's host-side counters.
     """
 
     def __init__(self, stats: PipelineStats, straggler_factor: float,
-                 store=None):
+                 store=None, watchdog=None):
         self.stats = stats
         self.straggler_factor = straggler_factor
         self.store = store
+        self.watchdog = watchdog
         self.pending: List[tuple] = []
         self.ema: Optional[float] = None
         self._t_mark = time.perf_counter()
@@ -188,6 +212,10 @@ class _MetricsDrain:
                                            losses):
                 self.stats.step_times.append(dt)
                 self.stats.losses.append(loss)
+                if self.watchdog is not None:
+                    if self.watchdog.observe(t, dt):
+                        self.stats.straggler_steps.append(t)
+                    continue
                 if self.ema is not None and dt > self.straggler_factor * self.ema:
                     self.stats.straggler_steps.append(t)
                 self.ema = dt if self.ema is None else 0.9 * self.ema + 0.1 * dt
@@ -223,6 +251,8 @@ class DBPDriver:
         stage_hooks=None,  # StageExecutor test seam (schedule injection)
         on_checkpoint=None,  # (state with the master, steps done) -> None
         ckpt_every: int = 0,  # steps between checkpoints (0: none)
+        guard=None,  # dist.fault.PreemptionGuard, polled at step boundaries
+        watchdog=None,  # dist.fault.StepWatchdog: owns straggler detection
     ):
         if mode not in MODES:
             raise ValueError(f"unknown driver mode {mode!r}; expected one of {MODES}")
@@ -249,6 +279,8 @@ class DBPDriver:
         self.stage_hooks = stage_hooks
         self.on_checkpoint = on_checkpoint
         self.ckpt_every = max(int(ckpt_every), 0)
+        self.guard = guard
+        self.watchdog = watchdog
         self._exec: Optional[StageExecutor] = None  # live only inside run()
         # Key-centric clustering only shapes FWP micro-batch locality; the
         # serial baseline has no window to cluster for.
@@ -280,7 +312,8 @@ class DBPDriver:
         (see the module docstring); returns ``(state, stats)``."""
         stats = PipelineStats(store_tier=self.store.tier,
                               sparse_comm=self.store.sparse_comm)
-        drain = _MetricsDrain(stats, self.straggler_factor, store=self.store)
+        drain = _MetricsDrain(stats, self.straggler_factor, store=self.store,
+                              watchdog=self.watchdog)
         try:
             with torch.no_grad():
                 drain.start(self.device)
@@ -306,7 +339,12 @@ class DBPDriver:
             drain.push(t, aux, self._step_event())
             self._maybe_drain(drain, t, num_steps)
             self._maybe_ckpt(state, t, drain)
+            if self._preempt(t, num_steps):
+                stats.preempted_at = t + 1
+                break
         drain.drain()
+        if stats.preempted_at is not None and self.on_checkpoint is not None:
+            self.on_checkpoint(self._ckpt_state(state), stats.preempted_at)
         return state, stats
 
     def _run_pipelined(self, state, num_steps, stats, drain):
@@ -348,11 +386,31 @@ class DBPDriver:
             drain.push(t, aux, self._step_event())
             self._maybe_drain(drain, t, num_steps)
             self._maybe_ckpt(state, t, drain)
+            if self._preempt(t, num_steps):
+                # after window t's commit was submitted: the master holds
+                # t + 1 whole windows once the executor drains, and no
+                # lookahead buffer was committed (module docstring)
+                stats.preempted_at = t + 1
+                break
         if self._exec is not None:
             self._exec.drain()  # every commit applied: the master is final
             stats.async_repairs = dict(pf.repairs)
+            if stats.preempted_at is not None:
+                # the in-flight lookahead retrieves take the master lock:
+                # they finish before the release (their fences name only
+                # commits already applied, so none waits)
+                self._exec.shutdown(wait=True)
         drain.drain()
-        return state._replace(table=self.store.release()), stats
+        state = state._replace(table=self.store.release())
+        if stats.preempted_at is not None and self.on_checkpoint is not None:
+            self.on_checkpoint(state, stats.preempted_at)
+        return state, stats
+
+    def _preempt(self, t: int, num_steps: int) -> bool:
+        """A notice latched and steps are left: the last step ends the run
+        anyway and is no preemption."""
+        return (self.guard is not None and self.guard.should_checkpoint
+                and t + 1 < num_steps)
 
     def _maybe_drain(self, drain: _MetricsDrain, t: int, num_steps: int):
         # step 0 carries the first calls' set-up: drain it alone so it stays

@@ -152,6 +152,7 @@ def build_store(
     cache_policy: Optional[str] = None,
     prefetch_ahead: int = 1,
     sparse_comm: Optional[str] = None,
+    fault_inject: Optional[str] = None,
 ):
     """Construct the store for a tier name (see :func:`resolve_store`) over
     ``engine``, whose device the buffers live on.
@@ -159,7 +160,14 @@ def build_store(
     ``cache_policy`` and ``sparse_comm`` are validated on every tier and
     acted on where a host path exists. ``prefetch_ahead`` sizes the cached
     tier's rolling horizon (the oracle policy's window) to the prefetcher's
-    depth: ``prefetch_ahead + 1`` windows."""
+    depth: ``prefetch_ahead + 1`` windows.
+
+    ``fault_inject`` arms the chaos seam (``dist/inject.py``; ``"auto"``
+    and None resolve ``$REPRO_FAULT_INJECT``): one injector, shared by
+    every hook point of the store, so its per-site counters see the global
+    call order. The device tier has no host stages to fault: it parses the
+    spec only, so a typo fails loudly."""
+    from ...dist.inject import FaultInjector, resolve_fault_inject
     from .cached import CachedStore
     from .comm import SparseComm, resolve_sparse_comm
     from .device import DeviceStore
@@ -168,13 +176,14 @@ def build_store(
 
     tier = resolve_store(name)
     resolve_cache_policy(cache_policy)  # validate even where it is a no-op
+    injector = FaultInjector.from_spec(resolve_fault_inject(fault_inject))
     if tier == "device":
         resolve_sparse_comm(sparse_comm)  # validate even where it is a no-op
         return DeviceStore(engine, n_micro=n_micro)
     comm = SparseComm(sparse_comm)
     if tier == "host":
-        return HostStore(engine, n_micro=n_micro, comm=comm)
+        return HostStore(engine, n_micro=n_micro, comm=comm, injector=injector)
     return CachedStore(
-        engine, n_micro=n_micro, comm=comm, capacity=cache_rows,
+        engine, n_micro=n_micro, comm=comm, injector=injector, capacity=cache_rows,
         admit_threshold=cache_admit, chunk_rows=cache_chunk_rows,
         policy=cache_policy, horizon_windows=prefetch_ahead + 1)

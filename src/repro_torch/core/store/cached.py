@@ -35,6 +35,14 @@ the card before a kernel reads them; under ``int8`` the cold rows' commit
 goes through ``SparseComm.writeback``, while eviction write-back and
 ``flush`` stay full precision in every mode.
 
+Faults: the public stage methods and their retry seam are ``HostStore``'s.
+The ``retrieve`` site fires at the entry of ``_retrieve_body``, ``h2d``
+before the staging copy is queued, and so before the assembly reads the
+cache and admission writes it; ``commit`` and ``d2h`` fire at the entry of
+``_commit_body``, before the cache scatter. A replayed retrieve may count
+the policy's touches, the horizon and hits and misses twice, as in JAX;
+the values stay the fault-free run's.
+
 The directory and the policy's state are chunk-keyed dicts (host memory
 scales with the chunks a run touches). The cache decides only WHERE a
 row's bytes live: training replays the host and device tiers bit for bit
@@ -174,6 +182,7 @@ class CachedStore(HostStore):
     # -- DBP stage 4a: cache-aware retrieval + admission -----------------
 
     def _retrieve_body(self, plan: FetchPlan) -> DualBuffer:
+        self.faults.fire("retrieve")
         keys = plan.host_keys
         R = self.chunk_rows
         cap = self.capacity
@@ -226,6 +235,7 @@ class CachedStore(HostStore):
         self.hits += int(hit_v.sum())
         self.misses += int(miss_v.sum())
         with self.stage_timers.timed("h2d_ms"):
+            self.faults.fire("h2d")  # nothing of this stage is on the card yet
             stage_rows_d, stage_accum_d, src_d, keys_d = self.copies.to_device(
                 stage_rows, stage_accum, self.copies.host(src),
                 self.copies.host(keys.astype(np.int32)))
@@ -304,6 +314,9 @@ class CachedStore(HostStore):
 
     def _commit_body(self, buffer: DualBuffer,
                      plan: Optional[FetchPlan] = None) -> None:
+        # both sites precede the first mutation (the hot rows' scatter)
+        self.faults.fire("commit")
+        self.faults.fire("d2h")
         keys = plan.host_keys if plan is not None else buffer.keys.cpu().numpy()
         R = self.chunk_rows
         cap = self.capacity

@@ -35,11 +35,18 @@ Under the async stage executor (``async_exec.py``) these methods run on
 worker threads, with the executor's stream current: every copy's consumer
 is then that stream, not the driver's.
 
-Not ported yet: the fault injection and retry seam (``ROADMAP.md``, port
-Queue 1, item 3). The method split (``route`` / ``plan_from_window``,
-``gather_host`` / ``scatter_host``, the ``_retrieve_body`` and
-``_commit_body`` behind ``retrieve`` and ``commit``) is kept so that it can
-wrap them.
+Faults: ``plan_from_window``, ``retrieve`` and ``commit`` replay their
+bodies (``_plan_body``, ``_retrieve_body``, ``_commit_body``) through
+``retry_step`` (``dist/fault.py``), counted as ``stage_retries`` and
+``commit_rollbacks``. The injector (``dist/inject.py``) fires its sites
+``plan``, ``retrieve`` and ``commit`` at the entry of each body, ``h2d``
+before the staging copy is queued and ``d2h`` before the commit's pull:
+each before the stage's first master mutation and its first CUDA work, so
+a replay repeats host work only (no side-stream copy or event is left
+open) and the recovered run keeps the fault-free run's bits; only traffic
+counters (``h2d_bytes``) may count a replayed stage twice, as in JAX. A
+CUDA error (``torch.AcceleratorError``, ``torch.OutOfMemoryError``) is
+sticky, not transient: it is raised at once, never replayed.
 """
 from __future__ import annotations
 
@@ -49,11 +56,17 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ...dist.fault import retry_step
+from ...dist.inject import NULL_INJECTOR, FaultInjector
 from ..embedding.engine import DualBuffer, EmbeddingEngine
 from ..embedding.routing import SENTINEL
 from ..embedding.table import EmbeddingTableState
 from .base import FetchPlan, StageTimers, placeholder_table
 from .comm import SparseComm
+
+# a CUDA error leaves the context broken: replaying the stage would only
+# sleep and queue more work on it
+_NOT_TRANSIENT = (torch.AcceleratorError, torch.OutOfMemoryError)
 
 
 class SideStreamCopies:
@@ -167,6 +180,7 @@ class HostStore:
         n_micro: int = 1,
         comm: Optional[SparseComm] = None,
         table: Optional[EmbeddingTableState] = None,
+        injector: Optional[FaultInjector] = None,
     ):
         self.engine = engine
         self.spec = engine.spec
@@ -181,6 +195,13 @@ class HostStore:
         self.d2h_bytes = 0
         self.owns_master = False
         self.stage_timers = StageTimers()
+        # the chaos seam and the recovery budget (module docstring)
+        self.faults = injector if injector is not None else NULL_INJECTOR
+        self.retry_budget = 3
+        self.retry_backoff_s = 0.05
+        self.stage_retries = 0
+        self.commit_rollbacks = 0
+        self._retry_lock = threading.Lock()  # plans retry on several workers
         if table is not None:
             self._adopt(table)
 
@@ -233,11 +254,35 @@ class HostStore:
         host after the event ``after`` (default: now), through the wire
         policy."""
         with self.stage_timers.timed("plan_ms"):
-            host_keys = self.copies.keys_to_host(window.buffer_keys, after)
-            return FetchPlan(window, self.comm.exchange_keys(host_keys))
+            return self._recover("plan", self._plan_body, window, after)
+
+    def _plan_body(self, window, after) -> FetchPlan:
+        self.faults.fire("plan")
+        host_keys = self.copies.keys_to_host(window.buffer_keys, after)
+        return FetchPlan(window, self.comm.exchange_keys(host_keys))
 
     def plan(self, keys) -> FetchPlan:
         return self.plan_from_window(self.route(keys))
+
+    # -- transient-fault recovery ----------------------------------------
+
+    def _recover(self, stage: str, fn, *args):
+        """Replay a stage body through ``retry_step`` (capped exponential
+        backoff with jitter) and count the recoveries. The synchronous
+        prefetcher and the async executor's workers call the same public
+        stage methods, so one seam serves both; under the executor a
+        commit's backoff holds the master lock, which is why the base is
+        small. A CUDA error is raised unretried."""
+        def note(attempt, exc):
+            if isinstance(exc, _NOT_TRANSIENT):
+                raise exc
+            with self._retry_lock:
+                if stage == "commit":
+                    self.commit_rollbacks += 1
+                else:
+                    self.stage_retries += 1
+        return retry_step(fn, *args, retries=self.retry_budget,
+                          backoff_s=self.retry_backoff_s, on_retry=note)
 
     # -- DBP stage 4a: host-side gather + H2D ----------------------------
 
@@ -279,24 +324,31 @@ class HostStore:
         self.h2d_bytes += self.comm.stage_payload(rows, accum)
         keys = self.copies.host(buffer_keys.astype(np.int32))
         with self.stage_timers.timed("h2d_ms"):
+            # before the copy is queued: a replay leaves no open event
+            self.faults.fire("h2d")
             return DualBuffer(*self.copies.to_device(keys, rows, accum))
 
     def retrieve(self, plan: FetchPlan) -> DualBuffer:
         with self.stage_timers.timed("retrieve_ms"):
-            return self._retrieve_body(plan)
+            return self._recover("retrieve", self._retrieve_body, plan)
 
     def _retrieve_body(self, plan: FetchPlan) -> DualBuffer:
+        self.faults.fire("retrieve")
         return self.stage(plan.host_keys)
 
     # -- DBP epilogue: D2H + host scatter --------------------------------
 
     def commit(self, buffer: DualBuffer, plan: Optional[FetchPlan] = None) -> None:
         with self.stage_timers.timed("commit_ms"):
-            self._commit_body(buffer, plan)
+            self._recover("commit", self._commit_body, buffer, plan)
 
     def _commit_body(self, buffer: DualBuffer,
                      plan: Optional[FetchPlan]) -> None:
+        # both sites fire before the pull and the master's first mutation:
+        # a rolled-back commit replays whole
+        self.faults.fire("commit")
         keys = plan.host_keys if plan is not None else buffer.keys.cpu().numpy()
+        self.faults.fire("d2h")
         rows, accum = self.copies.to_host(buffer.rows, buffer.accum)
         if self.comm.lossy:
             # int8: selective sync of quantized deltas with error feedback,
@@ -314,6 +366,9 @@ class HostStore:
     def metrics(self) -> Dict[str, float]:
         out = {"h2d_bytes": float(self.h2d_bytes),
                "d2h_bytes": float(self.d2h_bytes),
+               "stage_retries": float(self.stage_retries),
+               "commit_rollbacks": float(self.commit_rollbacks),
+               **self.faults.counters(),
                **self.comm.counters(),
                **self.stage_timers.as_dict()}
         if self.copies.stream is not None:

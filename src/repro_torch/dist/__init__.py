@@ -1,9 +1,11 @@
 """Distributed-path pieces of the port (``repro.dist``): atomic manifest
-checkpoints (``checkpoint``) and the host codecs of the sparse data path
-(``compressed``). The fault policies and the fault injector (the
-preemption guard, the step watchdog, ``retry_step``) are not ported yet
-(``ROADMAP.md``, port Queue 1, item 3b), nor is the quantized ring
-all-reduce (item 6)."""
+checkpoints (``checkpoint``), the host codecs of the sparse data path
+(``compressed``), the fault policies (``fault``: the preemption guard the
+DBP driver polls at step boundaries, the step watchdog its metric drain
+feeds, ``retry_step`` behind the host stores' stage replay) and the
+deterministic fault injector (``inject``: the chaos seam at the stores'
+stage boundaries and the checkpoint writer). The quantized ring
+all-reduce is not ported yet (``ROADMAP.md``, port Queue 1, item 6)."""
 from .checkpoint import (
     latest_step,
     restore_checkpoint,
@@ -19,6 +21,14 @@ from .compressed import (
     quantize_rows_np,
     unpack_sorted_keys,
 )
+from .fault import PreemptionGuard, RetryExhausted, StepWatchdog, retry_step
+from .inject import (
+    NULL_INJECTOR,
+    FaultInjector,
+    InjectedFault,
+    parse_fault_spec,
+    resolve_fault_inject,
+)
 
 __all__ = [
     "latest_step",
@@ -32,4 +42,13 @@ __all__ = [
     "pack_sorted_keys",
     "quantize_rows_np",
     "unpack_sorted_keys",
+    "PreemptionGuard",
+    "RetryExhausted",
+    "StepWatchdog",
+    "retry_step",
+    "FaultInjector",
+    "InjectedFault",
+    "NULL_INJECTOR",
+    "parse_fault_spec",
+    "resolve_fault_inject",
 ]

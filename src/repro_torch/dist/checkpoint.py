@@ -226,7 +226,8 @@ def _load_leaf(fpath: str, entry: dict, t: torch.Tensor,
 
 
 def save_checkpoint(ckpt_dir: str, state: Any, step: int, store: Any = None,
-                    *, timings: Optional[Dict[str, float]] = None) -> str:
+                    *, timings: Optional[Dict[str, float]] = None,
+                    injector: Any = None) -> str:
     """Write ``state`` at ``step`` atomically; returns the checkpoint path.
     An existing checkpoint for the same step is replaced.
 
@@ -239,7 +240,12 @@ def save_checkpoint(ckpt_dir: str, state: Any, step: int, store: Any = None,
     of it (a restore starts cold, which changes no value).
 
     ``timings``, when given, gains the seconds spent copying chunks off the
-    card (``d2h_s``) and writing and checksumming them (``write_s``)."""
+    card (``d2h_s``) and writing and checksumming them (``write_s``).
+
+    ``injector`` (a ``dist.inject.FaultInjector``) is the chaos seam: after
+    the atomic replace, its ``ckpt_torn`` site truncates the largest leaf
+    to half and ``ckpt_corrupt`` flips 8 bytes at its middle, the damage a
+    killed write or bit rot leaves, which a restore's CRC32 check finds."""
     table = getattr(state, "table", None)
     rows = getattr(table, "rows", None)
     if rows is not None and rows.shape[0] == 0:
@@ -281,7 +287,27 @@ def save_checkpoint(ckpt_dir: str, state: Any, step: int, store: Any = None,
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
+    if injector is not None:
+        _maybe_corrupt(final, index, injector)
     return final
+
+
+def _maybe_corrupt(final: str, index: List[dict], injector: Any) -> None:
+    """Damage a just-written checkpoint where the injector's schedule says
+    so (:func:`save_checkpoint`): the largest leaf, so the damage hits real
+    payload and not a scalar's header."""
+    victim = max(index, key=lambda e: os.path.getsize(os.path.join(final, e["file"])))
+    path = os.path.join(final, victim["file"])
+    if injector.should("ckpt_torn"):
+        with open(path, "r+b") as f:
+            f.truncate(os.path.getsize(path) // 2)
+    if injector.should("ckpt_corrupt"):
+        size = os.path.getsize(path)
+        with open(path, "r+b") as f:
+            f.seek(size // 2)
+            raw = f.read(8)
+            f.seek(size // 2)
+            f.write(bytes(b ^ 0xFF for b in raw))
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:

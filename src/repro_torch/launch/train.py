@@ -21,7 +21,9 @@ The full ``hstu-industrial`` master (309 GB) needs the host tier at a
 size this launcher does not reach yet, so on one card it runs
 ``--reduced``.
 
-``--ckpt-dir`` with ``--ckpt-every n`` saves every n steps; ``--resume``
+``--ckpt-dir`` with ``--ckpt-every n`` saves every n steps, and a SIGTERM
+(a preemption notice) saves at the next step boundary and ends the run;
+``--resume``
 restores the newest verifiable checkpoint there and trains the steps left
 to ``--steps``, so a stopped run continues where it was saved:
 
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import signal
 
 from ..api import Session, available_strategies
 from ..core.store import STORES
@@ -71,7 +74,8 @@ def train(argv=None):
         global_batch=args.global_batch, n_micro=args.n_micro,
         bucket_slack=args.bucket_slack, lr=args.lr, seed=args.seed,
         store=args.store, prefetch_ahead=args.prefetch_ahead,
-        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, device=args.device)
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+        preemption_signals=(signal.SIGTERM,), device=args.device)
     if args.resume and args.ckpt_dir:
         if sess.restore_if_available() is not None:
             print(f"[train] resumed from step {int(sess.state.step)}")

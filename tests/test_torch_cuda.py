@@ -2,8 +2,10 @@
 (DLRM embeddings, dense-LM prefill and decode), the training paths (DLRM,
 HSTU and FuXi, whose attention runs the tf32x3 flash_attention forward and
 backward kernels),
-the host and cached embedding tiers, and checkpoints (chunked writes from
-the card, an in-place restore, the save's time kept out of the steps).
+the host and cached embedding tiers, checkpoints (chunked writes from
+the card, an in-place restore, the save's time kept out of the steps), and
+faults (a fault at every store site, recovered to the fault-free bits; a
+preemption by a real signal, resumed to the uninterrupted run's bits).
 
 Every test here needs an NVIDIA GPU, carries the ``cuda`` marker and skips
 without one (the kernels have no CPU mode). The file imports no jax, so it
@@ -1156,3 +1158,71 @@ def test_save_time_stays_out_of_the_step_spans_on_the_card(cuda_device):
     _, stats = driver.run(sess._take_state(), 5)
     assert stats.straggler_steps == []
     assert max(stats.step_times[1:]) < pause / 2, stats.step_times
+
+
+# every host-store site once (step=N counts the calls to its own site); 6
+# steps reach the sixth d2h pull
+CHAOS = "plan:step=1;retrieve:step=2;commit:step=3;h2d:step=1;d2h:step=5"
+
+
+@pytest.mark.parametrize("tier", ["host", "cached"])
+@pytest.mark.parametrize("async_on", ["off", "on"])
+def test_chaos_recovers_bit_for_bit_on_the_card(cuda_device, tier, async_on):
+    """A fault at every store site on the card: each fires before its
+    stage's first CUDA work, so the bounded retries replay host work only
+    and the run keeps the fault-free run's bits."""
+    kw = dict(reduced=True, global_batch=32, n_micro=4, store=tier,
+              async_stages=async_on)
+    want = Session.from_arch("dlrm-ctr", fault_inject="off", **kw).train(6)
+    got = Session.from_arch("dlrm-ctr", fault_inject=CHAOS, **kw).train(6)
+    assert got.stats.losses == want.stats.losses
+    assert torch.equal(got.state.table.rows, want.state.table.rows)
+    assert torch.equal(got.state.table.accum, want.state.table.accum)
+    s = got.summary
+    assert s["faults_injected"] == 5
+    assert s["stage_retries"] >= 3 and s["commit_rollbacks"] >= 2
+
+
+def test_preemption_resume_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """A real signal mid-run (SIGUSR1 on the session's guard, sent when the
+    batch source yields its third batch; the handler runs on the main
+    thread): the async host-tier run stops at a step boundary, saves on its
+    way out, and a session from another seed resumes to the uninterrupted
+    run's bits. The guard gives the signal back afterwards."""
+    import signal
+
+    from repro_torch.api import session as session_mod
+    from repro_torch.dist import checkpoint as ck
+
+    steps = 6
+    kw = dict(reduced=True, global_batch=32, n_micro=4, store="host",
+              async_stages="on", data_seed=0)
+    ref = Session.from_arch("dlrm-ctr", seed=0, **kw)
+    ref_losses = ref.train(steps).stats.losses
+    real = session_mod.resolve_stream
+
+    def signalling_stream(*a, **skw):
+        def batches():
+            for i, batch in enumerate(real(*a, **skw)):
+                if i == 2:
+                    os.kill(os.getpid(), signal.SIGUSR1)
+                yield batch
+        return batches()
+
+    before = signal.getsignal(signal.SIGUSR1)
+    a = Session.from_arch("dlrm-ctr", seed=0, ckpt_dir=str(tmp_path),
+                          preemption_signals=(signal.SIGUSR1,), **kw)
+    try:
+        monkeypatch.setattr(session_mod, "resolve_stream", signalling_stream)
+        rep = a.train(steps)
+    finally:
+        a.guard.restore()
+    assert signal.getsignal(signal.SIGUSR1) is before
+    at = rep.stats.preempted_at
+    assert at is not None and 1 <= at < steps and len(rep.stats.losses) == at
+    monkeypatch.setattr(session_mod, "resolve_stream", real)
+    b = Session.from_arch("dlrm-ctr", seed=1, ckpt_dir=str(tmp_path), **kw)
+    assert b.restore_if_available() == at
+    assert rep.stats.losses + b.train(steps - at).stats.losses == ref_losses
+    for (name, x), (_, y) in zip(ck.flatten_state(b.state), ck.flatten_state(ref.state)):
+        assert torch.equal(x, y), name

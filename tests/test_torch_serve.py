@@ -322,7 +322,8 @@ def test_port_imports_neither_jax_nor_repro():
         "        'repro_torch.configs.nemotron_4_340b',\n"
         "        'repro_torch.core.store.host', 'repro_torch.core.store.cached',\n"
         "        'repro_torch.core.store.policy', 'repro_torch.core.store.comm',\n"
-        "        'repro_torch.dist.checkpoint',\n"
+        "        'repro_torch.dist.checkpoint', 'repro_torch.dist.fault',\n"
+        "        'repro_torch.dist.inject',\n"
         "        } <= set(mods), mods\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"

@@ -120,10 +120,29 @@ def test_recsys_configs_equal_field_for_field(arch):
         assert a.max_table_dim == b.max_table_dim
 
 
+# The JAX NestPipeConfig fields the port leaves out on purpose, each with
+# its reason or the ROADMAP item (port Queue 1) that ports it.
+JAX_ONLY_NESTPIPE_FIELDS = {
+    "dbp": "always-on",  # the DBP driver is the only pipelined loop
+    "fwp_unroll": "XLA-only",  # unrolled window vs scan: an HLO-shape switch
+    "dedup_remote": "item-6",  # the owner-side second dedup: multi-shard
+    "grad_mode": "item-6",  # "dense_shard" grads: the sharded table
+    "kernel_backend": "always-cuda",  # one hand-written kernel per op
+    "dense_comm": "item-6",  # the quantized ring all-reduce: multi-rank
+}
+
+
 def test_nestpipe_config_fields_equal_their_jax_defaults():
+    """Both directions: every port field has JAX's default, and the field
+    sets differ by exactly the JAX-only list, so a JAX field the port
+    should carry cannot go missing unseen."""
     t, j = tbase.NestPipeConfig(), jbase.NestPipeConfig()
     for f in dataclasses.fields(t):
         assert getattr(t, f.name) == getattr(j, f.name), f.name
+    tnames = {f.name for f in dataclasses.fields(t)}
+    jnames = {f.name for f in dataclasses.fields(j)}
+    assert tnames <= jnames, sorted(tnames - jnames)
+    assert jnames - tnames == set(JAX_ONLY_NESTPIPE_FIELDS), sorted(jnames - tnames)
 
 
 def test_integer_helpers_equal():
