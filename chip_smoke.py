@@ -187,7 +187,8 @@ hand-written kernel on it against its plain PyTorch version:
    for every f32 case at hd <= 128, the general one too
    (``flash_attention_bwd_simple``), each checked by its counter, on the
    forward's output and row logsumexp (the tf32x3 kernel's in f32 at
-   hd <= 128, the general kernel's otherwise; its counter checked) and a
+   hd <= 128, the wgmma kernel's in bf16 at hd 80, the general kernel's
+   otherwise; its counter checked) and a
    random output gradient, against ``ref.flash_attention_bwd_ref`` within
    ``ref.flash_attention_bwd_bound`` (1e-5 of each gradient's sum of
    magnitudes + 1e-7, plus one bf16 ulp in bf16) at T in {1, 33, 64, 257,
@@ -251,7 +252,13 @@ hand-written kernel on it against its plain PyTorch version:
    evaluation and the plain version printed (``flash_same_sign``), held
    within the bound of the f64 evaluation (the tf32x3 kernel at every
    scale, the general one at times 1 and 2; the first draw at times 2 also
-   of the plain version); a CUDA tensor beside a CPU one raises;
+   of the plain version); the wgmma kernel's row logsumexp at every case
+   of its own (every wgmma head dim and T, causal and not, and the strided
+   views) within ``ref.flash_attention_lse_bound`` of
+   ``ref.flash_attention_lse_ref``, its output with the lse bit for bit
+   the output without, and the general kernel's bf16 lse the same way
+   (``flash_attention_simple(lse=True)``) at T 33 and 257; a CUDA tensor
+   beside a CPU one raises;
 13. full-width ``stablelm-12b`` serving (40 layers, d_model 5,120, 32
    heads over 8 kv heads of 160, bf16; 23.26 GB of weights and a 2.06 GB
    master drawn from a seed): ``serve(batch=8, prompt_len=2048, gen=32)``
@@ -267,9 +274,39 @@ hand-written kernel on it against its plain PyTorch version:
    runs the plain version agrees on the last-token logits within 5e-2 of
    max |logit| (``--profile``: the device idle share of a prefill and of 8
    decode steps);
+13b. full-width ``stablelm-3b`` training (32 layers, d_model 2,560, 32
+   heads of 80, d_ff 6,912, vocab 50,304, bf16; 2.80 B params drawn from a
+   seed, f32 AdamW moments), after the stablelm-12b session is gone,
+   through ``Session.from_arch("stablelm-3b", global_batch=8,
+   seq_len=4096, n_micro=4)`` on the device tier in ``nestpipe``: one
+   warm-up step, two steps whose first wgmma forward with its lse, first
+   general backward and embedding-kernel calls are captured (the latter
+   checked and timed as in phase 4), then ``train(4)`` with every launch
+   counted (256 wgmma forwards with the lse and 128 general backwards a
+   step: 32 layers x 4 micro-batches, each forward again in the
+   backward; none of the tf32x3 kernels nor of the general forward);
+   AdamW at lr 3e-5; finite losses, each below the warm-up step's (the
+   third step's rises at this and larger steps: no warm-up), no routing
+   overflow,
+   peak device memory under 80 GB; step p50 and p99, samples/s, tokens/s
+   (``--profile``: the device idle share and the top device ops over 2
+   more steps); then, with the session released, the captured calls
+   checked at full shape (the forward and its lse through the wgmma
+   kernel and the general one, the backward through the general kernel)
+   and timed beside the plain versions, SDPA (forward, and
+   ``torch.autograd.grad`` through it) and their bf16 bound at 989
+   TFLOP/s, the wgmma forward with and without its lse in turns;
+13c. LM consistency: ``stablelm-3b-reduced`` (f32, hd 16: the tf32x3
+   kernels) nestpipe = serial = the reference trainer within 1e-5 over 6
+   steps, async diverging, at AdamW eps 1e-6 (the CPU parity tests') and
+   at the default eps; a 2-layer bf16 stablelm-3b at hd 80 (the
+   wgmma forward and the general backward) trained 3 steps on the card and
+   on the CPU from one state: each loss within 3% of the CPU's;
 14. a ``{"kernels": [...]}`` line (the tf32x3 and the general
    ``flash_attention`` forward and backward at FuXi's main-path shape,
-   the general one also at the LM's; the gather's LM serve as its 96 calls,
+   the general one also at the LM's; the wgmma forward's and the general
+   backward's LM-training calls; the data-path kernels' LM-training step;
+   the gather's LM serve as its 96 calls,
    and apart as the prefill's three and one decode step's three; the
    gather's and the scatter's cached-path calls of 6b as
    ``dlrm_cached_train_calls``; launches by path, the host and cached
@@ -289,6 +326,7 @@ prefill and 8 decode steps). The phases from 11a on print their seconds.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -407,6 +445,23 @@ LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 32
 # attention: within this share of max |logit| (bf16 activations through 40
 # layers; a wrong kernel differs by O(1))
 LM_LOGIT_RTOL = 5e-2
+# full-width LM training: a worker's share of train_4k's 256 sequences of
+# 4,096 tokens over 32 workers, in N_MICRO micro-batches of 2
+LM_TRAIN_ARCH = "stablelm-3b"
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 4096, 4
+# AdamW's step: from a first loss of 11.34, the third step's reads 22.90
+# at the default 3e-4 and 12.72 at 3e-5 (H100 80GB HBM3, `launch.train
+# --steps 3`; no warm-up: AdamW's first steps move every weight by about
+# lr, all together); at 3e-5 every later step stays below the first
+LM_TRAIN_LR = 3e-5
+# the wgmma forward's calls a step: 32 layers x 4 micro-batches x 2 (each
+# layer's forward runs again in the backward: per-layer remat), and the
+# general backward's: 32 x 4
+LM_FWD_CALLS_PER_STEP, LM_BWD_CALLS_PER_STEP = 256, 128
+# the bf16 LM on the card against the port on the CPU: each step's loss
+# within this share of the CPU's (both round to bf16 at every op, in other
+# orders and places)
+LM_BF16_LOSS_RTOL = 0.03
 KERNELS = {  # name -> (source, the Pallas kernel it replaces)
     "embedding_gather": ("src/repro_torch/csrc/embedding_gather.cu",
                          "src/repro/kernels/embedding_gather.py:35"),
@@ -449,32 +504,34 @@ CACHED_PATHS = tuple(TIER_PATHS[run] for run, store, _ in ASYNC_RUNS + COMM_RUNS
 RUNS_ON = {
     "embedding_gather": ("dlrm_train", "dlrm_serve", "dlrm_host_train",
                          "dlrm_cached_train", "dlrm_cached_serve", "hstu_train",
-                         "fuxi_train", "lm_serve", "dlrm_cached_pack_serve",
+                         "fuxi_train", "lm_serve", "lm_train", "dlrm_cached_pack_serve",
                          "dlrm_ckpt_resume_train", "dlrm_preempt_resume_train")
     + tuple(TIER_PATHS.values()),
     "segment_rowsum": ("dlrm_train", "dlrm_host_train", "dlrm_cached_train",
-                       "hstu_train", "fuxi_train", "dlrm_ckpt_resume_train",
+                       "hstu_train", "fuxi_train", "lm_train", "dlrm_ckpt_resume_train",
                        "dlrm_preempt_resume_train") + tuple(TIER_PATHS.values()),
     "buffer_sync": ("dlrm_train", "dlrm_host_train", "dlrm_cached_train", "hstu_train",
-                    "fuxi_train", "dlrm_ckpt_resume_train", "dlrm_preempt_resume_train")
+                    "fuxi_train", "lm_train", "dlrm_ckpt_resume_train",
+                    "dlrm_preempt_resume_train")
     + tuple(TIER_PATHS.values()),
     # the host tier writes its master back on the host: no device scatter
     "embedding_scatter": ("dlrm_train", "dlrm_cached_train", "dlrm_cached_serve",
-                          "hstu_train", "fuxi_train", "dlrm_ckpt_resume_train")
+                          "hstu_train", "fuxi_train", "lm_train", "dlrm_ckpt_resume_train")
     + CACHED_PATHS,
     "hstu_attention_fwd": ("hstu_train",),
     "hstu_attention_bwd": ("hstu_train",),
-    "flash_attention_wgmma": ("lm_serve",),
+    # the LM prefill (no lse) and LM training (with its lse)
+    "flash_attention_wgmma": ("lm_serve", "lm_train"),
     # f32 above hd 128 and bf16 off the wgmma head dims: no main path sends
     # it inputs; phases 11a-13 hold it against the plain version and time it
     "flash_attention_simple": (),
     # FuXi's f32 attention, forward and backward
     "flash_attention_tf32x3": ("fuxi_train",),
     "flash_attention_bwd_tf32x3": ("fuxi_train",),
-    # bf16 and head dims above 128: no main path sends it inputs since the
-    # tf32x3 backward; phase 11a holds it against the plain version, 11b
-    # times it at FuXi's call
-    "flash_attention_bwd_simple": (),
+    # bf16 and head dims above 128: LM training's backward (phase 13b);
+    # phase 11a holds it against the plain version, 11b times it at FuXi's
+    # call
+    "flash_attention_bwd_simple": ("lm_train",),
 }
 
 
@@ -2652,7 +2709,8 @@ def main() -> int:
         """Per mode, the gap to the reference trainer after
         CONSISTENCY_STEPS steps from one state, at the configuration's own
         step sizes unless ``sparse_lr`` and ``adam_eps`` are given; the
-        reduced ``arch`` (HSTU's, or FuXi's in phase 11c)."""
+        reduced ``arch`` (HSTU's, FuXi's in phase 11c, or a dense LM's in
+        13c: 16 sequences of 32 tokens)."""
         opt_cfg = OptimizerConfig() if adam_eps is None else OptimizerConfig(eps=adam_eps)
         kw = dict(reduced=True, global_batch=16, n_micro=N_MICRO, seed=1, opt_cfg=opt_cfg)
         runs = {}
@@ -2667,13 +2725,17 @@ def main() -> int:
             run.state = clone_state(init)
             finals[mode] = run.train(CONSISTENCY_STEPS)
         rwl = first.workload
-        ref_step = build_reference_step(make_loss_fn(rwl.cfg), first.optimizer,
+        loss_fn = (make_loss_fn(rwl.cfg) if rwl.bundle is None
+                   else rwl.bundle.loss_fn(rwl.t_chunk))
+        ref_step = build_reference_step(loss_fn, first.optimizer,
                                         constant_lr(first.opt_cfg.lr, dev), N_MICRO,
                                         sparse_lr=rwl.engine.sparse_lr)
         transform = make_cluster_transform(N_MICRO, rwl.npcfg.clustering)
         stream = resolve_stream(rwl, first.seed)
-        batches = [stage_to_device({"keys": transform(next(stream))["keys"]}, dev)
-                   for _ in range(CONSISTENCY_STEPS)]
+        batches = []
+        for _ in range(CONSISTENCY_STEPS):
+            batch = transform(next(stream))
+            batches.append(stage_to_device({k: batch[k] for k in rwl.batch_shapes}, dev))
         ref_state = reference_run(ref_step, init, batches)
         ref_twice = same_bits(ref_state, reference_run(ref_step, init, batches))
 
@@ -2738,8 +2800,9 @@ def main() -> int:
 
     def check_flash_bwd(label, q, k, v, causal, chunk=None, given=None):
         """The forward's output and lse through ``fa.flash_attention_lse``
-        (the tf32x3 kernel for f32 at hd <= 128, else the general one; its
-        counter must move) or ``given`` (o, do, lse), then the backward
+        (the tf32x3 kernel for f32 at hd <= 128, the wgmma kernel for bf16
+        at its head dims, else the general one; its counter must move) or
+        ``given`` (o, do, lse), then the backward
         kernel ``fa.bwd_variant`` picks on a random output gradient and,
         where that is the tf32x3 kernel, the general one too, each against
         the plain versions, ``chunk`` batch rows at a time: the lse within
@@ -2927,8 +2990,9 @@ def main() -> int:
                              f"values of one sign: {case}")
     torch.cuda.synchronize()
     emit("flash_bwd_edges", cases=bedge, max_abs_err=bworst, max_share_of_bound=bshare,
-         forward="the tf32x3 kernel's output and lse for f32 (hd <= 128), the general "
-                 "kernel's for bf16 and f32 at hd 160",
+         forward="the tf32x3 kernel's output and lse for f32 (hd <= 128), the wgmma "
+                 "kernel's for bf16 at hd 80, the general kernel's for bf16 at hd 16 and "
+                 "f32 at hd 160",
          seconds=time.perf_counter() - t_phase,
          tolerance="dq, dk, dv: |kernel - plain| <= 1e-5 M + 1e-7 (+ one bf16 ulp of the "
                    "plain gradient in bf16), M each gradient's sum of magnitudes "
@@ -3216,6 +3280,38 @@ def main() -> int:
             del want, err, bound
         return kname
 
+    lse_worst = {"flash_attention_wgmma bfloat16": 0.0, "flash_attention_simple bfloat16": 0.0}
+
+    def check_lse(label, q, k, v, causal, simple=False):
+        """The row logsumexp of the wgmma kernel (``fa.flash_attention_lse``;
+        ``fa.lse_variant`` must pick it) or of the general one
+        (``flash_attention_simple(lse=True)``) within
+        ref.flash_attention_lse_bound of ref.flash_attention_lse_ref, the
+        output with the lse bit for bit the kernel's output without it, one
+        launch of that kernel each."""
+        kname = "flash_attention_simple" if simple else "flash_attention_wgmma"
+        if not simple and fa.lse_variant(q, k, v) != "wgmma":
+            raise SystemExit(f"{label}: the lse went to {fa.lse_variant(q, k, v)}")
+        before = counts()[kname]
+        if simple:
+            out, lse = fa.flash_attention_simple(q, k, v, causal, lse=True)
+            alone = fa.flash_attention_simple(q, k, v, causal)
+        else:
+            out, lse = fa.flash_attention_lse(q, k, v, causal)
+            alone = fa.flash_attention(q, k, v, causal)
+        if counts()[kname] != before + 2:
+            raise SystemExit(f"{label}: the lse and the output did not both run {kname}")
+        if not torch.equal(out, alone):
+            raise SystemExit(f"{kname}'s output with its lse is not its output without "
+                             f"at {label}")
+        want = ref.flash_attention_lse_ref(q, k, causal)
+        err = (lse - want).abs()
+        if not bool((err <= ref.flash_attention_lse_bound(q, k, want, causal)).all()):
+            raise SystemExit(f"{kname}'s lse beyond its bound at {label}: {float(err.max())}")
+        key = f"{kname} {str(q.dtype).removeprefix('torch.')}"
+        lse_worst[key] = max(lse_worst[key], float(err.max()))
+        del out, lse, alone, want, err
+
     fedge = []
     head_dims = (16, 64, 80, 128, 160, 192, 256)
     for dtype in (torch.float32, torch.bfloat16):
@@ -3238,8 +3334,13 @@ def main() -> int:
                         if (kname == "flash_attention_tf32x3"
                                 or (kname == "flash_attention_wgmma" and t in (33, 257))):
                             check_flash(*case, simple=True)  # the general kernel too
+                        if kname == "flash_attention_wgmma":  # its lse, and the general one's
+                            check_lse(*case)
+                            if t in (33, 257):
+                                check_lse(*case, simple=True)
             fedge.append(f"{dname} T={t} hd in {head_dims} H/KV in {{1,4}} causal and not"
-                         + (" (wgmma; the general kernel too at T 33, 257)"
+                         + (" (wgmma, with and without its lse; the general kernel too "
+                            "at T 33, 257, with and without its lse)"
                             if dtype == torch.bfloat16 else
                             " (tf32x3 at hd <= 128, and the general kernel too)"))
         for hd in ((64, 160) if dtype == torch.float32 else (160,)):
@@ -3257,9 +3358,11 @@ def main() -> int:
             for off in (3, 8):
                 wide = torch.empty((2, 100, 4, 3 * hd + off), device=dev).normal_(
                     generator=g).to(dtype)
-                kname = check_flash(f"strided {dname} hd {hd} offset {off}",
-                                    wide[..., off:off + hd], wide[..., off + hd:off + 2 * hd],
-                                    wide[..., off + 2 * hd:off + 3 * hd], True)
+                views = (wide[..., off:off + hd], wide[..., off + hd:off + 2 * hd],
+                         wide[..., off + 2 * hd:off + 3 * hd])
+                kname = check_flash(f"strided {dname} hd {hd} offset {off}", *views, True)
+                if kname == "flash_attention_wgmma":
+                    check_lse(f"strided {dname} hd {hd} offset {off}", *views, True)
                 fedge.append(f"{dname} strided q, k, v (T=100, hd={hd}, {off} elements in): "
                              f"{kname}")
     # values of one sign at FuXi's shape (v shifted by 2; q and k times 1, 2
@@ -3380,7 +3483,7 @@ def main() -> int:
         raise SystemExit("flash_attention took a CPU tensor beside CUDA ones")
     torch.cuda.synchronize()
     emit("flash_kernel_edges", cases=fedge, max_abs_err=dict(fworst),
-         max_share_of_bound=fshare,
+         max_share_of_bound=fshare, lse_max_abs_err=lse_worst,
          tolerance="|kernel - plain| <= 1e-5 M + 1e-7 (f32) or 2**-8 M + one bf16 ulp of "
                    "the plain output (bf16), M = sum_j w_ij |v_j|; the same bits on two runs")
 
@@ -3580,6 +3683,251 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 13b. main path: full-width stablelm-3b training ------------------------
+    t_phase = time.perf_counter()
+    start_gb = torch.cuda.memory_allocated() / 1e9  # what earlier phases left
+    tsess = Session.from_arch(LM_TRAIN_ARCH, mode="nestpipe", global_batch=LM_TRAIN_BATCH,
+                              seq_len=LM_TRAIN_SEQ, n_micro=N_MICRO, lr=LM_TRAIN_LR, seed=0)
+    twl, tcfg = tsess.workload, tsess.workload.cfg
+    tdims = twl.engine.dims(twl.batch_shapes["keys"][0][1:], N_MICRO)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tstate = tsess.state
+    torch.cuda.synchronize()
+    n_params = sum(p_.numel() for p_ in tstate.dense.values())
+    emit("lm_train_init", arch=LM_TRAIN_ARCH, seconds=time.perf_counter() - t0,
+         config={k: getattr(tcfg, k) for k in ("n_layers", "d_model", "d_ff", "vocab_size",
+                                               "param_dtype", "compute_dtype")},
+         heads=[tcfg.attention.n_heads, tcfg.attention.n_kv_heads, tcfg.attention.head_dim],
+         dense_params=n_params,
+         params_gb=sum(p_.numel() * p_.element_size() for p_ in tstate.dense.values()) / 1e9,
+         moments_gb=2 * 4 * n_params / 1e9,
+         table_rows=tstate.table.rows.shape[0], table_gb=tstate.table.rows.numel() * 4 / 1e9,
+         dims={"L": tdims.l_local, "U": tdims.u_max, "C": tdims.cap, "K": tdims.buffer_cap,
+               "N": tdims.n_micro},
+         start_memory_allocated_gb=start_gb,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if (tcfg.n_layers, tcfg.d_model, tcfg.d_ff, tcfg.vocab_size) != (32, 2560, 6912, 50304) \
+            or tstate.table.rows.shape[1] != 2560 or tstate.table.rows.device.type != "cuda":
+        raise SystemExit(f"{LM_TRAIN_ARCH} is not at full width on the card")
+    del tstate
+    # an unchecked warm-up step; its loss is the run's first (its report is
+    # not kept: a report's state holds that step's 5.33 GB of params)
+    first_loss = tsess.train(1).stats.losses[0]
+    torch.cuda.synchronize()
+
+    # two steps with the first forward (with its lse) and backward call kept
+    # (every call counted) and, as on the DLRM path, the embedding kernels' calls
+    seen = {"fwd": 0, "bwd": 0}
+    tkept = {}
+    real_lse, real_fbwd = fa.flash_attention_lse, fa.flash_attention_bwd
+
+    def lm_lse_spy(q, k, v, causal=True):
+        seen["fwd"] += 1
+        if "fwd" not in tkept:
+            tkept["fwd"] = (q.clone(), k.clone(), v.clone(), causal)
+        return real_lse(q, k, v, causal)
+
+    def lm_bwd_spy(q, k, v, o, do, lse, causal=True):
+        seen["bwd"] += 1
+        if "bwd" not in tkept:
+            tkept["bwd"] = (*(x.clone() for x in (q, k, v, o, do, lse)), causal)
+        return real_fbwd(q, k, v, o, do, lse, causal)
+
+    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)  # evicts the L2 (time_ms)
+    fa.flash_attention_lse, fa.flash_attention_bwd = lm_lse_spy, lm_bwd_spy
+    try:
+        tcaptured = capture_calls(tsess)
+    finally:
+        fa.flash_attention_lse, fa.flash_attention_bwd = real_lse, real_fbwd
+    if seen != {"fwd": 2 * LM_FWD_CALLS_PER_STEP, "bwd": 2 * LM_BWD_CALLS_PER_STEP}:
+        raise SystemExit(f"two LM steps made {seen} attention calls")
+    # the embedding kernels at this path's shapes (D = 2,560, f32 retrieve and
+    # buffer rows, bf16 assembly), while the master lives
+    tshapes = check_and_time("lm_train", tcaptured, tsess.state.table)
+    del tcaptured
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trep = tsess.train(LM_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lm_train_launches = counts()
+    lm_train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    s = trep.summary
+    samples_per_s = LM_TRAIN_BATCH * LM_TRAIN_STEPS / wall
+    emit("lm_train", arch=LM_TRAIN_ARCH, mode="nestpipe", global_batch=LM_TRAIN_BATCH,
+         seq_len=LM_TRAIN_SEQ, n_micro=N_MICRO, steps=LM_TRAIN_STEPS, lr=LM_TRAIN_LR,
+         reduced="depth and widths whole; batch 8 of train_4k's 256 (one of 32 workers)",
+         first_loss=first_loss, losses=trep.stats.losses, overflow_max=s["overflow_max"],
+         samples_per_s=samples_per_s, tokens_per_s=samples_per_s * LM_TRAIN_SEQ,
+         wall_s=wall, step_ms=[x * 1e3 for x in trep.stats.step_times],
+         step_p50_ms=s["p50_step_s"] * 1e3, step_p99_ms=s["p99_step_s"] * 1e3,
+         mean_input_wait_ms=s["mean_input_wait_s"] * 1e3,
+         stage_host_ms={k: s[k] for k in ("plan_ms", "retrieve_ms", "commit_ms")},
+         launches=lm_train_launches, max_memory_allocated_gb=lm_train_peak_gb,
+         device_memory_gb=torch.cuda.get_device_properties(0).total_memory / 1e9)
+    if not all(np.isfinite(trep.stats.losses)) or len(trep.stats.losses) != LM_TRAIN_STEPS:
+        raise SystemExit(f"LM losses are not {LM_TRAIN_STEPS} finite values")
+    if not all(x < first_loss for x in trep.stats.losses):
+        raise SystemExit(f"the LM loss did not fall from {first_loss}: {trep.stats.losses}")
+    if s["overflow_max"] != 0:
+        raise SystemExit(f"LM routing overflowed: {s['overflow_max']}")
+    if lm_train_peak_gb >= 80:
+        raise SystemExit(f"LM training peaked at {lm_train_peak_gb} GB")
+    lm_train_want = {k: 0 for k in KERNELS}
+    lm_train_want.update(embedding_gather=(1 + 3 * N_MICRO) * LM_TRAIN_STEPS,
+                         segment_rowsum=(N_MICRO + 1) * LM_TRAIN_STEPS,
+                         buffer_sync=LM_TRAIN_STEPS - 1, embedding_scatter=LM_TRAIN_STEPS,
+                         flash_attention_wgmma=LM_FWD_CALLS_PER_STEP * LM_TRAIN_STEPS,
+                         flash_attention_bwd_simple=LM_BWD_CALLS_PER_STEP * LM_TRAIN_STEPS)
+    if lm_train_launches != lm_train_want:
+        raise SystemExit(f"LM training launches {lm_train_launches} != {lm_train_want}")
+
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tsess.train(2)
+            torch.cuda.synchronize()
+            span = time.perf_counter() - t0
+        emit_profile(prof, "lm_train_profile", span, steps=2)
+        del prof
+    del tsess, twl, trep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the captured main-path attention calls, on the card alone now: checked
+    # at full shape and timed beside the plain versions, SDPA (the yardstick;
+    # the port never calls it) and their bf16 bound; the wgmma forward with
+    # and without its lse in turns (with, without, without, with)
+    lm_attn = {}
+    q, k, v, causal = tkept["fwd"]
+    if fa.lse_variant(q, k, v) != "wgmma":
+        raise SystemExit("the LM's main-path forward call is not the wgmma kernel's")
+    check_flash("LM training layer 0 forward", q, k, v, causal, chunk=1)
+    check_flash("LM training layer 0 forward, general kernel", q, k, v, causal, chunk=1,
+                simple=True)
+    check_lse("LM training layer 0 forward", q, k, v, causal)
+    check_lse("LM training layer 0 forward, general kernel", q, k, v, causal, simple=True)
+    ops, nbytes = flash_work(q, k, causal)
+    by_ops, by_bytes = ops / bf16_flops(name) * 1e3, (nbytes + 4 * q.shape[0] * q.shape[1]
+                                                      * q.shape[2]) / peak * 1e3
+    fwd_fns = {"with_lse": lambda: fa.flash_attention_lse(q, k, v, causal),
+               "without_lse": lambda: fa.flash_attention(q, k, v, causal)}
+    turns = {kind: [] for kind in fwd_fns}
+    for kind in ("with_lse", "without_lse", "without_lse", "with_lse"):
+        turns[kind].append(time_ms(torch, fwd_fns[kind], flush))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = {"kernel": "flash_attention_wgmma",
+           "call": "lm training layer 0 forward (with its lse)",
+           "shape": list(q.shape), "kv_heads": k.shape[2], "causal": causal,
+           "dtype": str(q.dtype).removeprefix("torch."), "operations": ops,
+           "bytes": nbytes + 4 * q.shape[0] * q.shape[1] * q.shape[2],
+           "ms": statistics.mean(turns["with_lse"]), "ms_turns": turns["with_lse"],
+           "without_lse_ms": statistics.mean(turns["without_lse"]),
+           "without_lse_ms_turns": turns["without_lse"],
+           "simple_ms": time_ms(torch, lambda: fa.flash_attention_simple(q, k, v, causal,
+                                                                         lse=True), flush),
+           "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal), flush),
+           "library_ms": time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal), flush),
+           "library_call": "scaled_dot_product_attention(is_causal) on (B, H, T, hd) views",
+           "bound_ms": max(by_ops, by_bytes),
+           "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+    row["achieved_tflops"] = ops / row["ms"] / 1e9
+    row["simple_tflops"] = ops / row["simple_ms"] / 1e9
+    lm_attn["flash_attention_wgmma"] = row
+    emit("kernel_shape", path="lm_train", **row)
+    del qt, kt, vt
+
+    # the backward call through the general kernel (the only bf16 backward)
+    q, k, v, o, do, lse, causal = tkept["bwd"]
+    if fa.bwd_variant(q, k, v) != "simple":
+        raise SystemExit("the LM's main-path backward call is not the general kernel's")
+    errs = check_flash_bwd("LM training backward call", q, k, v, causal, chunk=1,
+                           given=(o, do, lse))
+    ops, nbytes = flash_bwd_work(q, k, causal)
+    by_ops, by_bytes = ops / bf16_flops(name) * 1e3, nbytes / peak * 1e3
+    plain_ms = time_ms(torch, lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal),
+                       flush)
+    leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    lib_out = sdpa(*leaves, is_causal=causal)
+    do_t = do.transpose(1, 2)
+    row = {"kernel": "flash_attention_bwd_simple", "call": "lm training layer 31 backward",
+           "shape": list(q.shape), "kv_heads": k.shape[2], "causal": causal,
+           "dtype": str(q.dtype).removeprefix("torch."), "operations": ops, "bytes": nbytes,
+           "ms": time_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, do, lse, causal),
+                         flush),
+           "plain_ms": plain_ms,
+           "library_ms": time_ms(torch, lambda: torch.autograd.grad(lib_out, leaves, do_t,
+                                                                    retain_graph=True), flush),
+           "library_call": "torch.autograd.grad through scaled_dot_product_attention"
+                           "(is_causal) on (B, H, T, hd) views (its backward alone)",
+           "max_abs_err": max(errs["simple"].values()),
+           "bound_ms": max(by_ops, by_bytes),
+           "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+    row["achieved_tflops"] = ops / row["ms"] / 1e9
+    lm_attn["flash_attention_bwd_simple"] = row
+    emit("kernel_shape", path="lm_train", **row)
+    del tkept, q, k, v, o, do, lse, leaves, lib_out, do_t, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("lm_train_phase", seconds=time.perf_counter() - t_phase)
+
+    # -- 13c. LM consistency ------------------------------------------------------
+    t_phase = time.perf_counter()
+    lm_runs = {"adam_eps_1e-6": reduced_gaps(adam_eps=1e-6, arch=LM_TRAIN_ARCH),
+               "default_step_sizes": reduced_gaps(arch=LM_TRAIN_ARCH)}
+    # a 2-layer stablelm-3b at its own head dim and types (2 heads of 80, bf16)
+    # on the card and on the CPU from one state
+    red = get_arch(LM_TRAIN_ARCH).reduced
+    bcfg = dataclasses.replace(red, name="stablelm-3b-bf16-hd80", d_model=160, d_ff=432,
+                               param_dtype="bfloat16", compute_dtype="bfloat16",
+                               attention=dataclasses.replace(red.attention, n_heads=2,
+                                                             n_kv_heads=2, head_dim=80))
+    barch = ArchSpec(bcfg.name, "lm", bcfg, bcfg)
+    bkw = dict(global_batch=8, seq_len=200, t_chunk=64)
+    bgpu = Session.from_workload(assemble_workload(barch, bcfg, device=dev, **bkw), seed=3)
+    bcpu = Session.from_workload(assemble_workload(barch, bcfg, device="cpu", **bkw), seed=3)
+    bcpu.state = clone_state(bgpu.state, "cpu")
+    reset_counts()
+    bgot, bwant = bgpu.train(3), bcpu.train(3)
+    bf16_launches = {k: v for k, v in counts().items() if v}
+    bf16_gap = [abs(a - b) / abs(b) for a, b in zip(bgot.stats.losses, bwant.stats.losses)]
+    emit("lm_consistency", arch=f"{LM_TRAIN_ARCH} (reduced)", steps=CONSISTENCY_STEPS,
+         **lm_runs, bf16_hd80={"config": "2 layers, 2 heads of 80, d_model 160, bf16",
+                               "losses_card": bgot.stats.losses,
+                               "losses_cpu": bwant.stats.losses,
+                               "relative_gap": bf16_gap, "bound": LM_BF16_LOSS_RTOL,
+                               "launches": bf16_launches},
+         seconds=time.perf_counter() - t_phase,
+         bounds="rows, dense and accum within 1e-5 at AdamW eps 1e-6 and at the default "
+                "eps; async more than 1e-6 from the reference; the bf16 config's losses "
+                f"within {LM_BF16_LOSS_RTOL} of the CPU's")
+    for label, run in lm_runs.items():
+        if not run["reference_same_bits_twice"]:
+            raise SystemExit(f"the LM reference gave other bits on a second run ({label})")
+        lgaps = run["max_diff_to_reference"]
+        for key in ("nestpipe", "serial", "nestpipe_vs_serial"):
+            if lgaps[key]["rows_dense"] > 1e-5 or lgaps[key]["accum_abs"] > 1e-5:
+                raise SystemExit(f"LM {key} differs from the reference ({label}): {lgaps}")
+        if lgaps["async"]["rows_dense"] <= 1e-6:
+            raise SystemExit(f"LM async did not diverge ({label}): {lgaps}")
+    if bf16_launches.get("flash_attention_wgmma", 0) != 2 * 2 * N_MICRO * 3 \
+            or bf16_launches.get("flash_attention_bwd_simple", 0) != 2 * N_MICRO * 3:
+        raise SystemExit(f"the bf16 hd-80 config launched {bf16_launches}")
+    if not all(np.isfinite(bgot.stats.losses)) or max(bf16_gap) > LM_BF16_LOSS_RTOL:
+        raise SystemExit(f"the bf16 hd-80 losses on the card are {bf16_gap} from the CPU's")
+    del bgpu, bcpu, bgot, bwant
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- 14. kernels line and the result -----------------------------------
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
@@ -3595,7 +3943,8 @@ def main() -> int:
                    "dlrm_preempt_resume_train": path_launches["preempt-resume"][kname],
                    "hstu_train": hstu_launches[kname],
                    "fuxi_train": fuxi_launches[kname],
-                   "lm_serve": lm_launches[kname]}
+                   "lm_serve": lm_launches[kname],
+                   "lm_train": lm_train_launches[kname]}
         for path in RUNS_ON[kname]:
             if by_path[path] == 0:
                 raise SystemExit(f"{kname} was not launched on the {path} path")
@@ -3612,6 +3961,27 @@ def main() -> int:
                 "calls_per_serve": lm_launches[kname],
                 "last_layer": {k: frows[-1][k] for k in ("ms", "plain_ms", "library_ms",
                                                          "bound_ms")},
+                "lse_max_abs_err": lse_worst["flash_attention_wgmma bfloat16"],
+                "calls_per_lm_train_step": LM_FWD_CALLS_PER_STEP,
+                "lm_train_call": {k: lm_attn[kname][k] for k in (
+                    "shape", "ms", "without_lse_ms", "simple_ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "achieved_tflops")},
+            }
+        elif kname == "flash_attention_bwd_simple":  # LM training's backward
+            row, frow = lm_attn[kname], fuxi_attn[kname]
+            entry = {
+                "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "max_abs_err": max([fuxi_err[kname], row["max_abs_err"]] + [
+                    v for k, v in bworst.items() if k.startswith(kname)]),
+                "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "ms_of": f"one call at the LM-training shape {row['shape']} over "
+                         f"{row['kv_heads']} kv heads, bf16, causal ({row['call']})",
+                "calls_per_lm_train_step": LM_BWD_CALLS_PER_STEP,
+                "achieved_tflops": row["achieved_tflops"],
+                "fuxi_shape": {k: frow[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                                    "bound_ms", "achieved_tflops")},
             }
         elif kname in fuxi_attn:  # FuXi's f32 attention: the forwards, the backward
             row = fuxi_attn[kname]
@@ -3664,7 +4034,8 @@ def main() -> int:
                            else sum(x[k] for x in calls[kname]))
                        for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
                     "calls": [x["call"] for x in calls[kname]]}
-                   for path, calls in (("hstu_train", hshapes), ("fuxi_train", fshapes))},
+                   for path, calls in (("hstu_train", hshapes), ("fuxi_train", fshapes),
+                                       ("lm_train", tshapes))},
             }
         if kname == "embedding_gather":
             times = ("ms", "plain_ms", "library_ms", "bound_ms")
@@ -3686,7 +4057,8 @@ def main() -> int:
                 "calls": [x["call"] for x in calls]}
         if kname == "segment_rowsum":  # the op's parts per step: sort, starts, sum, combine
             for step, calls in ((entry, rows), (entry["hstu_train_step"], hshapes[kname]),
-                                (entry["fuxi_train_step"], fshapes[kname])):
+                                (entry["fuxi_train_step"], fshapes[kname]),
+                                (entry["lm_train_step"], tshapes[kname])):
                 step["parts_ms"] = {k: sum(x["parts_ms"][k] for x in calls)
                                     for k in calls[0]["parts_ms"]}
         kernels.append(entry)

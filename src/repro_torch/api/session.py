@@ -12,16 +12,19 @@
 
     lm = Session.from_arch("stablelm-12b")             # a dense LM
     print(lm.serve(batch=8, prompt_len=2048, gen=32).summary)
+    lm3 = Session.from_arch("stablelm-3b", global_batch=8, seq_len=4096, lr=3e-5)
+    print(lm3.train(4).summary)                        # then .serve() serves it
 
-Training runs any ported recsys backbone (DLRM, HSTU, FuXi) and
-checkpoints it (``ckpt_dir``, ``ckpt_every``; :meth:`Session.save`,
+Training runs any ported recsys backbone (DLRM, HSTU, FuXi) or dense LM
+and checkpoints it (``ckpt_dir``, ``ckpt_every``; :meth:`Session.save`,
 :meth:`Session.restore`, :meth:`Session.restore_if_available`,
 ``train(resume=True)``), under the session's fault policy: a preemption
 guard (``preemption_signals``) the driver polls at step boundaries, saving
 before it exits, a step watchdog (``watchdog_factor``) and the fault
 injector of ``fault_inject`` (``repro_torch.dist``). Recsys serving has a
-DLRM head only, as in the JAX package. A dense LM serves (batched
-prefill, then greedy KV-cache decode) and does not train yet. A config
+DLRM head only, as in the JAX package. A dense LM trains (next-token
+cross-entropy over the FWP window) and serves (batched prefill, then
+greedy KV-cache decode), the trained weights once it trained. A config
 outside the registry goes through ``launch.build.assemble_workload`` and
 :meth:`Session.from_workload`. ``device`` defaults to ``cuda`` and raises
 without a GPU; pass ``device="cpu"`` for the plain PyTorch path.
@@ -47,7 +50,7 @@ from ..dist.checkpoint import (
 )
 from ..dist.fault import PreemptionGuard, StepWatchdog
 from ..dist.inject import FaultInjector, resolve_fault_inject
-from ..launch.build import LM_TRAINING_NOT_PORTED, RECSYS_GLOBAL_BATCH, Workload, resolve
+from ..launch.build import Workload, resolve
 from ..models.dlrm import DLRM
 from ..train.state import TrainState
 from ..utils import resolve_device, same_device
@@ -105,9 +108,12 @@ class Session:
     from the config's resolved ``fault_inject`` apart from the store's, so
     its ``ckpt_torn`` / ``ckpt_corrupt`` schedules count saves.
 
-    A dense LM session holds no train state: :meth:`serve` draws the
-    params and the master table only (no optimizer moments), from the
-    seed, once per seed, unless :meth:`ingest` handed it weights.
+    A dense LM session that has no train state serves without one:
+    :meth:`serve` draws the params and the master table only (no
+    optimizer moments), from the seed, once per seed, unless :meth:`ingest`
+    handed it weights; the train state (first used by ``state`` or
+    :meth:`train`) starts from those ingested weights, or draws its own,
+    and once it exists :meth:`serve` serves it.
     """
 
     def __init__(self, workload: Workload, *, opt_cfg: Optional[OptimizerConfig] = None,
@@ -147,6 +153,7 @@ class Session:
         mode: str = "nestpipe",
         reduced: bool = False,
         global_batch: Optional[int] = None,
+        seq_len: Optional[int] = None,
         n_micro: int = 4,
         clustering: str = "keycentric",
         bucket_slack: float = 4.0,
@@ -159,6 +166,7 @@ class Session:
         async_stages: str = "auto",
         stage_workers: int = 1,
         fault_inject: str = "auto",
+        t_chunk: int = 64,
         npcfg: Optional[NestPipeConfig] = None,
         opt_cfg: Optional[OptimizerConfig] = None,
         lr: Optional[float] = None,
@@ -172,11 +180,15 @@ class Session:
         """Resolve a registry arch into a ready session on ``device``.
 
         ``mode`` names a registered strategy (``nestpipe | async | serial |
-        serve``). ``global_batch`` is the training batch (default 65,536,
-        the JAX package's recsys batch), split into ``n_micro`` FWP
-        micro-batches. ``bucket_slack`` sizes the routing buffers (C and K):
-        4.0 only pads them on one shard, 1.5 is the ``NestPipeConfig``
-        default. ``prefetch_ahead`` is the DBP lookahead depth k.
+        serve``). ``global_batch`` is the training batch (a recsys arch's
+        default 65,536, the JAX package's recsys batch), split into
+        ``n_micro`` FWP micro-batches. A dense LM trains on ``global_batch``
+        sequences of ``seq_len`` tokens (JAX's ``train_4k``, 256 x 4,096,
+        when neither is given, else 32 for the one left out), its
+        cross-entropy chunked over ``t_chunk`` positions. ``bucket_slack``
+        sizes the routing buffers (C and K): 4.0 only pads them on one
+        shard, 1.5 is the ``NestPipeConfig`` default. ``prefetch_ahead`` is
+        the DBP lookahead depth k.
 
         ``store`` picks the embedding tier for the pipelined modes
         (``"device" | "host" | "cached"``; ``"auto"`` resolves
@@ -239,7 +251,7 @@ class Session:
             npcfg = dataclasses.replace(npcfg, **overlay)
         npcfg = strategy.configure(npcfg)
         wl = resolve(arch, device=device, mode=mode, npcfg=npcfg, reduced=reduced,
-                     global_batch=global_batch or RECSYS_GLOBAL_BATCH)
+                     global_batch=global_batch, seq_len=seq_len, t_chunk=t_chunk)
         if lr is not None:
             opt_cfg = dataclasses.replace(opt_cfg or OptimizerConfig(), lr=lr)
         return cls(wl, opt_cfg=opt_cfg, seed=seed, data_seed=data_seed,
@@ -274,21 +286,28 @@ class Session:
 
     @property
     def state(self) -> TrainState:
-        """The train state; a fresh init from ``seed`` on first use."""
-        if self.is_lm:
-            raise NotImplementedError(LM_TRAINING_NOT_PORTED)
+        """The train state; on first use a fresh init from ``seed``, or, for
+        an LM session that :meth:`ingest` handed weights, those weights with
+        a fresh optimizer state at step 0."""
         if self._state is None:
             if self._state_taken:
                 raise RuntimeError("the train state went to a train run that "
                                    "failed: it cannot be recovered")
-            g = torch.Generator(self.device).manual_seed(self.seed)
-            self._state = self.workload.init_state(g, self.optimizer)
+            if self._lm is not None and self._lm[0] is None:  # ingested LM weights
+                _, params, table = self._lm
+                self._state = TrainState(
+                    params, self.optimizer.init(params), table,
+                    torch.zeros((), dtype=torch.int32, device=self.device))
+            else:
+                g = torch.Generator(self.device).manual_seed(self.seed)
+                self._state = self.workload.init_state(g, self.optimizer)
+            self._lm = None  # serving reads the state from now on
         return self._state
 
     @state.setter
     def state(self, value: TrainState) -> None:
         self._check_table(value.table)
-        self._state, self._state_taken = value, False
+        self._state, self._state_taken, self._lm = value, False, None
 
     def _check_table(self, table: EmbeddingTableState) -> None:
         spec = self.workload.spec
@@ -328,13 +347,15 @@ class Session:
         optimizer state at step 0: ``params`` is the dense model's state
         dict, ``table`` the master (see ``repro_torch.convert``). An LM
         session takes its params (names and shapes checked, dtypes kept)
-        and table as they are and keeps no optimizer state."""
+        and table as they are and builds the optimizer state only when it
+        trains (``state``), so a serving session holds no moments."""
         self._check_table(table)
         dense = {k: torch.as_tensor(v, device=self.device).detach()
                  for k, v in params.items()}
         if self.is_lm:
             self._check_lm_params(dense)
             self._lm = (None, dense, table)
+            self._state, self._state_taken = None, False
             return
         self._state = TrainState(
             dense, self.optimizer.init(dense), table,
@@ -404,8 +425,6 @@ class Session:
         (``stats.preempted_at``); a notice that landed after the last
         boundary saves here. ``watchdog`` sees every step's time, and
         ``stragglers_flagged`` counts its events of this run."""
-        if self.is_lm:
-            raise NotImplementedError(LM_TRAINING_NOT_PORTED)
         if resume:
             self.restore_if_available()
         start = int(self.state.step)
@@ -436,6 +455,7 @@ class Session:
             self.save()
         summary = stats.summary()
         gb = self.workload.global_batch
+        samples_per_s = gb * len(stats.step_times) / max(wall, 1e-9)
         summary.update({
             "arch": self.workload.arch.name,
             "mode": self.strategy.name,
@@ -443,9 +463,13 @@ class Session:
             "n_micro": self.workload.n_micro,
             "device": str(self.device),
             "wall_s": wall,
-            "qps": gb * len(stats.step_times) / max(wall, 1e-9),
+            "qps": samples_per_s,
+            "samples_per_s": samples_per_s,
             "stragglers_flagged": flagged,
         })
+        if self.is_lm:
+            seq_len = self.workload.batch_shapes["keys"][0][2]
+            summary.update(seq_len=seq_len, tokens_per_s=samples_per_s * seq_len)
         return TrainReport(state=state, stats=stats, wall_s=wall,
                            stragglers=flagged, summary=summary)
 
@@ -467,10 +491,14 @@ class Session:
 
     def lm_weights(self, seed: Optional[int] = None
                    ) -> Tuple[Dict[str, torch.Tensor], EmbeddingTableState]:
-        """The (params, master table) an LM session serves: the ingested
-        ones, or a fresh init from ``seed`` (default: the session's) for the
-        params and from seed 1 for the table, as JAX's serve draws them,
-        kept for the next call with the same seed."""
+        """The (params, master table) an LM session serves: its train
+        state's (trained, or the state's first draw), as JAX's serve
+        serves a trained session's; else the ingested ones, or a fresh
+        init from ``seed`` (default: the session's) for the params and from
+        seed 1 for the table, as JAX's serve draws them, kept for the next
+        call with the same seed."""
+        if self._state is not None:
+            return self._state.dense, self._state.table
         seed = self.seed if seed is None else seed
         if self._lm is None or self._lm[0] not in (None, seed):
             self._lm = None  # release the old draw before the new one

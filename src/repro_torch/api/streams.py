@@ -1,11 +1,13 @@
-"""Host batch streams for a resolved Workload (``repro.api.streams``,
-recsys branches): the one place that maps a workload to a synthetic input
-iterator.
+"""Host batch streams for a resolved Workload (``repro.api.streams``): the
+one place that maps a workload to a synthetic input iterator.
 
 - ``dlrm`` backbone: ``SyntheticRecsysStream`` (multi-table zipf CTR);
 - sequential backbones (HSTU, FuXi): ``SyntheticLMStream``, zipf item-id
   sequences drawn from the first table's vocabulary, at the stream's
-  default zipf exponent 1.1 (not ``cfg.zipf_a``), as JAX draws them.
+  default zipf exponent 1.1 (not ``cfg.zipf_a``), as JAX draws them;
+- dense LMs: ``SyntheticLMStream`` over the vocabulary at the workload's
+  sequence length, with its next-token ``labels``: the same batches as
+  JAX's stream for a seed.
 
 Streams are deterministic in ``(seed, batch index)``; ``start_step``
 fast-forwards to any batch index exactly.
@@ -21,7 +23,15 @@ def resolve_stream(wl, seed: int = 0, *, start_step: int = 0) -> Iterator[dict]:
     """Infinite iterator of host batch dicts matching ``wl.batch_shapes``
     (plus ``raw_keys``, which clustering reads and the device never sees)."""
     cfg = wl.cfg
-    if cfg.backbone == "dlrm":
+    if wl.bundle is not None:
+        lm = SyntheticLMStream(cfg.vocab_size, wl.spec, wl.global_batch,
+                               wl.batch_shapes["keys"][0][2], seed=seed)
+
+        def make(step):
+            b = lm.make_batch(step)
+            return {"keys": b["keys"], "raw_keys": b["raw_tokens"],
+                    "labels": b["labels"]}
+    elif cfg.backbone == "dlrm":
         stream = SyntheticRecsysStream(cfg, wl.spec, wl.global_batch, seed=seed,
                                        zipf_a=cfg.zipf_a)
 

@@ -1,6 +1,7 @@
 """Architecture registry: ``--arch <id>`` -> full/reduced configs. Ported:
 the recsys archs (DLRM, HSTU, FuXi; training) and the dense LM archs whose
-(attn, mlp) stacks the port's layers cover (``kind="lm"``, serving)."""
+(attn, mlp) stacks the port's layers cover (``kind="lm"``, training and
+serving)."""
 from __future__ import annotations
 
 import importlib
@@ -47,5 +48,5 @@ def get_arch(name: str) -> ArchSpec:
         full, red = _RECSYS[name]
         return ArchSpec(name, "recsys", getattr(recsys_archs, full),
                         getattr(recsys_archs, red))
-    raise KeyError(f"unknown or unported arch '{name}'; ported: LM (serving) "
+    raise KeyError(f"unknown or unported arch '{name}'; ported: LM "
                    f"{sorted(LM_ARCHS)}, recsys {sorted(RECSYS_ARCHS)}")

@@ -74,8 +74,11 @@ def fuxi_params_from_jax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor
 
 def dense_params_from_jax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The dense pytree of a ported backbone as a state dict, told apart by
-    its keys: DLRM's ``bottom`` and ``top``, HSTU's layers (``w_uvqk``) or
-    FuXi's (``w_fi0``)."""
+    its keys: a dense LM's ``blocks`` (``lm_params_from_jax``), DLRM's
+    ``bottom`` and ``top``, HSTU's layers (``w_uvqk``) or FuXi's
+    (``w_fi0``)."""
+    if "blocks" in params_np:
+        return lm_params_from_jax(params_np)
     if "layers" not in params_np:
         return dlrm_params_from_jax(params_np)
     if "w_uvqk" in params_np["layers"]:
@@ -126,8 +129,9 @@ def table_from_jax(rows_np: np.ndarray, accum_np: np.ndarray,
 
 
 def train_state_from_jax(state_np, device: torch.device | str) -> TrainState:
-    """A JAX ``TrainState`` of numpy arrays (DLRM, HSTU or FuXi dense pytree,
-    AdamW ``AdamState(step, mu, nu)``, master table, step) -> the port's, on
+    """A JAX ``TrainState`` of numpy arrays (dense LM, DLRM, HSTU or FuXi
+    dense pytree, AdamW ``AdamState(step, mu, nu)``, master table, step) ->
+    the port's, on
     ``device``, so both packages start from one state."""
     def params(tree):
         return {k: v.to(device) for k, v in dense_params_from_jax(tree).items()}

@@ -7,6 +7,10 @@
 // positions counted from 0 on both sides even when Tq != Tk); q is
 // (B, Tq, H, hd), k and v are (B, Tk, KV, hd), query head h reading kv head
 // h / (H / KV) in place; the output is contiguous (B, Tq, H, hd) bf16.
+// When asked (a non-null `lse`), the kernel also writes each row's
+// logsumexp of the masked, scaled scores, f32 (B, H, Tq), which the
+// backward (csrc/flash_attention_bwd.cu) reads; the output and its bits are
+// the same either way (the LM serving prefill passes null).
 //
 // Replaces the Pallas TPU kernel `flash_attention`
 // (src/repro/kernels/flash_attention.py:70), and keeps its arithmetic: a
@@ -53,6 +57,9 @@
 //     O stays in registers over the whole key loop; the epilogue divides by
 //     max(d, 1e-30), writes bf16 into the warpgroup's own rows of the Q
 //     tile (no longer read) in the swizzled layout, and TMA stores them.
+//     The lse, when asked, comes from the same quad-reduced d and the
+//     running max, which is in log2 units (scores times scale log2(e)):
+//     ln 2 (m + log2 d), one plain store by the quad's first thread.
 //   - hd 160 and 80 are no multiple of 64, the width of a 128-byte swizzle
 //     atom. Each tile is stored as hd / W column blocks of W elements, with
 //     W the largest of 64, 32, 16 dividing hd and the matching 128-, 64- or
@@ -61,8 +68,9 @@
 //   - Keys per tile: 128 for hd <= 160 (Q 40 KB + 2 stages of K and V,
 //     160 KB, at hd 160), 64 above (registers: a 64 x 256 f32 O is 128 a
 //     thread).
-// Head dims 64, 80, 128, 160, 192 and 256; anything else, f32, and views
-// TMA cannot describe go to flash_fwd_kernel (the wrapper's choice).
+// Head dims 64, 80, 128, 160, 192 and 256; anything else and f32 go to the
+// other kernels, and views TMA cannot describe are copied first (the
+// wrapper's choice).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -80,6 +88,7 @@ constexpr int kStages = 2;    // the K / V ring
 constexpr int kThreads = 384; // warpgroups 0 and 1 consume, 2 produces
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Tile shapes and the shared-memory layout for one head dim. Every tile is
 // hd / kAtom column blocks, each rows x kAtom bf16 in the TMA swizzle of
@@ -500,8 +509,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
-                   const __grid_constant__ CUtensorMap omap, int Tq, int Tk, int H, int KV,
-                   int causal, float scale_log2) {
+                   const __grid_constant__ CUtensorMap omap, float* __restrict__ lse, int Tq,
+                   int Tk, int H, int KV, int causal, float scale_log2) {
   using S = Shape<HD>;
   constexpr int kKeys = S::kKeys;
   extern __shared__ uint8_t smem_raw[];
@@ -658,6 +667,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int r = 0; r < 2; ++r) {
       d_run[r] += __shfl_xor_sync(0xffffffffu, d_run[r], 1);
       d_run[r] += __shfl_xor_sync(0xffffffffu, d_run[r], 2);
+      if (lse != nullptr && (lane & 3) == 0 && q_row + 8 * r < Tq)
+        lse[(static_cast<int64_t>(b) * H + h) * Tq + q_row + 8 * r] =
+            kLn2 * (m_run[r] + log2f(d_run[r]));
       d_run[r] = fmaxf(d_run[r], 1e-30f);
     }
 #pragma unroll
@@ -733,8 +745,8 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* p, int64_t heads
 template <int HD>
 int launch(const void* q, int64_t qsb, int64_t qst, int64_t qsh, const void* k, int64_t ksb,
            int64_t kst, int64_t ksh, const void* v, int64_t vsb, int64_t vst, int64_t vsh,
-           void* out, int64_t B, int64_t Tq, int64_t Tk, int64_t H, int64_t KV, int causal,
-           float scale, void* stream) {
+           void* out, void* lse, int64_t B, int64_t Tq, int64_t Tk, int64_t H, int64_t KV,
+           int causal, float scale, void* stream) {
   using S = Shape<HD>;
   if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || B * H > INT_MAX ||
       Tq > INT_MAX - kRows || Tk > INT_MAX - kRows || (Tq + kRows - 1) / kRows > 65535)
@@ -753,7 +765,8 @@ int launch(const void* q, int64_t qsb, int64_t qst, int64_t qsh, const void* k, 
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(B * H), static_cast<unsigned>((Tq + kRows - 1) / kRows));
   flash_wgmma_kernel<HD><<<grid, kThreads, S::kSmem, static_cast<cudaStream_t>(stream)>>>(
-      qm, km, vm, om, static_cast<int>(Tq), static_cast<int>(Tk), static_cast<int>(H),
+      qm, km, vm, om, static_cast<float*>(lse), static_cast<int>(Tq), static_cast<int>(Tk),
+      static_cast<int>(H),
       static_cast<int>(KV), causal, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -763,18 +776,19 @@ int launch(const void* q, int64_t qsb, int64_t qst, int64_t qsh, const void* k, 
 // q (B, Tq, H, hd), k and v (B, Tk, KV, hd) are bf16 strided views (element
 // strides sb, st, sh, each a multiple of 8, of size-1 dims too; unit stride
 // along hd; 16-byte aligned bases); out is a contiguous (B, Tq, H, hd) bf16
-// output, every element of which is written. hd in {64, 80, 128, 160, 192,
-// 256}, H % KV == 0. Launches on `stream` and returns cudaGetLastError() (0
+// output, every element of which is written; lse is null or a contiguous
+// f32 (B, H, Tq) output, every element of which is written. hd in {64, 80,
+// 128, 160, 192, 256}, H % KV == 0. Launches on `stream` and returns cudaGetLastError() (0
 // on success). The caller checks shapes, types, devices and alignment.
 extern "C" int repro_flash_attention_fwd_wgmma(
     const void* q, int64_t qsb, int64_t qst, int64_t qsh, const void* k, int64_t ksb,
     int64_t kst, int64_t ksh, const void* v, int64_t vsb, int64_t vst, int64_t vsh, void* out,
-    int64_t B, int64_t Tq, int64_t Tk, int64_t H, int64_t KV, int64_t hd, int causal,
-    float scale, void* stream) {
+    void* lse, int64_t B, int64_t Tq, int64_t Tk, int64_t H, int64_t KV, int64_t hd,
+    int causal, float scale, void* stream) {
 #define REPRO_FLASH_HD(N)                                                                     \
   case N:                                                                                     \
-    return launch<N>(q, qsb, qst, qsh, k, ksb, kst, ksh, v, vsb, vst, vsh, out, B, Tq, Tk, H, \
-                     KV, causal, scale, stream);
+    return launch<N>(q, qsb, qst, qsh, k, ksb, kst, ksh, v, vsb, vst, vsh, out, lse, B, Tq, \
+                     Tk, H, KV, causal, scale, stream);
   switch (hd) {
     REPRO_FLASH_HD(64)
     REPRO_FLASH_HD(80)

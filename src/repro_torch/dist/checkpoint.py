@@ -52,9 +52,9 @@ _NP_DTYPES = {
     torch.int8: np.int8, torch.uint8: np.uint8, torch.bool: np.bool_,
 }
 BF16_NOT_PORTED = (
-    "a bfloat16 leaf cannot be checkpointed yet: numpy has no bfloat16 dtype, "
-    "and no train state the port holds has one (ROADMAP.md, port Queue 1, "
-    "item 4b, LM training, brings bf16 parameters)")
+    "a bfloat16 leaf cannot be checkpointed yet: numpy has no bfloat16 dtype "
+    "(a dense LM's bf16 params have one; ROADMAP.md, port Queue 1, item 3d: "
+    "bf16 checkpoint leaves)")
 
 
 # ---------------------------------------------------------------------------

@@ -26,9 +26,10 @@ Contract (the sentinel conventions of ``repro.kernels.dispatch``):
   ``(B, Tq, H, hd)`` and k, v ``(B, Tk, KV, hd)`` with ``H % KV == 0``,
   differentiable: on the card, when grad is on and an input requires it,
   a forward kernel that writes the row logsumexp (f32 at hd <= 128: the
-  3xTF32 kernel) and the backward kernel (``FlashAttention``; FuXi's
-  training), else the forward kernel alone
-  (the serving path); the plain version under autograd on the CPU.
+  3xTF32 kernel; bf16 at a wgmma head dim: the wgmma kernel) and the
+  backward kernel (``FlashAttention``; FuXi's and the LMs' training),
+  else the forward kernel alone (the serving path); the plain version
+  under autograd on the CPU.
 """
 from __future__ import annotations
 

@@ -19,11 +19,11 @@ head dim alone (never from their layout, nor from a build or launch
 error), so the same values give the same bits in every layout, as the
 TPU kernel does:
 
-- ``csrc/flash_attention_wgmma.cu`` (``"wgmma"``), the LM serving path:
-  bf16 at hd in ``WGMMA_HEAD_DIMS``. It reads views that a TMA tensor map
-  describes (16-byte aligned bases, every stride a multiple of 8 elements
-  and nested: heads inside positions inside batches) in place; any other
-  view is copied into a fresh contiguous tensor first. wgmma products with
+- ``csrc/flash_attention_wgmma.cu`` (``"wgmma"``), the LM path (serving
+  and training): bf16 at hd in ``WGMMA_HEAD_DIMS``. It reads views that a
+  TMA tensor map describes (16-byte aligned bases, every stride a multiple
+  of 8 elements and nested: heads inside positions inside batches) in
+  place; any other view is copied into a fresh contiguous tensor first. wgmma products with
   S, P and O in registers, TMA loads into a two-stage ring, a producer
   warpgroup.
 - ``csrc/flash_attention_tf32.cu`` (``"tf32x3"``), FuXi's training path:
@@ -39,8 +39,8 @@ Inputs are bf16 or f32 strided views with a unit stride along hd and
 first use (``kernels/build.py``); nothing here touches CUDA at import.
 
 The gradient is a kernel too: ``flash_attention_bwd`` computes dq, dk and
-dv from q, k, v, the output, its gradient and the row logsumexp that the
-tf32x3 and general forwards write beside their output, through one of two
+dv from q, k, v, the output, its gradient and the row logsumexp that each
+forward writes beside its output when asked, through one of two
 kernels chosen by ``bwd_variant`` from the type and head dim alone (never
 from the layout, nor from which forward wrote the lse):
 
@@ -49,15 +49,12 @@ from the layout, nor from which forward wrote the lse):
   over 128-row query tiles and a dk/dv kernel over 128-row key tiles, every
   product on the TF32 tensor cores in split precision (3xTF32
   ``mma.sync``), each MMA chain within one 32-row step.
-- ``csrc/flash_attention_bwd.cu`` (``"simple"``): bf16 (lifted to f32 as
-  it is loaded) and head dims above 128, on the f32 CUDA cores; and
-  ``flash_attention_bwd_simple`` for any inputs.
+- ``csrc/flash_attention_bwd.cu`` (``"simple"``), the LM training path:
+  bf16 (lifted to f32 as it is loaded) and head dims above 128, on the
+  f32 CUDA cores; and ``flash_attention_bwd_simple`` for any inputs.
 
 Both sum in a fixed order with no atomics. :class:`FlashAttention` joins
-forward and backward for autograd. The wgmma forward has no logsumexp
-output yet, so a bf16 input at a wgmma head dim that needs a gradient
-raises (``ROADMAP.md``, Queue 1, item 4b: LM training); it is never sent to
-the general kernel instead.
+forward and backward for autograd.
 """
 from __future__ import annotations
 
@@ -80,12 +77,6 @@ launches_bwd_tf32x3 = 0
 launches_bwd_simple = 0
 launches_bwd = 0
 _bwd_lock = threading.Lock()
-
-# What a bf16 input at a wgmma head dim answers when it needs a gradient.
-WGMMA_NO_GRAD = (
-    "flash_attention: the wgmma forward (bf16 at head dims {dims}) writes no "
-    "logsumexp, so it has no backward yet (ROADMAP.md, Queue 1, item 4b: LM "
-    "training, which gives it one)")
 
 MAX_HEAD_DIM = 256
 WGMMA_HEAD_DIMS = (64, 80, 128, 160, 192, 256)
@@ -111,9 +102,7 @@ def _kernel(kind: str, dtype: torch.dtype):
         p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
         view = [p, i64, i64, i64]
         sizes = [i64] * 6  # B, Tq, Tk, H, KV, hd
-        if kind == "wgmma":  # q, k, v; out
-            args = [*view * 3, p, *sizes, i32, f32, p]
-        elif kind in ("simple", "tf32x3"):  # q, k, v; out, lse
+        if kind in ("wgmma", "simple", "tf32x3"):  # q, k, v; out, lse
             args = [*view * 3, p, p, *sizes, i32, f32, p]
         else:  # the backward kernels: q, k, v, o, do; lse, delta scratch, dq, dk, dv
             args = [*view * 5, p, p, p, p, p, *sizes, i32, f32, p]
@@ -194,8 +183,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def _launch(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool, lse: bool = False):
-    """The output, or ``(out, lse)`` when ``lse`` (not the wgmma kernel):
-    the row logsumexp, contiguous f32 ``(B, H, Tq)``."""
+    """The output, or ``(out, lse)`` when ``lse``: the row logsumexp,
+    contiguous f32 ``(B, H, Tq)``."""
     global launches, launches_wgmma, launches_tf32x3, launches_simple
     b, tq, h, hd = q.shape
     tk, kv = k.shape[1], k.shape[2]
@@ -204,11 +193,11 @@ def _launch(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return (out, rows) if lse else out
     fn = _kernel(kind, q.dtype)
-    extra = () if kind == "wgmma" else (0 if rows is None else rows.data_ptr(),)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), *_strides(q), k.data_ptr(), *_strides(k),
-                 v.data_ptr(), *_strides(v), out.data_ptr(), *extra, b, tq, tk, h, kv,
+                 v.data_ptr(), *_strides(v), out.data_ptr(),
+                 0 if rows is None else rows.data_ptr(), b, tq, tk, h, kv,
                  hd, int(causal), hd ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention ({kind}) launch failed: CUDA error {err}")
@@ -222,18 +211,24 @@ def _launch(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, rows) if lse else out
 
 
+def _tma_views(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """q, k, v as the kernel ``kind`` reads them: for the wgmma kernel a
+    view TMA cannot describe is copied (never sent to another kernel)."""
+    if kind != "wgmma":
+        return q, k, v
+    return tuple(x if tma_ok(x) else x.clone(memory_format=torch.contiguous_format)
+                 for x in (q, k, v))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """The contiguous ``(B, Tq, H, hd)`` output, in q's type, for CUDA q,
     k, v of one type (bf16 or f32), through the kernel ``variant`` picks;
     for the wgmma kernel, a view TMA cannot describe is read from a
-    contiguous copy."""
+    contiguous copy. No lse is written."""
     _check(q, k, v)
     kind = variant(q, k, v)
-    if kind == "wgmma":  # a view TMA cannot describe is copied, not sent elsewhere
-        q, k, v = (x if tma_ok(x) else x.clone(memory_format=torch.contiguous_format)
-                   for x in (q, k, v))
-    return _launch(kind, q, k, v, causal)
+    return _launch(kind, *_tma_views(kind, q, k, v), causal)
 
 
 def flash_attention_simple(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -246,10 +241,9 @@ def flash_attention_simple(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def lse_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """The kernel ``flash_attention_lse`` launches: ``variant``'s, or the
-    general kernel's where that is the wgmma kernel (which writes no lse)."""
-    kind = variant(q, k, v)
-    return "simple" if kind == "wgmma" else kind
+    """The kernel ``flash_attention_lse`` launches: ``variant``'s (every
+    forward kernel writes the lse when asked)."""
+    return variant(q, k, v)
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -257,9 +251,11 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``(out, lse)`` through the kernel ``lse_variant`` picks: the output,
     and the row logsumexp ``m + log d`` of the masked, scaled scores, f32
     ``(B, H, Tq)``, which the backward reads. The output has the bits that
-    kernel gives without the lse."""
+    kernel gives without the lse; a view the wgmma kernel's TMA cannot
+    describe is copied, as in ``flash_attention``."""
     _check(q, k, v)
-    return _launch(lse_variant(q, k, v), q, k, v, causal, lse=True)
+    kind = lse_variant(q, k, v)
+    return _launch(kind, *_tma_views(kind, q, k, v), causal, lse=True)
 
 
 def _launch_bwd(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -327,16 +323,14 @@ def flash_attention_bwd_simple(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 class FlashAttention(torch.autograd.Function):
-    """The forward through the kernel ``variant`` picks (``tf32x3`` or
-    ``simple``), saving q, k, v, the output and its row logsumexp; the
-    backward through ``flash_attention_bwd``, the kernel ``bwd_variant``
-    picks (FuXi's f32 at hd 64: the tf32x3 backward). The wgmma variant
-    raises: its forward writes no logsumexp yet."""
+    """The forward through the kernel ``variant`` picks, with its row
+    logsumexp, saving q, k, v, the output and the lse; the backward through
+    ``flash_attention_bwd``, the kernel ``bwd_variant`` picks: FuXi's f32 at
+    hd 64 goes through the tf32x3 forward and backward, an LM's bf16 at a
+    wgmma head dim through the wgmma forward and the general backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool = True):
-        if variant(q, k, v) == "wgmma":
-            raise NotImplementedError(WGMMA_NO_GRAD.format(dims=WGMMA_HEAD_DIMS))
         out, lse = flash_attention_lse(q, k, v, causal)
         ctx.causal = causal
         ctx.save_for_backward(q, k, v, out, lse)

@@ -1,8 +1,8 @@
 """Workload resolution: (arch x shape x mode x device) -> the mega-table
-spec, the engine, the batch shapes and, for a recsys arch, the step
-functions and the initial train state. A recsys dense model is picked by
-the config's backbone (``dlrm``, ``hstu`` or ``fuxi``); a dense LM (``kind == "lm"``)
-resolves to its serving bundle over a single-vocab table."""
+spec, the engine, the batch shapes, the step functions and the initial
+train state. A recsys dense model is picked by the config's backbone
+(``dlrm``, ``hstu`` or ``fuxi``); a dense LM (``kind == "lm"``) resolves to
+its bundle (training loss, prefill, decode) over a single-vocab table."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -22,7 +22,7 @@ from ..core.embedding.table import MegaTableSpec
 from ..models.dlrm import DLRM, LossFn, make_dlrm_loss_fn, num_feature_slots
 from ..models.fuxi import FuXi, make_fuxi_loss_fn
 from ..models.hstu import HSTU, make_hstu_loss_fn
-from ..models.zoo import LMBundle, build_lm_bundle
+from ..models.zoo import LMBundle, build_lm_bundle, train_batch_shapes
 from ..train import (
     OptimizerPair,
     StepFns,
@@ -34,14 +34,11 @@ from ..train import (
 
 # Recsys training batch (per-worker hundreds of samples x 256 workers).
 RECSYS_GLOBAL_BATCH = 65536
-
-
-# What an LM workload answers when asked to train: the port serves dense
-# LMs, and their training is a later slice.
-LM_TRAINING_NOT_PORTED = (
-    "LM training is not ported: the port serves dense LMs only "
-    "(ROADMAP.md, Queue 1, item 4b: LM training, which needs a logsumexp "
-    "output from the wgmma flash_attention forward)")
+# JAX's train_4k shape (src/repro/configs/shapes.py): an LM's default
+# training batch and sequence length, and a custom shape's default for
+# whichever of the two is not given
+LM_TRAIN_4K = (256, 4096)
+LM_CUSTOM_DEFAULT = 32
 
 
 @dataclass
@@ -55,8 +52,9 @@ class Workload:
     n_micro: int
     batch_shapes: Dict[str, Tuple[Tuple[int, ...], Any]]
     device: torch.device
-    # LM workloads only: the serving bundle
+    # LM workloads only: the bundle, and the cross-entropy's chunk over T
     bundle: Optional[LMBundle] = None
+    t_chunk: int = 512
 
     @property
     def global_batch(self) -> int:
@@ -65,24 +63,26 @@ class Workload:
 
     def step_fns(self, opt_cfg: Optional[OptimizerConfig] = None
                  ) -> Tuple[StepFns, OptimizerPair]:
-        if self.bundle is not None:
-            raise NotImplementedError(LM_TRAINING_NOT_PORTED)
         opt_cfg = opt_cfg or OptimizerConfig()
         optimizer = make_optimizer(opt_cfg)
         mb_keys_shape = self.batch_shapes["keys"][0][1:]
+        loss_fn = (make_loss_fn(self.cfg) if self.bundle is None
+                   else self.bundle.loss_fn(self.t_chunk))
         fns = build_step_fns(
-            self.engine, make_loss_fn(self.cfg), optimizer,
+            self.engine, loss_fn, optimizer,
             constant_lr(opt_cfg.lr, self.device), self.n_micro, mb_keys_shape)
         return fns, optimizer
 
     def init_state(self, generator: torch.Generator,
                    optimizer: OptimizerPair) -> TrainState:
-        """Dense params, then the master table, drawn on the device from
-        ``generator``; a fresh optimizer state; step 0."""
+        """Dense params (an LM's ``init_lm_params``), then the master
+        table, drawn on the device from ``generator``; a fresh optimizer
+        state; step 0."""
         if self.bundle is not None:
-            raise NotImplementedError(LM_TRAINING_NOT_PORTED)
-        model = dense_model(self.cfg, device=self.device, generator=generator)
-        params = {k: v.detach() for k, v in model.state_dict().items()}
+            params = self.bundle.init_params(generator, self.device)
+        else:
+            model = dense_model(self.cfg, device=self.device, generator=generator)
+            params = {k: v.detach() for k, v in model.state_dict().items()}
         table = init_table_state(self.spec, device=self.device, generator=generator)
         return TrainState(params, optimizer.init(params), table,
                           torch.zeros((), dtype=torch.int32, device=self.device))
@@ -132,38 +132,51 @@ def resolve(
     mode: str = "nestpipe",
     npcfg: Optional[NestPipeConfig] = None,
     reduced: bool = False,
-    global_batch: int = RECSYS_GLOBAL_BATCH,
+    global_batch: Optional[int] = None,
+    seq_len: Optional[int] = None,
+    t_chunk: int = 512,
 ) -> Workload:
-    """A recsys arch at ``global_batch``, or a dense LM (which serves any
-    batch and prompt, and so takes no batch here)."""
+    """The registry arch ``arch_name`` (its reduced config when
+    ``reduced``) through ``assemble_workload``."""
     arch = get_arch(arch_name)
-    if arch.kind == "lm":
-        return _resolve_lm(arch, arch.reduced if reduced else arch.config,
-                           device=device, mode=mode, npcfg=npcfg)
     return assemble_workload(arch, arch.reduced if reduced else arch.config,
                              device=device, mode=mode, npcfg=npcfg,
-                             global_batch=global_batch)
+                             global_batch=global_batch, seq_len=seq_len, t_chunk=t_chunk)
 
 
 def assemble_workload(
     arch: ArchSpec,
-    cfg: RecsysModelConfig,
+    cfg: Union[RecsysModelConfig, ModelConfig],
     *,
     device: torch.device | str,
     mode: str = "nestpipe",
     npcfg: Optional[NestPipeConfig] = None,
-    global_batch: int = RECSYS_GLOBAL_BATCH,
+    global_batch: Optional[int] = None,
+    seq_len: Optional[int] = None,
+    t_chunk: int = 512,
 ) -> Workload:
     """Assemble the workload of ``cfg`` on one device: what ``resolve``
     does for a registry arch, and what a hand-assembled config (one
-    outside the registry) goes through before ``Session.from_workload``."""
-    _backbone(cfg)
+    outside the registry) goes through before ``Session.from_workload``.
+
+    A recsys config trains at ``global_batch`` (default
+    ``RECSYS_GLOBAL_BATCH``; its sequence length is the config's). A dense
+    LM (``arch.kind == "lm"``) trains at ``global_batch`` x ``seq_len``
+    tokens, with JAX's rule for the shape: ``train_4k`` when neither is
+    given, else 32 for the one left out; its cross-entropy is chunked over
+    ``t_chunk`` positions. Serving takes any batch and prompt whatever the
+    training shape."""
     device = torch.device(device)
     npcfg = npcfg or NestPipeConfig()
-    n_micro = npcfg.fwp_microbatches
-    if global_batch % n_micro:
-        raise ValueError(f"global_batch={global_batch} is not a multiple of "
-                         f"n_micro={n_micro}")
+    if arch.kind == "lm":
+        if global_batch is None and seq_len is None:
+            global_batch, seq_len = LM_TRAIN_4K
+        return _resolve_lm(arch, cfg, device=device, mode=mode, npcfg=npcfg,
+                           global_batch=global_batch or LM_CUSTOM_DEFAULT,
+                           seq_len=seq_len or LM_CUSTOM_DEFAULT, t_chunk=t_chunk)
+    _backbone(cfg)
+    global_batch = global_batch or RECSYS_GLOBAL_BATCH
+    n_micro = _n_micro(npcfg, global_batch)
     spec = make_mega_table_spec(cfg.tables, num_shards=1)
     engine = EmbeddingEngine(spec, npcfg, device=device,
                              compute_dtype=getattr(torch, cfg.compute_dtype))
@@ -174,19 +187,29 @@ def assemble_workload(
     )
 
 
-def _resolve_lm(arch: ArchSpec, cfg: ModelConfig, *, device, mode: str,
-                npcfg: Optional[NestPipeConfig]) -> Workload:
+def _n_micro(npcfg: NestPipeConfig, global_batch: int) -> int:
+    n_micro = npcfg.fwp_microbatches
+    if global_batch % n_micro:
+        raise ValueError(f"global_batch={global_batch} is not a multiple of "
+                         f"n_micro={n_micro}")
+    return n_micro
+
+
+def _resolve_lm(arch: ArchSpec, cfg: ModelConfig, *, device: torch.device, mode: str,
+                npcfg: NestPipeConfig, global_batch: int, seq_len: int,
+                t_chunk: int) -> Workload:
     """JAX ``resolve`` for ``kind == "lm"`` on one device: the vocab as a
-    single-table spec and an engine at the config's compute dtype. Serving
-    takes no FWP micro-batches, and the batch is the caller's, so the
-    workload has no batch shapes."""
-    device = torch.device(device)
-    npcfg = npcfg or NestPipeConfig()
+    single-table spec, an engine at the config's compute dtype, and the
+    training window of ``global_batch`` sequences of ``seq_len`` tokens in
+    N micro-batches (N = 1 under the serve strategy, whose batch and prompt
+    the caller gives at ``Session.serve``)."""
+    n_micro = _n_micro(npcfg, global_batch)
     bundle = build_lm_bundle(cfg)
     spec = make_mega_table_spec(None, vocab_size=cfg.vocab_size, dim=bundle.emb_dim,
                                 num_shards=1)
     engine = EmbeddingEngine(spec, npcfg, device=device,
                              compute_dtype=getattr(torch, cfg.compute_dtype))
     return Workload(arch=arch, cfg=cfg, mode=mode, npcfg=npcfg, spec=spec,
-                    engine=engine, n_micro=1, batch_shapes={}, device=device,
-                    bundle=bundle)
+                    engine=engine, n_micro=n_micro,
+                    batch_shapes=train_batch_shapes(global_batch, seq_len, n_micro),
+                    device=device, bundle=bundle, t_chunk=t_chunk)

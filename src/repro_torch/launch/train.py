@@ -10,7 +10,15 @@
 runs on the GPU (``--device cpu`` for the plain PyTorch path, with
 ``--reduced`` for a CPU-sized model). ``--arch`` takes any ported registry
 arch (``dlrm-*``, ``hstu-industrial``, ``fuxi-kuairand``, whose full
-32.80 GB master fits one card); ``--store`` picks the embedding
+32.80 GB master fits one card, and the dense LMs, which train on
+``--global-batch`` sequences of ``--seq-len`` tokens):
+
+    python -m repro_torch.launch.train --arch stablelm-3b --global-batch 8 \
+        --seq-len 4096 --steps 4 --lr 3e-5
+    python -m repro_torch.launch.train --arch stablelm-3b --reduced \
+        --device cpu --global-batch 8 --seq-len 16 --steps 4
+
+``--store`` picks the embedding
 tier (``device``, ``host``: the master in host memory, ``cached``: a
 device cache over it):
 
@@ -51,6 +59,9 @@ def train(argv=None):
     p.add_argument("--n-micro", type=int, default=4)
     p.add_argument("--reduced", action="store_true")
     p.add_argument("--global-batch", type=int, default=16)
+    p.add_argument("--seq-len", type=int, default=32,
+                   help="tokens a sequence (dense LM archs; recsys archs "
+                        "take their config's)")
     p.add_argument("--bucket-slack", type=float, default=4.0)
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--seed", type=int, default=0)
@@ -71,7 +82,7 @@ def train(argv=None):
 
     sess = Session.from_arch(
         args.arch, mode=args.mode, reduced=args.reduced,
-        global_batch=args.global_batch, n_micro=args.n_micro,
+        global_batch=args.global_batch, seq_len=args.seq_len, n_micro=args.n_micro,
         bucket_slack=args.bucket_slack, lr=args.lr, seed=args.seed,
         store=args.store, prefetch_ahead=args.prefetch_ahead,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,

@@ -1,5 +1,6 @@
 """Models: the DLRM dense head, the HSTU and FuXi backbones and their
-losses, and the dense LM serving path (prefill + KV-cache decode)."""
+losses, and the dense LM (the training backbone, its chunked
+cross-entropy and loss; prefill + KV-cache decode)."""
 from .dlrm import (
     DLRM,
     dlrm_forward,
@@ -16,12 +17,22 @@ from .hstu import (
     sequence_infonce,
 )
 from .layers import apply_norm, init_norm
-from .transformer import LMCache, init_lm_cache, init_lm_params, lm_decode_step, lm_prefill
-from .zoo import LMBundle, build_lm_bundle
+from .transformer import (
+    LMCache,
+    init_lm_cache,
+    init_lm_params,
+    lm_backbone,
+    lm_decode_step,
+    lm_prefill,
+    make_lm_loss_fn,
+    vocab_parallel_xent,
+)
+from .zoo import LMBundle, build_lm_bundle, train_batch_shapes
 
 __all__ = ["DLRM", "dlrm_forward", "make_dlrm_loss_fn", "num_feature_slots",
            "pool_tables", "FuXi", "fuxi_forward", "fuxi_layer",
            "make_fuxi_loss_fn", "HSTU", "hstu_forward", "hstu_layer",
            "make_hstu_loss_fn", "sequence_infonce", "apply_norm", "init_norm",
-           "LMCache", "init_lm_cache", "init_lm_params", "lm_decode_step",
-           "lm_prefill", "LMBundle", "build_lm_bundle"]
+           "LMCache", "init_lm_cache", "init_lm_params", "lm_backbone",
+           "lm_decode_step", "lm_prefill", "make_lm_loss_fn", "vocab_parallel_xent",
+           "LMBundle", "build_lm_bundle", "train_batch_shapes"]

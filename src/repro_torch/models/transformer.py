@@ -1,23 +1,26 @@
-"""TransformerLM serving (``repro.models.transformer``, the dense (attn, mlp)
-stacks): parameter init, the compute-dtype cast, KV caches, prefill and
-one KV-cache decode step.
+"""TransformerLM (``repro.models.transformer``, the dense (attn, mlp)
+stacks): parameter init, the compute-dtype cast, the training backbone
+with per-layer remat, the chunked cross-entropy and the loss the FWP
+executor takes; KV caches, prefill and one KV-cache decode step.
 
 Parameters are JAX's pytree flattened to state-dict names, one stacked
 tensor per leaf with the layer axis first, as JAX stacks the repeats of
 its layer pattern: ``blocks.{p}.attn.wq`` is ``(n_rep, d, H * hd)`` for
 pattern position ``p`` (a dense stack has one position and ``n_rep ==
 n_layers``), beside ``final_norm.scale`` and ``head_w``. A layer reads
-views of its slices; nothing is copied.
+views of its slices (``unbind``, whose gradient stacks the layers' back
+into one tensor); nothing is copied.
 
 The token embedding is not part of this module: lookups go through the
-embedding engine, and the backbone takes ready embeddings. Training (the
-loss, the backbone's backward) is not ported yet.
+embedding engine, and the backbone takes ready embeddings. The training
+forward and the prefill run one layer function (``_block``).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, NamedTuple, Tuple
+from typing import Callable, Dict, List, Mapping, NamedTuple, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import layers as L
@@ -36,7 +39,7 @@ def _check_ported(cfg: ModelConfig) -> None:
         if mixer != "attn" or ffn not in ("mlp", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: ({mixer}, {ffn}) layers are not ported; the port "
-                f"serves dense (attn, mlp) stacks")
+                f"trains and serves dense (attn, mlp) stacks")
     if cfg.encoder is not None or cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.name}: encoders and frontends are not ported")
 
@@ -81,21 +84,127 @@ def _cast_tree(params: Mapping[str, torch.Tensor], dtype: torch.dtype
             for k, v in params.items()}
 
 
-def _layer(params: Mapping[str, torch.Tensor], pos: int, rep: int):
-    """The nested ``{"norm1": {...}, "attn": {...}, ...}`` of layer ``rep`` at
-    pattern position ``pos``: views of the stacked leaves."""
-    out: Dict[str, Dict[str, torch.Tensor]] = {}
+def _layers(params: Mapping[str, torch.Tensor], pos: int
+            ) -> List[Dict[str, Dict[str, torch.Tensor]]]:
+    """Per repeat, the nested ``{"norm1": {...}, "attn": {...}, ...}`` of the
+    layer at pattern position ``pos``: views of the stacked leaves, taken
+    with one ``unbind`` a leaf (its gradient is one stack of the layers'
+    gradients, not a stacked-size gradient per layer)."""
+    out: List[Dict[str, Dict[str, torch.Tensor]]] = []
     prefix = f"blocks.{pos}."
     for name, v in params.items():
         if name.startswith(prefix):
             part, leaf = name[len(prefix):].split(".", 1)
-            out.setdefault(part, {})[leaf] = v[rep]
+            for rep, view in enumerate(v.unbind(0)):
+                if rep == len(out):
+                    out.append({})
+                out[rep].setdefault(part, {})[leaf] = view
     return out
+
+
+def _block(lp: Mapping[str, Mapping[str, torch.Tensor]], cfg: ModelConfig, ffn: str,
+           x: torch.Tensor, positions: torch.Tensor):
+    """One (attn, mlp) layer on x (B, T, D) with its weights ``lp``: the
+    pre-norm residual block of JAX's ``_apply_block``. Returns ``(x, k, v)``,
+    the rotated k and v being what a prefill caches."""
+    h = L.apply_norm(lp["norm1"], x, cfg.norm_eps)
+    o, k, v = L.gqa_attention(lp["attn"], h, cfg.attention, positions=positions)
+    x = x + o
+    if ffn != "none":
+        h = L.apply_norm(lp["norm2"], x, cfg.norm_eps)
+        x = x + L.apply_mlp(lp["mlp"], h, cfg.mlp_type, cfg.activation)
+    return x, k, v
 
 
 def _final_norm(params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k.split(".", 1)[1]: v for k, v in params.items()
             if k.startswith("final_norm.")}
+
+
+# ---------------------------------------------------------------------------
+# Training: the backbone, the chunked cross-entropy, the loss
+# ---------------------------------------------------------------------------
+
+
+def lm_backbone(params: Mapping[str, torch.Tensor], cfg: ModelConfig, emb: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward over ready embeddings (B, T, D): ``(hidden (B, T,
+    D) in the compute dtype, moe_aux)``, JAX's ``lm_backbone`` on one device
+    with ``remat="full"``. The weights are cast by ``_cast_tree``; each
+    layer runs under ``checkpoint`` (non-reentrant), so the backward keeps
+    only the layer boundaries and runs each layer's forward again, its
+    attention kernel included. A dense stack has no MoE term: ``moe_aux``
+    is a zero f32 scalar, as in JAX."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    x = emb.to(cdt)
+    b, t, _ = x.shape
+    positions = torch.arange(t, device=x.device).expand(b, t)
+    pattern, n_rep = _pattern_groups(cfg)
+    p = _cast_tree(params, cdt)
+    layers = [_layers(p, pos) for pos in range(len(pattern))]
+    for rep in range(n_rep):
+        for pos, (_, ffn) in enumerate(pattern):
+            lp = layers[pos][rep]
+            x = checkpoint(lambda x_, lp=lp, ffn=ffn: _block(lp, cfg, ffn, x_, positions)[0],
+                           x, use_reentrant=False)
+    x = L.apply_norm(_final_norm(p), x, cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def vocab_parallel_xent(hidden: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
+                        *, t_chunk: int = 512, pad_id: int = -1) -> torch.Tensor:
+    """Mean next-token cross-entropy over the non-pad labels, JAX's
+    ``vocab_parallel_xent`` with no mesh (the whole vocabulary on one
+    device). T is cut into chunks of ``t_chunk`` (the last padded with
+    ``pad_id`` labels), so the f32 logits live a chunk at a time: ``(h_c @
+    head_w)`` in the compute dtype, then f32; the max shift carries no
+    gradient; the sums go chunk by chunk in order. hidden (B, T, D),
+    head_w (D, V), labels (B, T) integers."""
+    b, t, d = hidden.shape
+    vs = head_w.shape[1]
+    tc = min(t_chunk, t)
+    n_chunks = -(-t // tc)
+    pad = n_chunks * tc - t
+    if pad:
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=pad_id)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(n_chunks):
+        h_c, l_c = hidden[:, c * tc:(c + 1) * tc], labels[:, c * tc:(c + 1) * tc]
+        logits = (h_c @ head_w).to(torch.float32)  # (B, tc, V)
+        mx = logits.amax(-1).detach()
+        lse = torch.log(torch.exp(logits - mx[..., None]).sum(-1)) + mx
+        ok = (l_c >= 0) & (l_c < vs)
+        picked = logits.gather(-1, l_c.clamp(0, vs - 1).long()[..., None])[..., 0]
+        picked = torch.where(ok, picked, picked.new_zeros(()))
+        valid = (l_c != pad_id).to(torch.float32)
+        total = total + ((lse - picked) * valid).sum()
+        count = count + valid.sum()
+    return total / torch.clamp(count, min=1.0)
+
+
+def make_lm_loss_fn(cfg: ModelConfig, *, t_chunk: int = 512) -> Callable:
+    """``loss_fn(params, emb, mb) -> (total, {"xent", "moe_aux"})`` with
+    ``mb = {"labels": (B, T)}``: the signature the FWP executor and the
+    reference trainer take. ``head_w`` is cast to the compute dtype; the
+    MoE term's coefficient is 0 for a dense stack."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    aux_coef = cfg.moe.aux_loss_coef if cfg.moe is not None else 0.0
+
+    def loss_fn(params, emb, mb):
+        hidden, moe_aux = lm_backbone(params, cfg, emb)
+        loss = vocab_parallel_xent(hidden, params["head_w"].to(cdt), mb["labels"],
+                                   t_chunk=t_chunk)
+        total = loss + aux_coef * moe_aux
+        return total, {"xent": loss.detach(), "moe_aux": moe_aux.detach()}
+
+    return loss_fn
+
+
+# ---------------------------------------------------------------------------
+# Serving: KV caches, prefill, decode
+# ---------------------------------------------------------------------------
 
 
 class LMCache(NamedTuple):
@@ -133,17 +242,12 @@ def lm_prefill(params: Mapping[str, torch.Tensor], cfg: ModelConfig, emb: torch.
     positions = torch.arange(t, device=emb.device).expand(b, t)
     pattern, n_rep = _pattern_groups(cfg)
     p = _cast_tree(params, cdt)
+    layers = [_layers(p, pos) for pos in range(len(pattern))]
     for rep in range(n_rep):
         for pos, (_, ffn) in enumerate(pattern):
-            lp = _layer(p, pos, rep)
-            h = L.apply_norm(lp["norm1"], x, cfg.norm_eps)
-            o, k, v = L.gqa_attention(lp["attn"], h, cfg.attention, positions=positions)
+            x, k, v = _block(layers[pos][rep], cfg, ffn, x, positions)
             cache.caches[pos]["k"][rep, :, :t] = k
             cache.caches[pos]["v"][rep, :, :t] = v
-            x = x + o
-            if ffn != "none":
-                h = L.apply_norm(lp["norm2"], x, cfg.norm_eps)
-                x = x + L.apply_mlp(lp["mlp"], h, cfg.mlp_type, cfg.activation)
     x = L.apply_norm(_final_norm(p), x, cfg.norm_eps)
     logits = (x[:, -1] @ p["head_w"].to(cdt)).to(torch.float32)
     return logits, cache._replace(length=t)
@@ -158,9 +262,10 @@ def lm_decode_step(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
     x = emb.to(cdt)
     pattern, n_rep = _pattern_groups(cfg)
     p = _cast_tree(params, cdt)
+    layers = [_layers(p, pos) for pos in range(len(pattern))]
     for rep in range(n_rep):
         for pos, (_, ffn) in enumerate(pattern):
-            lp = _layer(p, pos, rep)
+            lp = layers[pos][rep]
             c = cache.caches[pos]
             h = L.apply_norm(lp["norm1"], x, cfg.norm_eps)
             o, _, _ = L.gqa_decode(lp["attn"], h, c["k"][rep], c["v"][rep],

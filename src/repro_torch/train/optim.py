@@ -2,9 +2,11 @@
 schedule, over dicts of tensors (``repro.train.optim`` in PyTorch).
 
 The sparse (embedding) optimizer is rowwise Adagrad and lives in the
-embedding engine, applied owner-side once per frozen window. Updates are
-functional, like JAX's: ``update`` returns new params and a new state and
-writes no input.
+embedding engine, applied owner-side once per frozen window. ``update``
+returns new params and a new state and writes neither the params nor the
+grads. AdamW's moments are the exception: they are updated in place, as a
+JAX step updates its donated state, so a step does not hold two copies of
+them (for stablelm-3b, 21.3 GB each); the state passed in is consumed.
 """
 from __future__ import annotations
 
@@ -78,16 +80,18 @@ def make_adamw(cfg: OptimizerConfig) -> OptimizerPair:
         t = step.to(torch.float32)  # the bias corrections take t as f32
         bc1 = 1.0 - b1 ** t
         bc2 = 1.0 - b2 ** t
-        mu = {k: b1 * state.mu[k] + (1 - b1) * grads[k].to(torch.float32)
-              for k in params}
-        nu = {k: b2 * state.nu[k] + (1 - b2) * torch.square(grads[k].to(torch.float32))
-              for k in params}
         new = {}
-        for k, p in params.items():
+        for k, p in params.items():  # a leaf at a time: one leaf's temporaries
+            g32 = grads[k].to(torch.float32)
+            # b1 mu + (1 - b1) g and b2 nu + (1 - b2) g^2, each op rounded as
+            # in the out-of-place form
+            mu = state.mu[k].mul_(b1).add_((1 - b1) * g32)
+            nu = state.nu[k].mul_(b2).add_((1 - b2) * torch.square(g32))
+            del g32
             p32 = p.to(torch.float32)
-            delta = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + eps) + wd * p32
+            delta = (mu / bc1) / (torch.sqrt(nu / bc2) + eps) + wd * p32
             new[k] = (p32 - lr * delta).to(p.dtype)
-        return new, AdamState(step, mu, nu), gnorm
+        return new, AdamState(step, state.mu, state.nu), gnorm
 
     return OptimizerPair(init, update)
 

@@ -481,7 +481,7 @@ def test_restore_serves_the_restored_weights(tmp_path):
 
 
 def test_bf16_leaf_is_refused_naming_the_item(tmp_path):
-    with pytest.raises(ValueError, match="item 4b"):
+    with pytest.raises(ValueError, match="item 3d"):
         save_checkpoint(str(tmp_path), {"w": torch.zeros(3, dtype=torch.bfloat16)}, 0)
     assert os.listdir(tmp_path) == []  # refused before anything was written
 

@@ -1,7 +1,8 @@
 """The port on the card: the hand-written CUDA kernels, the serving paths
 (DLRM embeddings, dense-LM prefill and decode), the training paths (DLRM,
 HSTU and FuXi, whose attention runs the tf32x3 flash_attention forward and
-backward kernels),
+backward kernels, and the dense LMs: bf16 at a wgmma head dim through the
+wgmma forward with its lse and the general backward),
 the host and cached embedding tiers, checkpoints (chunked writes from
 the card, an in-place restore, the save's time kept out of the steps), and
 faults (a fault at every store site, recovered to the fault-free bits; a
@@ -13,6 +14,7 @@ runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
 import os
 import sys
 
@@ -23,6 +25,8 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
 from repro_torch.api import Session, resolve_stream
+from repro_torch.configs.base import OptimizerConfig
+from repro_torch.configs.registry import ArchSpec, get_arch
 from repro_torch.core.consistency import add_rows_in_order, build_reference_step
 from repro_torch.core.embedding.routing import SENTINEL
 from repro_torch.core.store import FetchPlan
@@ -34,7 +38,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import hstu_attention as ha
 from repro_torch.kernels import segment_rowsum as sr
 from repro_torch.data.pipeline import make_cluster_transform, stage_to_device
-from repro_torch.launch.build import make_loss_fn
+from repro_torch.launch.build import assemble_workload, make_loss_fn
 from repro_torch.train import clone_state, constant_lr
 
 pytestmark = pytest.mark.cuda
@@ -764,8 +768,9 @@ def test_flash_attention_bwd_tf32x3_holds_the_bound_on_same_sign_values(cuda_dev
 def test_flash_attention_lse_equals_plain(cuda_device, dtype):
     """The forward's row logsumexp within ``ref.flash_attention_lse_bound``
     of the plain one, and its output the bits the same kernel gives without
-    the lse (``fa.lse_variant``: the tf32x3 kernel for f32 at hd <= 128,
-    else the general one)."""
+    the lse (``fa.lse_variant`` is ``fa.variant``: the tf32x3 kernel for f32
+    at hd <= 128, the wgmma kernel for bf16 at its head dims, else the
+    general one)."""
     for b, tq, tk, h, kv, hd, causal in FLASH_BWD_CASES:
         q, k, v = _flash_case(cuda_device, b, tq, tk, h, kv, hd, dtype, seed=hd)
         out, lse = fa.flash_attention_lse(q, k, v, causal)
@@ -811,14 +816,94 @@ def test_flash_attention_autograd_runs_the_kernels(cuda_device):
 
 
 def test_flash_attention_wgmma_with_grad_raises(cuda_device):
-    """bf16 at a wgmma head dim has no backward yet (its forward writes no
-    lse): it raises and never runs the general kernel in its place."""
+    """bf16 at a wgmma head dim under autograd (it raised until the wgmma
+    forward wrote its lse): one wgmma forward with its lse and one general
+    backward launch, none of the other forwards, the output the wgmma
+    kernel's bits, the gradients those of the backward kernel on that lse."""
     q, k, v = _flash_case(cuda_device, 1, 16, 16, 2, 1, 64, torch.bfloat16, seed=4)
     assert fa.variant(q, k, v) == "wgmma"
-    before = (fa.launches, fa.launches_bwd)
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        dispatch.flash_attention(q.requires_grad_(), k, v)
-    assert (fa.launches, fa.launches_bwd) == before
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (fa.launches_wgmma, fa.launches, fa.launches_bwd_simple, fa.launches_bwd)
+    out = dispatch.flash_attention(*leaves, True)
+    do = torch.ones_like(out)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (fa.launches_wgmma, fa.launches, fa.launches_bwd_simple, fa.launches_bwd) == (
+        before[0] + 1, before[1] + 1, before[2] + 1, before[3] + 1)
+    assert torch.equal(out, fa.flash_attention(q, k, v, True))
+    o, lse = fa.flash_attention_lse(q, k, v, True)
+    for leaf, w in zip(leaves, fa.flash_attention_bwd(q, k, v, o, do, lse, True)):
+        assert torch.equal(leaf.grad, w)
+
+
+@pytest.mark.parametrize("hd", fa.WGMMA_HEAD_DIMS)
+def test_flash_attention_wgmma_lse_equals_plain(cuda_device, hd):
+    """The wgmma forward's row logsumexp within ``ref.flash_attention_lse_bound``
+    of ``ref.flash_attention_lse_ref`` at every wgmma head dim, causal and
+    not, T of one row, of a partial tile and of several tiles, and on a
+    strided view (column slices of one wider tensor, read in place); one
+    wgmma launch a call, and the output bit for bit what the kernel gives
+    without the lse."""
+    cases = [(1, 1, 1, 2, 2), (2, 100, 100, 4, 1), (1, 257, 257, 2, 2), (1, 33, 140, 4, 2)]
+    for b, tq, tk, h, kv in cases:
+        for causal in (True, False):
+            q, k, v = _flash_case(cuda_device, b, tq, tk, h, kv, hd, torch.bfloat16,
+                                  seed=tq + hd)
+            views = [(q, k, v)]
+            if tq == 100:
+                wide = torch.randn((b, tq, h, 3 * hd + 8), device=cuda_device).to(
+                    torch.bfloat16)
+                views.append((wide[..., 8:8 + hd], wide[..., 8 + hd:8 + 2 * hd],
+                              wide[..., 8 + 2 * hd:]))
+            for q_, k_, v_ in views:
+                assert fa.lse_variant(q_, k_, v_) == "wgmma"
+                before = (fa.launches_wgmma, fa.launches)
+                out, lse = fa.flash_attention_lse(q_, k_, v_, causal)
+                assert (fa.launches_wgmma, fa.launches) == (before[0] + 1, before[1] + 1)
+                assert lse.shape == (b, h, tq) and lse.dtype == torch.float32
+                assert torch.equal(out, fa.flash_attention(q_, k_, v_, causal))
+                want = ref.flash_attention_lse_ref(q_, k_, causal)
+                bound = ref.flash_attention_lse_bound(q_, k_, want, causal)
+                assert bool(((lse - want).abs() <= bound).all()), (tq, causal)
+
+
+def test_variants_at_wgmma_head_dims(cuda_device):
+    """bf16 at every wgmma head dim: the wgmma forward, with and without
+    the lse, and the general backward; f32 at hd 80 and 160: tf32x3 and
+    the general kernel, forward and backward."""
+    for hd in fa.WGMMA_HEAD_DIMS:
+        q, k, v = _flash_case(cuda_device, 1, 4, 4, 2, 1, hd, torch.bfloat16, seed=hd)
+        assert (fa.variant(q, k, v), fa.lse_variant(q, k, v), fa.bwd_variant(q, k, v)) == \
+            ("wgmma", "wgmma", "simple")
+    for hd, kind in ((80, "tf32x3"), (160, "simple")):
+        q, k, v = _flash_case(cuda_device, 1, 4, 4, 2, 1, hd, torch.float32, seed=hd)
+        assert (fa.variant(q, k, v), fa.lse_variant(q, k, v), fa.bwd_variant(q, k, v)) == \
+            (kind, kind, kind)
+
+
+@pytest.mark.parametrize("hd", [80, 160])
+def test_flash_attention_bf16_grads_at_wgmma_dims_equal_plain(cuda_device, hd):
+    """``dispatch.flash_attention`` under autograd, bf16 at hd 80 (stablelm-3b)
+    and 160 (stablelm-12b), causal, GQA: gradients within
+    ``ref.flash_attention_bwd_bound`` of the plain backward on the wgmma
+    forward's output and lse, one wgmma forward and one general backward
+    launch, none of the other attention kernels."""
+    q, k, v = _flash_case(cuda_device, 2, 200, 200, 4, 2, hd, torch.bfloat16, seed=hd)
+    do = torch.randn(q.shape, device=cuda_device).to(torch.bfloat16)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (fa.launches_wgmma, fa.launches_bwd_simple, fa.launches_bwd_tf32x3,
+              fa.launches_simple, fa.launches_tf32x3)
+    dispatch.flash_attention(*leaves, True).backward(do)
+    torch.cuda.synchronize()
+    assert (fa.launches_wgmma, fa.launches_bwd_simple, fa.launches_bwd_tf32x3,
+            fa.launches_simple, fa.launches_tf32x3) == (
+        before[0] + 1, before[1] + 1, before[2], before[3], before[4])
+    o, lse = fa.flash_attention_lse(q, k, v, True)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, True)
+    bounds = ref.flash_attention_bwd_bound(q, k, v, o, do, lse, want, True)
+    for name, leaf, w, bd in zip("qkv", leaves, want, bounds):
+        err = (leaf.grad.float() - w.float()).abs()
+        assert bool((err <= bd).all()), (name, float(err.max()))
 
 
 def test_fuxi_training_on_the_card_runs_the_kernels_and_matches_cpu(cuda_device):
@@ -844,6 +929,62 @@ def test_fuxi_training_on_the_card_runs_the_kernels_and_matches_cpu(cuda_device)
                                rtol=0, atol=1e-5)
     for k, v in want.state.dense.items():
         torch.testing.assert_close(got.state.dense[k].cpu(), v, rtol=0, atol=1e-5)
+
+
+def _lm_bf16_hd80():
+    """A small stablelm-3b at its own head dim and types: 2 layers of 2
+    heads of 80 (d_model 160), bf16 params and compute, the reduced
+    vocabulary: its attention goes through the wgmma forward and the
+    general bf16 backward."""
+    red = get_arch("stablelm-3b").reduced
+    cfg = dataclasses.replace(red, name="stablelm-3b-bf16-hd80", d_model=160, d_ff=432,
+                              param_dtype="bfloat16", compute_dtype="bfloat16",
+                              attention=dataclasses.replace(red.attention, n_heads=2,
+                                                            n_kv_heads=2, head_dim=80))
+    return ArchSpec(cfg.name, "lm", cfg, cfg), cfg
+
+
+def test_lm_training_on_the_card_runs_the_kernels_and_matches_cpu(cuda_device):
+    """Reduced stablelm-3b (f32, hd 16: the tf32x3 forward and backward,
+    2 x 2 x 2 and 2 x 2 launches a step) against the port on the CPU
+    within 1e-5 (AdamW eps 1e-6, as the CPU parity tests against JAX);
+    then the bf16 config at hd 80 (the wgmma forward with its lse and the
+    general backward, at the same counts, none of the tf32x3 kernels), its
+    losses within 3% of the CPU's (both round to bf16 at every op, in
+    other orders)."""
+    steps = 3
+    kw = dict(global_batch=8, seq_len=16, n_micro=2, t_chunk=8, seed=3,
+              opt_cfg=OptimizerConfig(lr=2e-3, eps=1e-6))
+    gpu = Session.from_arch("stablelm-3b", reduced=True, **kw)
+    cpu = Session.from_arch("stablelm-3b", reduced=True, device="cpu", **kw)
+    cpu.state = clone_state(gpu.state, "cpu")
+    before = (fa.launches_tf32x3, fa.launches_bwd_tf32x3, fa.launches_wgmma,
+              fa.launches_bwd_simple, fa.launches_simple)
+    got, want = gpu.train(steps), cpu.train(steps)
+    assert (fa.launches_tf32x3 - before[0], fa.launches_bwd_tf32x3 - before[1],
+            fa.launches_wgmma - before[2], fa.launches_bwd_simple - before[3],
+            fa.launches_simple - before[4]) == (8 * steps, 4 * steps, 0, 0, 0)
+    assert got.summary["overflow_max"] == 0
+    np.testing.assert_allclose(got.stats.losses, want.stats.losses, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got.state.table.rows.cpu(), want.state.table.rows,
+                               rtol=0, atol=1e-5)
+    for k, v in want.state.dense.items():
+        torch.testing.assert_close(got.state.dense[k].cpu(), v, rtol=0, atol=1e-5)
+
+    arch, cfg = _lm_bf16_hd80()
+    wkw = dict(global_batch=4, seq_len=200, t_chunk=64)
+    gpu = Session.from_workload(assemble_workload(arch, cfg, device=cuda_device, **wkw),
+                                seed=3)
+    cpu = Session.from_workload(assemble_workload(arch, cfg, device="cpu", **wkw), seed=3)
+    cpu.state = clone_state(gpu.state, "cpu")
+    before = (fa.launches_wgmma, fa.launches_bwd_simple, fa.launches_tf32x3,
+              fa.launches_bwd_tf32x3, fa.launches_simple)
+    got, want = gpu.train(steps), cpu.train(steps)
+    assert (fa.launches_wgmma - before[0], fa.launches_bwd_simple - before[1],
+            fa.launches_tf32x3 - before[2], fa.launches_bwd_tf32x3 - before[3],
+            fa.launches_simple - before[4]) == (16 * steps, 8 * steps, 0, 0, 0)
+    assert np.isfinite(got.stats.losses).all()
+    np.testing.assert_allclose(got.stats.losses, want.stats.losses, rtol=0.03, atol=0)
 
 
 def test_lm_serving_on_the_card_runs_the_kernel_and_matches_cpu(cuda_device):

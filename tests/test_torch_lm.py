@@ -15,8 +15,9 @@
   within 1e-5; and reduced stablelm-12b computing in bf16;
 - ``Session.serve`` tokens equal JAX ``Session.serve``'s on the same
   weights (JAX's fresh init handed over through ``convert``);
-- ``lm_params_from_jax`` names, shapes and dtypes; an LM session refuses
-  to train; the LM serving CLI runs on the CPU.
+- ``lm_params_from_jax`` names, shapes and dtypes; an LM session trains
+  (tests/test_torch_lm_train.py holds its training against JAX) and
+  refuses recsys serving; the LM serving CLI runs on the CPU.
 
 Every input is drawn with numpy from a seed and handed to both packages.
 """
@@ -331,10 +332,15 @@ def test_lm_params_from_jax_names_shapes_and_dtypes():
 
 
 def test_lm_session_refuses_to_train_and_recsys_serving():
-    sess = Session.from_arch("stablelm-12b", reduced=True, device="cpu")
-    for call in (lambda: sess.train(1), lambda: sess.state):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    """An LM session trains (its state drawn on first use, one step of the
+    next-token loss); it refuses recsys serving, a recsys session refuses
+    LM serving, and mismatched weights and unported archs are refused."""
+    sess = Session.from_arch("stablelm-12b", reduced=True, device="cpu",
+                             global_batch=4, seq_len=8)
+    assert sess._state is None and int(sess.state.step) == 0
+    rep = sess.train(1)
+    assert int(rep.state.step) == 1 and np.isfinite(rep.stats.losses).all()
+    assert rep.summary["tokens_per_s"] > 0
     with pytest.raises(ValueError, match=r"\.serve\(\)"):
         sess.serve_embeddings(num_requests=4)
     with pytest.raises(ValueError, match="serve_embeddings"):
