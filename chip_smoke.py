@@ -14,9 +14,11 @@ hand-written kernel on it against its plain PyTorch version:
    process per source, all at once; each source's nvcc seconds, ptxas's
    registers and spills (the ``hstu_attention`` forward's, the tf32x3
    ``flash_attention`` forward's and the tf32x3 backward's dq and dk/dv
-   kernels' by head dim, and each general ``flash_attention`` backward
-   kernel's), the
-   HGMMA instructions in the wgmma ``flash_attention`` library and the HMMA
+   kernels' by head dim, each general ``flash_attention`` backward
+   kernel's, and the wgmma forward's and the wgmma backward's dq and
+   dk/dv kernels' by head dim), the HGMMA instructions in the wgmma
+   ``flash_attention`` library (by head dim too) and in the wgmma
+   backward's dq and dk/dv kernels apart, and the HMMA
    (``mma.sync``) instructions of the tf32x3 ``flash_attention`` library,
    of the tf32x3 backward's dq and dk/dv kernels apart, and of each
    ``hstu_attention`` kernel, the forward and the two backward kernels
@@ -183,20 +185,26 @@ hand-written kernel on it against its plain PyTorch version:
    printed);
 11a. ``flash_attention`` backward edges: the backward kernel that
    ``flash_attention.bwd_variant`` picks (``csrc/flash_attention_bwd_tf32.cu``
-   for f32 at hd <= 128, ``csrc/flash_attention_bwd.cu`` for the rest) and,
-   for every f32 case at hd <= 128, the general one too
-   (``flash_attention_bwd_simple``), each checked by its counter, on the
-   forward's output and row logsumexp (the tf32x3 kernel's in f32 at
-   hd <= 128, the wgmma kernel's in bf16 at hd 80, the general kernel's
-   otherwise; its counter checked) and a
+   for f32 at hd <= 128, ``csrc/flash_attention_bwd_wgmma.cu`` for bf16 at
+   hd 64, 80 and 128, ``csrc/flash_attention_bwd.cu`` for the rest) and,
+   for every f32 case at hd <= 128 and every bf16 case at hd 64, 80 and
+   128, the general one too (``flash_attention_bwd_simple``), each checked
+   by its counter, on the forward's output and row logsumexp (the tf32x3
+   kernel's in f32 at hd <= 128, the wgmma kernel's in bf16 at hd 64, 80
+   and 128, the general kernel's otherwise; its counter checked) and a
    random output gradient, against ``ref.flash_attention_bwd_ref`` within
    ``ref.flash_attention_bwd_bound`` (1e-5 of each gradient's sum of
-   magnitudes + 1e-7, plus one bf16 ulp in bf16) at T in {1, 33, 64, 257,
-   512}, hd in {16, 64, 80, 128, 160}, H/KV in {1, 4}, causal and full,
-   f32, and bf16 at hd 16 and 80; Tq 33 against Tk 100 and the reverse, and
-   a strided view off 16-byte alignment; the same values off alignment and
-   with heads outside positions give the contiguous layout's bits through
-   the tf32x3 backward; values of one sign at FuXi's shape (v and do plus
+   magnitudes + 1e-7, plus one bf16 ulp in bf16; for the wgmma kernel its
+   ``products="bf16"`` form, 2**-8 of the terms' magnitudes more; the
+   general kernel on the same bf16 inputs held to the f32 form) at T in
+   {1, 33, 64, 257, 512}, hd in {16, 64, 80, 128, 160}, H/KV in {1, 4},
+   causal and full, f32, and bf16 at hd 16, 64, 80 and 128; Tq 33 against
+   Tk 100 and the reverse, f32 and bf16, and strided views off 16-byte
+   alignment, f32 and bf16; the same values off alignment and with heads
+   outside positions give the contiguous layout's bits through the tf32x3
+   backward and the wgmma one (its views copied); bf16 values of one sign
+   (q and k times 1, 2 and 3) at hd 80 through the wgmma kernel within its
+   bound; values of one sign at FuXi's shape (v and do plus
    2; q and k times 1, 2 and 3, three draws each) through both backward
    kernels, their shares of the bound against an f64 evaluation and the
    plain version printed (``flash_bwd_same_sign``), the tf32x3 kernel held
@@ -280,11 +288,12 @@ hand-written kernel on it against its plain PyTorch version:
    through ``Session.from_arch("stablelm-3b", global_batch=8,
    seq_len=4096, n_micro=4)`` on the device tier in ``nestpipe``: one
    warm-up step, two steps whose first wgmma forward with its lse, first
-   general backward and embedding-kernel calls are captured (the latter
+   wgmma backward and embedding-kernel calls are captured (the latter
    checked and timed as in phase 4), then ``train(4)`` with every launch
-   counted (256 wgmma forwards with the lse and 128 general backwards a
+   counted (256 wgmma forwards with the lse and 128 wgmma backwards a
    step: 32 layers x 4 micro-batches, each forward again in the
-   backward; none of the tf32x3 kernels nor of the general forward);
+   backward; none of the tf32x3 kernels nor of the general forward or
+   backward);
    AdamW at lr 3e-5; finite losses, each below the warm-up step's (the
    third step's rises at this and larger steps: no warm-up), no routing
    overflow,
@@ -292,19 +301,21 @@ hand-written kernel on it against its plain PyTorch version:
    (``--profile``: the device idle share and the top device ops over 2
    more steps); then, with the session released, the captured calls
    checked at full shape (the forward and its lse through the wgmma
-   kernel and the general one, the backward through the general kernel)
-   and timed beside the plain versions, SDPA (forward, and
-   ``torch.autograd.grad`` through it) and their bf16 bound at 989
-   TFLOP/s, the wgmma forward with and without its lse in turns;
+   kernel and the general one, the backward through the wgmma kernel and
+   the general one) and timed beside the plain versions, SDPA (forward,
+   and ``torch.autograd.grad`` through it) and their bf16 bound at 989
+   TFLOP/s, the wgmma forward with and without its lse in turns, the
+   backward through the general and the wgmma kernel in turns (general,
+   wgmma, wgmma, general);
 13c. LM consistency: ``stablelm-3b-reduced`` (f32, hd 16: the tf32x3
    kernels) nestpipe = serial = the reference trainer within 1e-5 over 6
    steps, async diverging, at AdamW eps 1e-6 (the CPU parity tests') and
    at the default eps; a 2-layer bf16 stablelm-3b at hd 80 (the
-   wgmma forward and the general backward) trained 3 steps on the card and
+   wgmma forward and the wgmma backward) trained 3 steps on the card and
    on the CPU from one state: each loss within 3% of the CPU's;
 14. a ``{"kernels": [...]}`` line (the tf32x3 and the general
    ``flash_attention`` forward and backward at FuXi's main-path shape,
-   the general one also at the LM's; the wgmma forward's and the general
+   the general one also at the LM's; the wgmma forward's and the wgmma
    backward's LM-training calls; the data-path kernels' LM-training step;
    the gather's LM serve as its 96 calls,
    and apart as the prefill's three and one decode step's three; the
@@ -456,7 +467,7 @@ LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 4096, 4
 LM_TRAIN_LR = 3e-5
 # the wgmma forward's calls a step: 32 layers x 4 micro-batches x 2 (each
 # layer's forward runs again in the backward: per-layer remat), and the
-# general backward's: 32 x 4
+# wgmma backward's: 32 x 4
 LM_FWD_CALLS_PER_STEP, LM_BWD_CALLS_PER_STEP = 256, 128
 # the bf16 LM on the card against the port on the CPU: each step's loss
 # within this share of the CPU's (both round to bf16 at every op, in other
@@ -486,8 +497,11 @@ KERNELS = {  # name -> (source, the Pallas kernel it replaces)
     "flash_attention_tf32x3": ("src/repro_torch/csrc/flash_attention_tf32.cu",
                                "src/repro/kernels/flash_attention.py:70"),
     # the TPU kernel is forward only; JAX differentiates chunked_attention
-    # (src/repro/models/layers.py:160): f32 at head dims up to 128 (FuXi's
-    # backward), and the general backward (bf16, larger head dims)
+    # (src/repro/models/layers.py:160): bf16 at hd 64, 80, 128 (LM
+    # training's backward), f32 at head dims up to 128 (FuXi's backward),
+    # and the general backward (bf16 at other head dims, f32 above 128)
+    "flash_attention_bwd_wgmma": ("src/repro_torch/csrc/flash_attention_bwd_wgmma.cu",
+                                  "src/repro/kernels/flash_attention.py:70"),
     "flash_attention_bwd_tf32x3": ("src/repro_torch/csrc/flash_attention_bwd_tf32.cu",
                                    "src/repro/kernels/flash_attention.py:70"),
     "flash_attention_bwd_simple": ("src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -528,10 +542,12 @@ RUNS_ON = {
     # FuXi's f32 attention, forward and backward
     "flash_attention_tf32x3": ("fuxi_train",),
     "flash_attention_bwd_tf32x3": ("fuxi_train",),
-    # bf16 and head dims above 128: LM training's backward (phase 13b);
-    # phase 11a holds it against the plain version, 11b times it at FuXi's
-    # call
-    "flash_attention_bwd_simple": ("lm_train",),
+    # bf16 at hd 64, 80 and 128: LM training's backward (phase 13b)
+    "flash_attention_bwd_wgmma": ("lm_train",),
+    # bf16 at the other head dims and f32 above 128: no main path sends it
+    # inputs; phase 11a holds it against the plain version, 11b and 13b
+    # time it at FuXi's and the LM's calls
+    "flash_attention_bwd_simple": (),
 }
 
 
@@ -839,6 +855,7 @@ def main() -> int:
         ha.launches_fwd = ha.launches_bwd = 0
         fa.launches = fa.launches_wgmma = fa.launches_simple = fa.launches_bwd = 0
         fa.launches_tf32x3 = fa.launches_bwd_tf32x3 = fa.launches_bwd_simple = 0
+        fa.launches_bwd_wgmma = 0
 
     def counts():
         return {**{k: m.launches for k, m in mods.items()},
@@ -847,6 +864,7 @@ def main() -> int:
                 "flash_attention_wgmma": fa.launches_wgmma,
                 "flash_attention_simple": fa.launches_simple,
                 "flash_attention_tf32x3": fa.launches_tf32x3,
+                "flash_attention_bwd_wgmma": fa.launches_bwd_wgmma,
                 "flash_attention_bwd_tf32x3": fa.launches_bwd_tf32x3,
                 "flash_attention_bwd_simple": fa.launches_bwd_simple}
 
@@ -959,6 +977,30 @@ def main() -> int:
     fwd_ptxas = {"d" + re.search(r"ILi(\d+)E", fn).group(1): v for fn, v in ptxas_by_kernel(
         build.build_log.get("hstu_attention", {}).get("ptxas", "")).items()
         if "hstu_fwd_kernel" in fn}
+    # the wgmma flash forward's HGMMA and its registers and spills by head
+    # dim (kernel<HD>), the same since its helpers moved into csrc/wgmma.cuh
+    per_fn = sass_counts(build.library_path("flash_attention_wgmma"), "HGMMA")
+    fwd_wgmma_hgmma = None if per_fn is None else {
+        re.search(r"ILi(\d+)E", fn).group(1): c for fn, c in per_fn.items()}
+    fwd_wgmma_ptxas = {"hd" + m.group(1): v for fn, v in ptxas_by_kernel(build.build_log.get(
+        "flash_attention_wgmma", {}).get("ptxas", "")).items()
+        if (m := re.search(r"flash_wgmma_kernelILi(\d+)E", fn))}
+    # the wgmma flash backward: the HGMMA of its dq and dk/dv kernels (each
+    # summed over its head-dim instantiations; none may be 0), and each
+    # kernel's registers and spills by head dim (kernel<HD>)
+    per_fn = sass_counts(build.library_path("flash_attention_bwd_wgmma"), "HGMMA")
+    bwd_wgmma_hgmma = None if per_fn is None else {
+        kn: sum(c for fn, c in per_fn.items() if kn in fn)
+        for kn in ("flash_wgmma_bwd_dq_kernel", "flash_wgmma_bwd_dkdv_kernel")}
+    if bwd_wgmma_hgmma is not None and min(bwd_wgmma_hgmma.values()) == 0:
+        raise SystemExit(f"a wgmma flash_attention backward kernel holds no HGMMA "
+                         f"instruction: {bwd_wgmma_hgmma}")
+    bwd_wgmma_ptxas = {}
+    for fn, v in ptxas_by_kernel(build.build_log.get("flash_attention_bwd_wgmma", {}).get(
+            "ptxas", "")).items():
+        m = re.search(r"flash_wgmma_bwd_(dq|dkdv|delta)_kernel(?:ILi(\d+)E)?", fn)
+        if m:
+            bwd_wgmma_ptxas[m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")] = v
     # each flash_attention backward kernel's registers and spills, by type
     # and columns a thread (kernel<T, kC>)
     bwd_ptxas = {re.sub(r".*flash_bwd_(\w+?)_kernel.*?I(f|13__nv_bfloat16)(?:Li(\d+)E)?.*",
@@ -972,6 +1014,9 @@ def main() -> int:
          flash_tf32x3_hmma_instructions=flash_hmma, flash_tf32x3_ptxas=flash_tf32_ptxas,
          flash_bwd_tf32x3_hmma_instructions=bwd_tf32_hmma,
          flash_bwd_tf32x3_ptxas=bwd_tf32_ptxas,
+         flash_wgmma_hgmma_by_head_dim=fwd_wgmma_hgmma, flash_wgmma_ptxas=fwd_wgmma_ptxas,
+         flash_bwd_wgmma_hgmma_instructions=bwd_wgmma_hgmma,
+         flash_bwd_wgmma_ptxas=bwd_wgmma_ptxas,
          hstu_fwd_ptxas=fwd_ptxas, flash_bwd_ptxas=bwd_ptxas,
          ptxas={k: [ln.strip() for ln in v["ptxas"].splitlines()
                     if "registers" in ln or "spill" in ln]
@@ -1441,7 +1486,7 @@ def main() -> int:
             "hstu_attention_fwd": 0, "hstu_attention_bwd": 0,
             "flash_attention_wgmma": 0, "flash_attention_simple": 0,
             "flash_attention_tf32x3": 0, "flash_attention_bwd_tf32x3": 0,
-            "flash_attention_bwd_simple": 0}
+            "flash_attention_bwd_simple": 0, "flash_attention_bwd_wgmma": 0}
     if train_launches != want:
         raise SystemExit(f"training launches {train_launches} != {want}")
 
@@ -2647,7 +2692,7 @@ def main() -> int:
                  "hstu_attention_bwd": n_layers * N_MICRO * HSTU_STEPS,
                  "flash_attention_wgmma": 0, "flash_attention_simple": 0,
                  "flash_attention_tf32x3": 0, "flash_attention_bwd_tf32x3": 0,
-                 "flash_attention_bwd_simple": 0}
+                 "flash_attention_bwd_simple": 0, "flash_attention_bwd_wgmma": 0}
     if hstu_launches != hstu_want:
         raise SystemExit(f"HSTU launches {hstu_launches} != {hstu_want}")
     if hstu_launches["hstu_attention_fwd"] != HSTU_FWD_CALLS_PER_STEP * HSTU_STEPS:
@@ -2780,7 +2825,8 @@ def main() -> int:
     # -- 11a. flash_attention backward against its plain version ---------------
     t_phase = time.perf_counter()
     bworst, bshare = {}, {}  # the largest |kernel - plain| and |kernel - plain| / bound
-    bwd_kernels = ("flash_attention_bwd_tf32x3", "flash_attention_bwd_simple")
+    bwd_kernels = ("flash_attention_bwd_tf32x3", "flash_attention_bwd_wgmma",
+                   "flash_attention_bwd_simple")
 
     def run_bwd(label, kind, q, k, v, out, do, lse, causal):
         """The backward kernel ``kind`` (``fa.flash_attention_bwd`` where
@@ -2804,11 +2850,12 @@ def main() -> int:
         at its head dims, else the general one; its counter must move) or
         ``given`` (o, do, lse), then the backward
         kernel ``fa.bwd_variant`` picks on a random output gradient and,
-        where that is the tf32x3 kernel, the general one too, each against
-        the plain versions, ``chunk`` batch rows at a time: the lse within
-        ref.flash_attention_lse_bound, dq, dk and dv within
-        ref.flash_attention_bwd_bound; the same bits on a second run of
-        each kernel. Returns the largest errors by backward kernel."""
+        where that is the tf32x3 or the wgmma kernel, the general one too,
+        each against the plain versions, ``chunk`` batch rows at a time:
+        the lse within ref.flash_attention_lse_bound, dq, dk and dv within
+        ref.flash_attention_bwd_bound (its bf16 form for the wgmma
+        kernel); the same bits on a second run of each kernel. Returns the
+        largest errors by backward kernel."""
         if given is None:
             fwd = f"flash_attention_{fa.lse_variant(q, k, v)}"
             fwd_before = counts()[fwd]
@@ -2822,7 +2869,8 @@ def main() -> int:
             del out2, lse2
         else:
             out, do, lse = given
-        kinds = ("tf32x3", "simple") if fa.bwd_variant(q, k, v) == "tf32x3" else ("simple",)
+        picked = fa.bwd_variant(q, k, v)
+        kinds = (picked, "simple") if picked != "simple" else ("simple",)
         grads = {kind: run_bwd(label, kind, q, k, v, out, do, lse, causal) for kind in kinds}
         dname = str(q.dtype).removeprefix("torch.")
         errs = {kind: {} for kind in kinds}
@@ -2840,9 +2888,12 @@ def main() -> int:
                                      f"{float(lerr.max())}")
                 lerr_max = max(lerr_max, float(lerr.max()))
             want = ref.flash_attention_bwd_ref(qs, ks, vs, os_, dos, ls, causal)
-            bounds = ref.flash_attention_bwd_bound(qs, ks, vs, os_, dos, ls, want, causal)
+            bounds = {products: ref.flash_attention_bwd_bound(
+                qs, ks, vs, os_, dos, ls, want, causal, products=products)
+                for products in (("f32", "bf16") if "wgmma" in grads else ("f32",))}
             for kind, got in grads.items():
-                for name, got_, w, bd in zip(("dq", "dk", "dv"), got, want, bounds):
+                for name, got_, w, bd in zip(("dq", "dk", "dv"), got, want,
+                                             bounds["bf16" if kind == "wgmma" else "f32"]):
                     err = (got_[sl].float() - w.float()).abs()
                     if not bool((err <= bd).all()):
                         raise SystemExit(f"flash_attention_bwd_{kind} {name} beyond its "
@@ -2864,7 +2915,8 @@ def main() -> int:
                 for t, n in ((tq, h), (tk, kv), (tk, kv))]
 
     bedge = []
-    for dtype, dims in ((torch.float32, (16, 64, 80, 128, 160)), (torch.bfloat16, (16, 80))):
+    for dtype, dims in ((torch.float32, (16, 64, 80, 128, 160)),
+                        (torch.bfloat16, (16, 64, 80, 128))):
         dname = str(dtype).removeprefix("torch.")
         for t in (1, 33, 64, 257, 512):
             for hd in dims:
@@ -2875,43 +2927,61 @@ def main() -> int:
                                         causal)
         bedge.append(f"{dname} T in {{1,33,64,257,512}} hd in {dims} H/KV in {{1,4}} "
                      "causal and not" + (" (tf32x3 at hd <= 128, and the general kernel too)"
-                                         if dtype == torch.float32 else " (general)"))
-    for causal in (True, False):
-        check_flash_bwd(f"Tq=33 Tk=100 causal={causal}",
-                        *flash_inputs(2, 33, 100, 4, 1, 64, torch.float32), causal)
-        check_flash_bwd(f"Tq=100 Tk=33 causal={causal}",
-                        *flash_inputs(2, 100, 33, 4, 1, 64, torch.float32), causal)
-    bedge.append("float32 Tq=33 Tk=100 and Tq=100 Tk=33, hd=64 H/KV=4 causal and not "
+                                         if dtype == torch.float32 else
+                                         " (wgmma at hd 64, 80, 128, and the general kernel "
+                                         "too; general at 16)"))
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        for causal in (True, False):
+            check_flash_bwd(f"Tq=33 Tk=100 causal={causal} {dname}",
+                            *flash_inputs(2, 33, 100, 4, 1, 64, dtype), causal)
+            check_flash_bwd(f"Tq=100 Tk=33 causal={causal} {dname}",
+                            *flash_inputs(2, 100, 33, 4, 1, 64, dtype), causal)
+        bedge.append(f"{dname} Tq=33 Tk=100 and Tq=100 Tk=33, hd=64 H/KV=4 causal and not "
+                     "(both kernels)")
+        # q, k, v column slices of one wider tensor, off 16-byte alignment
+        # (the wgmma kernel reads contiguous copies)
+        wide = torch.empty((2, 100, 4, 3 * 64 + 3), device=dev).normal_(generator=g).to(dtype)
+        check_flash_bwd(f"strided {dname}", wide[..., 3:67], wide[..., 67:131],
+                        wide[..., 131:195], True)
+        bedge.append(f"{dname} strided q, k, v (T=100, hd=64, 3 elements in; both kernels)")
+        del wide
+    # bf16 values of one sign (q and k times 1, 2, 3: scores of 5 to 50,
+    # alike from key to key) at stablelm-3b's head dim
+    for mul in (1, 2, 3):
+        q, k, v = flash_inputs(1, 512, 512, 4, 4, 80, torch.float32)
+        q, k, v = (mul * q.abs()).to(torch.bfloat16), (mul * k.abs()).to(torch.bfloat16), \
+            v.to(torch.bfloat16)
+        check_flash_bwd(f"same-sign bf16 x {mul}", q, k, v, True)
+    bedge.append("bfloat16 1 x 512 x 4 x 80 causal, q and k of one sign times 1, 2, 3 "
                  "(both kernels)")
-    # q, k, v column slices of one wider tensor, off 16-byte alignment
-    wide = torch.empty((2, 100, 4, 3 * 64 + 3), device=dev).normal_(generator=g)
-    check_flash_bwd("strided", wide[..., 3:67], wide[..., 67:131], wide[..., 131:195], True)
-    bedge.append("float32 strided q, k, v (T=100, hd=64, 3 elements in; both kernels)")
-    del wide
+    del q, k, v
     # the layout never picks the kernel: the same values as contiguous
     # tensors, 3 elements off 16-byte alignment (element loads) and with
     # heads outside positions (cp.async at other strides) give the tf32x3
     # backward's same bits
     layouts = {
-        "off_alignment": lambda x: torch.zeros(x.numel() + 3, device=dev)[3:].view(
-            x.shape).copy_(x),
+        "off_alignment": lambda x: torch.zeros(x.numel() + 3, dtype=x.dtype, device=dev)[
+            3:].view(x.shape).copy_(x),
         "heads_outside": lambda x: x.transpose(1, 2).contiguous().transpose(1, 2)}
-    base = flash_inputs(2, 100, 100, 4, 1, 64, torch.float32)
-    base_do = torch.empty((2, 100, 4, 64), device=dev).normal_(generator=g)
-    for causal in (True, False):
-        out, lse = fa.flash_attention_lse(*base, causal)
-        want_bits = fa.flash_attention_bwd(*base, out, base_do, lse, causal)
-        for lname, layout in layouts.items():
-            views = [layout(x) for x in (*base, out, base_do)]
-            before = fa.launches_bwd_tf32x3
-            got = fa.flash_attention_bwd(*views, lse, causal)
-            if fa.launches_bwd_tf32x3 != before + 1:
-                raise SystemExit(f"the {lname} layout did not run the tf32x3 backward")
-            if not all(torch.equal(a, b) for a, b in zip(got, want_bits)):
-                raise SystemExit(f"the {lname} layout changed the tf32x3 backward's bits "
-                                 f"(causal={causal})")
-            bedge.append(f"f32 T=100 hd=64 {lname} (causal={causal}): the contiguous "
-                         "layout's bits through the tf32x3 backward")
+    for dtype, hd, kind in ((torch.float32, 64, "tf32x3"), (torch.bfloat16, 80, "wgmma")):
+        base = flash_inputs(2, 100, 100, 4, 1, hd, dtype)
+        base_do = torch.empty((2, 100, 4, hd), device=dev).normal_(generator=g).to(dtype)
+        for causal in (True, False):
+            out, lse = fa.flash_attention_lse(*base, causal)
+            want_bits = fa.flash_attention_bwd(*base, out, base_do, lse, causal)
+            for lname, layout in layouts.items():
+                views = [layout(x) for x in (*base, out, base_do)]
+                before = counts()[f"flash_attention_bwd_{kind}"]
+                got = fa.flash_attention_bwd(*views, lse, causal)
+                if counts()[f"flash_attention_bwd_{kind}"] != before + 1:
+                    raise SystemExit(f"the {lname} layout did not run the {kind} backward")
+                if not all(torch.equal(a, b) for a, b in zip(got, want_bits)):
+                    raise SystemExit(f"the {lname} layout changed the {kind} backward's "
+                                     f"bits (causal={causal})")
+                bedge.append(f"{str(dtype).removeprefix('torch.')} T=100 hd={hd} {lname} "
+                             f"(causal={causal}): the contiguous layout's bits through the "
+                             f"{kind} backward")
     del base, base_do, out, lse, want_bits, got, views
 
     # values of one sign at FuXi's shape (v and do shifted by 2; q and k
@@ -2983,7 +3053,7 @@ def main() -> int:
                                                 if c["kernel"] == kn and c["scale"] == sc)
                                   for ref_ in ("plain", "f64")}
                         for sc in (1, 2, 3)}
-                   for kn in bwd_kernels})
+                   for kn in ("flash_attention_bwd_tf32x3", "flash_attention_bwd_simple")})
     for case in bwd_same_sign:
         if case["held"] and case["share_of_bound_vs_f64"] > 1:
             raise SystemExit(f"{case['kernel']} beyond its bound of the f64 evaluation on "
@@ -2991,13 +3061,15 @@ def main() -> int:
     torch.cuda.synchronize()
     emit("flash_bwd_edges", cases=bedge, max_abs_err=bworst, max_share_of_bound=bshare,
          forward="the tf32x3 kernel's output and lse for f32 (hd <= 128), the wgmma "
-                 "kernel's for bf16 at hd 80, the general kernel's for bf16 at hd 16 and "
-                 "f32 at hd 160",
+                 "kernel's for bf16 at hd 64, 80 and 128, the general kernel's for bf16 "
+                 "at hd 16 and f32 at hd 160",
          seconds=time.perf_counter() - t_phase,
          tolerance="dq, dk, dv: |kernel - plain| <= 1e-5 M + 1e-7 (+ one bf16 ulp of the "
                    "plain gradient in bf16), M each gradient's sum of magnitudes "
-                   "(ref.flash_attention_bwd_bound); lse: ref.flash_attention_lse_bound; "
-                   "the same bits on two runs")
+                   "(ref.flash_attention_bwd_bound); the wgmma backward: + 2**-8 of the "
+                   "sums of the terms' own magnitudes (products='bf16': P and dS rounded "
+                   "to bf16 as operands); the general kernel on bf16 inputs: the f32 form; "
+                   "lse: ref.flash_attention_lse_bound; the same bits on two runs")
 
     # -- 11b. main path: full-size fuxi-kuairand training --------------------------
     t_phase = time.perf_counter()
@@ -3784,7 +3856,7 @@ def main() -> int:
                          segment_rowsum=(N_MICRO + 1) * LM_TRAIN_STEPS,
                          buffer_sync=LM_TRAIN_STEPS - 1, embedding_scatter=LM_TRAIN_STEPS,
                          flash_attention_wgmma=LM_FWD_CALLS_PER_STEP * LM_TRAIN_STEPS,
-                         flash_attention_bwd_simple=LM_BWD_CALLS_PER_STEP * LM_TRAIN_STEPS)
+                         flash_attention_bwd_wgmma=LM_BWD_CALLS_PER_STEP * LM_TRAIN_STEPS)
     if lm_train_launches != lm_train_want:
         raise SystemExit(f"LM training launches {lm_train_launches} != {lm_train_want}")
 
@@ -3846,10 +3918,11 @@ def main() -> int:
     emit("kernel_shape", path="lm_train", **row)
     del qt, kt, vt
 
-    # the backward call through the general kernel (the only bf16 backward)
+    # the backward call through the wgmma kernel (the main path's) and the
+    # general one, checked and timed in turns (general, wgmma, wgmma, general)
     q, k, v, o, do, lse, causal = tkept["bwd"]
-    if fa.bwd_variant(q, k, v) != "simple":
-        raise SystemExit("the LM's main-path backward call is not the general kernel's")
+    if fa.bwd_variant(q, k, v) != "wgmma":
+        raise SystemExit("the LM's main-path backward call is not the wgmma kernel's")
     errs = check_flash_bwd("LM training backward call", q, k, v, causal, chunk=1,
                            given=(o, do, lse))
     ops, nbytes = flash_bwd_work(q, k, causal)
@@ -3859,22 +3932,37 @@ def main() -> int:
     leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
     lib_out = sdpa(*leaves, is_causal=causal)
     do_t = do.transpose(1, 2)
-    row = {"kernel": "flash_attention_bwd_simple", "call": "lm training layer 31 backward",
-           "shape": list(q.shape), "kv_heads": k.shape[2], "causal": causal,
-           "dtype": str(q.dtype).removeprefix("torch."), "operations": ops, "bytes": nbytes,
-           "ms": time_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, do, lse, causal),
-                         flush),
-           "plain_ms": plain_ms,
-           "library_ms": time_ms(torch, lambda: torch.autograd.grad(lib_out, leaves, do_t,
-                                                                    retain_graph=True), flush),
-           "library_call": "torch.autograd.grad through scaled_dot_product_attention"
-                           "(is_causal) on (B, H, T, hd) views (its backward alone)",
-           "max_abs_err": max(errs["simple"].values()),
-           "bound_ms": max(by_ops, by_bytes),
-           "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
-    row["achieved_tflops"] = ops / row["ms"] / 1e9
-    lm_attn["flash_attention_bwd_simple"] = row
-    emit("kernel_shape", path="lm_train", **row)
+    library_ms = time_ms(torch, lambda: torch.autograd.grad(lib_out, leaves, do_t,
+                                                            retain_graph=True), flush)
+    bwd_fns = {
+        "flash_attention_bwd_wgmma": lambda: fa.flash_attention_bwd(q, k, v, o, do, lse,
+                                                                    causal),
+        "flash_attention_bwd_simple": lambda: fa.flash_attention_bwd_simple(q, k, v, o, do,
+                                                                            lse, causal)}
+    turns = {kname: [] for kname in bwd_fns}
+    for kname in ("flash_attention_bwd_simple", "flash_attention_bwd_wgmma",
+                  "flash_attention_bwd_wgmma", "flash_attention_bwd_simple"):
+        turns[kname].append(time_ms(torch, bwd_fns[kname], flush))
+    for kname, times in turns.items():
+        row = {"kernel": kname, "call": "lm training layer 31 backward",
+               "shape": list(q.shape), "kv_heads": k.shape[2], "causal": causal,
+               "dtype": str(q.dtype).removeprefix("torch."), "operations": ops,
+               "bytes": nbytes, "ms": statistics.mean(times), "ms_turns": times,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "library_call": "torch.autograd.grad through scaled_dot_product_attention"
+                               "(is_causal) on (B, H, T, hd) views (its backward alone)",
+               "max_abs_err": max(errs[kname.removeprefix("flash_attention_bwd_")].values()),
+               "bound_ms": max(by_ops, by_bytes),
+               "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+        row["achieved_tflops"] = ops / row["ms"] / 1e9
+        row["x_library"] = row["ms"] / library_ms
+        lm_attn[kname] = row
+        emit("kernel_shape", path="lm_train", **row)
+    lm_attn["flash_attention_bwd_wgmma"]["x_faster_than_simple"] = (
+        lm_attn["flash_attention_bwd_simple"]["ms"] / lm_attn["flash_attention_bwd_wgmma"]["ms"])
+    if lm_attn["flash_attention_bwd_wgmma"]["x_faster_than_simple"] < 10:
+        raise SystemExit(f"the wgmma backward is less than 10x faster than the general one: "
+                         f"{lm_attn['flash_attention_bwd_wgmma']}")
     del tkept, q, k, v, o, do, lse, leaves, lib_out, do_t, flush
     gc.collect()
     torch.cuda.empty_cache()
@@ -3920,7 +4008,8 @@ def main() -> int:
         if lgaps["async"]["rows_dense"] <= 1e-6:
             raise SystemExit(f"LM async did not diverge ({label}): {lgaps}")
     if bf16_launches.get("flash_attention_wgmma", 0) != 2 * 2 * N_MICRO * 3 \
-            or bf16_launches.get("flash_attention_bwd_simple", 0) != 2 * N_MICRO * 3:
+            or bf16_launches.get("flash_attention_bwd_wgmma", 0) != 2 * N_MICRO * 3 \
+            or bf16_launches.get("flash_attention_bwd_simple", 0) != 0:
         raise SystemExit(f"the bf16 hd-80 config launched {bf16_launches}")
     if not all(np.isfinite(bgot.stats.losses)) or max(bf16_gap) > LM_BF16_LOSS_RTOL:
         raise SystemExit(f"the bf16 hd-80 losses on the card are {bf16_gap} from the CPU's")
@@ -3967,7 +4056,25 @@ def main() -> int:
                     "shape", "ms", "without_lse_ms", "simple_ms", "plain_ms", "library_ms",
                     "bound_ms", "bound_by", "achieved_tflops")},
             }
-        elif kname == "flash_attention_bwd_simple":  # LM training's backward
+        elif kname == "flash_attention_bwd_wgmma":  # LM training's backward
+            row = lm_attn[kname]
+            entry = {
+                "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "max_abs_err": max([row["max_abs_err"]] + [
+                    v for k, v in bworst.items() if k.startswith(kname)]),
+                "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "ms_of": f"one call at the LM-training shape {row['shape']} over "
+                         f"{row['kv_heads']} kv heads, bf16, causal ({row['call']}; the mean "
+                         "of two turns, in turns with the general kernel)",
+                "ms_turns": row["ms_turns"],
+                "calls_per_lm_train_step": LM_BWD_CALLS_PER_STEP,
+                "achieved_tflops": row["achieved_tflops"],
+                "x_faster_than_simple": row["x_faster_than_simple"],
+                "max_share_of_bound": max(v for k, v in bshare.items() if k.startswith(kname)),
+            }
+        elif kname == "flash_attention_bwd_simple":  # no main path since the wgmma backward
             row, frow = lm_attn[kname], fuxi_attn[kname]
             entry = {
                 "name": kname, "route": "cuda", "source": source, "replaces": replaces,
@@ -3977,8 +4084,9 @@ def main() -> int:
                 "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                 "ms_of": f"one call at the LM-training shape {row['shape']} over "
-                         f"{row['kv_heads']} kv heads, bf16, causal ({row['call']})",
-                "calls_per_lm_train_step": LM_BWD_CALLS_PER_STEP,
+                         f"{row['kv_heads']} kv heads, bf16, causal ({row['call']}; the mean "
+                         "of two turns, in turns with the wgmma kernel)",
+                "ms_turns": row["ms_turns"],
                 "achieved_tflops": row["achieved_tflops"],
                 "fuxi_shape": {k: frow[k] for k in ("shape", "ms", "plain_ms", "library_ms",
                                                     "bound_ms", "achieved_tflops")},

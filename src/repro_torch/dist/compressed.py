@@ -32,8 +32,9 @@ def quantize_rows_np(rows: np.ndarray
                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Per-row symmetric int8: ``(q, scales, error)`` with ``q`` int8 of
     ``rows.shape``, ``scales`` f32 of shape ``(n,)`` and ``error = rows -
-    dequantize(q, scales)`` (at most ``scale / 2`` an element: nothing
-    clips, only rounding loses). An all-zero row quantizes exactly."""
+    dequantize(q, scales)`` (at most ``scale / 2`` an element, plus the
+    f32 rounding of the quotient and the product: nothing clips, only
+    rounding loses). An all-zero row quantizes exactly."""
     rows = np.asarray(rows, np.float32)
     if rows.ndim != 2:
         raise ValueError(f"quantize_rows_np expects (n, d) rows, got "

@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("embedding_gather", "segment_rowsum", "buffer_sync",
            "embedding_scatter", "hstu_attention", "flash_attention",
            "flash_attention_wgmma", "flash_attention_bwd", "flash_attention_tf32",
-           "flash_attention_bwd_tf32")
+           "flash_attention_bwd_tf32", "flash_attention_bwd_wgmma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,7 +1,8 @@
 """Softmax attention on the card: the wrapper of ``csrc/flash_attention_wgmma.cu``,
 ``csrc/flash_attention_tf32.cu`` and ``csrc/flash_attention.cu`` (the
-forward), and of ``csrc/flash_attention_bwd_tf32.cu`` and
-``csrc/flash_attention_bwd.cu`` (the backward).
+forward), and of ``csrc/flash_attention_bwd_wgmma.cu``,
+``csrc/flash_attention_bwd_tf32.cu`` and ``csrc/flash_attention_bwd.cu``
+(the backward).
 
 Replaces the Pallas TPU kernel ``flash_attention``
 (``src/repro/kernels/flash_attention.py``): for q ``(B, Tq, H, hd)`` and k,
@@ -40,20 +41,29 @@ first use (``kernels/build.py``); nothing here touches CUDA at import.
 
 The gradient is a kernel too: ``flash_attention_bwd`` computes dq, dk and
 dv from q, k, v, the output, its gradient and the row logsumexp that each
-forward writes beside its output when asked, through one of two
+forward writes beside its output when asked, through one of three
 kernels chosen by ``bwd_variant`` from the type and head dim alone (never
 from the layout, nor from which forward wrote the lse):
 
+- ``csrc/flash_attention_bwd_wgmma.cu`` (``"wgmma"``), the LM training
+  path: bf16 at hd in ``WGMMA_BWD_HEAD_DIMS``. A delta pass, a dq kernel
+  over 128-row query tiles and a dk/dv kernel over 128-row key tiles (the
+  transposed scores, so both gradients take their A operand from
+  registers), every product on wgmma with TMA loads into a two-stage ring
+  and a producer warpgroup; P and dS rounded to bf16 only as A operands.
+  Views TMA cannot describe (q, k, v, o or do) are copied first, as for
+  the wgmma forward.
 - ``csrc/flash_attention_bwd_tf32.cu`` (``"tf32x3"``), FuXi's training
   path: f32 at ``hd <= TF32X3_MAX_HEAD_DIM``. A delta pass, a dq kernel
   over 128-row query tiles and a dk/dv kernel over 128-row key tiles, every
   product on the TF32 tensor cores in split precision (3xTF32
   ``mma.sync``), each MMA chain within one 32-row step.
-- ``csrc/flash_attention_bwd.cu`` (``"simple"``), the LM training path:
-  bf16 (lifted to f32 as it is loaded) and head dims above 128, on the
-  f32 CUDA cores; and ``flash_attention_bwd_simple`` for any inputs.
+- ``csrc/flash_attention_bwd.cu`` (``"simple"``), the general path: f32
+  above hd 128 and bf16 outside ``WGMMA_BWD_HEAD_DIMS`` (lifted to f32 as
+  it is loaded), on the f32 CUDA cores; and ``flash_attention_bwd_simple``
+  for any inputs.
 
-Both sum in a fixed order with no atomics. :class:`FlashAttention` joins
+All three sum in a fixed order with no atomics. :class:`FlashAttention` joins
 forward and backward for autograd.
 """
 from __future__ import annotations
@@ -73,6 +83,7 @@ launches_wgmma = 0
 launches_tf32x3 = 0
 launches_simple = 0
 launches = 0
+launches_bwd_wgmma = 0
 launches_bwd_tf32x3 = 0
 launches_bwd_simple = 0
 launches_bwd = 0
@@ -80,6 +91,7 @@ _bwd_lock = threading.Lock()
 
 MAX_HEAD_DIM = 256
 WGMMA_HEAD_DIMS = (64, 80, 128, 160, 192, 256)
+WGMMA_BWD_HEAD_DIMS = (64, 80, 128)
 TF32X3_MAX_HEAD_DIM = 128
 _SYMBOLS = {("tf32x3", torch.float32): ("flash_attention_tf32",
                                         "repro_flash_attention_fwd_tf32x3"),
@@ -87,6 +99,8 @@ _SYMBOLS = {("tf32x3", torch.float32): ("flash_attention_tf32",
             ("simple", torch.bfloat16): ("flash_attention", "repro_flash_attention_fwd_bf16"),
             ("wgmma", torch.bfloat16): ("flash_attention_wgmma",
                                         "repro_flash_attention_fwd_wgmma"),
+            ("bwd_wgmma", torch.bfloat16): ("flash_attention_bwd_wgmma",
+                                            "repro_flash_attention_bwd_wgmma"),
             ("bwd_tf32x3", torch.float32): ("flash_attention_bwd_tf32",
                                             "repro_flash_attention_bwd_tf32x3"),
             ("bwd_simple", torch.float32): ("flash_attention_bwd",
@@ -134,10 +148,13 @@ def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 
 
 def bwd_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """The backward kernel ``flash_attention_bwd`` launches: ``"tf32x3"``
+    """The backward kernel ``flash_attention_bwd`` launches: ``"wgmma"``
+    for bf16 inputs at a head dim in ``WGMMA_BWD_HEAD_DIMS``, ``"tf32x3"``
     for f32 inputs at ``hd <= TF32X3_MAX_HEAD_DIM``, else ``"simple"``. A
     function of the type and the head dim only, never of the layout or of
     which forward wrote the lse; it runs on CPU tensors too."""
+    if q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_BWD_HEAD_DIMS:
+        return "wgmma"
     if q.dtype == torch.float32 and q.shape[-1] <= TF32X3_MAX_HEAD_DIM:
         return "tf32x3"
     return "simple"
@@ -211,13 +228,13 @@ def _launch(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, rows) if lse else out
 
 
-def _tma_views(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """q, k, v as the kernel ``kind`` reads them: for the wgmma kernel a
+def _tma_views(kind: str, *xs: torch.Tensor):
+    """The views as the kernel ``kind`` reads them: for a wgmma kernel a
     view TMA cannot describe is copied (never sent to another kernel)."""
     if kind != "wgmma":
-        return q, k, v
+        return xs
     return tuple(x if tma_ok(x) else x.clone(memory_format=torch.contiguous_format)
-                 for x in (q, k, v))
+                 for x in xs)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -260,9 +277,11 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch_bwd(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor, causal: bool):
-    """``(dq, dk, dv)`` through the backward kernel ``kind`` (``"tf32x3"``
-    or ``"simple"``), after the checks both kernels need."""
-    global launches_bwd, launches_bwd_tf32x3, launches_bwd_simple
+    """``(dq, dk, dv)`` through the backward kernel ``kind`` (``"wgmma"``,
+    ``"tf32x3"`` or ``"simple"``), after the checks every kernel needs; for
+    the wgmma kernel, views TMA cannot describe are read from contiguous
+    copies."""
+    global launches_bwd, launches_bwd_wgmma, launches_bwd_tf32x3, launches_bwd_simple
     _check(q, k, v)
     b, tq, h, hd = q.shape
     tk, kv = k.shape[1], k.shape[2]
@@ -283,6 +302,7 @@ def _launch_bwd(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    q, k, v, o, do = _tma_views(kind, q, k, v, o, do)
     fn = _kernel(f"bwd_{kind}", q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -294,7 +314,9 @@ def _launch_bwd(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash_attention backward ({kind}) launch failed: CUDA error {err}")
     with _bwd_lock:
-        if kind == "tf32x3":
+        if kind == "wgmma":
+            launches_bwd_wgmma += 1
+        elif kind == "tf32x3":
             launches_bwd_tf32x3 += 1
         else:
             launches_bwd_simple += 1
@@ -317,7 +339,7 @@ def flash_attention_bwd_simple(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                                o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
                                causal: bool = True):
     """``flash_attention_bwd`` through the general backward kernel
-    (``csrc/flash_attention_bwd.cu``) whatever the inputs, to hold the two
+    (``csrc/flash_attention_bwd.cu``) whatever the inputs, to hold the
     backward kernels against each other and time them."""
     return _launch_bwd("simple", q, k, v, o, do, lse, causal)
 
@@ -326,8 +348,10 @@ class FlashAttention(torch.autograd.Function):
     """The forward through the kernel ``variant`` picks, with its row
     logsumexp, saving q, k, v, the output and the lse; the backward through
     ``flash_attention_bwd``, the kernel ``bwd_variant`` picks: FuXi's f32 at
-    hd 64 goes through the tf32x3 forward and backward, an LM's bf16 at a
-    wgmma head dim through the wgmma forward and the general backward."""
+    hd 64 goes through the tf32x3 forward and backward, an LM's bf16 at hd
+    64, 80 or 128 (``WGMMA_BWD_HEAD_DIMS``) through the wgmma forward and
+    the wgmma backward, and at the forward's other wgmma head dims (160,
+    192, 256) through the wgmma forward and the general backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool = True):

@@ -446,21 +446,47 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``dK = dS^T Q scale``; each kv head's dk and dv summed over its query
     group. ``o`` is the forward's output and ``lse`` its row logsumexp
     (``flash_attention_lse_ref``)."""
+    return _flash_bwd(q, k, v, o, do, lse, causal)
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _flash_bwd(q, k, v, o, do, lse, causal, operand=lambda x: x, score=lambda x: x):
+    """``flash_attention_bwd_ref``'s formulas, with ``operand`` applied to P
+    as dV's factor and to dS as dq's and dk's, and ``score`` to the scaled
+    scores before the exp."""
     h, kv, hd = q.shape[2], k.shape[2], q.shape[-1]
     scale = hd ** -0.5
     kr, vr = repeat_kv(k, h).to(torch.float32), repeat_kv(v, h).to(torch.float32)
     qf, of, dof = (x.to(torch.float32) for x in (q, o, do))
     s, keep = _flash_scores(qf, kr, causal)
-    p = torch.exp(s - lse[..., None])
+    p = torch.exp(score(s) - lse[..., None])
     if keep is not None:
         p = torch.where(keep, p, p.new_zeros(()))
     delta = (dof * of).sum(-1).transpose(1, 2)  # (B, H, Tq)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vr)
-    ds = p * (dp - delta[..., None])
+    ds = operand(p * (dp - delta[..., None]))
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dv = torch.einsum("bhqk,bqhd->bkhd", operand(p), dof)
     return dq.to(q.dtype), _group_sum(dk, kv).to(k.dtype), _group_sum(dv, kv).to(v.dtype)
+
+
+def flash_attention_bwd_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                             causal: bool = True, round_scores: bool = False):
+    """``(dq, dk, dv)``: ``flash_attention_bwd_ref`` as the CUDA ``wgmma``
+    backward rounds it. A model of the kernel's arithmetic for the CPU, not
+    a kernel: S, dP and every sum in f32; P rounded to bf16 only as dV's
+    factor (``dV = bf16(P)^T dO``), dS = P (dP - delta) from the unrounded
+    P and rounded to bf16 only as dq's and dk's factor. ``round_scores``
+    is the form the kernel rejects: the scaled scores rounded to bf16
+    before the exp as well, which moves P by up to ``2**-8 |S|`` relative,
+    more than bf16's ``2**-8`` once ``|S| > 1``."""
+    return _flash_bwd(q, k, v, o, do, lse, causal, operand=_bf16,
+                      score=_bf16 if round_scores else (lambda x: x))
 
 
 def flash_attention_bwd_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -538,7 +564,7 @@ def flash_attention_bwd_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_bwd_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
-                              plain, causal: bool = True):
+                              plain, causal: bool = True, products: str = "f32"):
     """How far the backward kernel's ``(dq, dk, dv)`` may lie from ``plain``
     (``flash_attention_bwd_ref`` on the same inputs), per element, in f32:
     ``1e-5 M + 1e-7`` with ``M`` each gradient's sum of magnitudes, the same
@@ -548,7 +574,16 @@ def flash_attention_bwd_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and P's relative error from the rounding of its exponent's argument,
     ``1 + scale |q| . |k| + |lse|`` eps. ``M_dv = P^T |dO|``, ``M_dq =
     scale dS_mag |K|``, ``M_dk = scale dS_mag^T |Q|``, group-summed as the
-    gradients are."""
+    gradients are.
+
+    ``products="bf16"`` (the wgmma backward, ``flash_attention_bwd_bf16``)
+    adds ``2**-8`` of the same sums over the terms' own magnitudes (P and
+    dS_mag without the argument's factor): rounding P to bf16 before dV,
+    and dS before dq and dk, moves each term by at most ``2**-8`` of its
+    magnitude (8 significant bits, to nearest). Derived, not fitted; the
+    f32 form is unchanged."""
+    if products not in ("f32", "bf16"):
+        raise ValueError(f"products is 'f32' or 'bf16', got {products!r}")
     h, kv, hd = q.shape[2], k.shape[2], q.shape[-1]
     scale = hd ** -0.5
     kr, vr = repeat_kv(k, h).to(torch.float32), repeat_kv(v, h).to(torch.float32)
@@ -559,16 +594,25 @@ def flash_attention_bwd_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     da = (dof.abs() * of.abs()).sum(-1).transpose(1, 2)[..., None]
     arg = 1 + torch.einsum("bqhd,bkhd->bhqk", qf.abs(), kr.abs()) * scale \
         + lse.abs()[..., None]
-    ds_mag = p * (dpa + da) * arg
+    ds_own = p * (dpa + da)
+    ds_mag = ds_own * arg
     if keep is not None:
         p = torch.where(keep, p, p.new_zeros(()))
+        ds_own = torch.where(keep, ds_own, ds_own.new_zeros(()))
         ds_mag = torch.where(keep, ds_mag, ds_mag.new_zeros(()))
-    mags = (torch.einsum("bhqk,bkhd->bqhd", ds_mag, kr.abs()) * scale,
-            _group_sum(torch.einsum("bhqk,bqhd->bkhd", ds_mag, qf.abs()) * scale, kv),
-            _group_sum(torch.einsum("bhqk,bqhd->bkhd", p * arg, dof.abs()), kv))
+
+    def sums(ds_m, p_m):  # (dq, dk, dv) sums of magnitudes, group-summed
+        return (torch.einsum("bhqk,bkhd->bqhd", ds_m, kr.abs()) * scale,
+                _group_sum(torch.einsum("bhqk,bqhd->bkhd", ds_m, qf.abs()) * scale, kv),
+                _group_sum(torch.einsum("bhqk,bqhd->bkhd", p_m, dof.abs()), kv))
+
+    mags = sums(ds_mag, p * arg)
+    own = sums(ds_own, p) if products == "bf16" else (None,) * 3
     bounds = []
-    for mag, want in zip(mags, plain):
+    for mag, term, want in zip(mags, own, plain):
         bound = 1e-5 * mag + 1e-7
+        if term is not None:
+            bound = bound + 2.0 ** -8 * term
         if want.dtype != torch.float32:
             _, exp = torch.frexp(want.to(torch.float32))
             bound = bound + torch.ldexp(torch.ones_like(mag), exp - 8)

@@ -2,7 +2,8 @@
 (DLRM embeddings, dense-LM prefill and decode), the training paths (DLRM,
 HSTU and FuXi, whose attention runs the tf32x3 flash_attention forward and
 backward kernels, and the dense LMs: bf16 at a wgmma head dim through the
-wgmma forward with its lse and the general backward),
+wgmma forward with its lse, and at hd 64, 80 and 128 the wgmma backward,
+else the general one),
 the host and cached embedding tiers, checkpoints (chunked writes from
 the card, an in-place restore, the save's time kept out of the steps), and
 faults (a fault at every store site, recovered to the fault-free bits; a
@@ -665,22 +666,28 @@ def test_flash_attention_bwd_kernel_equals_plain(cuda_device, b, tq, tk, h, kv, 
                                                  dtype):
     """dq, dk and dv within ``ref.flash_attention_bwd_bound`` of the plain
     backward on the same inputs (1e-5 of each gradient's sum of magnitudes
-    + 1e-7, plus one bf16 ulp in bf16), the same bits twice, one launch a
+    + 1e-7, plus one bf16 ulp in bf16; the wgmma kernel's bf16 operands
+    add 2**-8 of the terms' magnitudes), the same bits twice, one launch a
     call of the kernel ``bwd_variant`` picks (f32 at hd <= 128: tf32x3;
-    bf16, hd 160 and 256: the general one) and none of the other."""
+    bf16 at hd 64 and 80: wgmma; the rest: the general one) and none of
+    the others."""
     q, k, v, o, lse, do = _flash_fwd_with_lse(cuda_device, b, tq, tk, h, kv, hd, causal,
                                               dtype, seed=tq + hd)
     kind = fa.bwd_variant(q, k, v)
-    assert kind == ("tf32x3" if dtype == torch.float32 and hd <= 128 else "simple")
-    before = (fa.launches_bwd_tf32x3, fa.launches_bwd_simple, fa.launches_bwd)
+    assert kind == ("tf32x3" if dtype == torch.float32 and hd <= 128 else
+                    "wgmma" if dtype == torch.bfloat16 and hd in (64, 80, 128) else "simple")
+    counters = ("launches_bwd_tf32x3", "launches_bwd_wgmma", "launches_bwd_simple")
+    before = [getattr(fa, c) for c in counters] + [fa.launches_bwd]
     got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal)
     again = fa.flash_attention_bwd(q, k, v, o, do, lse, causal)
     torch.cuda.synchronize()
-    assert (fa.launches_bwd_tf32x3, fa.launches_bwd_simple, fa.launches_bwd) == (
-        before[0] + 2 * (kind == "tf32x3"), before[1] + 2 * (kind == "simple"), before[2] + 2)
+    assert [getattr(fa, c) for c in counters] + [fa.launches_bwd] == [
+        n + 2 * (c == "launches_bwd_" + kind) for n, c in zip(before, counters)] + [
+        before[-1] + 2]
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
     want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal)
-    bounds = ref.flash_attention_bwd_bound(q, k, v, o, do, lse, want, causal)
+    bounds = ref.flash_attention_bwd_bound(q, k, v, o, do, lse, want, causal,
+                                           products="bf16" if kind == "wgmma" else "f32")
     for g_, w, bd in zip(got, want, bounds):
         assert g_.shape == w.shape and g_.dtype == w.dtype == dtype
         assert bool(((g_.float() - w.float()).abs() <= bd).all())
@@ -764,6 +771,62 @@ def test_flash_attention_bwd_tf32x3_holds_the_bound_on_same_sign_values(cuda_dev
         assert bool(((g_ - w).abs() <= bd).all()), (name, float((g_ - w).abs().max()))
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_wgmma_gqa_and_views_beside_the_general_kernel(cuda_device,
+                                                                           causal):
+    """The wgmma backward at hd 128 with 4 query heads a kv head (T 300:
+    two 128-row tiles and a partial one) within the bf16 bound of the
+    plain backward, one launch a call; the general kernel, forced on the
+    same bf16 inputs, within the f32 bound; and views TMA cannot describe
+    (3 elements off alignment, a row stride of 132 elements) copied for the
+    kernel and given the contiguous inputs' bits."""
+    q, k, v, o, lse, do = _flash_fwd_with_lse(cuda_device, 2, 300, 300, 8, 2, 128, causal,
+                                              torch.bfloat16, seed=30)
+    assert fa.bwd_variant(q, k, v) == "wgmma"
+    before = (fa.launches_bwd_wgmma, fa.launches_bwd_simple)
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal)
+    general = fa.flash_attention_bwd_simple(q, k, v, o, do, lse, causal)
+    torch.cuda.synchronize()
+    assert (fa.launches_bwd_wgmma, fa.launches_bwd_simple) == (before[0] + 1, before[1] + 1)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal)
+    for products, grads in (("bf16", got), ("f32", general)):
+        bounds = ref.flash_attention_bwd_bound(q, k, v, o, do, lse, want, causal,
+                                               products=products)
+        for name, g_, w, bd in zip(("dq", "dk", "dv"), grads, want, bounds):
+            err = (g_.float() - w.float()).abs()
+            assert bool((err <= bd).all()), (products, name, float(err.max()))
+
+    def sliced(x, off, pad):
+        wide = torch.zeros((*x.shape[:-1], 128 + off + pad), dtype=x.dtype, device=x.device)
+        return wide[..., off:off + 128].copy_(x)
+
+    for off, pad in ((3, 5), (0, 4)):
+        views = [sliced(x, off, pad) for x in (q, k, v, o, do)]
+        assert not any(fa.tma_ok(x) for x in views)
+        before = fa.launches_bwd_wgmma
+        again = fa.flash_attention_bwd(*views, lse, causal)
+        assert fa.launches_bwd_wgmma == before + 1
+        assert all(torch.equal(a, b_) for a, b_ in zip(again, got)), (off, pad)
+
+
+@pytest.mark.parametrize("mul", [1, 2, 3])
+def test_flash_attention_bwd_wgmma_holds_the_bound_on_same_sign_values(cuda_device, mul):
+    """q and k of one sign (|N(0, 1)| times 1, 2, 3: scores of 5 to 50, alike
+    from key to key) at stablelm-3b's head dim and T 512: long sums whose
+    terms share a sign, and large scores, stay within the bf16 bound."""
+    q, k, v = _flash_case(cuda_device, 1, 512, 512, 4, 4, 80, torch.float32, seed=40 + mul)
+    q, k, v = (mul * q.abs()).to(torch.bfloat16), (mul * k.abs()).to(torch.bfloat16), \
+        v.to(torch.bfloat16)
+    out, lse = fa.flash_attention_lse(q, k, v, True)
+    do = torch.randn(out.shape, device=cuda_device).to(torch.bfloat16)
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, True)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, do, lse, True)
+    bounds = ref.flash_attention_bwd_bound(q, k, v, out, do, lse, want, True, products="bf16")
+    for name, g_, w, bd in zip(("dq", "dk", "dv"), got, want, bounds):
+        err = (g_.float() - w.float()).abs()
+        assert bool((err <= bd).all()), (name, float(err.max()))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_lse_equals_plain(cuda_device, dtype):
     """The forward's row logsumexp within ``ref.flash_attention_lse_bound``
@@ -817,19 +880,22 @@ def test_flash_attention_autograd_runs_the_kernels(cuda_device):
 
 def test_flash_attention_wgmma_with_grad_raises(cuda_device):
     """bf16 at a wgmma head dim under autograd (it raised until the wgmma
-    forward wrote its lse): one wgmma forward with its lse and one general
-    backward launch, none of the other forwards, the output the wgmma
-    kernel's bits, the gradients those of the backward kernel on that lse."""
+    forward wrote its lse): one wgmma forward with its lse and one wgmma
+    backward launch, none of the other forwards nor of the general
+    backward, the output the wgmma kernel's bits, the gradients those of
+    the backward kernel on that lse."""
     q, k, v = _flash_case(cuda_device, 1, 16, 16, 2, 1, 64, torch.bfloat16, seed=4)
-    assert fa.variant(q, k, v) == "wgmma"
+    assert fa.variant(q, k, v) == fa.bwd_variant(q, k, v) == "wgmma"
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    before = (fa.launches_wgmma, fa.launches, fa.launches_bwd_simple, fa.launches_bwd)
+    before = (fa.launches_wgmma, fa.launches, fa.launches_bwd_wgmma, fa.launches_bwd_simple,
+              fa.launches_bwd)
     out = dispatch.flash_attention(*leaves, True)
     do = torch.ones_like(out)
     out.backward(do)
     torch.cuda.synchronize()
-    assert (fa.launches_wgmma, fa.launches, fa.launches_bwd_simple, fa.launches_bwd) == (
-        before[0] + 1, before[1] + 1, before[2] + 1, before[3] + 1)
+    assert (fa.launches_wgmma, fa.launches, fa.launches_bwd_wgmma, fa.launches_bwd_simple,
+            fa.launches_bwd) == (
+        before[0] + 1, before[1] + 1, before[2] + 1, before[3], before[4] + 1)
     assert torch.equal(out, fa.flash_attention(q, k, v, True))
     o, lse = fa.flash_attention_lse(q, k, v, True)
     for leaf, w in zip(leaves, fa.flash_attention_bwd(q, k, v, o, do, lse, True)):
@@ -869,12 +935,13 @@ def test_flash_attention_wgmma_lse_equals_plain(cuda_device, hd):
 
 def test_variants_at_wgmma_head_dims(cuda_device):
     """bf16 at every wgmma head dim: the wgmma forward, with and without
-    the lse, and the general backward; f32 at hd 80 and 160: tf32x3 and
-    the general kernel, forward and backward."""
+    the lse, and the wgmma backward at hd 64, 80 and 128, the general one
+    at 160, 192 and 256; f32 at hd 80 and 160: tf32x3 and the general
+    kernel, forward and backward."""
     for hd in fa.WGMMA_HEAD_DIMS:
         q, k, v = _flash_case(cuda_device, 1, 4, 4, 2, 1, hd, torch.bfloat16, seed=hd)
         assert (fa.variant(q, k, v), fa.lse_variant(q, k, v), fa.bwd_variant(q, k, v)) == \
-            ("wgmma", "wgmma", "simple")
+            ("wgmma", "wgmma", "wgmma" if hd in (64, 80, 128) else "simple")
     for hd, kind in ((80, "tf32x3"), (160, "simple")):
         q, k, v = _flash_case(cuda_device, 1, 4, 4, 2, 1, hd, torch.float32, seed=hd)
         assert (fa.variant(q, k, v), fa.lse_variant(q, k, v), fa.bwd_variant(q, k, v)) == \
@@ -886,21 +953,25 @@ def test_flash_attention_bf16_grads_at_wgmma_dims_equal_plain(cuda_device, hd):
     """``dispatch.flash_attention`` under autograd, bf16 at hd 80 (stablelm-3b)
     and 160 (stablelm-12b), causal, GQA: gradients within
     ``ref.flash_attention_bwd_bound`` of the plain backward on the wgmma
-    forward's output and lse, one wgmma forward and one general backward
-    launch, none of the other attention kernels."""
+    forward's output and lse (its bf16 form at hd 80), one wgmma forward and
+    one backward launch, of the wgmma backward at hd 80 and of the general
+    one at 160, none of the other attention kernels."""
     q, k, v = _flash_case(cuda_device, 2, 200, 200, 4, 2, hd, torch.bfloat16, seed=hd)
     do = torch.randn(q.shape, device=cuda_device).to(torch.bfloat16)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    before = (fa.launches_wgmma, fa.launches_bwd_simple, fa.launches_bwd_tf32x3,
-              fa.launches_simple, fa.launches_tf32x3)
+    wgmma_bwd = hd == 80
+    before = (fa.launches_wgmma, fa.launches_bwd_wgmma, fa.launches_bwd_simple,
+              fa.launches_bwd_tf32x3, fa.launches_simple, fa.launches_tf32x3)
     dispatch.flash_attention(*leaves, True).backward(do)
     torch.cuda.synchronize()
-    assert (fa.launches_wgmma, fa.launches_bwd_simple, fa.launches_bwd_tf32x3,
-            fa.launches_simple, fa.launches_tf32x3) == (
-        before[0] + 1, before[1] + 1, before[2], before[3], before[4])
+    assert (fa.launches_wgmma, fa.launches_bwd_wgmma, fa.launches_bwd_simple,
+            fa.launches_bwd_tf32x3, fa.launches_simple, fa.launches_tf32x3) == (
+        before[0] + 1, before[1] + wgmma_bwd, before[2] + (not wgmma_bwd), before[3],
+        before[4], before[5])
     o, lse = fa.flash_attention_lse(q, k, v, True)
     want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, True)
-    bounds = ref.flash_attention_bwd_bound(q, k, v, o, do, lse, want, True)
+    bounds = ref.flash_attention_bwd_bound(q, k, v, o, do, lse, want, True,
+                                           products="bf16" if wgmma_bwd else "f32")
     for name, leaf, w, bd in zip("qkv", leaves, want, bounds):
         err = (leaf.grad.float() - w.float()).abs()
         assert bool((err <= bd).all()), (name, float(err.max()))
@@ -949,9 +1020,9 @@ def test_lm_training_on_the_card_runs_the_kernels_and_matches_cpu(cuda_device):
     2 x 2 x 2 and 2 x 2 launches a step) against the port on the CPU
     within 1e-5 (AdamW eps 1e-6, as the CPU parity tests against JAX);
     then the bf16 config at hd 80 (the wgmma forward with its lse and the
-    general backward, at the same counts, none of the tf32x3 kernels), its
-    losses within 3% of the CPU's (both round to bf16 at every op, in
-    other orders)."""
+    wgmma backward, at the same counts, none of the tf32x3 kernels nor of
+    the general ones), its losses within 3% of the CPU's (both round to
+    bf16 at every op, in other orders)."""
     steps = 3
     kw = dict(global_batch=8, seq_len=16, n_micro=2, t_chunk=8, seed=3,
               opt_cfg=OptimizerConfig(lr=2e-3, eps=1e-6))
@@ -977,12 +1048,13 @@ def test_lm_training_on_the_card_runs_the_kernels_and_matches_cpu(cuda_device):
                                 seed=3)
     cpu = Session.from_workload(assemble_workload(arch, cfg, device="cpu", **wkw), seed=3)
     cpu.state = clone_state(gpu.state, "cpu")
-    before = (fa.launches_wgmma, fa.launches_bwd_simple, fa.launches_tf32x3,
-              fa.launches_bwd_tf32x3, fa.launches_simple)
+    before = (fa.launches_wgmma, fa.launches_bwd_wgmma, fa.launches_tf32x3,
+              fa.launches_bwd_tf32x3, fa.launches_simple, fa.launches_bwd_simple)
     got, want = gpu.train(steps), cpu.train(steps)
-    assert (fa.launches_wgmma - before[0], fa.launches_bwd_simple - before[1],
+    assert (fa.launches_wgmma - before[0], fa.launches_bwd_wgmma - before[1],
             fa.launches_tf32x3 - before[2], fa.launches_bwd_tf32x3 - before[3],
-            fa.launches_simple - before[4]) == (16 * steps, 8 * steps, 0, 0, 0)
+            fa.launches_simple - before[4], fa.launches_bwd_simple - before[5]) == (
+        16 * steps, 8 * steps, 0, 0, 0, 0)
     assert np.isfinite(got.stats.losses).all()
     np.testing.assert_allclose(got.stats.losses, want.stats.losses, rtol=0.03, atol=0)
 

@@ -11,8 +11,8 @@ choice of backward kernel.
   the bound;
 - on values of one sign the kernels' short MMA chains hold the bound where
   the one-chain form misses it;
-- ``flash_attention.bwd_variant`` is a function of type and head dim alone,
-  checked on CPU tensors.
+- ``flash_attention.bwd_variant`` is a function of type and head dim alone
+  (tf32x3, wgmma or the general kernel), checked on CPU tensors.
 
 The kernel itself is held against the plain backward on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
@@ -175,16 +175,20 @@ def _view(shape, dtype, offset=0, pad=0):
     *[(_view((2, 9, 4, hd), torch.float32), _view((2, 9, 1, hd), torch.float32), want)
       for hd, want in ((1, "tf32x3"), (5, "tf32x3"), (16, "tf32x3"), (128, "tf32x3"),
                        (129, "simple"), (160, "simple"), (256, "simple"))],
-    *[(_view((2, 9, 4, hd), torch.bfloat16), _view((2, 9, 1, hd), torch.bfloat16), "simple")
-      for hd in (16, 64, 80, 160)],                       # bf16 at any head dim
+    *[(_view((2, 9, 4, hd), torch.bfloat16), _view((2, 9, 1, hd), torch.bfloat16), want)
+      for hd, want in ((16, "simple"), (64, "wgmma"), (80, "wgmma"), (128, "wgmma"),
+                       (160, "simple"), (192, "simple"), (256, "simple"))],
     (_view((2, 9, 4, 64), torch.float32, 3, 5), _view((2, 9, 1, 64), torch.float32, 1),
      "tf32x3"),                                           # off 16-byte alignment
+    (_view((2, 9, 4, 80), torch.bfloat16, 3, 5), _view((2, 9, 1, 80), torch.bfloat16, 1),
+     "wgmma"),                                            # bf16 off alignment
     (_view((2, 9, 4, 64), torch.float32).transpose(1, 2).contiguous().transpose(1, 2),
      _view((2, 9, 1, 64), torch.float32), "tf32x3"),      # heads outside positions
 ])
 def test_backward_kernel_choice(q, k, want):
     """The backward kernel is chosen by type and head dim alone, never by
-    the layout: f32 at hd up to 128 goes to the tf32x3 kernel, bf16 and
-    larger head dims to the general one."""
+    the layout: f32 at hd up to 128 goes to the tf32x3 kernel, bf16 at hd
+    64, 80 and 128 to the wgmma one, bf16 at other head dims and f32 above
+    128 to the general one."""
     assert fa.bwd_variant(q, k, k) == want
     assert fa.bwd_variant(q.contiguous(), k.contiguous(), k.contiguous()) == want

@@ -397,7 +397,8 @@ def test_every_kernel_source_builds_into_build():
                                   "buffer_sync", "embedding_scatter",
                                   "hstu_attention", "flash_attention",
                                   "flash_attention_wgmma", "flash_attention_bwd",
-                                  "flash_attention_tf32", "flash_attention_bwd_tf32"}
+                                  "flash_attention_tf32", "flash_attention_bwd_tf32",
+                                  "flash_attention_bwd_wgmma"}
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").exists()
         assert build.library_path(name).parent == build.BUILD_DIR

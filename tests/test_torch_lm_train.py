@@ -1,7 +1,8 @@
 """The port's dense-LM training path against the JAX package on the CPU.
 
 - the attention kernels the full-width LMs train through (the wgmma
-  forward with its lse, the general backward), by type and head dim;
+  forward with its lse; the wgmma backward at hd 80, the general one at
+  160), by type and head dim;
 - ``vocab_parallel_xent`` (no mesh) against JAX's, with ``t_chunk`` dividing
   T and not, pad labels (-1) and ids outside the vocabulary, the loss and
   its gradients within 1e-6;
@@ -93,17 +94,20 @@ def _max_diff(a, b):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["stablelm-3b", "stablelm-12b"])
-def test_full_width_lm_attention_goes_to_wgmma_and_the_general_backward(arch):
-    """bf16 at the full configs' head dims (80, 160): the wgmma forward, with
-    its lse too, and the general backward; the choice is made from the type
-    and head dim alone, so CPU tensors of those shapes name the kernels."""
+@pytest.mark.parametrize("arch,bwd", [("stablelm-3b", "wgmma"), ("stablelm-12b", "simple")])
+def test_full_width_lm_attention_goes_to_the_wgmma_kernels_by_head_dim(arch, bwd):
+    """bf16 at the full configs' head dims: the wgmma forward, with its lse
+    too, at both (80, 160); the wgmma backward at 80 (stablelm-3b's, LM
+    training's main path) and the general one at 160. The choice is made
+    from the type and head dim alone, so CPU tensors of those shapes name
+    the kernels."""
     a = get_arch(arch).config.attention
     q = torch.zeros((1, 4, a.n_heads, a.head_dim), dtype=torch.bfloat16)
     k = torch.zeros((1, 4, a.n_kv_heads, a.head_dim), dtype=torch.bfloat16)
     assert a.head_dim in fa.WGMMA_HEAD_DIMS
+    assert (a.head_dim in fa.WGMMA_BWD_HEAD_DIMS) == (bwd == "wgmma")
     assert (fa.variant(q, k, k), fa.lse_variant(q, k, k), fa.bwd_variant(q, k, k)) == \
-        ("wgmma", "wgmma", "simple")
+        ("wgmma", "wgmma", bwd)
 
 
 @pytest.mark.parametrize("t_chunk", [4, 5, 64])  # divides T = 12, does not, more than T

@@ -141,7 +141,35 @@ def test_quantize_error_bound_and_equals_jax(n, d, scale_pow):
     assert q.dtype == np.int8 and scales.shape == (n,)
     deq = tc.dequantize_rows_np(q, scales)
     np.testing.assert_array_equal(deq, jc.dequantize_rows_np(jq, jscales))
-    assert np.all(np.abs(rows - deq) <= scales[:, None] / 2 + 1e-30)
+    _assert_rounding_only(rows, q, scales, deq)
+    np.testing.assert_array_equal(err, rows - deq)
+
+
+def _assert_rounding_only(rows, q, scales, deq):
+    # Nothing clips: q is the nearest integer to the f32 quotient.
+    assert np.all(np.abs(rows / scales[:, None] - q) <= 0.5)
+    # Hence |rows - deq| <= scale / 2, up to the f32 rounding of the
+    # quotient and of q * scale: each is at most 2^-24 relative with
+    # |q| <= 127, so together under 2^-16 * scale.
+    assert np.all(np.abs(rows - deq)
+                  <= scales[:, None] * (0.5 + 2.0 ** -16) + 1e-30)
+
+
+def test_quantize_rounding_tie_equals_jax():
+    # Row 12 holds -91.50000025 * scale, which the f32 quotient rounds to
+    # the tie -91.5; q = -92 and the f32 product puts |rows - deq| just
+    # over scale / 2.
+    n, d = 58, 6
+    rows = np.random.default_rng(n * 131 + d).standard_normal(
+        (n, d)).astype(np.float32)
+    q, scales, err = tc.quantize_rows_np(rows)
+    jq, jscales, jerr = jc.quantize_rows_np(rows)
+    for a, b in ((q, jq), (scales, jscales), (err, jerr)):
+        np.testing.assert_array_equal(a, b)
+    assert q[12, 0] == -92
+    deq = tc.dequantize_rows_np(q, scales)
+    assert abs(rows[12, 0] - deq[12, 0]) > scales[12] / 2
+    _assert_rounding_only(rows, q, scales, deq)
     np.testing.assert_array_equal(err, rows - deq)
 
 
