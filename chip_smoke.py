@@ -313,6 +313,40 @@ hand-written kernel on it against its plain PyTorch version:
    at the default eps; a 2-layer bf16 stablelm-3b at hd 80 (the
    wgmma forward and the wgmma backward) trained 3 steps on the card and
    on the CPU from one state: each loss within 3% of the CPU's;
+13d. full-width ``olmoe-1b-7b`` serving (16 layers, d_model 2,048, 16
+   heads of 128, 64 experts top-8 of d_ff 1,024, vocab 50,304, bf16;
+   13.63 GB of weights drawn from a seed) through
+   ``Session.from_arch("olmoe-1b-7b").serve(batch=8, prompt_len=2048,
+   gen=32)``, as 13: 16 wgmma forwards and 96 gathers a serve, the same
+   tokens twice, the prefill's logits within 5e-2 of max |logit| of the
+   plain attention's; the capacity's dropped picks by layer (the warm-up
+   serve); prefill s, decode tokens/s, peak GB (``--profile``: the prefill
+   and 8 decode steps); the prefill's first and last attention calls at
+   (8, 2,048, 16, 128) checked and timed as 13's;
+13e. ``olmoe-1b-7b`` training at every width and 6 of its 16 layers (2.62 B
+   params; the f32 AdamW moments of all 16 would be 55.4 GB) through the
+   build path, as 13b's cell (batch 8 x 4,096, N = 4, AdamW at lr 3e-5):
+   one warm-up step, two captured steps (the embedding kernels' calls
+   checked and timed, each MoE call's dropped picks counted), ``train(4)``
+   with every launch counted (48 wgmma forwards with the lse and 24 wgmma
+   backwards a step, none of the general or tf32x3 kernels), finite losses
+   below the warm-up step's, ``moe_aux`` finite and positive each step,
+   peak under 80 GB, step p50/p99, tokens/s (``--profile``: 2 more steps);
+13f. the olmoe training checkpoint: the session saves (bf16 params, f32
+   moments: 26.6 GB into ``build/ckpt_smoke``) and trains 2 more steps; a
+   session from seed 1 restores it and trains 2: the same losses and every
+   leaf bit for bit (the run restarted at the save, which at bf16 compute
+   is the reference: a restarted run retrieves its first rows afresh);
+   save and restore seconds, GB/s, peak device GB; then the captured
+   hd-128 calls checked and timed as 13b's;
+13g. MoE consistency: ``olmoe-1b-7b-reduced`` nestpipe within 1e-5 of
+   the reference over 6 steps, serial within 1e-5 of the reference on its
+   own unclustered micro-batches, async diverging, at AdamW eps 1e-6 and
+   the default; a 2-layer bf16 olmoe at hd 128 (8 experts top-2) on the
+   card and on the CPU from one state, each loss within 3%; one
+   full-width MoE layer (2 x 4,096 tokens) forward and backward twice on
+   one input with the same bits, and its parts timed (routing and slots,
+   dispatch, experts, combine);
 14. a ``{"kernels": [...]}`` line (the tf32x3 and the general
    ``flash_attention`` forward and backward at FuXi's main-path shape,
    the general one also at the LM's; the wgmma forward's and the wgmma
@@ -323,16 +357,18 @@ hand-written kernel on it against its plain PyTorch version:
    ``dlrm_cached_train_calls``; launches by path, the host and cached
    tiers' training, every run of 6e and 6f, the cached tier's serving
    with and without ``pack``, 6g's resumed steps, 6h's four chaos runs and
-   its preempted and resumed run among them) and, last, the ``{"ok": true,
-   ...}`` line.
+   its preempted and resumed run among them, olmoe's serving, training and
+   resumed run; the wgmma forward's and backward's olmoe calls at hd 128)
+   and, last, the ``{"ok": true, ...}`` line.
 
 Every phase prints one JSON line. Nothing is caught: any failure exits
 non-zero. Run from the repo root: ``python3 chip_smoke.py`` (``--profile``
 adds a host breakdown and a ``torch.profiler`` pass over 4 training steps
 and over the serving path, one over 4 more steps of the host and of the
 cached tier (read between a run's first stage after its ingest and its
-release), one over 2 HSTU steps, one over 2 FuXi steps, and one over an LM
-prefill and 8 decode steps). The phases from 11a on print their seconds.
+release), one over 2 HSTU steps, one over 2 FuXi steps, one over an LM
+prefill and 8 decode steps, and the same for olmoe with 2 of its training
+steps). The phases from 11a on print their seconds.
 """
 from __future__ import annotations
 
@@ -473,6 +509,17 @@ LM_FWD_CALLS_PER_STEP, LM_BWD_CALLS_PER_STEP = 256, 128
 # within this share of the CPU's (both round to bf16 at every op, in other
 # orders and places)
 LM_BF16_LOSS_RTOL = 0.03
+# olmoe-1b-7b (64 experts top-8, 16 heads of 128, bf16): served whole at the
+# LM serving cell's shape; trained at every width and MOE_TRAIN_LAYERS of its
+# 16 layers (2.62 B params: f32 AdamW moments for all 16 would be 55.4 GB
+# alone) at stablelm-3b's training cell's shape and lr
+MOE_ARCH = "olmoe-1b-7b"
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 6, 4
+# the wgmma forward's calls a step: 6 layers x 4 micro-batches x 2 (remat),
+# and the wgmma backward's: 6 x 4
+MOE_FWD_CALLS_PER_STEP, MOE_BWD_CALLS_PER_STEP = 48, 24
+# the steps each session trains after the olmoe checkpoint (phase 13f)
+MOE_CKPT_STEPS = 2
 KERNELS = {  # name -> (source, the Pallas kernel it replaces)
     "embedding_gather": ("src/repro_torch/csrc/embedding_gather.cu",
                          "src/repro/kernels/embedding_gather.py:35"),
@@ -513,6 +560,10 @@ TIER_PATHS = {run: "dlrm_" + run.replace("-", "_") + "_train"
               for run, _, _ in ASYNC_RUNS + COMM_RUNS + CHAOS_RUNS}
 CACHED_PATHS = tuple(TIER_PATHS[run] for run, store, _ in ASYNC_RUNS + COMM_RUNS + CHAOS_RUNS
                      if store == "cached") + ("dlrm_cached_pack_serve",)
+# olmoe's training and its resumed run after phase 13f's restore, and its
+# serving (phase 13d)
+MOE_TRAIN_PATHS = ("moe_train", "moe_ckpt_resume_train")
+MOE_PATHS = ("moe_serve",) + MOE_TRAIN_PATHS
 # phase 6g's resumed run (steps 4-5 after a restore) is a path of its own,
 # and so are 6h's preempted run and its resumption together
 RUNS_ON = {
@@ -520,30 +571,32 @@ RUNS_ON = {
                          "dlrm_cached_train", "dlrm_cached_serve", "hstu_train",
                          "fuxi_train", "lm_serve", "lm_train", "dlrm_cached_pack_serve",
                          "dlrm_ckpt_resume_train", "dlrm_preempt_resume_train")
-    + tuple(TIER_PATHS.values()),
+    + tuple(TIER_PATHS.values()) + MOE_PATHS,
     "segment_rowsum": ("dlrm_train", "dlrm_host_train", "dlrm_cached_train",
                        "hstu_train", "fuxi_train", "lm_train", "dlrm_ckpt_resume_train",
-                       "dlrm_preempt_resume_train") + tuple(TIER_PATHS.values()),
+                       "dlrm_preempt_resume_train") + tuple(TIER_PATHS.values())
+    + MOE_TRAIN_PATHS,
     "buffer_sync": ("dlrm_train", "dlrm_host_train", "dlrm_cached_train", "hstu_train",
                     "fuxi_train", "lm_train", "dlrm_ckpt_resume_train",
                     "dlrm_preempt_resume_train")
-    + tuple(TIER_PATHS.values()),
+    + tuple(TIER_PATHS.values()) + MOE_TRAIN_PATHS,
     # the host tier writes its master back on the host: no device scatter
     "embedding_scatter": ("dlrm_train", "dlrm_cached_train", "dlrm_cached_serve",
                           "hstu_train", "fuxi_train", "lm_train", "dlrm_ckpt_resume_train")
-    + CACHED_PATHS,
+    + CACHED_PATHS + MOE_TRAIN_PATHS,
     "hstu_attention_fwd": ("hstu_train",),
     "hstu_attention_bwd": ("hstu_train",),
-    # the LM prefill (no lse) and LM training (with its lse)
-    "flash_attention_wgmma": ("lm_serve", "lm_train"),
+    # the LM prefill (no lse) and LM training (with its lse), at hd 160 and
+    # 80 (stablelm) and 128 (olmoe)
+    "flash_attention_wgmma": ("lm_serve", "lm_train") + MOE_PATHS,
     # f32 above hd 128 and bf16 off the wgmma head dims: no main path sends
     # it inputs; phases 11a-13 hold it against the plain version and time it
     "flash_attention_simple": (),
     # FuXi's f32 attention, forward and backward
     "flash_attention_tf32x3": ("fuxi_train",),
     "flash_attention_bwd_tf32x3": ("fuxi_train",),
-    # bf16 at hd 64, 80 and 128: LM training's backward (phase 13b)
-    "flash_attention_bwd_wgmma": ("lm_train",),
+    # bf16 at hd 64, 80 and 128: LM training's backward (phases 13b, 13e-f)
+    "flash_attention_bwd_wgmma": ("lm_train",) + MOE_TRAIN_PATHS,
     # bf16 at the other head dims and f32 above 128: no main path sends it
     # inputs; phase 11a holds it against the plain version, 11b and 13b
     # time it at FuXi's and the LM's calls
@@ -841,6 +894,7 @@ def main() -> int:
     from repro_torch.kernels import hstu_attention as ha
     from repro_torch.kernels import segment_rowsum as sr
     from repro_torch.launch.build import assemble_workload, make_loss_fn, resolve
+    from repro_torch.models import layers as mlayers
     from repro_torch.models.dlrm import make_dlrm_loss_fn
     from repro_torch.serve import synthetic_requests
     from repro_torch.train import clone_state, constant_lr
@@ -2754,8 +2808,11 @@ def main() -> int:
         """Per mode, the gap to the reference trainer after
         CONSISTENCY_STEPS steps from one state, at the configuration's own
         step sizes unless ``sparse_lr`` and ``adam_eps`` are given; the
-        reduced ``arch`` (HSTU's, FuXi's in phase 11c, or a dense LM's in
-        13c: 16 sequences of 32 tokens)."""
+        reduced ``arch`` (HSTU's, FuXi's in phase 11c, or an LM's in 13c
+        and 13g: 16 sequences of 32 tokens). An MoE's capacity and
+        load-balance term depend on which tokens share a micro-batch, and
+        serial cuts its micro-batches unclustered: its reference is then a
+        second one, on those micro-batches ("serial_reference")."""
         opt_cfg = OptimizerConfig() if adam_eps is None else OptimizerConfig(eps=adam_eps)
         kw = dict(reduced=True, global_batch=16, n_micro=N_MICRO, seed=1, opt_cfg=opt_cfg)
         runs = {}
@@ -2775,14 +2832,18 @@ def main() -> int:
         ref_step = build_reference_step(loss_fn, first.optimizer,
                                         constant_lr(first.opt_cfg.lr, dev), N_MICRO,
                                         sparse_lr=rwl.engine.sparse_lr)
-        transform = make_cluster_transform(N_MICRO, rwl.npcfg.clustering)
-        stream = resolve_stream(rwl, first.seed)
-        batches = []
-        for _ in range(CONSISTENCY_STEPS):
-            batch = transform(next(stream))
-            batches.append(stage_to_device({k: batch[k] for k in rwl.batch_shapes}, dev))
+
+        def staged(clustering):
+            transform = make_cluster_transform(N_MICRO, clustering)
+            stream = resolve_stream(rwl, first.seed)
+            return [stage_to_device({k: b[k] for k in rwl.batch_shapes}, dev)
+                    for b in (transform(next(stream)) for _ in range(CONSISTENCY_STEPS))]
+
+        batches = staged(rwl.npcfg.clustering)
         ref_state = reference_run(ref_step, init, batches)
         ref_twice = same_bits(ref_state, reference_run(ref_step, init, batches))
+        moe = getattr(rwl.cfg, "moe", None) is not None
+        serial_ref = reference_run(ref_step, init, staged("none")) if moe else ref_state
 
         def two(a, b):
             parts = [a.table.rows - b.table.rows] + [a.dense[k] - b.dense[k] for k in a.dense]
@@ -2791,9 +2852,11 @@ def main() -> int:
                     "accum_rel": float(accum.max()),
                     "accum_abs": float((a.table.accum - b.table.accum).abs().max())}
 
-        gaps = {mode: two(r.state, ref_state) for mode, r in finals.items()}
+        gaps = {mode: two(r.state, serial_ref if mode == "serial" else ref_state)
+                for mode, r in finals.items()}
         gaps["nestpipe_vs_serial"] = two(finals["nestpipe"].state, finals["serial"].state)
-        return {"sparse_lr": rwl.engine.sparse_lr, "adam_eps": first.opt_cfg.eps,
+        return {"serial_reference": "unclustered micro-batches" if moe else "the reference",
+"sparse_lr": rwl.engine.sparse_lr, "adam_eps": first.opt_cfg.eps,
                 "max_diff_to_reference": gaps, "reference_same_bits_twice": ref_twice,
                 "nestpipe_equals_reference_bit_for_bit": same_bits(finals["nestpipe"].state,
                                                                    ref_state),
@@ -3718,39 +3781,46 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the captured calls: checked at full shape, and timed beside the plain
-    # version, SDPA (the yardstick; the port never calls it) and the bound
-    frows = []
-    for layer, (q, k, v, causal) in sorted(kept_flash.items()):
-        if fa.variant(q, k, v) != "wgmma":
-            raise SystemExit(f"the prefill's layer {layer} call is not the wgmma kernel's")
-        check_flash(f"main-path layer {layer}", q, k, v, causal, chunk=1)
-        check_flash(f"main-path layer {layer}, general kernel", q, k, v, causal, chunk=1,
-                    simple=True)
-        ops, nbytes = flash_work(q, k, causal)
-        by_ops, by_bytes = ops / bf16_flops(name) * 1e3, nbytes / peak * 1e3
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        row = {"kernel": "flash_attention_wgmma", "call": f"prefill layer {layer}",
-               "shape": list(q.shape), "kv_heads": k.shape[2], "causal": causal,
-               "dtype": str(q.dtype).removeprefix("torch."), "operations": ops,
-               "bytes": nbytes,
-               "ms": time_ms(torch, lambda: fa.flash_attention(q, k, v, causal), flush),
-               "simple_ms": time_ms(torch, lambda: fa.flash_attention_simple(q, k, v, causal),
-                                    flush),
-               "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal),
-                                   flush),
-               "library_ms": time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal,
-                                                         enable_gqa=True), flush),
-               "library_call": "scaled_dot_product_attention(is_causal, enable_gqa) on "
-                               "(B, H, T, hd) views",
-               "bound_ms": max(by_ops, by_bytes),
-               "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
-        row["achieved_tflops"] = ops / row["ms"] / 1e9
-        row["simple_tflops"] = ops / row["simple_ms"] / 1e9
-        frows.append(row)
-        emit("kernel_shape", path="lm_serve", **row)
-        del qt, kt, vt
+    def prefill_flash_rows(path, kept, flush):
+        """The captured prefill calls (layer -> q, k, v, causal): checked at
+        full shape through the wgmma kernel and the general one, and timed
+        beside the plain version, SDPA (the yardstick; the port never calls
+        it) and the bound."""
+        rows = []
+        for layer, (q, k, v, causal) in sorted(kept.items()):
+            if fa.variant(q, k, v) != "wgmma":
+                raise SystemExit(f"{path}: the prefill's layer {layer} call is not the "
+                                 "wgmma kernel's")
+            check_flash(f"{path} layer {layer}", q, k, v, causal, chunk=1)
+            check_flash(f"{path} layer {layer}, general kernel", q, k, v, causal, chunk=1,
+                        simple=True)
+            ops, nbytes = flash_work(q, k, causal)
+            by_ops, by_bytes = ops / bf16_flops(name) * 1e3, nbytes / peak * 1e3
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            row = {"kernel": "flash_attention_wgmma", "call": f"prefill layer {layer}",
+                   "shape": list(q.shape), "kv_heads": k.shape[2], "causal": causal,
+                   "dtype": str(q.dtype).removeprefix("torch."), "operations": ops,
+                   "bytes": nbytes,
+                   "ms": time_ms(torch, lambda: fa.flash_attention(q, k, v, causal), flush),
+                   "simple_ms": time_ms(torch, lambda: fa.flash_attention_simple(
+                       q, k, v, causal), flush),
+                   "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal),
+                                       flush),
+                   "library_ms": time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                                             enable_gqa=True), flush),
+                   "library_call": "scaled_dot_product_attention(is_causal, enable_gqa) on "
+                                   "(B, H, T, hd) views",
+                   "bound_ms": max(by_ops, by_bytes),
+                   "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+            row["achieved_tflops"] = ops / row["ms"] / 1e9
+            row["simple_tflops"] = ops / row["simple_ms"] / 1e9
+            rows.append(row)
+            emit("kernel_shape", path=path, **row)
+            del qt, kt, vt
+        return rows
+
+    frows = prefill_flash_rows("lm_serve", kept_flash, flush)
     del kept_flash, flush
     gc.collect()
     torch.cuda.empty_cache()
@@ -3874,96 +3944,105 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the captured main-path attention calls, on the card alone now: checked
-    # at full shape and timed beside the plain versions, SDPA (the yardstick;
-    # the port never calls it) and their bf16 bound; the wgmma forward with
-    # and without its lse in turns (with, without, without, with)
-    lm_attn = {}
-    q, k, v, causal = tkept["fwd"]
-    if fa.lse_variant(q, k, v) != "wgmma":
-        raise SystemExit("the LM's main-path forward call is not the wgmma kernel's")
-    check_flash("LM training layer 0 forward", q, k, v, causal, chunk=1)
-    check_flash("LM training layer 0 forward, general kernel", q, k, v, causal, chunk=1,
-                simple=True)
-    check_lse("LM training layer 0 forward", q, k, v, causal)
-    check_lse("LM training layer 0 forward, general kernel", q, k, v, causal, simple=True)
-    ops, nbytes = flash_work(q, k, causal)
-    by_ops, by_bytes = ops / bf16_flops(name) * 1e3, (nbytes + 4 * q.shape[0] * q.shape[1]
-                                                      * q.shape[2]) / peak * 1e3
-    fwd_fns = {"with_lse": lambda: fa.flash_attention_lse(q, k, v, causal),
-               "without_lse": lambda: fa.flash_attention(q, k, v, causal)}
-    turns = {kind: [] for kind in fwd_fns}
-    for kind in ("with_lse", "without_lse", "without_lse", "with_lse"):
-        turns[kind].append(time_ms(torch, fwd_fns[kind], flush))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    row = {"kernel": "flash_attention_wgmma",
-           "call": "lm training layer 0 forward (with its lse)",
-           "shape": list(q.shape), "kv_heads": k.shape[2], "causal": causal,
-           "dtype": str(q.dtype).removeprefix("torch."), "operations": ops,
-           "bytes": nbytes + 4 * q.shape[0] * q.shape[1] * q.shape[2],
-           "ms": statistics.mean(turns["with_lse"]), "ms_turns": turns["with_lse"],
-           "without_lse_ms": statistics.mean(turns["without_lse"]),
-           "without_lse_ms_turns": turns["without_lse"],
-           "simple_ms": time_ms(torch, lambda: fa.flash_attention_simple(q, k, v, causal,
-                                                                         lse=True), flush),
-           "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal), flush),
-           "library_ms": time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal), flush),
-           "library_call": "scaled_dot_product_attention(is_causal) on (B, H, T, hd) views",
-           "bound_ms": max(by_ops, by_bytes),
-           "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
-    row["achieved_tflops"] = ops / row["ms"] / 1e9
-    row["simple_tflops"] = ops / row["simple_ms"] / 1e9
-    lm_attn["flash_attention_wgmma"] = row
-    emit("kernel_shape", path="lm_train", **row)
-    del qt, kt, vt
-
-    # the backward call through the wgmma kernel (the main path's) and the
-    # general one, checked and timed in turns (general, wgmma, wgmma, general)
-    q, k, v, o, do, lse, causal = tkept["bwd"]
-    if fa.bwd_variant(q, k, v) != "wgmma":
-        raise SystemExit("the LM's main-path backward call is not the wgmma kernel's")
-    errs = check_flash_bwd("LM training backward call", q, k, v, causal, chunk=1,
-                           given=(o, do, lse))
-    ops, nbytes = flash_bwd_work(q, k, causal)
-    by_ops, by_bytes = ops / bf16_flops(name) * 1e3, nbytes / peak * 1e3
-    plain_ms = time_ms(torch, lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal),
-                       flush)
-    leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
-    lib_out = sdpa(*leaves, is_causal=causal)
-    do_t = do.transpose(1, 2)
-    library_ms = time_ms(torch, lambda: torch.autograd.grad(lib_out, leaves, do_t,
-                                                            retain_graph=True), flush)
-    bwd_fns = {
-        "flash_attention_bwd_wgmma": lambda: fa.flash_attention_bwd(q, k, v, o, do, lse,
-                                                                    causal),
-        "flash_attention_bwd_simple": lambda: fa.flash_attention_bwd_simple(q, k, v, o, do,
-                                                                            lse, causal)}
-    turns = {kname: [] for kname in bwd_fns}
-    for kname in ("flash_attention_bwd_simple", "flash_attention_bwd_wgmma",
-                  "flash_attention_bwd_wgmma", "flash_attention_bwd_simple"):
-        turns[kname].append(time_ms(torch, bwd_fns[kname], flush))
-    for kname, times in turns.items():
-        row = {"kernel": kname, "call": "lm training layer 31 backward",
+    def train_attention_rows(path, kept, flush, bwd_layer):
+        """The captured main-path attention calls of LM training (kept: the
+        first forward with its lse, the first backward), on the card alone
+        now: checked at full shape and timed beside the plain versions, SDPA
+        (the yardstick; the port never calls it) and their bf16 bound; the
+        wgmma forward with and without its lse in turns (with, without,
+        without, with); the backward through the wgmma kernel (the main
+        path's) and the general one in turns (general, wgmma, wgmma,
+        general), the wgmma one at least 10x faster."""
+        attn = {}
+        q, k, v, causal = kept["fwd"]
+        if fa.lse_variant(q, k, v) != "wgmma":
+            raise SystemExit(f"{path}: the main-path forward call is not the wgmma kernel's")
+        check_flash(f"{path} layer 0 forward", q, k, v, causal, chunk=1)
+        check_flash(f"{path} layer 0 forward, general kernel", q, k, v, causal, chunk=1,
+                    simple=True)
+        check_lse(f"{path} layer 0 forward", q, k, v, causal)
+        check_lse(f"{path} layer 0 forward, general kernel", q, k, v, causal,
+                  simple=True)
+        ops, nbytes = flash_work(q, k, causal)
+        by_ops, by_bytes = ops / bf16_flops(name) * 1e3, (nbytes + 4 * q.shape[0] * q.shape[1]
+                                                          * q.shape[2]) / peak * 1e3
+        fwd_fns = {"with_lse": lambda: fa.flash_attention_lse(q, k, v, causal),
+                   "without_lse": lambda: fa.flash_attention(q, k, v, causal)}
+        turns = {kind: [] for kind in fwd_fns}
+        for kind in ("with_lse", "without_lse", "without_lse", "with_lse"):
+            turns[kind].append(time_ms(torch, fwd_fns[kind], flush))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        row = {"kernel": "flash_attention_wgmma",
+               "call": f"{path} layer 0 forward (with its lse)",
                "shape": list(q.shape), "kv_heads": k.shape[2], "causal": causal,
                "dtype": str(q.dtype).removeprefix("torch."), "operations": ops,
-               "bytes": nbytes, "ms": statistics.mean(times), "ms_turns": times,
-               "plain_ms": plain_ms, "library_ms": library_ms,
-               "library_call": "torch.autograd.grad through scaled_dot_product_attention"
-                               "(is_causal) on (B, H, T, hd) views (its backward alone)",
-               "max_abs_err": max(errs[kname.removeprefix("flash_attention_bwd_")].values()),
+               "bytes": nbytes + 4 * q.shape[0] * q.shape[1] * q.shape[2],
+               "ms": statistics.mean(turns["with_lse"]), "ms_turns": turns["with_lse"],
+               "without_lse_ms": statistics.mean(turns["without_lse"]),
+               "without_lse_ms_turns": turns["without_lse"],
+               "simple_ms": time_ms(torch, lambda: fa.flash_attention_simple(q, k, v, causal,
+                                                                             lse=True), flush),
+               "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal), flush),
+               "library_ms": time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal), flush),
+               "library_call": "scaled_dot_product_attention(is_causal) on (B, H, T, hd) views",
                "bound_ms": max(by_ops, by_bytes),
                "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
         row["achieved_tflops"] = ops / row["ms"] / 1e9
-        row["x_library"] = row["ms"] / library_ms
-        lm_attn[kname] = row
-        emit("kernel_shape", path="lm_train", **row)
-    lm_attn["flash_attention_bwd_wgmma"]["x_faster_than_simple"] = (
-        lm_attn["flash_attention_bwd_simple"]["ms"] / lm_attn["flash_attention_bwd_wgmma"]["ms"])
-    if lm_attn["flash_attention_bwd_wgmma"]["x_faster_than_simple"] < 10:
-        raise SystemExit(f"the wgmma backward is less than 10x faster than the general one: "
-                         f"{lm_attn['flash_attention_bwd_wgmma']}")
-    del tkept, q, k, v, o, do, lse, leaves, lib_out, do_t, flush
+        row["simple_tflops"] = ops / row["simple_ms"] / 1e9
+        attn["flash_attention_wgmma"] = row
+        emit("kernel_shape", path=path, **row)
+        del qt, kt, vt
+
+        # the backward call through the wgmma kernel (the main path's) and the
+        # general one, checked and timed in turns (general, wgmma, wgmma, general)
+        q, k, v, o, do, lse, causal = kept["bwd"]
+        if fa.bwd_variant(q, k, v) != "wgmma":
+            raise SystemExit(f"{path}: the main-path backward call is not the wgmma kernel's")
+        errs = check_flash_bwd(f"{path} backward call", q, k, v, causal, chunk=1,
+                               given=(o, do, lse))
+        ops, nbytes = flash_bwd_work(q, k, causal)
+        by_ops, by_bytes = ops / bf16_flops(name) * 1e3, nbytes / peak * 1e3
+        plain_ms = time_ms(torch, lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal),
+                           flush)
+        leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+        lib_out = sdpa(*leaves, is_causal=causal)
+        do_t = do.transpose(1, 2)
+        library_ms = time_ms(torch, lambda: torch.autograd.grad(lib_out, leaves, do_t,
+                                                                retain_graph=True), flush)
+        bwd_fns = {
+            "flash_attention_bwd_wgmma": lambda: fa.flash_attention_bwd(q, k, v, o, do, lse,
+                                                                        causal),
+            "flash_attention_bwd_simple": lambda: fa.flash_attention_bwd_simple(q, k, v, o, do,
+                                                                                lse, causal)}
+        turns = {kname: [] for kname in bwd_fns}
+        for kname in ("flash_attention_bwd_simple", "flash_attention_bwd_wgmma",
+                      "flash_attention_bwd_wgmma", "flash_attention_bwd_simple"):
+            turns[kname].append(time_ms(torch, bwd_fns[kname], flush))
+        for kname, times in turns.items():
+            row = {"kernel": kname, "call": f"{path} layer {bwd_layer} backward",
+                   "shape": list(q.shape), "kv_heads": k.shape[2], "causal": causal,
+                   "dtype": str(q.dtype).removeprefix("torch."), "operations": ops,
+                   "bytes": nbytes, "ms": statistics.mean(times), "ms_turns": times,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "library_call": "torch.autograd.grad through scaled_dot_product_attention"
+                                   "(is_causal) on (B, H, T, hd) views (its backward alone)",
+                   "max_abs_err": max(errs[kname.removeprefix("flash_attention_bwd_")].values()),
+                   "bound_ms": max(by_ops, by_bytes),
+                   "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+            row["achieved_tflops"] = ops / row["ms"] / 1e9
+            row["x_library"] = row["ms"] / library_ms
+            attn[kname] = row
+            emit("kernel_shape", path=path, **row)
+        attn["flash_attention_bwd_wgmma"]["x_faster_than_simple"] = (
+            attn["flash_attention_bwd_simple"]["ms"] / attn["flash_attention_bwd_wgmma"]["ms"])
+        if attn["flash_attention_bwd_wgmma"]["x_faster_than_simple"] < 10:
+            raise SystemExit(f"the wgmma backward is less than 10x faster than the general one: "
+                             f"{attn['flash_attention_bwd_wgmma']}")
+        return attn
+
+    lm_attn = train_attention_rows("lm_train", tkept, flush, tcfg.n_layers - 1)
+    del tkept, flush
     gc.collect()
     torch.cuda.empty_cache()
     emit("lm_train_phase", seconds=time.perf_counter() - t_phase)
@@ -4017,6 +4096,511 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 13d. main path: full-width olmoe-1b-7b serving ----------------------
+    # every width and all 16 layers (64 experts top-8, 16 heads of 128, bf16)
+    # through Session.from_arch, as stablelm-12b's cell: the same tokens
+    # twice, the launches counted, the prefill against the plain attention;
+    # the capacity's dropped picks counted in the warm-up serve
+    t_phase = time.perf_counter()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    msess = Session.from_arch(MOE_ARCH, seed=0)
+    mwl, mcfg = msess.workload, msess.workload.cfg
+    if (mcfg.n_layers, mcfg.d_model, mcfg.d_ff, mcfg.moe.num_experts, mcfg.moe.top_k,
+            mcfg.attention.head_dim) != (16, 2048, 1024, 64, 8, 128):
+        raise SystemExit(f"{MOE_ARCH} is not at its published widths")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mparams, mtable = msess.lm_weights()
+    torch.cuda.synchronize()
+    mdraw_s = time.perf_counter() - t0
+    mweights_gb = sum(p_.numel() * p_.element_size() for p_ in mparams.values()) / 1e9
+    kept_mflash, mflash_calls = {}, [0]
+    drops = {"prefill": [], "decode": []}  # dropped picks a MoE call
+    real_flash, real_slots = dispatch.flash_attention, mlayers.moe_slots
+
+    def mflash_spy(q, k, v, causal=True):
+        i = mflash_calls[0]
+        mflash_calls[0] += 1
+        if i in (0, mcfg.n_layers - 1):
+            kept_mflash[i] = (q.clone(), k.clone(), v.clone(), causal)
+        return real_flash(q, k, v, causal)
+
+    def slots_spy(ids, w, num_experts, cap):
+        out = real_slots(ids, w, num_experts, cap)
+        kind = "prefill" if ids.shape[0] > LM_BATCH else "decode"
+        drops[kind].append(int((out.pick_slot < 0).sum()))
+        return out
+
+    dispatch.flash_attention, mlayers.moe_slots = mflash_spy, slots_spy
+    try:
+        t0 = time.perf_counter()
+        mwarm = msess.serve(batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN)
+        torch.cuda.synchronize()
+        mwarm_s = time.perf_counter() - t0
+    finally:
+        dispatch.flash_attention, mlayers.moe_slots = real_flash, real_slots
+    if mflash_calls[0] != mcfg.n_layers or len(drops["prefill"]) != mcfg.n_layers \
+            or len(drops["decode"]) != mcfg.n_layers * decode_steps:
+        raise SystemExit(f"the warm-up olmoe serve made {mflash_calls[0]} flash calls and "
+                         f"{len(drops['prefill'])} + {len(drops['decode'])} MoE calls")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    mrep = msess.serve(batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN)
+    torch.cuda.synchronize()
+    moe_serve_launches = counts()
+    moe_serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms_ = mrep.summary
+    picks = LM_BATCH * LM_PROMPT * mcfg.moe.top_k
+    emit("moe_serve", arch=MOE_ARCH, batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN,
+         reduced="batch 8, prompt 2048, 32 generated; every width, all 16 layers",
+         config={k: getattr(mcfg, k) for k in ("n_layers", "d_model", "d_ff", "vocab_size",
+                                               "param_dtype", "compute_dtype")},
+         heads=[mcfg.attention.n_heads, mcfg.attention.n_kv_heads, mcfg.attention.head_dim],
+         experts=[mcfg.moe.num_experts, mcfg.moe.top_k, mcfg.moe.capacity_factor],
+         capacity={"prefill": mlayers.moe_capacity(LM_BATCH * LM_PROMPT, mcfg.moe),
+                   "decode": mlayers.moe_capacity(LM_BATCH, mcfg.moe)},
+         prefill_dropped_picks_by_layer=drops["prefill"],
+         prefill_dropped_share=sum(drops["prefill"]) / (picks * mcfg.n_layers),
+         decode_dropped_picks=sum(drops["decode"]),
+         weights_gb=mweights_gb, table_gb=mtable.rows.numel() * 4 / 1e9,
+         prefill_s=ms_["prefill_s"], prompt_tokens_per_s=LM_BATCH * LM_PROMPT / ms_["prefill_s"],
+         decode_s=ms_["decode_s"], decode_step_ms=ms_["decode_s"] / decode_steps * 1e3,
+         generated_tokens_per_s=ms_["tokens_per_s"], weights_draw_s=mdraw_s,
+         warmup_serve_s=mwarm_s, launches=moe_serve_launches,
+         max_memory_allocated_gb=moe_serve_peak_gb, start_memory_allocated_gb=start_gb,
+         sample_tokens=ms_["sample_tokens"])
+    moe_serve_want = {k: 0 for k in KERNELS}
+    moe_serve_want.update(embedding_gather=3 * (1 + decode_steps),
+                          flash_attention_wgmma=mcfg.n_layers)
+    if moe_serve_launches != moe_serve_want:
+        raise SystemExit(f"olmoe serving launches {moe_serve_launches} != {moe_serve_want}")
+    if not np.array_equal(mrep.tokens, mwarm.tokens):
+        raise SystemExit("two olmoe serves of the same weights generated different tokens")
+    if mrep.tokens.shape != (LM_BATCH, LM_GEN) or not (
+            (0 <= mrep.tokens) & (mrep.tokens < mcfg.vocab_size)).all():
+        raise SystemExit(f"olmoe tokens {mrep.tokens.shape} are not vocabulary ids")
+
+    # the prefill once more with the kernel, and once with the plain attention
+    toks = np.random.default_rng(msess.seed).integers(0, mcfg.vocab_size,
+                                                      size=(LM_BATCH, LM_PROMPT))
+    with torch.inference_mode():
+        mkeys = mwl.spec.scramble(torch.as_tensor(toks.astype(np.int32), device=dev))
+        emb, _ = mwl.engine.lookup_from_master(mtable, mkeys)
+        logits_k, cache = mwl.bundle.prefill(mparams, emb, cache_len=LM_PROMPT + LM_GEN)
+        del cache
+        dispatch.flash_attention = ref.flash_attention_ref
+        try:
+            logits_p, cache = mwl.bundle.prefill(mparams, emb, cache_len=LM_PROMPT + LM_GEN)
+        finally:
+            dispatch.flash_attention = real_flash
+        del cache, emb
+    scale = float(logits_p.abs().max())
+    logit_gap = float((logits_k - logits_p).abs().max())
+    first_tok = logits_k.argmax(-1).cpu().numpy()
+    emit("moe_prefill_vs_plain", max_abs_logit=scale, max_logit_gap=logit_gap,
+         gap_share=logit_gap / scale, bound_share=LM_LOGIT_RTOL,
+         greedy_tokens_agreeing=float((logits_k.argmax(-1) == logits_p.argmax(-1))
+                                      .float().mean()),
+         first_token_equals_serve=bool(np.array_equal(first_tok, mrep.tokens[:, 0])))
+    if not np.isfinite(logits_k.cpu().numpy()).all() or logit_gap > LM_LOGIT_RTOL * scale:
+        raise SystemExit(f"olmoe prefill logits with the kernel are {logit_gap} from the "
+                         f"plain attention's (max |logit| {scale})")
+    if not np.array_equal(first_tok, mrep.tokens[:, 0]):
+        raise SystemExit("the olmoe prefill's argmax is not the serve's first token")
+    del logits_k, logits_p
+
+    if args.profile:  # the prefill, then 8 decode steps from its cache
+        from torch.profiler import ProfilerActivity, profile
+
+        with torch.inference_mode():
+            emb, _ = mwl.engine.lookup_from_master(mtable, mkeys)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                logits, cache = mwl.bundle.prefill(mparams, emb, cache_len=LM_PROMPT + LM_GEN)
+                tok = logits.argmax(-1).to(torch.int32)
+                torch.cuda.synchronize()
+                span = time.perf_counter() - t0
+            emit_profile(prof, "moe_prefill_profile", span, prefills=1)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(8):
+                    emb, _ = mwl.engine.lookup_from_master(mtable, mwl.spec.scramble(tok[:, None]))
+                    logits, cache = mwl.bundle.decode_step(mparams, emb, cache)
+                    tok = logits.argmax(-1).to(torch.int32)
+                    tok.cpu()  # as serve() reads each token back
+                torch.cuda.synchronize()
+                span = time.perf_counter() - t0
+            events = prof.key_averages()
+            emit_profile(prof, "moe_decode_profile", span, steps=8,
+                         device_kernels_per_step=sum(
+                             e.count for e in events if e.device_type != DeviceType.CPU) / 8)
+            del prof, logits, cache, emb
+    del msess, mwl, mparams, mtable, mwarm, mrep
+    gc.collect()
+    torch.cuda.empty_cache()
+    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)  # evicts the L2 (time_ms)
+    mfrows = prefill_flash_rows("moe_serve", kept_mflash, flush)
+    del kept_mflash, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("moe_serve_phase", seconds=time.perf_counter() - t_phase)
+
+    # -- 13e. main path: olmoe-1b-7b training at full width, 6 of 16 layers --
+    t_phase = time.perf_counter()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    mtcfg = dataclasses.replace(get_arch(MOE_ARCH).config, n_layers=MOE_TRAIN_LAYERS)
+
+    def moe_train_session(seed, **kw):
+        """olmoe at every width and MOE_TRAIN_LAYERS layers through the
+        build path, as Session.from_arch builds stablelm-3b's cell (batch
+        8 of 4,096 tokens in N_MICRO micro-batches, AdamW at lr 3e-5)."""
+        wl = assemble_workload(
+            ArchSpec(MOE_ARCH, "lm", mtcfg, mtcfg), mtcfg, device=dev, mode="nestpipe",
+            npcfg=NestPipeConfig(fwp_microbatches=N_MICRO, bucket_slack=4.0),
+            global_batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ, t_chunk=64)
+        return Session.from_workload(wl, opt_cfg=OptimizerConfig(lr=LM_TRAIN_LR),
+                                     seed=seed, data_seed=0, **kw)
+
+    mts = moe_train_session(0)
+    mtwl = mts.workload
+    mtdims = mtwl.engine.dims(mtwl.batch_shapes["keys"][0][1:], N_MICRO)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mtstate = mts.state
+    torch.cuda.synchronize()
+    mt_params = sum(p_.numel() for p_ in mtstate.dense.values())
+    emit("moe_train_init", arch=MOE_ARCH, layers=MOE_TRAIN_LAYERS,
+         seconds=time.perf_counter() - t0,
+         config={k: getattr(mtcfg, k) for k in ("n_layers", "d_model", "d_ff", "vocab_size",
+                                                "param_dtype", "compute_dtype")},
+         heads=[mtcfg.attention.n_heads, mtcfg.attention.n_kv_heads,
+                mtcfg.attention.head_dim],
+         experts=[mtcfg.moe.num_experts, mtcfg.moe.top_k, mtcfg.moe.capacity_factor],
+         capacity=mlayers.moe_capacity(LM_TRAIN_BATCH // N_MICRO * LM_TRAIN_SEQ, mtcfg.moe),
+         dense_params=mt_params,
+         params_gb=sum(p_.numel() * p_.element_size() for p_ in mtstate.dense.values()) / 1e9,
+         moments_gb=2 * 4 * mt_params / 1e9, table_gb=mtstate.table.rows.numel() * 4 / 1e9,
+         dims={"L": mtdims.l_local, "U": mtdims.u_max, "C": mtdims.cap,
+               "K": mtdims.buffer_cap, "N": mtdims.n_micro},
+         start_memory_allocated_gb=start_gb,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if mtstate.dense["blocks.0.moe.wi"].shape != (MOE_TRAIN_LAYERS, 64, 2048, 1024) \
+            or mtstate.table.rows.shape[1] != 2048 or mtstate.table.rows.device.type != "cuda":
+        raise SystemExit(f"{MOE_ARCH} training is not at full width on the card")
+    del mtstate
+    mfirst = mts.train(1).stats
+    mfirst_loss, mfirst_aux = mfirst.losses[0], mfirst.moe_aux[0]
+    torch.cuda.synchronize()
+
+    # two steps with the first forward (with its lse) and backward kept, every
+    # call counted, each MoE call's dropped picks counted, and the embedding
+    # kernels' calls captured
+    mseen, mtkept, tdrops = {"fwd": 0, "bwd": 0}, {}, []
+    real_lse, real_fbwd = fa.flash_attention_lse, fa.flash_attention_bwd
+
+    def moe_lse_spy(q, k, v, causal=True):
+        mseen["fwd"] += 1
+        if "fwd" not in mtkept:
+            mtkept["fwd"] = (q.clone(), k.clone(), v.clone(), causal)
+        return real_lse(q, k, v, causal)
+
+    def moe_bwd_spy(q, k, v, o, do, lse, causal=True):
+        mseen["bwd"] += 1
+        if "bwd" not in mtkept:
+            mtkept["bwd"] = (*(x.clone() for x in (q, k, v, o, do, lse)), causal)
+        return real_fbwd(q, k, v, o, do, lse, causal)
+
+    def train_slots_spy(ids, w, num_experts, cap):
+        out = real_slots(ids, w, num_experts, cap)
+        tdrops.append(int((out.pick_slot < 0).sum()))
+        return out
+
+    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)  # evicts the L2 (time_ms)
+    fa.flash_attention_lse, fa.flash_attention_bwd = moe_lse_spy, moe_bwd_spy
+    mlayers.moe_slots = train_slots_spy
+    try:
+        mcaptured = capture_calls(mts)
+    finally:
+        fa.flash_attention_lse, fa.flash_attention_bwd = real_lse, real_fbwd
+        mlayers.moe_slots = real_slots
+    if mseen != {"fwd": 2 * MOE_FWD_CALLS_PER_STEP, "bwd": 2 * MOE_BWD_CALLS_PER_STEP}:
+        raise SystemExit(f"two olmoe steps made {mseen} attention calls")
+    mtshapes = check_and_time("moe_train", mcaptured, mts.state.table)
+    del mcaptured
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    mtrep = mts.train(MOE_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    mwall = time.perf_counter() - t0
+    moe_train_launches = counts()
+    moe_train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    s = mtrep.summary
+    msamples_per_s = LM_TRAIN_BATCH * MOE_TRAIN_STEPS / mwall
+    mt_tokens = LM_TRAIN_BATCH // N_MICRO * LM_TRAIN_SEQ  # a micro-batch's
+    emit("moe_train", arch=MOE_ARCH, layers=MOE_TRAIN_LAYERS, mode="nestpipe",
+         global_batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ, n_micro=N_MICRO,
+         steps=MOE_TRAIN_STEPS, lr=LM_TRAIN_LR,
+         reduced=f"every width, {MOE_TRAIN_LAYERS} of 16 layers; batch 8 of train_4k's "
+                 "256 (one of 32 workers)",
+         first_loss=mfirst_loss, first_moe_aux=mfirst_aux, losses=mtrep.stats.losses,
+         moe_aux=mtrep.stats.moe_aux, overflow_max=s["overflow_max"],
+         dropped_picks_by_call=tdrops,
+         dropped_share=sum(tdrops) / (len(tdrops) * mt_tokens * mtcfg.moe.top_k),
+         samples_per_s=msamples_per_s, tokens_per_s=msamples_per_s * LM_TRAIN_SEQ,
+         wall_s=mwall, step_ms=[x * 1e3 for x in mtrep.stats.step_times],
+         step_p50_ms=s["p50_step_s"] * 1e3, step_p99_ms=s["p99_step_s"] * 1e3,
+         mean_input_wait_ms=s["mean_input_wait_s"] * 1e3,
+         stage_host_ms={k: s[k] for k in ("plan_ms", "retrieve_ms", "commit_ms")},
+         launches=moe_train_launches, max_memory_allocated_gb=moe_train_peak_gb,
+         device_memory_gb=torch.cuda.get_device_properties(0).total_memory / 1e9)
+    if not all(np.isfinite(mtrep.stats.losses)) or len(mtrep.stats.losses) != MOE_TRAIN_STEPS:
+        raise SystemExit(f"olmoe losses are not {MOE_TRAIN_STEPS} finite values")
+    if not all(x < mfirst_loss for x in mtrep.stats.losses):
+        raise SystemExit(f"the olmoe loss did not fall from {mfirst_loss}: "
+                         f"{mtrep.stats.losses}")
+    if len(mtrep.stats.moe_aux) != MOE_TRAIN_STEPS or not all(
+            np.isfinite(a_) and a_ > 0 for a_ in mtrep.stats.moe_aux):
+        raise SystemExit(f"olmoe's moe_aux is not positive each step: {mtrep.stats.moe_aux}")
+    if s["overflow_max"] != 0:
+        raise SystemExit(f"olmoe routing overflowed: {s['overflow_max']}")
+    if moe_train_peak_gb >= 80:
+        raise SystemExit(f"olmoe training peaked at {moe_train_peak_gb} GB")
+    moe_train_want = {k: 0 for k in KERNELS}
+    moe_train_want.update(embedding_gather=(1 + 3 * N_MICRO) * MOE_TRAIN_STEPS,
+                          segment_rowsum=(N_MICRO + 1) * MOE_TRAIN_STEPS,
+                          buffer_sync=MOE_TRAIN_STEPS - 1, embedding_scatter=MOE_TRAIN_STEPS,
+                          flash_attention_wgmma=MOE_FWD_CALLS_PER_STEP * MOE_TRAIN_STEPS,
+                          flash_attention_bwd_wgmma=MOE_BWD_CALLS_PER_STEP * MOE_TRAIN_STEPS)
+    if moe_train_launches != moe_train_want:
+        raise SystemExit(f"olmoe training launches {moe_train_launches} != {moe_train_want}")
+
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            mts.train(2)
+            torch.cuda.synchronize()
+            span = time.perf_counter() - t0
+        emit_profile(prof, "moe_train_profile", span, steps=2)
+        del prof
+    del mtrep
+
+    # -- 13f. the olmoe training checkpoint: bf16 leaves at full width --------
+    # A saves at its step (Session.save), then trains MOE_CKPT_STEPS more; B,
+    # drawn from another seed, restores it and trains as many: B's losses and
+    # every leaf equal A's bit for bit. A's run restarted at the save is the
+    # reference: at bf16 compute a row retrieved afresh is rounded to bf16,
+    # where one buffer_sync carries over keeps its f32 update, so no run that
+    # starts at the save step has the bits of one that runs through it.
+    # A's final state waits on the host while B trains.
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    CKPT_DIR.mkdir(parents=True)
+    mts.ckpt_dir = str(CKPT_DIR)
+    mneed = sum(t.numel() * t.element_size() for _, t in flatten_state(mts.state))
+    mfree = shutil.disk_usage(CKPT_DIR).free
+    if mfree < 1.05 * mneed:
+        raise SystemExit(f"{CKPT_DIR} has {mfree} bytes free; one olmoe checkpoint and "
+                         f"5% need {1.05 * mneed:.0f}")
+    ckpt_io.clear()
+    session_mod.save_checkpoint = timed_io("save", real_io["save_checkpoint"])
+    try:
+        msaved = mts.save()
+    finally:
+        session_mod.save_checkpoint = real_io["save_checkpoint"]
+    msave_step = int(mts.state.step)
+    mck_bytes = sum(f.stat().st_size for f in Path(msaved).iterdir())
+    mmanifest = json.loads((Path(msaved) / "manifest.json").read_text())
+    mbf16 = sum(e["dtype"] == "bfloat16" for e in mmanifest["leaves"])
+    ma_rep = mts.train(MOE_CKPT_STEPS)
+    torch.cuda.synchronize()
+    ma_losses = ma_rep.stats.losses
+    ma_final = [(k, t.cpu()) for k, t in flatten_state(mts.state)]
+    del mts, ma_rep, mtwl
+    gc.collect()
+    torch.cuda.empty_cache()
+    after_a_gb = torch.cuda.memory_allocated() / 1e9
+
+    mb = moe_train_session(1, ckpt_dir=str(CKPT_DIR))
+    session_mod.restore_latest_verifiable = timed_io(
+        "restore", real_io["restore_latest_verifiable"])
+    try:
+        mrestored = mb.restore_if_available()
+    finally:
+        session_mod.restore_latest_verifiable = real_io["restore_latest_verifiable"]
+    if mrestored != msave_step or int(mb.state.step) != msave_step:
+        raise SystemExit(f"the olmoe restore gave step {mrestored}, not {msave_step}")
+    torch.cuda.synchronize()
+    reset_counts()
+    mb_rep = mb.train(MOE_CKPT_STEPS)
+    torch.cuda.synchronize()
+    moe_ckpt_launches = counts()
+    mb_final = flatten_state(mb.state)
+    msame = {"losses": mb_rep.stats.losses == ma_losses,
+             "leaves": [k for k, _ in mb_final] == [k for k, _ in ma_final]
+             and all(torch.equal(t.cpu(), u) for (_, t), (_, u) in zip(mb_final, ma_final))}
+    msave, mrestore = ckpt_io["save"], ckpt_io["restore"]
+    emit("moe_checkpoint", arch=MOE_ARCH, layers=MOE_TRAIN_LAYERS, saved_at=msave_step,
+         steps_after=MOE_CKPT_STEPS, dir=str(CKPT_DIR), free_bytes=mfree,
+         checkpoint_bytes=mck_bytes, checkpoint_gb=mck_bytes / 1e9,
+         leaves=len(mmanifest["leaves"]), bf16_leaves=mbf16,
+         save_s=msave["seconds"], save_d2h_s=msave.get("d2h_s", 0.0),
+         save_write_crc_s=msave.get("write_s", 0.0),
+         save_gb_per_s=mck_bytes / msave["seconds"] / 1e9,
+         save_peak_device_gb=msave["peak_device_gb"],
+         restore_s=mrestore["seconds"], restore_verify_s=mrestore["verify_s"],
+         restore_load_h2d_s=mrestore["load_s"],
+         restore_gb_per_s=mck_bytes / mrestore["seconds"] / 1e9,
+         restore_peak_device_gb=mrestore["peak_device_gb"],
+         device_gb_after_a=after_a_gb, a_losses=ma_losses, b_losses=mb_rep.stats.losses,
+         b_step_ms=[x * 1e3 for x in mb_rep.stats.step_times], bit_equal=msame,
+         launches=moe_ckpt_launches)
+    if not all(msame.values()):
+        raise SystemExit(f"the resumed olmoe run differs from A's: {msame}")
+    if not mbf16 or not all(np.isfinite(ma_losses)):
+        raise SystemExit(f"the olmoe checkpoint holds {mbf16} bf16 leaves; losses {ma_losses}")
+    moe_ckpt_want = {k: 0 for k in KERNELS}
+    moe_ckpt_want.update(embedding_gather=(1 + 3 * N_MICRO) * MOE_CKPT_STEPS,
+                         segment_rowsum=(N_MICRO + 1) * MOE_CKPT_STEPS,
+                         buffer_sync=MOE_CKPT_STEPS - 1, embedding_scatter=MOE_CKPT_STEPS,
+                         flash_attention_wgmma=MOE_FWD_CALLS_PER_STEP * MOE_CKPT_STEPS,
+                         flash_attention_bwd_wgmma=MOE_BWD_CALLS_PER_STEP * MOE_CKPT_STEPS)
+    if moe_ckpt_launches != moe_ckpt_want:
+        raise SystemExit(f"resumed olmoe launches {moe_ckpt_launches} != {moe_ckpt_want}")
+    del mb, mb_rep, mb_final, ma_final
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(CKPT_DIR)
+
+    # the captured hd-128 attention calls, the session released
+    moe_attn = train_attention_rows("moe_train", mtkept, flush, MOE_TRAIN_LAYERS - 1)
+    del mtkept, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("moe_train_phase", seconds=time.perf_counter() - t_phase)
+
+    # -- 13g. MoE consistency ---------------------------------------------------
+    t_phase = time.perf_counter()
+    moe_runs = {"adam_eps_1e-6": reduced_gaps(adam_eps=1e-6, arch=MOE_ARCH),
+                "default_step_sizes": reduced_gaps(arch=MOE_ARCH)}
+    # a 2-layer bf16 olmoe at its own head dim (2 heads of 128, 8 experts
+    # top-2) on the card and on the CPU from one state
+    mred = get_arch(MOE_ARCH).reduced
+    mbcfg = dataclasses.replace(mred, name="olmoe-bf16-hd128", d_model=256, d_ff=128,
+                                param_dtype="bfloat16", compute_dtype="bfloat16",
+                                attention=dataclasses.replace(mred.attention, n_heads=2,
+                                                              n_kv_heads=2, head_dim=128))
+    mbarch = ArchSpec(mbcfg.name, "lm", mbcfg, mbcfg)
+    bkw = dict(global_batch=8, seq_len=200, t_chunk=64)
+    mbgpu = Session.from_workload(assemble_workload(mbarch, mbcfg, device=dev, **bkw), seed=3)
+    mbcpu = Session.from_workload(assemble_workload(mbarch, mbcfg, device="cpu", **bkw), seed=3)
+    mbcpu.state = clone_state(mbgpu.state, "cpu")
+    reset_counts()
+    mbgot, mbwant = mbgpu.train(3), mbcpu.train(3)
+    mbf16_launches = {k: v for k, v in counts().items() if v}
+    mbf16_gap = [abs(a - b) / abs(b) for a, b in zip(mbgot.stats.losses, mbwant.stats.losses)]
+
+    # one full-width MoE layer (a training micro-batch: 2 x 4,096 tokens of
+    # 2,048, 64 experts top-8, bf16, the router cast to bf16 as in the model)
+    # forward and backward twice on one input: the same bits; and its parts
+    # timed (routing and the slot plan; the dispatch gather; the experts'
+    # products; the combine)
+    fcfg = get_arch(MOE_ARCH).config
+    gen = torch.Generator(dev).manual_seed(5)
+    lp = mlayers.init_moe(fcfg.d_model, fcfg.d_ff, fcfg.moe, fcfg.mlp_type,
+                          dtype=torch.bfloat16, device=dev, generator=gen)
+    lp["router"] = lp["router"].to(torch.bfloat16)
+    lp = {k: v.requires_grad_() for k, v in lp.items()}
+    lx = torch.empty((2, LM_TRAIN_SEQ, fcfg.d_model), device=dev).normal_(
+        generator=gen).to(torch.bfloat16).requires_grad_()
+    lc = torch.empty(lx.shape, device=dev).normal_(generator=gen).to(torch.bfloat16)
+
+    def moe_layer_once():
+        out, aux = mlayers.apply_moe(lp, lx, fcfg.moe, fcfg.mlp_type, fcfg.activation)
+        grads = torch.autograd.grad((out.float() * lc.float()).sum() + aux,
+                                    [lx, *lp.values()])
+        return [out.detach(), aux.detach(), *grads]
+
+    first_run, second_run = moe_layer_once(), moe_layer_once()
+    layer_same = [torch.equal(a_, b_) for a_, b_ in zip(first_run, second_run)]
+    del first_run, second_run
+    n_tok = lx.shape[0] * lx.shape[1]
+    cap = mlayers.moe_capacity(n_tok, fcfg.moe)
+    with torch.no_grad():
+        xt = lx.detach().reshape(-1, fcfg.d_model)
+        logits = mlayers._router_logits(lp, xt)
+        ids, w = mlayers._topk_routing(logits, fcfg.moe.top_k)
+        slots = mlayers.moe_slots(ids, w, fcfg.moe.num_experts, cap)
+        xe = mlayers._dispatch(xt, slots).reshape(fcfg.moe.num_experts, cap, -1)
+        ye = mlayers._experts(lp, xe, fcfg.mlp_type, fcfg.activation).reshape(-1, fcfg.d_model)
+        flush = torch.empty(128 * 2 ** 20 // 4, device=dev)
+        wparams = {k: v.detach() for k, v in lp.items()}
+
+        def routing():
+            lg = mlayers._router_logits(wparams, xt)
+            i_, w_ = mlayers._topk_routing(lg, fcfg.moe.top_k)
+            mlayers.moe_slots(i_, w_, fcfg.moe.num_experts, cap)
+
+        parts_ms = {
+            "routing_and_slots": time_ms(torch, routing, flush),
+            "dispatch_gather": time_ms(torch, lambda: mlayers._dispatch(xt, slots), flush),
+            "experts": time_ms(torch, lambda: mlayers._experts(wparams, xe, fcfg.mlp_type,
+                                                               fcfg.activation), flush),
+            "combine": time_ms(torch, lambda: mlayers._combine(ye, slots), flush),
+            "forward": time_ms(torch, lambda: mlayers.apply_moe(
+                wparams, lx.detach(), fcfg.moe, fcfg.mlp_type, fcfg.activation), flush)}
+        expert_ops = 2 * 3 * fcfg.moe.num_experts * cap * fcfg.d_model * fcfg.d_ff
+        del logits, ids, w, slots, xe, ye, flush, wparams
+    parts_ms["forward_and_backward"] = time_ms(torch, moe_layer_once, torch.empty(
+        128 * 2 ** 20 // 4, device=dev))
+    emit("moe_consistency", arch=f"{MOE_ARCH} (reduced)", steps=CONSISTENCY_STEPS,
+         **moe_runs,
+         bf16_hd128={"config": "2 layers, 2 heads of 128, d_model 256, 8 experts top-2, bf16",
+                     "losses_card": mbgot.stats.losses, "losses_cpu": mbwant.stats.losses,
+                     "moe_aux_card": mbgot.stats.moe_aux, "moe_aux_cpu": mbwant.stats.moe_aux,
+                     "relative_gap": mbf16_gap, "bound": LM_BF16_LOSS_RTOL,
+                     "launches": mbf16_launches},
+         full_width_layer={"tokens": n_tok, "capacity": cap,
+                           "same_bits_twice": dict(zip(
+                               ["out", "aux", "dx", *(f"d{k}" for k in lp)], layer_same)),
+                           "ms": parts_ms, "experts_bf16_bound_ms":
+                               expert_ops / bf16_flops(name) * 1e3,
+                           "experts_tflops": expert_ops / parts_ms["experts"] / 1e9},
+         seconds=time.perf_counter() - t_phase,
+         bounds="nestpipe within 1e-5 of the reference, serial within 1e-5 of the "
+                "reference on its own (unclustered) micro-batches, async more than 1e-6 "
+                f"from the reference; the bf16 config's losses within {LM_BF16_LOSS_RTOL} "
+                "of the CPU's; the full-width layer's outputs and gradients the same "
+                "bits twice")
+    for label, run in moe_runs.items():
+        if not run["reference_same_bits_twice"]:
+            raise SystemExit(f"the MoE reference gave other bits on a second run ({label})")
+        mgaps = run["max_diff_to_reference"]
+        for key in ("nestpipe", "serial"):
+            if mgaps[key]["rows_dense"] > 1e-5 or mgaps[key]["accum_abs"] > 1e-5:
+                raise SystemExit(f"MoE {key} differs from its reference ({label}): {mgaps}")
+        if mgaps["async"]["rows_dense"] <= 1e-6:
+            raise SystemExit(f"MoE async did not diverge ({label}): {mgaps}")
+    if mbf16_launches.get("flash_attention_wgmma", 0) != 2 * 2 * N_MICRO * 3 \
+            or mbf16_launches.get("flash_attention_bwd_wgmma", 0) != 2 * N_MICRO * 3 \
+            or mbf16_launches.get("flash_attention_bwd_simple", 0) != 0:
+        raise SystemExit(f"the bf16 hd-128 MoE config launched {mbf16_launches}")
+    if not all(np.isfinite(mbgot.stats.losses)) or max(mbf16_gap) > LM_BF16_LOSS_RTOL:
+        raise SystemExit(f"the bf16 MoE losses on the card are {mbf16_gap} from the CPU's")
+    if not all(layer_same):
+        raise SystemExit(f"the full-width MoE layer gave other bits on a second run: "
+                         f"{layer_same}")
+    del mbgpu, mbcpu, mbgot, mbwant, lp, lx, lc, xt
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- 14. kernels line and the result -----------------------------------
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
@@ -4033,7 +4617,10 @@ def main() -> int:
                    "hstu_train": hstu_launches[kname],
                    "fuxi_train": fuxi_launches[kname],
                    "lm_serve": lm_launches[kname],
-                   "lm_train": lm_train_launches[kname]}
+                   "lm_train": lm_train_launches[kname],
+                   "moe_serve": moe_serve_launches[kname],
+                   "moe_train": moe_train_launches[kname],
+                   "moe_ckpt_resume_train": moe_ckpt_launches[kname]}
         for path in RUNS_ON[kname]:
             if by_path[path] == 0:
                 raise SystemExit(f"{kname} was not launched on the {path} path")
@@ -4055,6 +4642,16 @@ def main() -> int:
                 "lm_train_call": {k: lm_attn[kname][k] for k in (
                     "shape", "ms", "without_lse_ms", "simple_ms", "plain_ms", "library_ms",
                     "bound_ms", "bound_by", "achieved_tflops")},
+                # olmoe's hd-128 calls: its prefill's first layer, and its
+                # training's first forward with the lse
+                "moe_serve_call": {k: mfrows[0][k] for k in (
+                    "shape", "ms", "simple_ms", "plain_ms", "library_ms", "bound_ms",
+                    "achieved_tflops")},
+                "calls_per_moe_serve": moe_serve_launches[kname],
+                "moe_train_call": {k: moe_attn[kname][k] for k in (
+                    "shape", "ms", "without_lse_ms", "simple_ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "achieved_tflops")},
+                "calls_per_moe_train_step": MOE_FWD_CALLS_PER_STEP,
             }
         elif kname == "flash_attention_bwd_wgmma":  # LM training's backward
             row = lm_attn[kname]
@@ -4073,6 +4670,10 @@ def main() -> int:
                 "achieved_tflops": row["achieved_tflops"],
                 "x_faster_than_simple": row["x_faster_than_simple"],
                 "max_share_of_bound": max(v for k, v in bshare.items() if k.startswith(kname)),
+                "moe_train_call": {k: moe_attn[kname][k] for k in (
+                    "shape", "ms", "ms_turns", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "achieved_tflops", "x_faster_than_simple")},
+                "calls_per_moe_train_step": MOE_BWD_CALLS_PER_STEP,
             }
         elif kname == "flash_attention_bwd_simple":  # no main path since the wgmma backward
             row, frow = lm_attn[kname], fuxi_attn[kname]
@@ -4143,7 +4744,7 @@ def main() -> int:
                        for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
                     "calls": [x["call"] for x in calls[kname]]}
                    for path, calls in (("hstu_train", hshapes), ("fuxi_train", fshapes),
-                                       ("lm_train", tshapes))},
+                                       ("lm_train", tshapes), ("moe_train", mtshapes))},
             }
         if kname == "embedding_gather":
             times = ("ms", "plain_ms", "library_ms", "bound_ms")
@@ -4166,7 +4767,8 @@ def main() -> int:
         if kname == "segment_rowsum":  # the op's parts per step: sort, starts, sum, combine
             for step, calls in ((entry, rows), (entry["hstu_train_step"], hshapes[kname]),
                                 (entry["fuxi_train_step"], fshapes[kname]),
-                                (entry["lm_train_step"], tshapes[kname])):
+                                (entry["lm_train_step"], tshapes[kname]),
+                                (entry["moe_train_step"], mtshapes[kname])):
                 step["parts_ms"] = {k: sum(x["parts_ms"][k] for x in calls)
                                     for k in calls[0]["parts_ms"]}
         kernels.append(entry)

@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` -> full/reduced configs. Ported:
-the recsys archs (DLRM, HSTU, FuXi; training) and the dense LM archs whose
-(attn, mlp) stacks the port's layers cover (``kind="lm"``, training and
-serving)."""
+the recsys archs (DLRM, HSTU, FuXi; training) and the LM archs whose
+(attn, mlp) and (attn, moe) stacks the port's layers cover (``kind="lm"``,
+training and serving)."""
 from __future__ import annotations
 
 import importlib
@@ -16,6 +16,8 @@ _LM_MODULES = {
     "stablelm-12b": "stablelm_12b",
     "nemotron-4-340b": "nemotron_4_340b",
     "yi-34b": "yi_34b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "grok-1-314b": "grok_1_314b",
 }
 
 _RECSYS = {

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .core.embedding.table import EmbeddingTableState
-from .dist.checkpoint import read_manifest, verify_leaf
+from .dist.checkpoint import BF16_DTYPE, read_manifest, verify_leaf
 from .train.optim import AdamState
 from .train.state import TrainState
 
@@ -89,7 +89,10 @@ def dense_params_from_jax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tenso
 
 
 def _tensor_keep_dtype(x) -> torch.Tensor:
-    """A numpy (or ml_dtypes bfloat16) array as a tensor of the same dtype."""
+    """A numpy (or ml_dtypes bfloat16) array as a tensor of the same dtype; a
+    tensor as it is."""
+    if isinstance(x, torch.Tensor):
+        return x
     a = np.asarray(x)
     if a.dtype.name == "bfloat16":  # no numpy dtype in torch: move the bits
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
@@ -205,6 +208,16 @@ def train_state_from_jax_checkpoint(ckpt_dir: str, device: torch.device | str,
     ``train_state_from_jax`` takes (HSTU's and FuXi's stacked ``layers``
     leaves are unstacked there)."""
     d, manifest = read_manifest(ckpt_dir, step)
-    leaves = [(e["path"], np.load(verify_leaf(d, e), allow_pickle=False))
+    leaves = [(e["path"], _read_leaf(verify_leaf(d, e), e["dtype"]))
               for e in manifest["leaves"]]
     return train_state_from_jax(_unflatten_keystr(leaves), device)
+
+
+def _read_leaf(fpath: str, dtype: str):
+    """A leaf file as numpy reads it; a bfloat16 leaf (two raw bytes an
+    element on disk, ``dist.checkpoint.BF16_DTYPE`` in the manifest) as a
+    bfloat16 tensor of its bits."""
+    a = np.load(fpath, allow_pickle=False)
+    if dtype == BF16_DTYPE:
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+    return a

@@ -88,6 +88,9 @@ MODES = ("nestpipe", "async", "serial")
 class PipelineStats:
     step_times: List[float] = field(default_factory=list)
     losses: List[float] = field(default_factory=list)
+    # an LM's MoE load-balance term a step (the micro-batches' mean; zeros
+    # for a dense stack), where the loss reports one
+    moe_aux: List[float] = field(default_factory=list)
     input_wait_times: List[float] = field(default_factory=list)
     input_wait_total: float = 0.0
     straggler_steps: List[int] = field(default_factory=list)
@@ -202,6 +205,9 @@ class _MetricsDrain:
     def drain(self) -> None:
         if self.pending:
             losses = torch.stack([aux["loss"] for _, aux, _ in self.pending]).tolist()
+            if all("moe_aux" in aux for _, aux, _ in self.pending):
+                self.stats.moe_aux.extend(
+                    torch.stack([aux["moe_aux"] for _, aux, _ in self.pending]).tolist())
             ovf = [aux["routing_overflow"] for _, aux, _ in self.pending
                    if "routing_overflow" in aux]
             if ovf:

@@ -26,6 +26,12 @@ file and wherever it lives (card or host) through one reused staging
 buffer, and a restore copies into the template's tensors in place, keeping
 their device and dtype: a full-width master is never copied whole to the
 host, and one master is alive on the card. Nothing is pickled.
+
+A bfloat16 leaf is written as JAX's ``np.save`` of an ``ml_dtypes``
+bfloat16 array writes it: its bits, under the header descr ``'<V2'`` (two
+raw bytes), with ``"bfloat16"`` as the manifest's dtype; it reads back as
+16-bit words viewed as ``torch.bfloat16``. Neither side needs
+``ml_dtypes``.
 """
 from __future__ import annotations
 
@@ -51,10 +57,9 @@ _NP_DTYPES = {
     torch.int64: np.int64, torch.int32: np.int32, torch.int16: np.int16,
     torch.int8: np.int8, torch.uint8: np.uint8, torch.bool: np.bool_,
 }
-BF16_NOT_PORTED = (
-    "a bfloat16 leaf cannot be checkpointed yet: numpy has no bfloat16 dtype "
-    "(a dense LM's bf16 params have one; ROADMAP.md, port Queue 1, item 3d: "
-    "bf16 checkpoint leaves)")
+# numpy has no bfloat16: np.save of an ml_dtypes bfloat16 array writes this
+# descr, and str() of its dtype is this manifest entry
+BF16_DESCR, BF16_DTYPE = "<V2", "bfloat16"
 
 
 # ---------------------------------------------------------------------------
@@ -81,13 +86,22 @@ def flatten_state(state: Any, prefix: str = "") -> List[Tuple[str, torch.Tensor]
     raise TypeError(f"{prefix or 'state'}: cannot checkpoint a {type(state).__name__}")
 
 
-def _np_dtype(t: torch.Tensor, path: str) -> np.dtype:
+def _leaf_format(t: torch.Tensor, path: str) -> Tuple[str, str]:
+    """``(header descr, manifest dtype)`` of a leaf, as JAX's ``np.save``
+    writes them."""
     if t.dtype == torch.bfloat16:
-        raise ValueError(f"{path}: {BF16_NOT_PORTED}")
+        return BF16_DESCR, BF16_DTYPE
     try:
-        return np.dtype(_NP_DTYPES[t.dtype])
+        dtype = np.dtype(_NP_DTYPES[t.dtype])
     except KeyError:
         raise ValueError(f"{path}: no numpy dtype for {t.dtype}") from None
+    return np.lib.format.dtype_to_descr(dtype), str(dtype)
+
+
+def _words(flat: torch.Tensor) -> torch.Tensor:
+    """A flat tensor as numpy can take it: a bfloat16 one as its 16-bit
+    words (a view), any other as it is."""
+    return flat.view(torch.int16) if flat.dtype == torch.bfloat16 else flat
 
 
 def _step_dir(ckpt_dir: str, step: int) -> str:
@@ -104,14 +118,14 @@ def _add(timings: Optional[Dict[str, float]], key: str, t0: float) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _npy_header(shape: Tuple[int, ...], dtype: np.dtype) -> bytes:
+def _npy_header(shape: Tuple[int, ...], descr: str) -> bytes:
     """The header ``np.save`` writes for a C-ordered array of this shape and
-    dtype (format 1.0, which fits any header a train state needs)."""
+    descr (format 1.0, which fits any header a train state needs)."""
     import io
 
     buf = io.BytesIO()
     np.lib.format.write_array_header_1_0(buf, {
-        "descr": np.lib.format.dtype_to_descr(dtype), "fortran_order": False,
+        "descr": descr, "fortran_order": False,
         "shape": tuple(int(s) for s in shape)})
     return buf.getvalue()
 
@@ -131,13 +145,13 @@ def _staging(flat: torch.Tensor) -> torch.Tensor:
     return torch.empty(n, dtype=flat.dtype, pin_memory=True)
 
 
-def _write_leaf(fpath: str, t: torch.Tensor, dtype: np.dtype,
+def _write_leaf(fpath: str, t: torch.Tensor, descr: str,
                 timings: Optional[Dict[str, float]]) -> int:
     """Write ``t`` as ``np.save`` would, chunk by chunk; returns the file's
     CRC32."""
-    flat = t.detach().contiguous().reshape(-1)
+    flat = _words(t.detach().contiguous().reshape(-1))
     stage = _staging(flat)
-    header = _npy_header(tuple(t.shape), dtype)
+    header = _npy_header(tuple(t.shape), descr)
     crc = zlib.crc32(header)
     with open(fpath, "wb") as f:
         f.write(header)
@@ -181,8 +195,9 @@ def _open_leaf(fpath: str, entry: dict):
             raise ValueError(f"{entry['path']}: leaf {entry['file']} is .npy "
                              f"format {version}, not 1.0 or 2.0")
         shape, fortran, dtype = read(f)
+        named = BF16_DTYPE if dtype == np.dtype("V2") else str(dtype)  # a bf16 leaf
         if fortran or dtype.hasobject or list(shape) != list(entry["shape"]) \
-                or str(dtype) != entry["dtype"]:
+                or named != entry["dtype"]:
             raise ValueError(
                 f"{entry['path']}: leaf {entry['file']} holds {dtype}{list(shape)}"
                 f"{' (Fortran order)' if fortran else ''}, the manifest says "
@@ -202,8 +217,9 @@ def _load_leaf(fpath: str, entry: dict, t: torch.Tensor,
                timings: Optional[Dict[str, float]]) -> None:
     """Copy a verified leaf file into ``t`` in place, chunk by chunk."""
     dst = t.detach()
-    flat = dst.reshape(-1) if dst.is_contiguous() else torch.empty(
+    whole = dst.reshape(-1) if dst.is_contiguous() else torch.empty(
         dst.numel(), dtype=dst.dtype, device=dst.device)
+    flat = _words(whole)
     on_host = flat.device.type == "cpu"
     stage = _staging(flat)
     with _open_leaf(fpath, entry) as f:
@@ -216,8 +232,8 @@ def _load_leaf(fpath: str, entry: dict, t: torch.Tensor,
             if not on_host:
                 flat[lo:hi].copy_(piece)
             _add(timings, "load_s", t0)
-    if flat.data_ptr() != dst.data_ptr():
-        dst.copy_(flat.view(dst.shape))
+    if whole.data_ptr() != dst.data_ptr():
+        dst.copy_(whole.view(dst.shape))
 
 
 # ---------------------------------------------------------------------------
@@ -263,17 +279,17 @@ def save_checkpoint(ckpt_dir: str, state: Any, step: int, store: Any = None,
                 "state._replace(table=store.export_table()); the DBP "
                 "driver's checkpoint callback already does this)")
     leaves = flatten_state(state)
-    dtypes = [_np_dtype(x, path) for path, x in leaves]  # refuse before writing
+    formats = [_leaf_format(x, path) for path, x in leaves]  # refuse before writing
     os.makedirs(ckpt_dir, exist_ok=True)
     final = _step_dir(ckpt_dir, step)
     tmp = tempfile.mkdtemp(prefix=".tmp_save_", dir=ckpt_dir)
     try:
         index = []
-        for i, ((path, leaf), dtype) in enumerate(zip(leaves, dtypes)):
+        for i, ((path, leaf), (descr, dtype)) in enumerate(zip(leaves, formats)):
             fname = f"leaf_{i:05d}.npy"
-            crc = _write_leaf(os.path.join(tmp, fname), leaf, dtype, timings)
+            crc = _write_leaf(os.path.join(tmp, fname), leaf, descr, timings)
             index.append({"path": path, "file": fname, "shape": list(leaf.shape),
-                          "dtype": str(dtype), "crc32": crc})
+                          "dtype": dtype, "crc32": crc})
         t0 = time.perf_counter()
         # manifest last: its presence marks the payload as complete
         with open(os.path.join(tmp, _MANIFEST), "w") as f:
@@ -375,7 +391,7 @@ def restore_checkpoint(ckpt_dir: str, state: Any, step: Optional[int] = None,
         if tuple(entry["shape"]) != tuple(leaf.shape):
             raise ValueError(f"{path}: checkpoint shape {tuple(entry['shape'])} != "
                              f"template shape {tuple(leaf.shape)}")
-        want = str(_np_dtype(leaf, path))
+        want = _leaf_format(leaf, path)[1]
         if entry["dtype"] != want:
             raise ValueError(f"{path}: checkpoint dtype {entry['dtype']} != "
                              f"template dtype {want}")

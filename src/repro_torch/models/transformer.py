@@ -1,15 +1,17 @@
-"""TransformerLM (``repro.models.transformer``, the dense (attn, mlp)
-stacks): parameter init, the compute-dtype cast, the training backbone
-with per-layer remat, the chunked cross-entropy and the loss the FWP
-executor takes; KV caches, prefill and one KV-cache decode step.
+"""TransformerLM (``repro.models.transformer``, the (attn, mlp) and
+(attn, moe) stacks): parameter init, the compute-dtype cast, the training
+backbone with per-layer remat, the chunked cross-entropy and the loss the
+FWP executor takes; KV caches, prefill and one KV-cache decode step.
 
 Parameters are JAX's pytree flattened to state-dict names, one stacked
 tensor per leaf with the layer axis first, as JAX stacks the repeats of
 its layer pattern: ``blocks.{p}.attn.wq`` is ``(n_rep, d, H * hd)`` for
 pattern position ``p`` (a dense stack has one position and ``n_rep ==
-n_layers``), beside ``final_norm.scale`` and ``head_w``. A layer reads
-views of its slices (``unbind``, whose gradient stacks the layers' back
-into one tensor); nothing is copied.
+n_layers``), beside ``final_norm.scale`` and ``head_w``; an MoE layer's
+are ``blocks.{p}.moe.router`` ``(n_rep, d, E)``, ``blocks.{p}.moe.wi``
+``(n_rep, E, d, f)`` and so on. A layer reads views of its slices
+(``unbind``, whose gradient stacks the layers' back into one tensor);
+nothing is copied.
 
 The token embedding is not part of this module: lookups go through the
 embedding engine, and the backbone takes ready embeddings. The training
@@ -17,7 +19,7 @@ forward and the prefill run one layer function (``_block``).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Mapping, NamedTuple, Tuple
+from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -36,10 +38,10 @@ def _pattern_groups(cfg: ModelConfig):
 def _check_ported(cfg: ModelConfig) -> None:
     pattern, _ = _pattern_groups(cfg)
     for mixer, ffn in pattern:
-        if mixer != "attn" or ffn not in ("mlp", "none"):
+        if mixer != "attn" or ffn not in ("mlp", "moe", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: ({mixer}, {ffn}) layers are not ported; the port "
-                f"trains and serves dense (attn, mlp) stacks")
+                f"trains and serves (attn, mlp) and (attn, moe) stacks")
     if cfg.encoder is not None or cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.name}: encoders and frontends are not ported")
 
@@ -48,7 +50,8 @@ def init_lm_params(cfg: ModelConfig, *, device, generator: torch.Generator
                    ) -> Dict[str, torch.Tensor]:
     """Normal-init weights in ``cfg.param_dtype`` (ones for norm scales, in
     f32), drawn in place on ``device`` from ``generator``: the shapes and
-    scales of JAX's ``init_lm_params``, not its numbers (threefry)."""
+    scales of JAX's ``init_lm_params``, not its numbers (threefry). An MoE
+    router is f32 whatever the param dtype, as in JAX."""
     _check_ported(cfg)
     dtype = getattr(torch, cfg.param_dtype)
     pattern, n_rep = _pattern_groups(cfg)
@@ -64,7 +67,12 @@ def init_lm_params(cfg: ModelConfig, *, device, generator: torch.Generator
         norm(f"{pre}.norm1", (n_rep,))
         for k, v in L.init_attention(cfg.d_model, cfg.attention, **kw).items():
             params[f"{pre}.attn.{k}"] = v
-        if ffn != "none":
+        if ffn == "moe":
+            norm(f"{pre}.norm2", (n_rep,))
+            for k, v in L.init_moe(cfg.d_model, cfg.d_ff, cfg.moe, cfg.mlp_type,
+                                   **kw).items():
+                params[f"{pre}.moe.{k}"] = v
+        elif ffn != "none":
             norm(f"{pre}.norm2", (n_rep,))
             for k, v in L.init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_type, **kw).items():
                 params[f"{pre}.mlp.{k}"] = v
@@ -102,18 +110,32 @@ def _layers(params: Mapping[str, torch.Tensor], pos: int
     return out
 
 
-def _block(lp: Mapping[str, Mapping[str, torch.Tensor]], cfg: ModelConfig, ffn: str,
-           x: torch.Tensor, positions: torch.Tensor):
-    """One (attn, mlp) layer on x (B, T, D) with its weights ``lp``: the
-    pre-norm residual block of JAX's ``_apply_block``. Returns ``(x, k, v)``,
-    the rotated k and v being what a prefill caches."""
-    h = L.apply_norm(lp["norm1"], x, cfg.norm_eps)
-    o, k, v = L.gqa_attention(lp["attn"], h, cfg.attention, positions=positions)
-    x = x + o
+def _ffn(lp: Mapping[str, Mapping[str, torch.Tensor]], cfg: ModelConfig, ffn: str,
+         x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's second residual branch on x: ``(x, aux)``, aux the MoE's
+    load-balance term, None for a layer without one (JAX's ``_apply_block``
+    adds a zero there, which changes no sum)."""
+    aux = None
     if ffn != "none":
         h = L.apply_norm(lp["norm2"], x, cfg.norm_eps)
-        x = x + L.apply_mlp(lp["mlp"], h, cfg.mlp_type, cfg.activation)
-    return x, k, v
+        if ffn == "moe":
+            y, aux = L.apply_moe(lp["moe"], h, cfg.moe, cfg.mlp_type, cfg.activation)
+            x = x + y
+        else:
+            x = x + L.apply_mlp(lp["mlp"], h, cfg.mlp_type, cfg.activation)
+    return x, aux
+
+
+def _block(lp: Mapping[str, Mapping[str, torch.Tensor]], cfg: ModelConfig, ffn: str,
+           x: torch.Tensor, positions: torch.Tensor):
+    """One (attn, mlp | moe) layer on x (B, T, D) with its weights ``lp``:
+    the pre-norm residual block of JAX's ``_apply_block``. Returns ``(x, k,
+    v, aux)``, the rotated k and v being what a prefill caches and aux the
+    MoE term or None (``_ffn``)."""
+    h = L.apply_norm(lp["norm1"], x, cfg.norm_eps)
+    o, k, v = L.gqa_attention(lp["attn"], h, cfg.attention, positions=positions)
+    x, aux = _ffn(lp, cfg, ffn, x + o)
+    return x, k, v, aux
 
 
 def _final_norm(params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -133,8 +155,9 @@ def lm_backbone(params: Mapping[str, torch.Tensor], cfg: ModelConfig, emb: torch
     with ``remat="full"``. The weights are cast by ``_cast_tree``; each
     layer runs under ``checkpoint`` (non-reentrant), so the backward keeps
     only the layer boundaries and runs each layer's forward again, its
-    attention kernel included. A dense stack has no MoE term: ``moe_aux``
-    is a zero f32 scalar, as in JAX."""
+    attention kernel and its MoE routing included. ``moe_aux`` sums the
+    layers' MoE terms in JAX's order (each repeat's sum added to the carry);
+    a dense stack's is a zero f32 scalar, as in JAX."""
     cdt = getattr(torch, cfg.compute_dtype)
     x = emb.to(cdt)
     b, t, _ = x.shape
@@ -142,13 +165,20 @@ def lm_backbone(params: Mapping[str, torch.Tensor], cfg: ModelConfig, emb: torch
     pattern, n_rep = _pattern_groups(cfg)
     p = _cast_tree(params, cdt)
     layers = [_layers(p, pos) for pos in range(len(pattern))]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for rep in range(n_rep):
+        rep_aux = None  # JAX's zero start: 0 + a is a
         for pos, (_, ffn) in enumerate(pattern):
             lp = layers[pos][rep]
-            x = checkpoint(lambda x_, lp=lp, ffn=ffn: _block(lp, cfg, ffn, x_, positions)[0],
-                           x, use_reentrant=False)
+            x, a = checkpoint(
+                lambda x_, lp=lp, ffn=ffn: _block(lp, cfg, ffn, x_, positions)[::3],  # x, aux
+                x, use_reentrant=False)
+            if a is not None:
+                rep_aux = a if rep_aux is None else rep_aux + a
+        if rep_aux is not None:
+            aux = aux + rep_aux
     x = L.apply_norm(_final_norm(p), x, cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def vocab_parallel_xent(hidden: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
@@ -245,7 +275,7 @@ def lm_prefill(params: Mapping[str, torch.Tensor], cfg: ModelConfig, emb: torch.
     layers = [_layers(p, pos) for pos in range(len(pattern))]
     for rep in range(n_rep):
         for pos, (_, ffn) in enumerate(pattern):
-            x, k, v = _block(layers[pos][rep], cfg, ffn, x, positions)
+            x, k, v, _ = _block(layers[pos][rep], cfg, ffn, x, positions)
             cache.caches[pos]["k"][rep, :, :t] = k
             cache.caches[pos]["v"][rep, :, :t] = v
     x = L.apply_norm(_final_norm(p), x, cfg.norm_eps)
@@ -257,7 +287,8 @@ def lm_decode_step(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
                    emb: torch.Tensor, cache: LMCache) -> Tuple[torch.Tensor, LMCache]:
     """One decode step for the new tokens' embeddings (B, 1, D) at position
     ``cache.length``. Returns (logits (B, V) in f32, the cache one longer;
-    its tensors are the ones passed in, written in place)."""
+    its tensors are the ones passed in, written in place). An MoE layer
+    routes the B new tokens as one batch of B."""
     cdt = getattr(torch, cfg.compute_dtype)
     x = emb.to(cdt)
     pattern, n_rep = _pattern_groups(cfg)
@@ -270,10 +301,7 @@ def lm_decode_step(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
             h = L.apply_norm(lp["norm1"], x, cfg.norm_eps)
             o, _, _ = L.gqa_decode(lp["attn"], h, c["k"][rep], c["v"][rep],
                                    cache.length, cfg.attention)
-            x = x + o
-            if ffn != "none":
-                h = L.apply_norm(lp["norm2"], x, cfg.norm_eps)
-                x = x + L.apply_mlp(lp["mlp"], h, cfg.mlp_type, cfg.activation)
+            x, _ = _ffn(lp, cfg, ffn, x + o)
     x = L.apply_norm(_final_norm(p), x, cfg.norm_eps)
     logits = (x[:, 0] @ p["head_w"].to(cdt)).to(torch.float32)
     return logits, cache._replace(length=cache.length + 1)

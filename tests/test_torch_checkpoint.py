@@ -480,10 +480,188 @@ def test_restore_serves_the_restored_weights(tmp_path):
     assert torch.equal(table.rows, a.state.table.rows)
 
 
-def test_bf16_leaf_is_refused_naming_the_item(tmp_path):
-    with pytest.raises(ValueError, match="item 3d"):
-        save_checkpoint(str(tmp_path), {"w": torch.zeros(3, dtype=torch.bfloat16)}, 0)
+def test_leaf_without_a_numpy_dtype_is_refused_before_writing(tmp_path):
+    """A leaf of a type numpy has no dtype for (a complex one; bf16 is
+    written as JAX writes it, below) is refused, by its path, before any
+    leaf of the state is written."""
+    state = {"a": torch.zeros(3), "w": torch.zeros(3, dtype=torch.complex64)}
+    with pytest.raises(ValueError, match=r"^\['w'\]: no numpy dtype for torch\.complex64"):
+        save_checkpoint(str(tmp_path), state, 0)
     assert os.listdir(tmp_path) == []  # refused before anything was written
+
+
+# ---------------------------------------------------------------------------
+# (e) bfloat16 leaves: a bf16 LM's state
+# ---------------------------------------------------------------------------
+
+BF16_ARCH = "olmoe-1b-7b"  # reduced (2 layers, 8 experts top-2), in bf16
+
+
+def _bf16_lm_session(**kw):
+    """The reduced olmoe with bf16 params and compute (norm scales and the
+    router f32, as a bf16 model holds them) on the CPU, through the build
+    path."""
+    from repro_torch.configs import ArchSpec, get_arch
+    from repro_torch.launch.build import assemble_workload
+
+    import dataclasses
+
+    cfg = dataclasses.replace(get_arch(BF16_ARCH).reduced, param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    wl = assemble_workload(ArchSpec(cfg.name, "lm", cfg, cfg), cfg, device="cpu",
+                           global_batch=8, seq_len=16, t_chunk=16)
+    return Session.from_workload(wl, **kw)
+
+
+def _as_numpy(t):
+    """A port tensor as JAX's numpy leaf: a bf16 one as an ml_dtypes array."""
+    import ml_dtypes
+
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def test_bf16_leaf_files_equal_jax_s(tmp_path, monkeypatch):
+    """The port's save of a bf16 LM state, through chunks of 1,000 bytes,
+    and JAX's save of the same leaves (the same tree, as numpy and
+    ml_dtypes arrays): the same manifest and the same leaf files, byte for
+    byte (descr '<V2', dtype "bfloat16", CRC32 included)."""
+    monkeypatch.setattr(ck, "CHUNK_BYTES", 1000)
+    state = _bf16_lm_session(seed=0).state
+    dtypes = {str(x.dtype) for _, x in _leaves(state)}
+    assert {"torch.bfloat16", "torch.float32", "torch.int32"} <= dtypes
+    port = save_checkpoint(str(tmp_path / "port"), state, 4)
+    jax_dir = jsave_checkpoint(str(tmp_path / "jax"),
+                               jax.tree.map(_as_numpy, state), 4)
+    assert sorted(os.listdir(port)) == sorted(os.listdir(jax_dir))
+    for name in sorted(os.listdir(port)):
+        with open(os.path.join(port, name), "rb") as a, \
+                open(os.path.join(jax_dir, name), "rb") as b:
+            assert a.read() == b.read(), name
+    manifest = json.loads(open(os.path.join(port, "manifest.json")).read())
+    bf16 = [e for e in manifest["leaves"] if e["dtype"] == "bfloat16"]
+    assert bf16 and all(".moe.router" not in e["path"] for e in bf16)
+    raw = open(os.path.join(port, bf16[0]["file"]), "rb").read()
+    assert raw.startswith(b"\x93NUMPY\x01\x00") and b"'descr': '<V2'" in raw
+
+
+def test_jax_bf16_checkpoint_reads_bit_for_bit(tmp_path):
+    """A checkpoint JAX's save_checkpoint writes of a bf16 olmoe state
+    (JAX's init structure, its leaves drawn from a seed, the dense ones
+    of a bf16 model's types) reads into the port equal to
+    train_state_from_jax of the same leaves, bit for bit; its bf16 leaves
+    come back bf16. JAX's own restore cannot read such a leaf (ROADMAP,
+    Queue 3), so no JAX round trip is asked for."""
+    import ml_dtypes
+
+    jsess = JSession.from_arch(BF16_ARCH, reduced=True, global_batch=8, seq_len=16)
+    shapes = jax.eval_shape(lambda k: jsess.workload.init_state(k, jsess.optimizer),
+                            jax.random.PRNGKey(0))
+    rng = np.random.default_rng(11)
+
+    def draw(path, x):
+        if x.dtype.kind != "f":
+            return rng.integers(0, 100, x.shape).astype(x.dtype)
+        a = rng.standard_normal(x.shape).astype(x.dtype)
+        keys = jax.tree_util.keystr(path)
+        bf16 = keys.startswith(".dense") and x.ndim > 2 and "router" not in keys
+        return a.astype(ml_dtypes.bfloat16) if bf16 else a
+
+    state = jax.tree_util.tree_map_with_path(draw, shapes)
+    jsave_checkpoint(str(tmp_path), state, 0)
+    got = train_state_from_jax_checkpoint(str(tmp_path), "cpu")
+    _assert_same_state(got, train_state_from_jax(state, "cpu"))
+    assert got.dense["blocks.0.moe.wi"].dtype == torch.bfloat16
+    assert got.dense["blocks.0.moe.router"].dtype == torch.float32
+    want = np.asarray(state.dense["blocks"][0]["moe"]["wo"]).view(np.int16)
+    assert torch.equal(got.dense["blocks.0.moe.wo"].view(torch.int16),
+                       torch.from_numpy(want))
+
+
+def test_bf16_moe_run_saves_restores_and_resumes_bit_for_bit(tmp_path):
+    """A bf16 olmoe-reduced session trains 2 steps and saves at step 2
+    through the driver's seam, then trains 2 more; a session from another
+    seed restores step 2 and trains 2: its losses and every leaf equal the
+    first session's second run, bit for bit.
+
+    Its reference is the run restarted at step 2, not one run of 4 steps:
+    at bf16 compute the engine rounds a row it retrieves from the master
+    to bf16, while a row that ``buffer_sync`` carries from the previous
+    window keeps its f32 update, so any run that starts at step 2
+    retrieves step 3's rows afresh and ends 8e-5 from the 4-step run's
+    fourth loss, in JAX too (the next test; ROADMAP, Queue 3, an open
+    fault). At f32 compute the two agree (the test after it)."""
+    d = str(tmp_path)
+    a = _bf16_lm_session(seed=0, data_seed=0, ckpt_dir=d, ckpt_every=2)
+    a.train(2)
+    assert sorted(os.listdir(d)) == ["step_00000002"]
+    rep_a = a.train(2)
+    b = _bf16_lm_session(seed=1, data_seed=0, ckpt_dir=d)
+    assert int(b.restore(step=2).step) == 2
+    assert b.state.dense["blocks.0.moe.wi"].dtype == torch.bfloat16
+    rep_b = b.train(2)
+    assert rep_b.stats.losses == rep_a.stats.losses
+    _assert_same_state(b.state, a.state)
+
+
+def test_bf16_run_split_at_a_step_leaves_the_run_through_in_both_packages(monkeypatch):
+    """Why the bf16 resume above is held to the restarted run: in JAX too, a
+    bf16 olmoe-reduced session that trains 2 steps and then 2 more ends
+    apart from one that trains 4 at once, with no checkpoint between. From
+    one initial state (JAX's) and one stream, in each package, the first
+    three losses are the same bits and the fourth is not; the port's run
+    through is within the bf16 tolerance of JAX's. A train call ends its
+    pipeline, so the next one retrieves its first window's rows afresh,
+    rounded to bf16, where the run through carries the f32 rows that
+    ``buffer_sync`` updated (ROADMAP, Queue 3: an open fault of both
+    packages)."""
+    import dataclasses
+
+    import repro.launch.build as jbuild
+    from repro.configs.registry import ArchSpec as JArchSpec
+
+    real = jbuild.get_arch
+
+    def bf16_arch(name):
+        a = real(name)
+        return JArchSpec(a.name, a.kind, a.config, dataclasses.replace(
+            a.reduced, param_dtype="bfloat16", compute_dtype="bfloat16"))
+
+    monkeypatch.setattr(jbuild, "get_arch", bf16_arch)
+    kw = dict(reduced=True, global_batch=8, seq_len=16, t_chunk=16, data_seed=0)
+    jthrough = JSession.from_arch(BF16_ARCH, **kw)
+    init = jax.tree.map(lambda x: np.array(x, copy=True), jthrough.state)
+    jsplit = JSession.from_workload(jthrough.workload, data_seed=0)
+    jsplit._fns, jsplit._optimizer = jthrough.fns, jthrough.optimizer  # compiled once
+    jsplit.state = jax.tree.map(jax.numpy.asarray, init)
+    runs = {"jax": (jthrough.train(4).stats.losses,
+                    jsplit.train(2).stats.losses + jsplit.train(2).stats.losses)}
+    port = []
+    for _ in range(2):
+        sess = _bf16_lm_session(data_seed=0)
+        sess.state = train_state_from_jax(init, "cpu")
+        port.append(sess)
+    runs["port"] = (port[0].train(4).stats.losses,
+                    port[1].train(2).stats.losses + port[1].train(2).stats.losses)
+    for name, (through, split) in runs.items():
+        assert through[:3] == split[:3] and through[3] != split[3], name
+    np.testing.assert_allclose(runs["port"][0], runs["jax"][0], rtol=0.03)
+
+
+def test_f32_moe_mid_run_save_resumes_the_uninterrupted_run(tmp_path):
+    """olmoe-reduced at f32: A saves at step 2 of 4 inside its run; B (seed
+    1) restores it and trains 2: A's uninterrupted run, bit for bit."""
+    d = str(tmp_path)
+    a = Session.from_arch(BF16_ARCH, reduced=True, device="cpu", global_batch=8,
+                          seq_len=16, data_seed=0, ckpt_dir=d, ckpt_every=2)
+    rep_a = a.train(4)
+    b = Session.from_arch(BF16_ARCH, reduced=True, device="cpu", global_batch=8,
+                          seq_len=16, seed=1, data_seed=0, ckpt_dir=d)
+    assert int(b.restore(step=2).step) == 2
+    rep_b = b.train(2)
+    assert rep_a.stats.losses[:2] + rep_b.stats.losses == rep_a.stats.losses
+    _assert_same_state(b.state, a.state)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,9 @@ else the general one),
 the host and cached embedding tiers, checkpoints (chunked writes from
 the card, an in-place restore, the save's time kept out of the steps), and
 faults (a fault at every store site, recovered to the fault-free bits; a
-preemption by a real signal, resumed to the uninterrupted run's bits).
+preemption by a real signal, resumed to the uninterrupted run's bits), and
+the MoE (its layer on the card against the CPU and the same bits twice; a
+bf16 MoE LM's checkpoint resumed bit for bit).
 
 Every test here needs an NVIDIA GPU, carries the ``cuda`` marker and skips
 without one (the kernels have no CPU mode). The file imports no jax, so it
@@ -1439,3 +1441,77 @@ def test_preemption_resume_on_the_card(cuda_device, tmp_path, monkeypatch):
     assert rep.stats.losses + b.train(steps - at).stats.losses == ref_losses
     for (name, x), (_, y) in zip(ck.flatten_state(b.state), ck.flatten_state(ref.state)):
         assert torch.equal(x, y), name
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+
+def _moe_inputs(device, dtype, seed=0):
+    from repro_torch.models import layers as L
+
+    cfg = get_arch("olmoe-1b-7b").reduced
+    g = torch.Generator().manual_seed(seed)
+    params = L.init_moe(cfg.d_model, cfg.d_ff, cfg.moe, cfg.mlp_type, dtype=dtype,
+                        generator=g)
+    x = torch.randn((4, 64, cfg.d_model), generator=g).to(dtype)
+    c = torch.randn(x.shape, generator=g).to(dtype)
+    return cfg, {k: v.to(device) for k, v in params.items()}, x.to(device), c.to(device)
+
+
+def _moe_fwd_bwd(cfg, params, x, c):
+    from repro_torch.models import layers as L
+
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    xx = x.detach().requires_grad_()
+    out, aux = L.apply_moe(leaves, xx, cfg.moe, cfg.mlp_type, cfg.activation)
+    grads = torch.autograd.grad((out.float() * c.float()).sum() + aux, [xx, *leaves.values()])
+    return [out.detach(), aux.detach(), *grads]
+
+
+def test_moe_layer_on_the_card_matches_the_cpu_and_repeats_its_bits(cuda_device):
+    """The slotted MoE of the reduced olmoe (8 experts top-2, 256 tokens),
+    f32: output, aux and every gradient within 1e-5 of the CPU's, and the
+    same bits on a second run on the card (its dispatch and combine are
+    gathers both ways: no atomics)."""
+    cfg, params, x, c = _moe_inputs("cpu", torch.float32)
+    want = _moe_fwd_bwd(cfg, params, x, c)
+    on_card = [t.to(cuda_device) for t in (x, c)]
+    p_card = {k: v.to(cuda_device) for k, v in params.items()}
+    got = _moe_fwd_bwd(cfg, p_card, *on_card)
+    again = _moe_fwd_bwd(cfg, p_card, *on_card)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        assert float((a.cpu() - w).abs().max()) <= 1e-5
+
+
+def test_bf16_moe_checkpoint_resumes_on_the_card(cuda_device, tmp_path):
+    """A 2-layer bf16 olmoe at hd 128 (the wgmma forward and backward)
+    trains 2 steps, saves (bf16 leaves), trains 2 more; a session from
+    another seed restores it and trains 2: the same losses and every leaf,
+    bit for bit."""
+    from repro_torch.dist.checkpoint import flatten_state
+
+    red = get_arch("olmoe-1b-7b").reduced
+    cfg = dataclasses.replace(red, name="olmoe-bf16-hd128", d_model=256, d_ff=128,
+                              param_dtype="bfloat16", compute_dtype="bfloat16",
+                              attention=dataclasses.replace(red.attention, n_heads=2,
+                                                            n_kv_heads=2, head_dim=128))
+
+    def session(seed):
+        wl = assemble_workload(ArchSpec(cfg.name, "lm", cfg, cfg), cfg, device=cuda_device,
+                               global_batch=8, seq_len=128, t_chunk=64)
+        return Session.from_workload(wl, seed=seed, data_seed=0, ckpt_dir=str(tmp_path))
+
+    a = session(0)
+    a.train(2)
+    a.save()
+    rep_a = a.train(2)
+    b = session(1)
+    assert b.restore_if_available() == 2
+    assert b.state.dense["blocks.0.moe.wi"].dtype == torch.bfloat16
+    rep_b = b.train(2)
+    assert rep_b.stats.losses == rep_a.stats.losses
+    for (pa, ta), (pb, tb) in zip(flatten_state(a.state), flatten_state(b.state)):
+        assert pa == pb and torch.equal(ta, tb), pa

@@ -315,3 +315,44 @@ def test_lm_cli_trains_on_cpu(capsys):
     out = capsys.readouterr().out
     assert '"arch": "stablelm-3b"' in out and '"seq_len": 16' in out
     assert '"tokens_per_s"' in out
+
+
+@pytest.mark.parametrize("grad_clip", [1.0, 0.0])
+def test_adamw_in_blocks_keeps_the_whole_leaf_s_bits(monkeypatch, grad_clip):
+    """AdamW updates a leaf larger than ``ADAM_PIECE_ELEMS`` a block of rows
+    at a time (an MoE expert leaf at full width is 805 M elements): with
+    blocks of at most 100 elements (4 rows of 24, 6 rows of 15 in bf16; a
+    leaf of one row longer than a block; a vector and a scalar within one)
+    two steps' params, moments and norms equal the whole-leaf update's,
+    bit for bit, f32 and bf16 leaves alike."""
+    from repro_torch.train import optim
+
+    rng = np.random.default_rng(3)
+    shapes = {"stack": (9, 4, 6), "row": (1, 333), "vec": (50,), "scalar": (),
+              "bf16": (7, 5, 3)}
+
+    def draw(scale):
+        out = {}
+        for k, s in shapes.items():
+            t = torch.from_numpy(np.asarray(rng.normal(size=s) * scale, dtype=np.float32))
+            out[k] = t.to(torch.bfloat16) if k == "bf16" else t
+        return out
+
+    params, grads = draw(1.0), draw(3.0)
+    opt = optim.make_adamw(OptimizerConfig(lr=1e-2, weight_decay=0.1, grad_clip=grad_clip))
+    runs = []
+    for piece in (1 << 40, 100):
+        monkeypatch.setattr(optim, "ADAM_PIECE_ELEMS", piece)
+        state = opt.init(params)
+        for k in params:  # moments that are not zeros
+            state.mu[k].copy_(grads[k].float() * 0.1)
+            state.nu[k].copy_(grads[k].float().square() * 0.01)
+        new, st, gnorm = opt.update(params, state, grads, torch.tensor(1e-2))
+        new, st, gnorm = opt.update(new, st, grads, torch.tensor(1e-2))
+        runs.append((new, st, gnorm))
+    (a, sa, na), (b, sb, nb) = runs
+    assert torch.equal(na, nb) and int(sa.step) == int(sb.step) == 2
+    for k in params:
+        assert a[k].dtype == params[k].dtype and torch.equal(a[k], b[k]), k
+        assert torch.equal(sa.mu[k], sb.mu[k]) and torch.equal(sa.nu[k], sb.nu[k]), k
+        assert not torch.equal(a[k], params[k]), k

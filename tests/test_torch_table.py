@@ -223,7 +223,28 @@ def test_lm_configs_equal_field_for_field(arch):
         assert dataclasses.asdict(a) == dataclasses.asdict(b)
         assert a.layer_plan == b.layer_plan
         assert a.param_count() == b.param_count()
-    assert set(LM_ARCHS) == {"stablelm-12b", "stablelm-3b", "yi-34b", "nemotron-4-340b"}
+    assert set(LM_ARCHS) == {"stablelm-12b", "stablelm-3b", "yi-34b", "nemotron-4-340b",
+                             "olmoe-1b-7b", "grok-1-314b"}
+
+
+def test_olmoe_1b_7b_is_full_width():
+    """The published widths; 6.92 B params, of which 6.82 B dense (the
+    vocab table apart): 13.63 GB in bf16, whole on one card; a layer holds
+    419.56 M, so 6 layers and the head are 2.62 B (the training cell's
+    depth)."""
+    cfg = tget_arch("olmoe-1b-7b").config
+    a, m = cfg.attention, cfg.moe
+    assert (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size) == (16, 2048, 1024, 50304)
+    assert (a.n_heads, a.n_kv_heads, a.head_dim) == (16, 16, 128)
+    assert (m.num_experts, m.top_k, m.capacity_factor) == (64, 8, 1.25)
+    assert cfg.param_dtype == cfg.compute_dtype == "bfloat16"
+    assert cfg.layer_plan == (("attn", "moe"),) * 16
+    assert cfg.param_count() == 6_919_094_272
+    dense = cfg.param_count() - cfg.vocab_size * cfg.d_model
+    assert dense == 6_816_071_680
+    layer = (cfg.param_count() - 2 * cfg.vocab_size * cfg.d_model) // 16
+    assert layer == 419_565_568
+    assert 6 * layer + cfg.vocab_size * cfg.d_model == 2_620_416_000
 
 
 def test_stablelm_12b_is_full_width():
