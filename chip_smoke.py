@@ -347,18 +347,50 @@ hand-written kernel on it against its plain PyTorch version:
    full-width MoE layer (2 x 4,096 tokens) forward and backward twice on
    one input with the same bits, and its parts timed (routing and slots,
    dispatch, experts, combine);
+13h. full-width ``mamba2-370m`` serving (48 Mamba2 layers, d_model 1,024,
+   32 heads of 64, N 128, chunk 256; f32 params, bf16 compute) through
+   ``Session.from_arch("mamba2-370m").serve(batch=8, prompt_len=2048,
+   gen=32)``: 96 gathers a serve and no other kernel (the mixer has none),
+   the warm-up serve's first two lookups' gathers checked bit for bit and
+   timed as 13's, the same tokens twice, a prefill of 2,048 tokens and one decode step
+   against a prefill of 2,049 (last-token logits within 5e-2 of max
+   |logit|: the conv and ssm states carried), layer 0's captured SSD call
+   (8 x 2,048, 32 heads of 64, N 128; f32, TF32 off) within 1e-4 of max
+   |y| of ``ssd_reference`` in f64 on the card, and its device time beside
+   the mixer's and the layer's; prefill s, decode tokens/s, peak GB
+   (``--profile``: the prefill and 8 decode steps);
+13i. ``mamba2-370m`` trained whole at 13b's cell (batch 8 x 4,096, N = 4,
+   AdamW at lr 3e-5): one warm-up step, two captured steps (the embedding
+   kernels' calls checked and timed), ``train(4)`` with every launch
+   counted, finite losses below the warm-up step's, peak under 80 GB, step
+   p50/p99, tokens/s (``--profile``: 2 more steps); then
+   ``mamba2-370m-reduced`` nestpipe = serial = the reference within 1e-5
+   over 6 steps, async diverging, at AdamW eps 1e-6 and the default, and a
+   2-layer mamba2-370m at every width on the card and on the CPU from one
+   state, each loss within 3%;
+13j. ``jamba-v0.1-52b`` served at every width (d_model 4,096, 32 heads of
+   128 over 8, 16 experts top-2 of d_ff 14,336, Mamba N 16 and 128 heads of
+   64, bf16) with its first 8 of 32 layers (one period: attention at
+   offset 4, MoE at the odd offsets; 13.27 B params) through the build
+   path: one wgmma forward at hd 128 and 96 gathers a serve, the warm-up
+   serve's first two lookups' gathers (4,096-wide rows) checked bit for
+   bit and timed as 13's, the same tokens twice, the prefill within 5e-2 of max |logit| of the plain
+   attention's, the prefill-plus-decode check of 13h, the attention call
+   checked and timed as 13's;
 14. a ``{"kernels": [...]}`` line (the tf32x3 and the general
    ``flash_attention`` forward and backward at FuXi's main-path shape,
    the general one also at the LM's; the wgmma forward's and the wgmma
    backward's LM-training calls; the data-path kernels' LM-training step;
-   the gather's LM serve as its 96 calls,
-   and apart as the prefill's three and one decode step's three; the
+   the gather's serve of stablelm-12b, mamba2-370m and jamba each as its
+   96 calls, and apart as the prefill's three and one decode step's three; the
    gather's and the scatter's cached-path calls of 6b as
    ``dlrm_cached_train_calls``; launches by path, the host and cached
    tiers' training, every run of 6e and 6f, the cached tier's serving
    with and without ``pack``, 6g's resumed steps, 6h's four chaos runs and
    its preempted and resumed run among them, olmoe's serving, training and
-   resumed run; the wgmma forward's and backward's olmoe calls at hd 128)
+   resumed run, mamba2-370m's serving and training, jamba's serving; the
+   wgmma forward's and backward's olmoe calls at hd 128, the forward's
+   jamba call)
    and, last, the ``{"ok": true, ...}`` line.
 
 Every phase prints one JSON line. Nothing is caught: any failure exits
@@ -520,6 +552,18 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 6, 4
 MOE_FWD_CALLS_PER_STEP, MOE_BWD_CALLS_PER_STEP = 48, 24
 # the steps each session trains after the olmoe checkpoint (phase 13f)
 MOE_CKPT_STEPS = 2
+# mamba2-370m (48 Mamba2 layers, d_model 1,024, 32 heads of 64, N 128,
+# chunk 256; f32 params, bf16 compute): served and trained whole, at the LM
+# serving cell's and stablelm-3b's training cell's shapes
+MAMBA_ARCH = "mamba2-370m"
+# layer 0's chunked SSD (f32, TF32 off) against the O(L) recurrence in f64
+# on the same inputs: within this share of max |y| (a wrong mask or decay
+# is off by O(1))
+MAMBA_SSD_RTOL = 1e-4
+# jamba-v0.1-52b at every width and its first JAMBA_SERVE_LAYERS layers:
+# one period of its pattern (attention at offset 4, MoE at the odd ones)
+JAMBA_ARCH = "jamba-v0.1-52b"
+JAMBA_SERVE_LAYERS = 8
 KERNELS = {  # name -> (source, the Pallas kernel it replaces)
     "embedding_gather": ("src/repro_torch/csrc/embedding_gather.cu",
                          "src/repro/kernels/embedding_gather.py:35"),
@@ -564,6 +608,8 @@ CACHED_PATHS = tuple(TIER_PATHS[run] for run, store, _ in ASYNC_RUNS + COMM_RUNS
 # serving (phase 13d)
 MOE_TRAIN_PATHS = ("moe_train", "moe_ckpt_resume_train")
 MOE_PATHS = ("moe_serve",) + MOE_TRAIN_PATHS
+# mamba2-370m's serving and training (13h, 13i), jamba's serving (13j)
+MAMBA_PATHS = ("mamba_serve", "mamba_train", "jamba_serve")
 # phase 6g's resumed run (steps 4-5 after a restore) is a path of its own,
 # and so are 6h's preempted run and its resumption together
 RUNS_ON = {
@@ -571,24 +617,24 @@ RUNS_ON = {
                          "dlrm_cached_train", "dlrm_cached_serve", "hstu_train",
                          "fuxi_train", "lm_serve", "lm_train", "dlrm_cached_pack_serve",
                          "dlrm_ckpt_resume_train", "dlrm_preempt_resume_train")
-    + tuple(TIER_PATHS.values()) + MOE_PATHS,
+    + tuple(TIER_PATHS.values()) + MOE_PATHS + MAMBA_PATHS,
     "segment_rowsum": ("dlrm_train", "dlrm_host_train", "dlrm_cached_train",
                        "hstu_train", "fuxi_train", "lm_train", "dlrm_ckpt_resume_train",
                        "dlrm_preempt_resume_train") + tuple(TIER_PATHS.values())
-    + MOE_TRAIN_PATHS,
+    + MOE_TRAIN_PATHS + ("mamba_train",),
     "buffer_sync": ("dlrm_train", "dlrm_host_train", "dlrm_cached_train", "hstu_train",
                     "fuxi_train", "lm_train", "dlrm_ckpt_resume_train",
                     "dlrm_preempt_resume_train")
-    + tuple(TIER_PATHS.values()) + MOE_TRAIN_PATHS,
+    + tuple(TIER_PATHS.values()) + MOE_TRAIN_PATHS + ("mamba_train",),
     # the host tier writes its master back on the host: no device scatter
     "embedding_scatter": ("dlrm_train", "dlrm_cached_train", "dlrm_cached_serve",
                           "hstu_train", "fuxi_train", "lm_train", "dlrm_ckpt_resume_train")
-    + CACHED_PATHS + MOE_TRAIN_PATHS,
+    + CACHED_PATHS + MOE_TRAIN_PATHS + ("mamba_train",),
     "hstu_attention_fwd": ("hstu_train",),
     "hstu_attention_bwd": ("hstu_train",),
     # the LM prefill (no lse) and LM training (with its lse), at hd 160 and
-    # 80 (stablelm) and 128 (olmoe)
-    "flash_attention_wgmma": ("lm_serve", "lm_train") + MOE_PATHS,
+    # 80 (stablelm) and 128 (olmoe; jamba's attention layer)
+    "flash_attention_wgmma": ("lm_serve", "lm_train") + MOE_PATHS + ("jamba_serve",),
     # f32 above hd 128 and bf16 off the wgmma head dims: no main path sends
     # it inputs; phases 11a-13 hold it against the plain version and time it
     "flash_attention_simple": (),
@@ -895,6 +941,8 @@ def main() -> int:
     from repro_torch.kernels import segment_rowsum as sr
     from repro_torch.launch.build import assemble_workload, make_loss_fn, resolve
     from repro_torch.models import layers as mlayers
+    from repro_torch.models import mamba as mmamba
+    from repro_torch.models import transformer as mtransformer
     from repro_torch.models.dlrm import make_dlrm_loss_fn
     from repro_torch.serve import synthetic_requests
     from repro_torch.train import clone_state, constant_lr
@@ -1393,6 +1441,56 @@ def main() -> int:
         row["bound_over_ms"] = row["bound_ms"] / row["ms"]
         emit("kernel_shape", path=path, **row)
         return row
+
+    serve_gather_labels = [f"{step} {part}" for step in ("prefill", "decode")
+                           for part in ("retrieve", "assemble-1", "assemble-2")]
+
+    def serve_keeping_gathers(table, serve):
+        """``serve()`` with the gathers of its first two lookups kept: the
+        prefill's (the f32 master retrieve, then two bf16 assembly gathers)
+        and the first decode step's. The master is kept by reference, every
+        other tensor copied. Returns (serve's result, the kept gathers, the
+        number of gathers made)."""
+        kept, calls = [], [0]
+        real = dispatch.gather_rows
+
+        def spy(rows, idx):
+            if calls[0] < len(serve_gather_labels):
+                kept.append((rows if rows is table.rows else rows.clone(), idx.clone()))
+            calls[0] += 1
+            return real(rows, idx)
+
+        dispatch.gather_rows = spy
+        try:
+            out = serve()
+        finally:
+            dispatch.gather_rows = real
+        return out, kept, calls[0]
+
+    def check_serve_gathers(path, kept, n_calls, lookups, table):
+        """A serve's kept gathers, at the path's own shapes, bit-exact
+        against the plain version and timed; 3 gathers a lookup, each
+        lookup retrieving from the master. Returns the timing rows."""
+        if n_calls != 3 * lookups:
+            raise SystemExit(f"the {path} warm-up serve made {n_calls} gathers")
+        if kept[0][0] is not table.rows or kept[3][0] is not table.rows:
+            raise SystemExit(f"the {path} lookups did not retrieve from the master")
+        rows = []
+        for label, (src, idx) in zip(serve_gather_labels, kept):
+            check_gather(f"{path} {label}", src, idx)
+            rows.append(timed_gather(path, label, src, idx))
+        return rows
+
+    def serve_gather_times(rows, decode_steps):
+        """One serve's gathers: the prefill's lookup and decode_steps
+        decode-step lookups, each timed at the first decode step's calls."""
+        times = ("ms", "plain_ms", "library_ms", "bound_ms")
+        prefill = {k: sum(x[k] for x in rows[:3]) for k in times}
+        decode_step = {k: sum(x[k] for x in rows[3:]) for k in times}
+        return {**{k: prefill[k] + decode_steps * decode_step[k] for k in times},
+                "prefill": prefill, "decode_step": decode_step,
+                "calls": f"the prefill's {', '.join(x['call'] for x in rows[:3])}; "
+                         f"{decode_steps} x the first decode step's"}
 
     def check_and_time(path, captured, master):
         """Every captured call checked against its plain version (as at the
@@ -3636,14 +3734,9 @@ def main() -> int:
     draw_s = time.perf_counter() - t0
     weights_gb = sum(p_.numel() * p_.element_size() for p_ in params.values()) / 1e9
     # warm-up serve, keeping the first and the last layer's flash_attention
-    # inputs and the gathers of two lookups: the prefill's (the f32 master
-    # retrieve, then two bf16 assembly gathers) and the first decode step's;
-    # the master is kept by reference, every other tensor copied
+    # inputs and the gathers of two lookups (serve_keeping_gathers)
     kept_flash, flash_calls = {}, [0]
-    kept_gather, gather_calls = [], [0]
-    real_flash, real_gather = dispatch.flash_attention, dispatch.gather_rows
-    gather_labels = [f"{step} {part}" for step in ("prefill", "decode")
-                     for part in ("retrieve", "assemble-1", "assemble-2")]
+    real_flash = dispatch.flash_attention
 
     def flash_spy(q, k, v, causal=True):
         i = flash_calls[0]
@@ -3652,34 +3745,23 @@ def main() -> int:
             kept_flash[i] = (q.clone(), k.clone(), v.clone(), causal)
         return real_flash(q, k, v, causal)
 
-    def gather_spy(rows, idx):
-        if gather_calls[0] < len(gather_labels):
-            kept_gather.append((rows if rows is ltable.rows else rows.clone(), idx.clone()))
-        gather_calls[0] += 1
-        return real_gather(rows, idx)
-
-    dispatch.flash_attention, dispatch.gather_rows = flash_spy, gather_spy
+    dispatch.flash_attention = flash_spy
     try:
         t0 = time.perf_counter()
-        warm = lm.serve(batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN)
+        warm, kept_gather, n_gathers = serve_keeping_gathers(
+            ltable, lambda: lm.serve(batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN))
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
     finally:
-        dispatch.flash_attention, dispatch.gather_rows = real_flash, real_gather
+        dispatch.flash_attention = real_flash
     if flash_calls[0] != n_lm_layers:
         raise SystemExit(f"the warm-up serve made {flash_calls[0]} flash calls")
-    if gather_calls[0] != 3 * (1 + decode_steps):
-        raise SystemExit(f"the warm-up serve made {gather_calls[0]} gathers")
-    if kept_gather[0][0] is not ltable.rows or kept_gather[3][0] is not ltable.rows:
-        raise SystemExit("the LM lookups did not retrieve from the master")
     # the gathers at this path's shapes (the master's 5,120-wide f32 rows,
     # then bf16 rows), bit-exact against the plain version and timed
     flush = torch.empty(128 * 2 ** 20 // 4, device=dev)  # evicts the L2 (time_ms)
-    lm_gathers = []
-    for label, (src, idx) in zip(gather_labels, kept_gather):
-        check_gather(f"lm_serve {label}", src, idx)
-        lm_gathers.append(timed_gather("lm_serve", label, src, idx))
-    del kept_gather, src, idx
+    lm_gathers = check_serve_gathers("lm_serve", kept_gather, n_gathers, 1 + decode_steps,
+                                     ltable)
+    del kept_gather
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4601,6 +4683,430 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 13h. main path: full-width mamba2-370m serving -------------------------
+    # every width and all 48 layers through Session.from_arch, at 13's shape:
+    # the same tokens twice, the launches counted (the gathers alone: the
+    # Mamba mixer runs no kernel of its own), a prefill of T and one decode
+    # step against a prefill of T + 1 (the conv and ssm states carried),
+    # layer 0's SSD call against the f64 recurrence, its share of the layer
+    t_phase = time.perf_counter()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    ssess = Session.from_arch(MAMBA_ARCH, seed=0)
+    swl, scfg = ssess.workload, ssess.workload.cfg
+    sm = scfg.mamba
+    if (scfg.n_layers, scfg.d_model, scfg.vocab_size, sm.d_state, sm.headdim, sm.expand,
+            sm.chunk_size) != (48, 1024, 50288, 128, 64, 2, 256):
+        raise SystemExit(f"{MAMBA_ARCH} is not at its published widths")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sparams, stable = ssess.lm_weights()
+    torch.cuda.synchronize()
+    sdraw_s = time.perf_counter() - t0
+    sweights_gb = sum(p_.numel() * p_.element_size() for p_ in sparams.values()) / 1e9
+    kept_ssd, kept_block, ssd_calls = {}, {}, [0]
+    real_ssd, real_block = mmamba.ssd_chunked, mtransformer._block
+
+    def ssd_spy(x, dt, A, Bm, Cm, chunk, init_state=None):
+        if ssd_calls[0] == 0:  # layer 0 of the prefill
+            kept_ssd["args"] = (x.clone(), dt.clone(), A.clone(), Bm.clone(), Cm.clone(),
+                                chunk)
+        ssd_calls[0] += 1
+        return real_ssd(x, dt, A, Bm, Cm, chunk, init_state)
+
+    def block_spy(lp, cfg_, mixer, ffn, x, positions):
+        if not kept_block:
+            kept_block["args"] = (lp, mixer, ffn, x.clone(), positions)
+        return real_block(lp, cfg_, mixer, ffn, x, positions)
+
+    mmamba.ssd_chunked, mtransformer._block = ssd_spy, block_spy
+    try:
+        t0 = time.perf_counter()
+        swarm, skept, sn_gathers = serve_keeping_gathers(
+            stable, lambda: ssess.serve(batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN))
+        torch.cuda.synchronize()
+        swarm_s = time.perf_counter() - t0
+    finally:
+        mmamba.ssd_chunked, mtransformer._block = real_ssd, real_block
+    if ssd_calls[0] != scfg.n_layers * (1 + decode_steps):
+        raise SystemExit(f"the warm-up mamba serve made {ssd_calls[0]} SSD calls")
+    # its gathers at their shapes (1,024-wide f32 master rows, then bf16)
+    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)  # evicts the L2 (time_ms)
+    mamba_gathers = check_serve_gathers("mamba_serve", skept, sn_gathers, 1 + decode_steps,
+                                        stable)
+    del skept
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    srep = ssess.serve(batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN)
+    torch.cuda.synchronize()
+    mamba_serve_launches = counts()
+    mamba_serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ss_ = srep.summary
+    emit("mamba_serve", arch=MAMBA_ARCH, batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN,
+         reduced="batch 8, prompt 2048, 32 generated; every width, all 48 layers",
+         config={k: getattr(scfg, k) for k in ("n_layers", "d_model", "vocab_size",
+                                               "param_dtype", "compute_dtype")},
+         mamba=dataclasses.asdict(sm), params=scfg.param_count(),
+         weights_gb=sweights_gb, table_gb=stable.rows.numel() * 4 / 1e9,
+         prefill_s=ss_["prefill_s"], prompt_tokens_per_s=LM_BATCH * LM_PROMPT / ss_["prefill_s"],
+         decode_s=ss_["decode_s"], decode_step_ms=ss_["decode_s"] / decode_steps * 1e3,
+         generated_tokens_per_s=ss_["tokens_per_s"], weights_draw_s=sdraw_s,
+         warmup_serve_s=swarm_s, launches=mamba_serve_launches,
+         max_memory_allocated_gb=mamba_serve_peak_gb, start_memory_allocated_gb=start_gb,
+         sample_tokens=ss_["sample_tokens"])
+    mamba_serve_want = {k: 0 for k in KERNELS}
+    mamba_serve_want.update(embedding_gather=3 * (1 + decode_steps))
+    if mamba_serve_launches != mamba_serve_want:
+        raise SystemExit(f"mamba serving launches {mamba_serve_launches} != {mamba_serve_want}")
+    if not np.array_equal(srep.tokens, swarm.tokens):
+        raise SystemExit("two mamba serves of the same weights generated different tokens")
+    if srep.tokens.shape != (LM_BATCH, LM_GEN) or not (
+            (0 <= srep.tokens) & (srep.tokens < scfg.vocab_size)).all():
+        raise SystemExit(f"mamba tokens {srep.tokens.shape} are not vocabulary ids")
+
+    def prefill_plus_decode(sess, params, table, label):
+        """A prefill of LM_PROMPT tokens and one decode step against a
+        prefill of LM_PROMPT + 1 (the same prompts): the last-token logits
+        within LM_LOGIT_RTOL of max |logit| (the caches' states carried)."""
+        cfg_ = sess.workload.cfg
+        toks = np.random.default_rng(sess.seed).integers(0, cfg_.vocab_size,
+                                                         size=(LM_BATCH, LM_PROMPT + 1))
+        with torch.inference_mode():
+            keys = sess.workload.spec.scramble(torch.as_tensor(toks.astype(np.int32),
+                                                               device=dev))
+            emb, _ = sess.workload.engine.lookup_from_master(table, keys)
+            _, cache = sess.workload.bundle.prefill(params, emb[:, :LM_PROMPT],
+                                                   cache_len=LM_PROMPT + 1)
+            step, cache = sess.workload.bundle.decode_step(params, emb[:, LM_PROMPT:], cache)
+            del cache
+            whole, cache = sess.workload.bundle.prefill(params, emb)
+            del cache, emb
+        scale_ = float(whole.abs().max())
+        gap = float((step - whole).abs().max())
+        out = {"max_abs_logit": scale_, "max_logit_gap": gap, "gap_share": gap / scale_,
+               "bound_share": LM_LOGIT_RTOL,
+               "greedy_tokens_agreeing": float((step.argmax(-1) == whole.argmax(-1))
+                                               .float().mean())}
+        emit(f"{label}_prefill_plus_decode", **out)
+        if not np.isfinite(step.cpu().numpy()).all() or gap > LM_LOGIT_RTOL * scale_:
+            raise SystemExit(f"{label}: a prefill and a decode step are {gap} from the "
+                             f"longer prefill (max |logit| {scale_})")
+        return out
+
+    prefill_plus_decode(ssess, sparams, stable, "mamba")
+
+    # layer 0's SSD call (f32, TF32 off) against the f64 recurrence on the
+    # same inputs, and its device time beside the layer's forward
+    with torch.inference_mode():
+        x_, dt_, A_, B_, C_, chunk_ = kept_ssd["args"]
+        y_, s_ = real_ssd(x_, dt_, A_, B_, C_, chunk_)
+        ry, rs = mmamba.ssd_reference(x_, dt_, A_, B_, C_, dtype=torch.float64)
+        ssd_err = float((y_.double() - ry).abs().max())
+        ssd_scale = float(ry.abs().max())
+        state_err = float((s_.double() - rs).abs().max()) / float(rs.abs().max())
+        del y_, s_, ry, rs
+        lp_, mixer_, ffn_, xin_, pos_ = kept_block["args"]
+        ssd_ms = time_ms(torch, lambda: real_ssd(x_, dt_, A_, B_, C_, chunk_), flush)
+        layer_ms = time_ms(torch, lambda: real_block(lp_, scfg, mixer_, ffn_, xin_, pos_),
+                           flush)
+        mixer_ms = time_ms(torch, lambda: mmamba.mamba_mixer(lp_["mamba"], xin_, sm)[0], flush)
+    emit("mamba_ssd", call="prefill layer 0", shape={"x": list(x_.shape), "B": list(B_.shape)},
+         dtypes={"x": str(x_.dtype), "dt": str(dt_.dtype), "A": str(A_.dtype)},
+         chunk=chunk_, max_abs_err=ssd_err, max_abs_y=ssd_scale, err_share=ssd_err / ssd_scale,
+         final_state_err_share=state_err, bound_share=MAMBA_SSD_RTOL,
+         ssd_ms=ssd_ms, mixer_ms=mixer_ms, layer_ms=layer_ms,
+         ssd_share_of_layer=ssd_ms / layer_ms,
+         reference="ssd_reference in f64 on the card, one step a position")
+    if not ssd_err <= MAMBA_SSD_RTOL * ssd_scale or not state_err <= MAMBA_SSD_RTOL:
+        raise SystemExit(f"layer 0's chunked SSD is {ssd_err} from the f64 recurrence "
+                         f"(max |y| {ssd_scale}; state {state_err})")
+    del kept_ssd, kept_block, x_, dt_, A_, B_, C_, lp_, xin_, pos_
+
+    if args.profile:  # the prefill, then 8 decode steps from its cache
+        from torch.profiler import ProfilerActivity, profile
+
+        toks = np.random.default_rng(ssess.seed).integers(0, scfg.vocab_size,
+                                                          size=(LM_BATCH, LM_PROMPT))
+        with torch.inference_mode():
+            skeys = swl.spec.scramble(torch.as_tensor(toks.astype(np.int32), device=dev))
+            emb, _ = swl.engine.lookup_from_master(stable, skeys)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                logits, cache = swl.bundle.prefill(sparams, emb, cache_len=LM_PROMPT + LM_GEN)
+                tok = logits.argmax(-1).to(torch.int32)
+                torch.cuda.synchronize()
+                span = time.perf_counter() - t0
+            emit_profile(prof, "mamba_prefill_profile", span, prefills=1)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(8):
+                    emb, _ = swl.engine.lookup_from_master(stable, swl.spec.scramble(tok[:, None]))
+                    logits, cache = swl.bundle.decode_step(sparams, emb, cache)
+                    tok = logits.argmax(-1).to(torch.int32)
+                    tok.cpu()  # as serve() reads each token back
+                torch.cuda.synchronize()
+                span = time.perf_counter() - t0
+            emit_profile(prof, "mamba_decode_profile", span, steps=8)
+            del prof, logits, cache, emb
+    del ssess, swl, sparams, stable, swarm, srep, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("mamba_serve_phase", seconds=time.perf_counter() - t_phase)
+
+    # -- 13i. main path: full-width mamba2-370m training, all 48 layers ---------
+    t_phase = time.perf_counter()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    msess = Session.from_arch(MAMBA_ARCH, mode="nestpipe", global_batch=LM_TRAIN_BATCH,
+                              seq_len=LM_TRAIN_SEQ, n_micro=N_MICRO, lr=LM_TRAIN_LR, seed=0)
+    mwl_ = msess.workload
+    sdims = mwl_.engine.dims(mwl_.batch_shapes["keys"][0][1:], N_MICRO)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sstate = msess.state
+    torch.cuda.synchronize()
+    s_params = sum(p_.numel() for p_ in sstate.dense.values())
+    emit("mamba_train_init", arch=MAMBA_ARCH, seconds=time.perf_counter() - t0,
+         dense_params=s_params,
+         params_gb=sum(p_.numel() * p_.element_size() for p_ in sstate.dense.values()) / 1e9,
+         moments_gb=2 * 4 * s_params / 1e9, table_gb=sstate.table.rows.numel() * 4 / 1e9,
+         dims={"L": sdims.l_local, "U": sdims.u_max, "C": sdims.cap, "K": sdims.buffer_cap,
+               "N": sdims.n_micro},
+         ssd_chunk_tensor_gb=(LM_TRAIN_SEQ // sm.chunk_size) * (LM_TRAIN_BATCH // N_MICRO)
+         * (sm.expand * scfg.d_model // sm.headdim) * sm.chunk_size ** 2 * 4 / 1e9,
+         start_memory_allocated_gb=start_gb,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if sstate.dense["blocks.0.mamba.wz"].shape != (48, 1024, 2048) \
+            or sstate.table.rows.shape[1] != 1024 or sstate.table.rows.device.type != "cuda":
+        raise SystemExit(f"{MAMBA_ARCH} training is not at full width on the card")
+    del sstate
+    sfirst_loss = msess.train(1).stats.losses[0]
+    torch.cuda.synchronize()
+    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)  # evicts the L2 (time_ms)
+    scaptured = capture_calls(msess)
+    sshapes = check_and_time("mamba_train", scaptured, msess.state.table)
+    del scaptured
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    strep = msess.train(LM_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    swall = time.perf_counter() - t0
+    mamba_train_launches = counts()
+    mamba_train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    s = strep.summary
+    ssamples_per_s = LM_TRAIN_BATCH * LM_TRAIN_STEPS / swall
+    emit("mamba_train", arch=MAMBA_ARCH, mode="nestpipe", global_batch=LM_TRAIN_BATCH,
+         seq_len=LM_TRAIN_SEQ, n_micro=N_MICRO, steps=LM_TRAIN_STEPS, lr=LM_TRAIN_LR,
+         reduced="depth and widths whole; batch 8 of train_4k's 256 (one of 32 workers)",
+         first_loss=sfirst_loss, losses=strep.stats.losses, overflow_max=s["overflow_max"],
+         samples_per_s=ssamples_per_s, tokens_per_s=ssamples_per_s * LM_TRAIN_SEQ,
+         wall_s=swall, step_ms=[x * 1e3 for x in strep.stats.step_times],
+         step_p50_ms=s["p50_step_s"] * 1e3, step_p99_ms=s["p99_step_s"] * 1e3,
+         mean_input_wait_ms=s["mean_input_wait_s"] * 1e3,
+         stage_host_ms={k: s[k] for k in ("plan_ms", "retrieve_ms", "commit_ms")},
+         launches=mamba_train_launches, max_memory_allocated_gb=mamba_train_peak_gb,
+         device_memory_gb=torch.cuda.get_device_properties(0).total_memory / 1e9)
+    if not all(np.isfinite(strep.stats.losses)) or len(strep.stats.losses) != LM_TRAIN_STEPS:
+        raise SystemExit(f"mamba losses are not {LM_TRAIN_STEPS} finite values")
+    if not all(x < sfirst_loss for x in strep.stats.losses):
+        raise SystemExit(f"the mamba loss did not fall from {sfirst_loss}: "
+                         f"{strep.stats.losses}")
+    if s["overflow_max"] != 0:
+        raise SystemExit(f"mamba routing overflowed: {s['overflow_max']}")
+    if mamba_train_peak_gb >= 80:
+        raise SystemExit(f"mamba training peaked at {mamba_train_peak_gb} GB")
+    mamba_train_want = {k: 0 for k in KERNELS}
+    mamba_train_want.update(embedding_gather=(1 + 3 * N_MICRO) * LM_TRAIN_STEPS,
+                            segment_rowsum=(N_MICRO + 1) * LM_TRAIN_STEPS,
+                            buffer_sync=LM_TRAIN_STEPS - 1, embedding_scatter=LM_TRAIN_STEPS)
+    if mamba_train_launches != mamba_train_want:
+        raise SystemExit(f"mamba training launches {mamba_train_launches} != "
+                         f"{mamba_train_want}")
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            msess.train(2)
+            torch.cuda.synchronize()
+            span = time.perf_counter() - t0
+        emit_profile(prof, "mamba_train_profile", span, steps=2)
+        del prof
+    del msess, mwl_, strep, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # consistency: mamba2-370m-reduced nestpipe = serial = the reference, and
+    # a 2-layer mamba2-370m at every width (f32 params, bf16 compute, one
+    # chunk of 256 and a padded second) on the card and on the CPU from one
+    # state
+    mamba_runs = {"adam_eps_1e-6": reduced_gaps(adam_eps=1e-6, arch=MAMBA_ARCH),
+                  "default_step_sizes": reduced_gaps(arch=MAMBA_ARCH)}
+    m2cfg = dataclasses.replace(get_arch(MAMBA_ARCH).config, name="mamba2-370m-2-layers",
+                                n_layers=2)
+    m2arch = ArchSpec(m2cfg.name, "lm", m2cfg, m2cfg)
+    m2kw = dict(global_batch=8, seq_len=320, t_chunk=64)
+    m2gpu = Session.from_workload(assemble_workload(m2arch, m2cfg, device=dev, **m2kw), seed=3)
+    m2cpu = Session.from_workload(assemble_workload(m2arch, m2cfg, device="cpu", **m2kw),
+                                  seed=3)
+    m2cpu.state = clone_state(m2gpu.state, "cpu")
+    reset_counts()
+    m2got, m2want = m2gpu.train(3), m2cpu.train(3)
+    m2_launches = {k: v for k, v in counts().items() if v}
+    m2_gap = [abs(a - b) / abs(b) for a, b in zip(m2got.stats.losses, m2want.stats.losses)]
+    emit("mamba_consistency", arch=f"{MAMBA_ARCH} (reduced)", steps=CONSISTENCY_STEPS,
+         **mamba_runs, two_layers_full_width={
+             "config": "2 layers at every width, f32 params, bf16 compute, 8 x 320 tokens",
+             "losses_card": m2got.stats.losses, "losses_cpu": m2want.stats.losses,
+             "relative_gap": m2_gap, "bound": LM_BF16_LOSS_RTOL, "launches": m2_launches},
+         seconds=time.perf_counter() - t_phase,
+         bounds="rows, dense and accum within 1e-5 at AdamW eps 1e-6 and at the default "
+                "eps; async more than 1e-6 from the reference; the 2-layer losses within "
+                f"{LM_BF16_LOSS_RTOL} of the CPU's")
+    for label, run in mamba_runs.items():
+        if not run["reference_same_bits_twice"]:
+            raise SystemExit(f"the mamba reference gave other bits on a second run ({label})")
+        sgaps = run["max_diff_to_reference"]
+        for key in ("nestpipe", "serial", "nestpipe_vs_serial"):
+            if sgaps[key]["rows_dense"] > 1e-5 or sgaps[key]["accum_abs"] > 1e-5:
+                raise SystemExit(f"mamba {key} differs from the reference ({label}): {sgaps}")
+        if sgaps["async"]["rows_dense"] <= 1e-6:
+            raise SystemExit(f"mamba async did not diverge ({label}): {sgaps}")
+    if not all(np.isfinite(m2got.stats.losses)) or max(m2_gap) > LM_BF16_LOSS_RTOL:
+        raise SystemExit(f"the 2-layer mamba losses on the card are {m2_gap} from the CPU's")
+    del m2gpu, m2cpu, m2got, m2want
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("mamba_train_phase", seconds=time.perf_counter() - t_phase)
+
+    # -- 13j. main path: jamba-v0.1-52b served at every width, 8 of 32 layers --
+    # one period of its pattern (Mamba, MoE at the odd offsets, attention at
+    # offset 4) through the build path, served at 13's shape: one wgmma
+    # forward at hd 128 a serve, the same tokens twice, the prefill against
+    # the plain attention's, a prefill and a decode step against the longer
+    # prefill
+    t_phase = time.perf_counter()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    jcfg = dataclasses.replace(get_arch(JAMBA_ARCH).config, n_layers=JAMBA_SERVE_LAYERS)
+    jsess = Session.from_workload(assemble_workload(
+        ArchSpec(JAMBA_ARCH, "lm", jcfg, jcfg), jcfg, device=dev), seed=0)
+    ja, jm_, jmo = jcfg.attention, jcfg.mamba, jcfg.moe
+    if (jcfg.d_model, jcfg.d_ff, jcfg.vocab_size, ja.n_heads, ja.n_kv_heads, ja.head_dim,
+            jmo.num_experts, jmo.top_k, jm_.d_state, jm_.headdim) != (
+                4096, 14336, 65536, 32, 8, 128, 16, 2, 16, 64) \
+            or [mx for mx, _ in jcfg.layer_plan].count("attn") != 1:
+        raise SystemExit(f"{JAMBA_ARCH} is not at its published widths")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    jparams, jtable = jsess.lm_weights()
+    torch.cuda.synchronize()
+    jdraw_s = time.perf_counter() - t0
+    jweights_gb = sum(p_.numel() * p_.element_size() for p_ in jparams.values()) / 1e9
+    kept_jflash, jflash_calls = {}, [0]
+
+    def jflash_spy(q, k, v, causal=True):
+        if jflash_calls[0] == 0:
+            kept_jflash[4] = (q.clone(), k.clone(), v.clone(), causal)
+        jflash_calls[0] += 1
+        return real_flash(q, k, v, causal)
+
+    dispatch.flash_attention = jflash_spy
+    try:
+        t0 = time.perf_counter()
+        jwarm, jkept, jn_gathers = serve_keeping_gathers(
+            jtable, lambda: jsess.serve(batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN))
+        torch.cuda.synchronize()
+        jwarm_s = time.perf_counter() - t0
+    finally:
+        dispatch.flash_attention = real_flash
+    if jflash_calls[0] != 1:
+        raise SystemExit(f"the warm-up jamba serve made {jflash_calls[0]} flash calls")
+    # its gathers at their shapes (4,096-wide f32 master rows, then bf16)
+    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)  # evicts the L2 (time_ms)
+    jamba_gathers = check_serve_gathers("jamba_serve", jkept, jn_gathers, 1 + decode_steps,
+                                        jtable)
+    del jkept, flush
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    jrep = jsess.serve(batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN)
+    torch.cuda.synchronize()
+    jamba_serve_launches = counts()
+    jamba_serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    js_ = jrep.summary
+    emit("jamba_serve", arch=JAMBA_ARCH, layers=JAMBA_SERVE_LAYERS, batch=LM_BATCH,
+         prompt_len=LM_PROMPT, gen=LM_GEN,
+         reduced=f"every width, the first {JAMBA_SERVE_LAYERS} of 32 layers (one period); "
+                 "batch 8, prompt 2048, 32 generated",
+         layer_plan=[list(x) for x in jcfg.layer_plan], params=jcfg.param_count(),
+         full_params=get_arch(JAMBA_ARCH).config.param_count(),
+         heads=[ja.n_heads, ja.n_kv_heads, ja.head_dim],
+         experts=[jmo.num_experts, jmo.top_k, jmo.capacity_factor],
+         mamba=dataclasses.asdict(jm_),
+         ssd_chunk_tensor_gb=(LM_PROMPT // jm_.chunk_size) * LM_BATCH
+         * (jm_.expand * jcfg.d_model // jm_.headdim) * jm_.chunk_size ** 2 * 4 / 1e9,
+         weights_gb=jweights_gb, table_gb=jtable.rows.numel() * 4 / 1e9,
+         prefill_s=js_["prefill_s"], prompt_tokens_per_s=LM_BATCH * LM_PROMPT / js_["prefill_s"],
+         decode_s=js_["decode_s"], decode_step_ms=js_["decode_s"] / decode_steps * 1e3,
+         generated_tokens_per_s=js_["tokens_per_s"], weights_draw_s=jdraw_s,
+         warmup_serve_s=jwarm_s, launches=jamba_serve_launches,
+         max_memory_allocated_gb=jamba_serve_peak_gb, start_memory_allocated_gb=start_gb,
+         sample_tokens=js_["sample_tokens"])
+    jamba_serve_want = {k: 0 for k in KERNELS}
+    jamba_serve_want.update(embedding_gather=3 * (1 + decode_steps), flash_attention_wgmma=1)
+    if jamba_serve_launches != jamba_serve_want:
+        raise SystemExit(f"jamba serving launches {jamba_serve_launches} != {jamba_serve_want}")
+    if not np.array_equal(jrep.tokens, jwarm.tokens):
+        raise SystemExit("two jamba serves of the same weights generated different tokens")
+    if jrep.tokens.shape != (LM_BATCH, LM_GEN) or not (
+            (0 <= jrep.tokens) & (jrep.tokens < jcfg.vocab_size)).all():
+        raise SystemExit(f"jamba tokens {jrep.tokens.shape} are not vocabulary ids")
+
+    # the prefill with the kernel and with the plain attention
+    toks = np.random.default_rng(jsess.seed).integers(0, jcfg.vocab_size,
+                                                      size=(LM_BATCH, LM_PROMPT))
+    with torch.inference_mode():
+        jkeys = jsess.workload.spec.scramble(torch.as_tensor(toks.astype(np.int32), device=dev))
+        emb, _ = jsess.workload.engine.lookup_from_master(jtable, jkeys)
+        logits_k, cache = jsess.workload.bundle.prefill(jparams, emb,
+                                                       cache_len=LM_PROMPT + LM_GEN)
+        del cache
+        dispatch.flash_attention = ref.flash_attention_ref
+        try:
+            logits_p, cache = jsess.workload.bundle.prefill(jparams, emb,
+                                                           cache_len=LM_PROMPT + LM_GEN)
+        finally:
+            dispatch.flash_attention = real_flash
+        del cache, emb, jkeys
+    scale = float(logits_p.abs().max())
+    logit_gap = float((logits_k - logits_p).abs().max())
+    first_tok = logits_k.argmax(-1).cpu().numpy()
+    emit("jamba_prefill_vs_plain", max_abs_logit=scale, max_logit_gap=logit_gap,
+         gap_share=logit_gap / scale, bound_share=LM_LOGIT_RTOL,
+         greedy_tokens_agreeing=float((logits_k.argmax(-1) == logits_p.argmax(-1))
+                                      .float().mean()),
+         first_token_equals_serve=bool(np.array_equal(first_tok, jrep.tokens[:, 0])))
+    if not np.isfinite(logits_k.cpu().numpy()).all() or logit_gap > LM_LOGIT_RTOL * scale:
+        raise SystemExit(f"jamba prefill logits with the kernel are {logit_gap} from the "
+                         f"plain attention's (max |logit| {scale})")
+    if not np.array_equal(first_tok, jrep.tokens[:, 0]):
+        raise SystemExit("the jamba prefill's argmax is not the serve's first token")
+    del logits_k, logits_p
+    prefill_plus_decode(jsess, jparams, jtable, "jamba")
+    del jsess, jparams, jtable, jwarm, jrep
+    gc.collect()
+    torch.cuda.empty_cache()
+    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)  # evicts the L2 (time_ms)
+    jfrows = prefill_flash_rows("jamba_serve", kept_jflash, flush)
+    del kept_jflash, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("jamba_serve_phase", seconds=time.perf_counter() - t_phase)
+
     # -- 14. kernels line and the result -----------------------------------
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
@@ -4620,7 +5126,10 @@ def main() -> int:
                    "lm_train": lm_train_launches[kname],
                    "moe_serve": moe_serve_launches[kname],
                    "moe_train": moe_train_launches[kname],
-                   "moe_ckpt_resume_train": moe_ckpt_launches[kname]}
+                   "moe_ckpt_resume_train": moe_ckpt_launches[kname],
+                   "mamba_serve": mamba_serve_launches[kname],
+                   "mamba_train": mamba_train_launches[kname],
+                   "jamba_serve": jamba_serve_launches[kname]}
         for path in RUNS_ON[kname]:
             if by_path[path] == 0:
                 raise SystemExit(f"{kname} was not launched on the {path} path")
@@ -4652,6 +5161,11 @@ def main() -> int:
                     "shape", "ms", "without_lse_ms", "simple_ms", "plain_ms", "library_ms",
                     "bound_ms", "bound_by", "achieved_tflops")},
                 "calls_per_moe_train_step": MOE_FWD_CALLS_PER_STEP,
+                # jamba's one attention layer in 8 (hd 128, 32 heads over 8)
+                "jamba_serve_call": {k: jfrows[0][k] for k in (
+                    "shape", "ms", "simple_ms", "plain_ms", "library_ms", "bound_ms",
+                    "achieved_tflops")},
+                "calls_per_jamba_serve": jamba_serve_launches[kname],
             }
         elif kname == "flash_attention_bwd_wgmma":  # LM training's backward
             row = lm_attn[kname]
@@ -4744,20 +5258,16 @@ def main() -> int:
                        for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
                     "calls": [x["call"] for x in calls[kname]]}
                    for path, calls in (("hstu_train", hshapes), ("fuxi_train", fshapes),
-                                       ("lm_train", tshapes), ("moe_train", mtshapes))},
+                                       ("lm_train", tshapes), ("moe_train", mtshapes),
+                                       ("mamba_train", sshapes))},
             }
         if kname == "embedding_gather":
             times = ("ms", "plain_ms", "library_ms", "bound_ms")
             entry["serve_window"] = {k: sum(x[k] for x in serve_shapes) for k in times}
-            # one LM serve: the prefill's lookup and decode_steps decode-step
-            # lookups, each timed at the first decode step's calls
-            prefill = {k: sum(x[k] for x in lm_gathers[:3]) for k in times}
-            decode_step = {k: sum(x[k] for x in lm_gathers[3:]) for k in times}
-            entry["lm_serve"] = {
-                **{k: prefill[k] + decode_steps * decode_step[k] for k in times},
-                "prefill": prefill, "decode_step": decode_step,
-                "calls": f"the prefill's {', '.join(x['call'] for x in lm_gathers[:3])}; "
-                         f"{decode_steps} x the first decode step's"}
+            # one serve of each LM path, at its own shapes
+            for path, rows_ in (("lm_serve", lm_gathers), ("mamba_serve", mamba_gathers),
+                                ("jamba_serve", jamba_gathers)):
+                entry[path] = serve_gather_times(rows_, decode_steps)
         if kname in cached_shapes:  # the cached tier's calls (phase 6b)
             calls = cached_shapes[kname]
             entry["dlrm_cached_train_calls"] = {
@@ -4768,7 +5278,8 @@ def main() -> int:
             for step, calls in ((entry, rows), (entry["hstu_train_step"], hshapes[kname]),
                                 (entry["fuxi_train_step"], fshapes[kname]),
                                 (entry["lm_train_step"], tshapes[kname]),
-                                (entry["moe_train_step"], mtshapes[kname])):
+                                (entry["moe_train_step"], mtshapes[kname]),
+                                (entry["mamba_train_step"], sshapes[kname])):
                 step["parts_ms"] = {k: sum(x["parts_ms"][k] for x in calls)
                                     for k in calls[0]["parts_ms"]}
         kernels.append(entry)

@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` -> full/reduced configs. Ported:
 the recsys archs (DLRM, HSTU, FuXi; training) and the LM archs whose
-(attn, mlp) and (attn, moe) stacks the port's layers cover (``kind="lm"``,
-training and serving)."""
+(attn | mamba, mlp | moe | none) stacks the port's layers cover
+(``kind="lm"``, training and serving)."""
 from __future__ import annotations
 
 import importlib
@@ -18,6 +18,8 @@ _LM_MODULES = {
     "yi-34b": "yi_34b",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "grok-1-314b": "grok_1_314b",
+    "mamba2-370m": "mamba2_370m",
+    "jamba-v0.1-52b": "jamba_v01_52b",
 }
 
 _RECSYS = {

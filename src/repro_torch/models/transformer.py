@@ -1,7 +1,8 @@
-"""TransformerLM (``repro.models.transformer``, the (attn, mlp) and
-(attn, moe) stacks): parameter init, the compute-dtype cast, the training
-backbone with per-layer remat, the chunked cross-entropy and the loss the
-FWP executor takes; KV caches, prefill and one KV-cache decode step.
+"""TransformerLM (``repro.models.transformer``: (attn | mamba, mlp | moe |
+none) stacks, Jamba's hybrid pattern among them): parameter init, the
+compute-dtype cast, the training backbone with per-layer remat, the chunked
+cross-entropy and the loss the FWP executor takes; caches, prefill and one
+decode step.
 
 Parameters are JAX's pytree flattened to state-dict names, one stacked
 tensor per leaf with the layer axis first, as JAX stacks the repeats of
@@ -9,13 +10,15 @@ its layer pattern: ``blocks.{p}.attn.wq`` is ``(n_rep, d, H * hd)`` for
 pattern position ``p`` (a dense stack has one position and ``n_rep ==
 n_layers``), beside ``final_norm.scale`` and ``head_w``; an MoE layer's
 are ``blocks.{p}.moe.router`` ``(n_rep, d, E)``, ``blocks.{p}.moe.wi``
-``(n_rep, E, d, f)`` and so on. A layer reads views of its slices
-(``unbind``, whose gradient stacks the layers' back into one tensor);
-nothing is copied.
+``(n_rep, E, d, f)`` and so on, a Mamba mixer's ``blocks.{p}.mamba.wz``
+``(n_rep, d, d_inner)`` ... ``blocks.{p}.mamba.A_log`` ``(n_rep, H)``. A
+layer reads views of its slices (``unbind``, whose gradient stacks the
+layers' back into one tensor); nothing is copied.
 
 The token embedding is not part of this module: lookups go through the
 embedding engine, and the backbone takes ready embeddings. The training
-forward and the prefill run one layer function (``_block``).
+forward and the prefill run one layer function (``_block``), which
+dispatches on the layer's mixer.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import layers as L
+from . import mamba as M
 
 
 def _pattern_groups(cfg: ModelConfig):
@@ -38,10 +42,10 @@ def _pattern_groups(cfg: ModelConfig):
 def _check_ported(cfg: ModelConfig) -> None:
     pattern, _ = _pattern_groups(cfg)
     for mixer, ffn in pattern:
-        if mixer != "attn" or ffn not in ("mlp", "moe", "none"):
+        if mixer not in ("attn", "mamba") or ffn not in ("mlp", "moe", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: ({mixer}, {ffn}) layers are not ported; the port "
-                f"trains and serves (attn, mlp) and (attn, moe) stacks")
+                f"trains and serves (attn | mamba, mlp | moe | none) stacks")
     if cfg.encoder is not None or cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.name}: encoders and frontends are not ported")
 
@@ -51,7 +55,8 @@ def init_lm_params(cfg: ModelConfig, *, device, generator: torch.Generator
     """Normal-init weights in ``cfg.param_dtype`` (ones for norm scales, in
     f32), drawn in place on ``device`` from ``generator``: the shapes and
     scales of JAX's ``init_lm_params``, not its numbers (threefry). An MoE
-    router is f32 whatever the param dtype, as in JAX."""
+    router and a Mamba mixer's ``A_log``, ``D``, ``dt_bias`` and
+    ``norm_scale`` are f32 whatever the param dtype, as in JAX."""
     _check_ported(cfg)
     dtype = getattr(torch, cfg.param_dtype)
     pattern, n_rep = _pattern_groups(cfg)
@@ -62,11 +67,13 @@ def init_lm_params(cfg: ModelConfig, *, device, generator: torch.Generator
         for k, v in L.init_norm(cfg.d_model, cfg.norm_type, device=device).items():
             params[f"{prefix}.{k}"] = v.expand(*lead, -1).contiguous() if lead else v
 
-    for pos, (_, ffn) in enumerate(pattern):
+    for pos, (mixer, ffn) in enumerate(pattern):
         pre = f"blocks.{pos}"
         norm(f"{pre}.norm1", (n_rep,))
-        for k, v in L.init_attention(cfg.d_model, cfg.attention, **kw).items():
-            params[f"{pre}.attn.{k}"] = v
+        mix = (L.init_attention(cfg.d_model, cfg.attention, **kw) if mixer == "attn"
+               else M.init_mamba(cfg.d_model, cfg.mamba, **kw))
+        for k, v in mix.items():
+            params[f"{pre}.{mixer}.{k}"] = v
         if ffn == "moe":
             norm(f"{pre}.norm2", (n_rep,))
             for k, v in L.init_moe(cfg.d_model, cfg.d_ff, cfg.moe, cfg.mlp_type,
@@ -126,16 +133,21 @@ def _ffn(lp: Mapping[str, Mapping[str, torch.Tensor]], cfg: ModelConfig, ffn: st
     return x, aux
 
 
-def _block(lp: Mapping[str, Mapping[str, torch.Tensor]], cfg: ModelConfig, ffn: str,
-           x: torch.Tensor, positions: torch.Tensor):
-    """One (attn, mlp | moe) layer on x (B, T, D) with its weights ``lp``:
-    the pre-norm residual block of JAX's ``_apply_block``. Returns ``(x, k,
-    v, aux)``, the rotated k and v being what a prefill caches and aux the
-    MoE term or None (``_ffn``)."""
+def _block(lp: Mapping[str, Mapping[str, torch.Tensor]], cfg: ModelConfig, mixer: str,
+           ffn: str, x: torch.Tensor, positions: torch.Tensor):
+    """One (attn | mamba, mlp | moe | none) layer on x (B, T, D) with its
+    weights ``lp``: the pre-norm residual block of JAX's ``_apply_block``.
+    Returns ``(x, state, aux)``: state is what a prefill caches, the rotated
+    ``(k, v)`` of an attention layer or the ``(conv, ssm)`` state a Mamba
+    layer ends on; aux is the MoE term or None (``_ffn``)."""
     h = L.apply_norm(lp["norm1"], x, cfg.norm_eps)
-    o, k, v = L.gqa_attention(lp["attn"], h, cfg.attention, positions=positions)
+    if mixer == "attn":
+        o, k, v = L.gqa_attention(lp["attn"], h, cfg.attention, positions=positions)
+        state = (k, v)
+    else:
+        o, state = M.mamba_mixer(lp["mamba"], h, cfg.mamba)
     x, aux = _ffn(lp, cfg, ffn, x + o)
-    return x, k, v, aux
+    return x, state, aux
 
 
 def _final_norm(params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -168,10 +180,11 @@ def lm_backbone(params: Mapping[str, torch.Tensor], cfg: ModelConfig, emb: torch
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for rep in range(n_rep):
         rep_aux = None  # JAX's zero start: 0 + a is a
-        for pos, (_, ffn) in enumerate(pattern):
+        for pos, (mixer, ffn) in enumerate(pattern):
             lp = layers[pos][rep]
             x, a = checkpoint(
-                lambda x_, lp=lp, ffn=ffn: _block(lp, cfg, ffn, x_, positions)[::3],  # x, aux
+                lambda x_, lp=lp, mixer=mixer, ffn=ffn: _block(
+                    lp, cfg, mixer, ffn, x_, positions)[::2],  # x, aux
                 x, use_reentrant=False)
             if a is not None:
                 rep_aux = a if rep_aux is None else rep_aux + a
@@ -238,46 +251,70 @@ def make_lm_loss_fn(cfg: ModelConfig, *, t_chunk: int = 512) -> Callable:
 
 
 class LMCache(NamedTuple):
-    """Per-pattern-position KV caches stacked over repeats (as params):
-    ``caches[p]["k"]`` and ``["v"]`` are (n_rep, B, S, KV, hd). ``length``
-    is the number of positions already filled. Decode writes the caches in
-    place."""
+    """Per-pattern-position caches stacked over repeats (as params): an
+    attention position's ``{"k", "v"}``, (n_rep, B, S, KV, hd); a Mamba
+    position's ``{"conv", "ssm"}``, (n_rep, B, K-1, C) and (n_rep, B, H, P,
+    N). ``length`` is the number of positions already filled. Decode writes
+    the caches in place."""
 
     caches: Tuple[Dict[str, torch.Tensor], ...]
     length: int
 
 
+def _empty_cache(cfg: ModelConfig, batch: int, max_len: int, kv_dtype: torch.dtype,
+                 conv_dtype: torch.dtype, device) -> LMCache:
+    pattern, n_rep = _pattern_groups(cfg)
+    caches = []
+    for mixer, _ in pattern:
+        if mixer == "attn":
+            a = cfg.attention
+            shape = (n_rep, batch, max_len, a.n_kv_heads, a.head_dim)
+            caches.append({"k": torch.zeros(shape, dtype=kv_dtype, device=device),
+                           "v": torch.zeros(shape, dtype=kv_dtype, device=device)})
+        else:
+            conv, ssm = M.init_mamba_cache(batch, cfg.d_model, cfg.mamba, conv_dtype,
+                                           device=device)
+            caches.append({"conv": conv.expand(n_rep, *conv.shape).contiguous(),
+                           "ssm": ssm.expand(n_rep, *ssm.shape).contiguous()})
+    return LMCache(tuple(caches), 0)
+
+
 def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
                   dtype: torch.dtype = torch.bfloat16, *, device) -> LMCache:
+    """Zero caches, as JAX's ``init_lm_cache``: k and v in ``dtype``, a Mamba
+    position's conv and ssm states in f32 (a prefill's conv state is in the
+    compute dtype: ``lm_prefill``)."""
     _check_ported(cfg)
-    pattern, n_rep = _pattern_groups(cfg)
-    a = cfg.attention
-    shape = (n_rep, batch, max_len, a.n_kv_heads, a.head_dim)
-    return LMCache(tuple({"k": torch.zeros(shape, dtype=dtype, device=device),
-                          "v": torch.zeros(shape, dtype=dtype, device=device)}
-                         for _ in pattern), 0)
+    return _empty_cache(cfg, batch, max_len, dtype, torch.float32, device)
 
 
 def lm_prefill(params: Mapping[str, torch.Tensor], cfg: ModelConfig, emb: torch.Tensor,
                *, cache_len=None) -> Tuple[torch.Tensor, LMCache]:
     """Run the backbone over the prompt embeddings (B, T, D) and build the
-    KV cache of ``cache_len`` (default T) positions. Returns (last-token
-    logits (B, V) in f32, cache). Each layer's k and v are computed once, by
-    ``gqa_attention``, and feed both the attention and the cache (JAX
-    computes them twice, to the same numbers)."""
+    cache of ``cache_len`` (default T) positions. Returns (last-token
+    logits (B, V) in f32, cache). Each attention layer's k and v are
+    computed once, by ``gqa_attention``, and feed both the attention and the
+    cache (JAX computes them twice, to the same numbers); a Mamba layer
+    caches the states it ends on, conv in the compute dtype and ssm in f32,
+    JAX's prefill dtypes."""
     cdt = getattr(torch, cfg.compute_dtype)
     b, t, _ = emb.shape
-    cache = init_lm_cache(cfg, b, cache_len or t, cdt, device=emb.device)
+    cache = _empty_cache(cfg, b, cache_len or t, cdt, cdt, emb.device)
     x = emb.to(cdt)
     positions = torch.arange(t, device=emb.device).expand(b, t)
     pattern, n_rep = _pattern_groups(cfg)
     p = _cast_tree(params, cdt)
     layers = [_layers(p, pos) for pos in range(len(pattern))]
     for rep in range(n_rep):
-        for pos, (_, ffn) in enumerate(pattern):
-            x, k, v, _ = _block(layers[pos][rep], cfg, ffn, x, positions)
-            cache.caches[pos]["k"][rep, :, :t] = k
-            cache.caches[pos]["v"][rep, :, :t] = v
+        for pos, (mixer, ffn) in enumerate(pattern):
+            x, state, _ = _block(layers[pos][rep], cfg, mixer, ffn, x, positions)
+            c = cache.caches[pos]
+            if mixer == "attn":
+                c["k"][rep, :, :t] = state[0]
+                c["v"][rep, :, :t] = state[1]
+            else:
+                c["conv"][rep] = state[0]
+                c["ssm"][rep] = state[1]
     x = L.apply_norm(_final_norm(p), x, cfg.norm_eps)
     logits = (x[:, -1] @ p["head_w"].to(cdt)).to(torch.float32)
     return logits, cache._replace(length=t)
@@ -287,20 +324,28 @@ def lm_decode_step(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
                    emb: torch.Tensor, cache: LMCache) -> Tuple[torch.Tensor, LMCache]:
     """One decode step for the new tokens' embeddings (B, 1, D) at position
     ``cache.length``. Returns (logits (B, V) in f32, the cache one longer;
-    its tensors are the ones passed in, written in place). An MoE layer
-    routes the B new tokens as one batch of B."""
+    its tensors are the ones passed in, written in place: an attention
+    layer's k and v at the new position, a Mamba layer's states by the
+    ones ``mamba_decode_step`` returns). An MoE layer routes the B new
+    tokens as one batch of B."""
     cdt = getattr(torch, cfg.compute_dtype)
     x = emb.to(cdt)
     pattern, n_rep = _pattern_groups(cfg)
     p = _cast_tree(params, cdt)
     layers = [_layers(p, pos) for pos in range(len(pattern))]
     for rep in range(n_rep):
-        for pos, (_, ffn) in enumerate(pattern):
+        for pos, (mixer, ffn) in enumerate(pattern):
             lp = layers[pos][rep]
             c = cache.caches[pos]
             h = L.apply_norm(lp["norm1"], x, cfg.norm_eps)
-            o, _, _ = L.gqa_decode(lp["attn"], h, c["k"][rep], c["v"][rep],
-                                   cache.length, cfg.attention)
+            if mixer == "attn":
+                o, _, _ = L.gqa_decode(lp["attn"], h, c["k"][rep], c["v"][rep],
+                                       cache.length, cfg.attention)
+            else:
+                o, conv, ssm = M.mamba_decode_step(lp["mamba"], h, cfg.mamba,
+                                                   c["conv"][rep], c["ssm"][rep])
+                c["conv"][rep] = conv
+                c["ssm"][rep] = ssm
             x, _ = _ffn(lp, cfg, ffn, x + o)
     x = L.apply_norm(_final_norm(p), x, cfg.norm_eps)
     logits = (x[:, 0] @ p["head_w"].to(cdt)).to(torch.float32)

@@ -9,7 +9,9 @@ the card, an in-place restore, the save's time kept out of the steps), and
 faults (a fault at every store site, recovered to the fault-free bits; a
 preemption by a real signal, resumed to the uninterrupted run's bits), and
 the MoE (its layer on the card against the CPU and the same bits twice; a
-bf16 MoE LM's checkpoint resumed bit for bit).
+bf16 MoE LM's checkpoint resumed bit for bit), and Mamba2 (the chunked SSD
+against the f64 recurrence, a prefill and a decode step against the longer
+prefill, a finite step at the published chunk).
 
 Every test here needs an NVIDIA GPU, carries the ``cuda`` marker and skips
 without one (the kernels have no CPU mode). The file imports no jax, so it
@@ -1515,3 +1517,73 @@ def test_bf16_moe_checkpoint_resumes_on_the_card(cuda_device, tmp_path):
     assert rep_b.stats.losses == rep_a.stats.losses
     for (pa, ta), (pb, tb) in zip(flatten_state(a.state), flatten_state(b.state)):
         assert pa == pb and torch.equal(ta, tb), pa
+
+
+# ---------------------------------------------------------------------------
+# Mamba2
+# ---------------------------------------------------------------------------
+
+
+def _mamba_cfg(**mamba):
+    red = get_arch("mamba2-370m").reduced
+    return dataclasses.replace(red, mamba=dataclasses.replace(red.mamba, **mamba))
+
+
+def test_mamba_ssd_chunked_equals_the_f64_recurrence_on_the_card(cuda_device):
+    """The chunked SSD (f32, TF32 off) at chunk 64 over L 300 (a padded last
+    chunk), 8 heads of 16 in 2 groups, N 32, from an entering state: y and
+    the final state within 1e-4 of their largest magnitude of the port's
+    O(L) recurrence in f64 on the card."""
+    from repro_torch.models import mamba as M
+
+    g = torch.Generator().manual_seed(0)
+    b, length, h, p, n = 2, 300, 8, 16, 32
+    x = torch.randn((b, length, h, p), generator=g)
+    dt = torch.rand((b, length, h), generator=g) * 0.1
+    A = -torch.arange(1, h + 1, dtype=torch.float32) * 4
+    Bm, Cm = (torch.randn((b, length, 2, n), generator=g) for _ in range(2))
+    s0 = torch.randn((b, h, p, n), generator=g)
+    args = [t.to(cuda_device) for t in (x, dt, A, Bm, Cm)]
+    assert not torch.backends.cuda.matmul.allow_tf32
+    y, s = M.ssd_chunked(*args, 64, s0.to(cuda_device))
+    ry, rs = M.ssd_reference(*args, s0.to(cuda_device), dtype=torch.float64)
+    assert y.is_cuda and y.dtype == torch.float32
+    assert float((y.double() - ry).abs().max()) <= 1e-4 * float(ry.abs().max())
+    assert float((s.double() - rs).abs().max()) <= 1e-4 * float(rs.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "jamba-v0.1-52b"])
+def test_mamba_prefill_plus_decode_equals_the_longer_prefill_on_the_card(cuda_device, arch):
+    """Reduced, f32: a prefill of T tokens and one decode step against a
+    prefill of T + 1 (the conv and ssm states carried), last-token logits
+    within 1e-4; the prefill within 1e-5 of the CPU's."""
+    from repro_torch.models import transformer as TT
+
+    cfg = get_arch(arch).reduced
+    g = torch.Generator().manual_seed(1)
+    params = TT.init_lm_params(cfg, device="cpu", generator=g)
+    emb = torch.randn((2, 21, cfg.d_model), generator=g) * 0.5
+    p_card = {k: v.to(cuda_device) for k, v in params.items()}
+    e_card = emb.to(cuda_device)
+    with torch.inference_mode():
+        short, cache = TT.lm_prefill(p_card, cfg, e_card[:, :20], cache_len=21)
+        step, _ = TT.lm_decode_step(p_card, cfg, e_card[:, 20:], cache)
+        whole, _ = TT.lm_prefill(p_card, cfg, e_card)
+        cpu, _ = TT.lm_prefill(params, cfg, emb[:, :20], cache_len=21)
+    assert float((step - whole).abs().max()) <= 1e-4
+    assert float((short.cpu() - cpu).abs().max()) <= 1e-5
+
+
+def test_mamba_step_at_chunk_256_has_a_finite_gradient_on_the_card(cuda_device):
+    """mamba2-370m-reduced at the published chunk of 256 over 256 tokens
+    (16 heads: A down to -16, dt up to 0.1, so exp(a_i - a_j) overflows
+    above the diagonal): two nestpipe steps on the card give finite losses
+    and leave every weight finite (the masked decay's gradient)."""
+    cfg = _mamba_cfg(chunk_size=256)
+    wl = assemble_workload(ArchSpec(cfg.name, "lm", cfg, cfg), cfg, device=cuda_device,
+                           global_batch=4, seq_len=256, t_chunk=64)
+    sess = Session.from_workload(wl, seed=0)
+    rep = sess.train(2)
+    assert np.isfinite(rep.stats.losses).all()
+    assert all(bool(torch.isfinite(v).all()) for v in rep.state.dense.values())
+    assert int(rep.state.step) == 2

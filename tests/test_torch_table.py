@@ -224,7 +224,7 @@ def test_lm_configs_equal_field_for_field(arch):
         assert a.layer_plan == b.layer_plan
         assert a.param_count() == b.param_count()
     assert set(LM_ARCHS) == {"stablelm-12b", "stablelm-3b", "yi-34b", "nemotron-4-340b",
-                             "olmoe-1b-7b", "grok-1-314b"}
+                             "olmoe-1b-7b", "grok-1-314b", "mamba2-370m", "jamba-v0.1-52b"}
 
 
 def test_olmoe_1b_7b_is_full_width():
@@ -245,6 +245,35 @@ def test_olmoe_1b_7b_is_full_width():
     layer = (cfg.param_count() - 2 * cfg.vocab_size * cfg.d_model) // 16
     assert layer == 419_565_568
     assert 6 * layer + cfg.vocab_size * cfg.d_model == 2_620_416_000
+
+
+def test_mamba2_370m_is_full_width():
+    """The published widths, 48 (mamba, none) layers: 0.42 B params, 1.68
+    GB in f32, trained whole on one card."""
+    cfg = tget_arch("mamba2-370m").config
+    m = cfg.mamba
+    assert (cfg.n_layers, cfg.d_model, cfg.vocab_size) == (48, 1024, 50288)
+    assert (m.d_state, m.headdim, m.expand, m.n_groups, m.d_conv, m.chunk_size) == \
+        (128, 64, 2, 1, 4, 256)
+    assert cfg.layer_plan == (("mamba", "none"),) * 48 and cfg.attention is None
+    assert (cfg.param_dtype, cfg.compute_dtype) == ("float32", "bfloat16")
+    assert cfg.param_count() == 419_679_232
+
+
+def test_jamba_v01_52b_is_full_width():
+    """The published widths; one period of 8 layers (attention at offset 4,
+    MoE at the odd offsets) holds 13.27 B params, 26.54 GB in bf16: the
+    depth served on one card."""
+    cfg = tget_arch("jamba-v0.1-52b").config
+    a, m, e = cfg.attention, cfg.mamba, cfg.moe
+    assert (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size) == (32, 4096, 14336, 65536)
+    assert (a.n_heads, a.n_kv_heads, a.head_dim) == (32, 8, 128)
+    assert (m.d_state, m.headdim, m.expand, m.chunk_size) == (16, 64, 2, 256)
+    assert (e.num_experts, e.top_k) == (16, 2)
+    assert cfg.layer_plan[:8] == tuple(("attn" if i == 4 else "mamba",
+                                        "moe" if i % 2 else "mlp") for i in range(8))
+    assert cfg.param_count() == 51_459_533_312
+    assert dataclasses.replace(cfg, n_layers=8).param_count() == 13_267_536_512
 
 
 def test_stablelm_12b_is_full_width():
