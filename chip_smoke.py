@@ -377,6 +377,38 @@ hand-written kernel on it against its plain PyTorch version:
    bit and timed as 13's, the same tokens twice, the prefill within 5e-2 of max |logit| of the plain
    attention's, the prefill-plus-decode check of 13h, the attention call
    checked and timed as 13's;
+13k. full-width ``whisper-base`` serving (6 + 6 layers, d_model 512, 8
+   heads of 64, 1,500 frames, vocab 51,872; f32 params, bf16 compute)
+   through ``Session.from_arch("whisper-base").serve(batch=16,
+   prompt_len=416, gen=32)``: 18 wgmma forwards a serve at hd 64 (6
+   encoder calls without a mask at T 1,500, 6 causal decoder calls, 6 cross
+   calls of the prompt against the frames) and 96 gathers, nothing else;
+   the warm-up serve's first two lookups' gathers checked bit for bit and
+   timed as 13's, the same tokens twice, the prefill within 5e-2 of max
+   |logit| of the plain attention's, a prefill of 416 and one decode step
+   against a prefill of 417 (the self and the memory caches carried),
+   layer 0's three calls checked through the wgmma and the general kernel
+   and timed beside SDPA and the bound; prefill s, decode tokens/s, peak GB
+   (``--profile``: the prefill and 8 decode steps);
+13l. ``whisper-base`` trained whole at Whisper's batch of 256 segments of
+   448 tokens (N = 4: micro-batches of 64, AdamW at lr 3e-5,
+   ``bucket_slack`` 1.5): one warm-up step, two captured steps (the
+   embedding kernels' calls checked and timed; the first forward and
+   backward attention call of each kind kept), ``train(4)`` with every
+   launch counted (144 wgmma forwards with the lse and 72 wgmma backwards
+   a step, none of the general or tf32x3 kernels), finite losses below the
+   warm-up step's, peak under 80 GB, step p50/p99, samples/s, decoder
+   tokens/s, ``mean_input_wait_ms`` and the stream's host ms a window
+   (the frame draw and the rest, on the prefetch thread) (``--profile``: 2
+   more steps); then the kept encoder, decoder and cross calls checked at
+   full shape (the forward and its lse, the backward within its bf16
+   bound) and timed beside the plain versions, SDPA's forward and
+   backward and their bf16 bounds;
+13m. encoder-decoder consistency: ``whisper-base-reduced`` nestpipe =
+   serial = the reference within 1e-5 over 6 steps, async diverging, at
+   AdamW eps 1e-6 and the default; whisper-base at every width with 2 + 2
+   layers, all 1,500 frames, bf16 (2 segments of 32 tokens, N = 2) on the
+   card and on the CPU from one state, each loss within 3%;
 14. a ``{"kernels": [...]}`` line (the tf32x3 and the general
    ``flash_attention`` forward and backward at FuXi's main-path shape,
    the general one also at the LM's; the wgmma forward's and the wgmma
@@ -388,9 +420,10 @@ hand-written kernel on it against its plain PyTorch version:
    tiers' training, every run of 6e and 6f, the cached tier's serving
    with and without ``pack``, 6g's resumed steps, 6h's four chaos runs and
    its preempted and resumed run among them, olmoe's serving, training and
-   resumed run, mamba2-370m's serving and training, jamba's serving; the
-   wgmma forward's and backward's olmoe calls at hd 128, the forward's
-   jamba call)
+   resumed run, mamba2-370m's serving and training, jamba's serving,
+   whisper-base's serving and training; the wgmma forward's and backward's
+   olmoe calls at hd 128, the forward's jamba call, whisper's hd-64 calls
+   of the serve and of training, encoder, decoder and cross)
    and, last, the ``{"ok": true, ...}`` line.
 
 Every phase prints one JSON line. Nothing is caught: any failure exits
@@ -399,8 +432,9 @@ adds a host breakdown and a ``torch.profiler`` pass over 4 training steps
 and over the serving path, one over 4 more steps of the host and of the
 cached tier (read between a run's first stage after its ingest and its
 release), one over 2 HSTU steps, one over 2 FuXi steps, one over an LM
-prefill and 8 decode steps, and the same for olmoe with 2 of its training
-steps). The phases from 11a on print their seconds.
+prefill and 8 decode steps, and the same for olmoe, mamba2-370m and
+whisper-base with 2 of their training steps). The phases from 11a on print
+their seconds.
 """
 from __future__ import annotations
 
@@ -564,6 +598,20 @@ MAMBA_SSD_RTOL = 1e-4
 # one period of its pattern (attention at offset 4, MoE at the odd ones)
 JAMBA_ARCH = "jamba-v0.1-52b"
 JAMBA_SERVE_LAYERS = 8
+# whisper-base (6 + 6 layers, d_model 512, 8 heads of 64, 1,500 frames,
+# vocab 51,872; f32 params, bf16 compute): served and trained whole. Served
+# at batch 16, 416-token prompts and 32 generated (448 positions: Whisper's
+# text context); trained at Whisper's own batch of 256 segments of 448
+# tokens, N_MICRO micro-batches of 64
+WHISPER_ARCH = "whisper-base"
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_GEN = 16, 416, 32
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_STEPS = 256, 448, 4
+# the wgmma forward's calls a serve: 6 encoder (no mask, T 1,500), 6 causal
+# decoder and 6 cross (the prompt against the 1,500 frames); a training
+# step's: those 18 x 4 micro-batches x 2 (remat) with the lse, and the
+# wgmma backward's 18 x 4
+WHISPER_FWD_CALLS_PER_SERVE = 18
+WHISPER_FWD_CALLS_PER_STEP, WHISPER_BWD_CALLS_PER_STEP = 144, 72
 KERNELS = {  # name -> (source, the Pallas kernel it replaces)
     "embedding_gather": ("src/repro_torch/csrc/embedding_gather.cu",
                          "src/repro/kernels/embedding_gather.py:35"),
@@ -610,6 +658,8 @@ MOE_TRAIN_PATHS = ("moe_train", "moe_ckpt_resume_train")
 MOE_PATHS = ("moe_serve",) + MOE_TRAIN_PATHS
 # mamba2-370m's serving and training (13h, 13i), jamba's serving (13j)
 MAMBA_PATHS = ("mamba_serve", "mamba_train", "jamba_serve")
+# whisper-base's serving and training (13k, 13l)
+WHISPER_PATHS = ("whisper_serve", "whisper_train")
 # phase 6g's resumed run (steps 4-5 after a restore) is a path of its own,
 # and so are 6h's preempted run and its resumption together
 RUNS_ON = {
@@ -617,32 +667,35 @@ RUNS_ON = {
                          "dlrm_cached_train", "dlrm_cached_serve", "hstu_train",
                          "fuxi_train", "lm_serve", "lm_train", "dlrm_cached_pack_serve",
                          "dlrm_ckpt_resume_train", "dlrm_preempt_resume_train")
-    + tuple(TIER_PATHS.values()) + MOE_PATHS + MAMBA_PATHS,
+    + tuple(TIER_PATHS.values()) + MOE_PATHS + MAMBA_PATHS + WHISPER_PATHS,
     "segment_rowsum": ("dlrm_train", "dlrm_host_train", "dlrm_cached_train",
                        "hstu_train", "fuxi_train", "lm_train", "dlrm_ckpt_resume_train",
                        "dlrm_preempt_resume_train") + tuple(TIER_PATHS.values())
-    + MOE_TRAIN_PATHS + ("mamba_train",),
+    + MOE_TRAIN_PATHS + ("mamba_train", "whisper_train"),
     "buffer_sync": ("dlrm_train", "dlrm_host_train", "dlrm_cached_train", "hstu_train",
                     "fuxi_train", "lm_train", "dlrm_ckpt_resume_train",
                     "dlrm_preempt_resume_train")
-    + tuple(TIER_PATHS.values()) + MOE_TRAIN_PATHS + ("mamba_train",),
+    + tuple(TIER_PATHS.values()) + MOE_TRAIN_PATHS + ("mamba_train", "whisper_train"),
     # the host tier writes its master back on the host: no device scatter
     "embedding_scatter": ("dlrm_train", "dlrm_cached_train", "dlrm_cached_serve",
                           "hstu_train", "fuxi_train", "lm_train", "dlrm_ckpt_resume_train")
-    + CACHED_PATHS + MOE_TRAIN_PATHS + ("mamba_train",),
+    + CACHED_PATHS + MOE_TRAIN_PATHS + ("mamba_train", "whisper_train"),
     "hstu_attention_fwd": ("hstu_train",),
     "hstu_attention_bwd": ("hstu_train",),
     # the LM prefill (no lse) and LM training (with its lse), at hd 160 and
-    # 80 (stablelm) and 128 (olmoe; jamba's attention layer)
-    "flash_attention_wgmma": ("lm_serve", "lm_train") + MOE_PATHS + ("jamba_serve",),
+    # 80 (stablelm), 128 (olmoe; jamba's attention layer) and 64 (whisper:
+    # non-causal, cross)
+    "flash_attention_wgmma": ("lm_serve", "lm_train") + MOE_PATHS + ("jamba_serve",)
+    + WHISPER_PATHS,
     # f32 above hd 128 and bf16 off the wgmma head dims: no main path sends
     # it inputs; phases 11a-13 hold it against the plain version and time it
     "flash_attention_simple": (),
     # FuXi's f32 attention, forward and backward
     "flash_attention_tf32x3": ("fuxi_train",),
     "flash_attention_bwd_tf32x3": ("fuxi_train",),
-    # bf16 at hd 64, 80 and 128: LM training's backward (phases 13b, 13e-f)
-    "flash_attention_bwd_wgmma": ("lm_train",) + MOE_TRAIN_PATHS,
+    # bf16 at hd 64, 80 and 128: LM training's backward (phases 13b, 13e-f,
+    # 13l)
+    "flash_attention_bwd_wgmma": ("lm_train",) + MOE_TRAIN_PATHS + ("whisper_train",),
     # bf16 at the other head dims and f32 above 128: no main path sends it
     # inputs; phase 11a holds it against the plain version, 11b and 13b
     # time it at FuXi's and the LM's calls
@@ -924,6 +977,7 @@ def main() -> int:
 
     from repro_torch.api import InferenceStrategy, Session, resolve_stream
     from repro_torch.api import session as session_mod
+    from repro_torch.api import streams as streams_mod
     from repro_torch.configs import ArchSpec, NestPipeConfig, OptimizerConfig, get_arch
     from repro_torch.configs.recsys_archs import HSTU_INDUSTRIAL_ONE_CARD, HSTU_ROW_CUT
     from repro_torch.core.consistency import build_reference_step
@@ -3873,6 +3927,7 @@ def main() -> int:
             if fa.variant(q, k, v) != "wgmma":
                 raise SystemExit(f"{path}: the prefill's layer {layer} call is not the "
                                  "wgmma kernel's")
+            call = f"prefill layer {layer}"  # a layer's index, or its call's name
             check_flash(f"{path} layer {layer}", q, k, v, causal, chunk=1)
             check_flash(f"{path} layer {layer}, general kernel", q, k, v, causal, chunk=1,
                         simple=True)
@@ -3880,7 +3935,7 @@ def main() -> int:
             by_ops, by_bytes = ops / bf16_flops(name) * 1e3, nbytes / peak * 1e3
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             sdpa = torch.nn.functional.scaled_dot_product_attention
-            row = {"kernel": "flash_attention_wgmma", "call": f"prefill layer {layer}",
+            row = {"kernel": "flash_attention_wgmma", "call": call, "kv_shape": list(k.shape),
                    "shape": list(q.shape), "kv_heads": k.shape[2], "causal": causal,
                    "dtype": str(q.dtype).removeprefix("torch."), "operations": ops,
                    "bytes": nbytes,
@@ -4764,22 +4819,25 @@ def main() -> int:
             (0 <= srep.tokens) & (srep.tokens < scfg.vocab_size)).all():
         raise SystemExit(f"mamba tokens {srep.tokens.shape} are not vocabulary ids")
 
-    def prefill_plus_decode(sess, params, table, label):
-        """A prefill of LM_PROMPT tokens and one decode step against a
-        prefill of LM_PROMPT + 1 (the same prompts): the last-token logits
-        within LM_LOGIT_RTOL of max |logit| (the caches' states carried)."""
+    def prefill_plus_decode(sess, params, table, label, batch=LM_BATCH, prompt=LM_PROMPT,
+                            extras=None):
+        """A prefill of ``prompt`` tokens and one decode step against a
+        prefill of ``prompt`` + 1 (the same prompts; an encoder-decoder's
+        same frames in ``extras``): the last-token logits within
+        LM_LOGIT_RTOL of max |logit| (the caches' states carried)."""
         cfg_ = sess.workload.cfg
+        extras = extras or {}
         toks = np.random.default_rng(sess.seed).integers(0, cfg_.vocab_size,
-                                                         size=(LM_BATCH, LM_PROMPT + 1))
+                                                         size=(batch, prompt + 1))
         with torch.inference_mode():
             keys = sess.workload.spec.scramble(torch.as_tensor(toks.astype(np.int32),
                                                                device=dev))
             emb, _ = sess.workload.engine.lookup_from_master(table, keys)
-            _, cache = sess.workload.bundle.prefill(params, emb[:, :LM_PROMPT],
-                                                   cache_len=LM_PROMPT + 1)
-            step, cache = sess.workload.bundle.decode_step(params, emb[:, LM_PROMPT:], cache)
+            _, cache = sess.workload.bundle.prefill(params, emb[:, :prompt],
+                                                   cache_len=prompt + 1, **extras)
+            step, cache = sess.workload.bundle.decode_step(params, emb[:, prompt:], cache)
             del cache
-            whole, cache = sess.workload.bundle.prefill(params, emb)
+            whole, cache = sess.workload.bundle.prefill(params, emb, **extras)
             del cache, emb
         scale_ = float(whole.abs().max())
         gap = float((step - whole).abs().max())
@@ -5107,6 +5165,468 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit("jamba_serve_phase", seconds=time.perf_counter() - t_phase)
 
+    # -- 13k. main path: full-width whisper-base serving ------------------------
+    # every width and all 6 + 6 layers through Session.from_arch: 18 wgmma
+    # forwards a serve at hd 64 (6 encoder calls without a mask at T 1,500, 6
+    # causal decoder calls, 6 cross calls of the prompt against the frames),
+    # the same tokens twice, the prefill against the plain attention's, a
+    # prefill and a decode step against the longer prefill (the self and the
+    # memory caches carried), layer 0's three calls checked and timed
+    t_phase = time.perf_counter()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+
+    def encdec_call_kind(q, k, causal):
+        """Which of the encoder-decoder's attentions a call is: the
+        decoder's self-attention (causal), the cross attention (Tq != Tk),
+        or the encoder's (no mask, Tq = Tk = the frames)."""
+        return "decoder" if causal else "cross" if q.shape[1] != k.shape[1] else "encoder"
+
+    wsess = Session.from_arch(WHISPER_ARCH, seed=0)
+    wwl, wcfg = wsess.workload, wsess.workload.cfg
+    wa_, wenc = wcfg.attention, wcfg.encoder
+    if (wcfg.n_layers, wenc.n_layers, wcfg.d_model, wcfg.d_ff, wcfg.vocab_size, wa_.n_heads,
+            wa_.n_kv_heads, wa_.head_dim, wenc.n_frames) != (
+                6, 6, 512, 2048, 51872, 8, 8, 64, 1500) or wsess.workload.arch.kind != "encdec":
+        raise SystemExit(f"{WHISPER_ARCH} is not at its published widths")
+    w_decode_steps = WHISPER_GEN - 1
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wparams, wtable = wsess.lm_weights()
+    torch.cuda.synchronize()
+    wdraw_s = time.perf_counter() - t0
+    wweights_gb = sum(p_.numel() * p_.element_size() for p_ in wparams.values()) / 1e9
+    kept_wflash, wflash_calls = {}, [0]
+
+    def wflash_spy(q, k, v, causal=True):
+        kind = "0 " + encdec_call_kind(q, k, causal)  # "prefill layer 0 encoder", ...
+        if kind not in kept_wflash:  # each kind's first call: layer 0's
+            kept_wflash[kind] = (q.clone(), k.clone(), v.clone(), causal)
+        wflash_calls[0] += 1
+        return real_flash(q, k, v, causal)
+
+    dispatch.flash_attention = wflash_spy
+    try:
+        t0 = time.perf_counter()
+        wwarm, wkept_gather, wn_gathers = serve_keeping_gathers(
+            wtable, lambda: wsess.serve(batch=WHISPER_BATCH, prompt_len=WHISPER_PROMPT,
+                                        gen=WHISPER_GEN))
+        torch.cuda.synchronize()
+        wwarm_s = time.perf_counter() - t0
+    finally:
+        dispatch.flash_attention = real_flash
+    if wflash_calls[0] != WHISPER_FWD_CALLS_PER_SERVE or len(kept_wflash) != 3:
+        raise SystemExit(f"the warm-up whisper serve made {wflash_calls[0]} flash calls "
+                         f"of kinds {sorted(kept_wflash)}")
+    # its gathers at their shapes (512-wide f32 master rows, then bf16)
+    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)  # evicts the L2 (time_ms)
+    whisper_gathers = check_serve_gathers("whisper_serve", wkept_gather, wn_gathers,
+                                          1 + w_decode_steps, wtable)
+    del wkept_gather
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    wrep = wsess.serve(batch=WHISPER_BATCH, prompt_len=WHISPER_PROMPT, gen=WHISPER_GEN)
+    torch.cuda.synchronize()
+    whisper_serve_launches = counts()
+    whisper_serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ws_ = wrep.summary
+    emit("whisper_serve", arch=WHISPER_ARCH, batch=WHISPER_BATCH, prompt_len=WHISPER_PROMPT,
+         gen=WHISPER_GEN, frames=wenc.n_frames,
+         reduced="none: every width, 6 + 6 layers; batch 16, prompt 416, 32 generated "
+                 "(448 positions: Whisper's text context)",
+         config={k: getattr(wcfg, k) for k in ("n_layers", "d_model", "d_ff", "vocab_size",
+                                               "param_dtype", "compute_dtype")},
+         encoder=dataclasses.asdict(wenc), heads=[wa_.n_heads, wa_.n_kv_heads, wa_.head_dim],
+         params=wcfg.param_count(), weights_gb=wweights_gb,
+         table_gb=wtable.rows.numel() * 4 / 1e9,
+         prefill_s=ws_["prefill_s"],
+         prompt_tokens_per_s=WHISPER_BATCH * WHISPER_PROMPT / ws_["prefill_s"],
+         decode_s=ws_["decode_s"], decode_step_ms=ws_["decode_s"] / w_decode_steps * 1e3,
+         generated_tokens_per_s=ws_["tokens_per_s"], weights_draw_s=wdraw_s,
+         warmup_serve_s=wwarm_s, launches=whisper_serve_launches,
+         max_memory_allocated_gb=whisper_serve_peak_gb, start_memory_allocated_gb=start_gb,
+         sample_tokens=ws_["sample_tokens"])
+    whisper_serve_want = {k: 0 for k in KERNELS}
+    whisper_serve_want.update(embedding_gather=3 * (1 + w_decode_steps),
+                              flash_attention_wgmma=WHISPER_FWD_CALLS_PER_SERVE)
+    if whisper_serve_launches != whisper_serve_want:
+        raise SystemExit(f"whisper serving launches {whisper_serve_launches} != "
+                         f"{whisper_serve_want}")
+    if not np.array_equal(wrep.tokens, wwarm.tokens):
+        raise SystemExit("two whisper serves of the same weights generated different tokens")
+    if wrep.tokens.shape != (WHISPER_BATCH, WHISPER_GEN) or not (
+            (0 <= wrep.tokens) & (wrep.tokens < wcfg.vocab_size)).all():
+        raise SystemExit(f"whisper tokens {wrep.tokens.shape} are not vocabulary ids")
+
+    # the prefill with the kernel and with the plain attention, on the
+    # serve's prompts and frames (Session.serve's draw: the prompts, then the
+    # frames, from one rng)
+    wrng = np.random.default_rng(wsess.seed)
+    toks = wrng.integers(0, wcfg.vocab_size, size=(WHISPER_BATCH, WHISPER_PROMPT))
+    wframes = torch.as_tensor(wrng.normal(size=(WHISPER_BATCH, wenc.n_frames, wcfg.d_model))
+                              .astype(np.float32) * 0.02, device=dev)
+    with torch.inference_mode():
+        wkeys = wwl.spec.scramble(torch.as_tensor(toks.astype(np.int32), device=dev))
+        emb, _ = wwl.engine.lookup_from_master(wtable, wkeys)
+        logits_k, cache = wwl.bundle.prefill(wparams, emb, frames=wframes,
+                                             cache_len=WHISPER_PROMPT + WHISPER_GEN)
+        wcache_gb = sum(x.numel() * x.element_size() for x in cache[:4]) / 1e9
+        del cache
+        dispatch.flash_attention = ref.flash_attention_ref
+        try:
+            logits_p, cache = wwl.bundle.prefill(wparams, emb, frames=wframes,
+                                                 cache_len=WHISPER_PROMPT + WHISPER_GEN)
+        finally:
+            dispatch.flash_attention = real_flash
+        del cache, emb
+    scale = float(logits_p.abs().max())
+    logit_gap = float((logits_k - logits_p).abs().max())
+    first_tok = logits_k.argmax(-1).cpu().numpy()
+    emit("whisper_prefill_vs_plain", max_abs_logit=scale, max_logit_gap=logit_gap,
+         gap_share=logit_gap / scale, bound_share=LM_LOGIT_RTOL, cache_gb=wcache_gb,
+         greedy_tokens_agreeing=float((logits_k.argmax(-1) == logits_p.argmax(-1))
+                                      .float().mean()),
+         first_token_equals_serve=bool(np.array_equal(first_tok, wrep.tokens[:, 0])))
+    if not np.isfinite(logits_k.cpu().numpy()).all() or logit_gap > LM_LOGIT_RTOL * scale:
+        raise SystemExit(f"whisper prefill logits with the kernel are {logit_gap} from the "
+                         f"plain attention's (max |logit| {scale})")
+    if not np.array_equal(first_tok, wrep.tokens[:, 0]):
+        raise SystemExit("the whisper prefill's argmax is not the serve's first token")
+    del logits_k, logits_p
+    prefill_plus_decode(wsess, wparams, wtable, "whisper", batch=WHISPER_BATCH,
+                        prompt=WHISPER_PROMPT, extras={"frames": wframes})
+
+    if args.profile:  # the prefill, then 8 decode steps from its cache
+        from torch.profiler import ProfilerActivity, profile
+
+        with torch.inference_mode():
+            emb, _ = wwl.engine.lookup_from_master(wtable, wkeys)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                logits, cache = wwl.bundle.prefill(wparams, emb, frames=wframes,
+                                                   cache_len=WHISPER_PROMPT + WHISPER_GEN)
+                tok = logits.argmax(-1).to(torch.int32)
+                torch.cuda.synchronize()
+                span = time.perf_counter() - t0
+            emit_profile(prof, "whisper_prefill_profile", span, prefills=1)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(8):
+                    emb, _ = wwl.engine.lookup_from_master(wtable, wwl.spec.scramble(tok[:, None]))
+                    logits, cache = wwl.bundle.decode_step(wparams, emb, cache)
+                    tok = logits.argmax(-1).to(torch.int32)
+                    tok.cpu()  # as serve() reads each token back
+                torch.cuda.synchronize()
+                span = time.perf_counter() - t0
+            emit_profile(prof, "whisper_decode_profile", span, steps=8)
+            del prof, logits, cache, emb
+    del wsess, wwl, wparams, wtable, wwarm, wrep, wframes, wkeys
+    gc.collect()
+    torch.cuda.empty_cache()
+    wfrows = prefill_flash_rows("whisper_serve", kept_wflash, flush)
+    del kept_wflash, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("whisper_serve_phase", seconds=time.perf_counter() - t_phase)
+
+    # -- 13l. main path: full-width whisper-base training, all 6 + 6 layers ----
+    t_phase = time.perf_counter()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    wtsess = Session.from_arch(WHISPER_ARCH, mode="nestpipe", global_batch=WHISPER_TRAIN_BATCH,
+                               seq_len=WHISPER_TRAIN_SEQ, n_micro=N_MICRO, bucket_slack=SLACK,
+                               lr=LM_TRAIN_LR, seed=0)
+    wtwl = wtsess.workload
+    wdims = wtwl.engine.dims(wtwl.batch_shapes["keys"][0][1:], N_MICRO)
+    frames_shape = wtwl.batch_shapes["frames"][0]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wstate = wtsess.state
+    torch.cuda.synchronize()
+    w_params = sum(p_.numel() for p_ in wstate.dense.values())
+    emit("whisper_train_init", arch=WHISPER_ARCH, seconds=time.perf_counter() - t0,
+         dense_params=w_params,
+         params_gb=sum(p_.numel() * p_.element_size() for p_ in wstate.dense.values()) / 1e9,
+         moments_gb=2 * 4 * w_params / 1e9, table_gb=wstate.table.rows.numel() * 4 / 1e9,
+         frames_window_shape=list(frames_shape),
+         frames_window_gb=int(np.prod(frames_shape)) * 4 / 1e9,
+         dims={"L": wdims.l_local, "U": wdims.u_max, "C": wdims.cap, "K": wdims.buffer_cap,
+               "N": wdims.n_micro},
+         start_memory_allocated_gb=start_gb,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if wstate.dense["encoder.attn.wq"].shape != (6, 512, 512) \
+            or wstate.dense["decoder.xattn.wk"].shape != (6, 512, 512) \
+            or frames_shape != (N_MICRO, WHISPER_TRAIN_BATCH // N_MICRO, 1500, 512) \
+            or wstate.table.rows.shape[1] != 512 or wstate.table.rows.device.type != "cuda":
+        raise SystemExit(f"{WHISPER_ARCH} training is not at full width on the card")
+    del wstate
+    wfirst_loss = wtsess.train(1).stats.losses[0]
+    torch.cuda.synchronize()
+
+    # two steps with the first forward (with its lse) and backward call of
+    # each kind kept (every call counted) and the embedding kernels' calls
+    wseen = {"fwd": 0, "bwd": 0}
+    wtkept = {}
+
+    def w_lse_spy(q, k, v, causal=True):
+        wseen["fwd"] += 1
+        key = ("fwd", encdec_call_kind(q, k, causal))
+        if key not in wtkept:
+            wtkept[key] = (q.clone(), k.clone(), v.clone(), causal)
+        return real_lse(q, k, v, causal)
+
+    def w_bwd_spy(q, k, v, o, do, lse, causal=True):
+        wseen["bwd"] += 1
+        key = ("bwd", encdec_call_kind(q, k, causal))
+        if key not in wtkept:
+            wtkept[key] = (*(x.clone() for x in (q, k, v, o, do, lse)), causal)
+        return real_fbwd(q, k, v, o, do, lse, causal)
+
+    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)  # evicts the L2 (time_ms)
+    fa.flash_attention_lse, fa.flash_attention_bwd = w_lse_spy, w_bwd_spy
+    try:
+        wcaptured = capture_calls(wtsess)
+    finally:
+        fa.flash_attention_lse, fa.flash_attention_bwd = real_lse, real_fbwd
+    if wseen != {"fwd": 2 * WHISPER_FWD_CALLS_PER_STEP, "bwd": 2 * WHISPER_BWD_CALLS_PER_STEP} \
+            or len(wtkept) != 6:
+        raise SystemExit(f"two whisper steps made {wseen} attention calls of kinds "
+                         f"{sorted(wtkept)}")
+    wshapes = check_and_time("whisper_train", wcaptured, wtsess.state.table)
+    del wcaptured
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the counted steps, each window's stream time (on the prefetch thread)
+    # and its frame draw timed apart
+    stream_ms, frame_ms = [], []
+    real_resolve, real_draw = session_mod.resolve_stream, streams_mod.draw_frames
+
+    def timed_resolve(*a, **kw):
+        inner = real_resolve(*a, **kw)
+
+        def windows():
+            while True:
+                t0_ = time.perf_counter()
+                window = next(inner)
+                stream_ms.append((time.perf_counter() - t0_) * 1e3)
+                yield window
+        return windows()
+
+    def timed_draw(*a, **kw):
+        t0_ = time.perf_counter()
+        out = real_draw(*a, **kw)
+        frame_ms.append((time.perf_counter() - t0_) * 1e3)
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    session_mod.resolve_stream, streams_mod.draw_frames = timed_resolve, timed_draw
+    try:
+        t0 = time.perf_counter()
+        wtrep = wtsess.train(WHISPER_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        wwall = time.perf_counter() - t0
+    finally:
+        session_mod.resolve_stream, streams_mod.draw_frames = real_resolve, real_draw
+    whisper_train_launches = counts()
+    whisper_train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the windows drawn so far (a closed run's prefetch thread may still be
+    # drawing one more)
+    stream_ms, frame_ms = list(stream_ms), list(frame_ms)
+    s = wtrep.summary
+    wsamples_per_s = WHISPER_TRAIN_BATCH * WHISPER_TRAIN_STEPS / wwall
+    windows_ = min(len(stream_ms), len(frame_ms))
+    emit("whisper_train", arch=WHISPER_ARCH, mode="nestpipe", global_batch=WHISPER_TRAIN_BATCH,
+         seq_len=WHISPER_TRAIN_SEQ, frames=wenc.n_frames, n_micro=N_MICRO,
+         steps=WHISPER_TRAIN_STEPS, lr=LM_TRAIN_LR, bucket_slack=SLACK,
+         reduced="none: every width, 6 + 6 layers, Whisper's batch of 256 segments",
+         first_loss=wfirst_loss, losses=wtrep.stats.losses, overflow_max=s["overflow_max"],
+         samples_per_s=wsamples_per_s,
+         decoder_tokens_per_s=wsamples_per_s * WHISPER_TRAIN_SEQ,
+         frames_per_s=wsamples_per_s * wenc.n_frames,
+         wall_s=wwall, step_ms=[x * 1e3 for x in wtrep.stats.step_times],
+         step_p50_ms=s["p50_step_s"] * 1e3, step_p99_ms=s["p99_step_s"] * 1e3,
+         mean_input_wait_ms=s["mean_input_wait_s"] * 1e3,
+         input_wait_ms=[x * 1e3 for x in wtrep.stats.input_wait_times],
+         stage_host_ms={k: s[k] for k in ("plan_ms", "retrieve_ms", "commit_ms")},
+         stream_window_ms=stream_ms, frame_draw_ms=frame_ms,
+         stream_rest_ms=[a - b for a, b in zip(stream_ms[:windows_], frame_ms[:windows_])],
+         stream_note="the stream's host ms a window on the prefetch thread (its frame draw "
+                     "and the rest: tokens, labels), every window drawn during the run",
+         launches=whisper_train_launches, max_memory_allocated_gb=whisper_train_peak_gb,
+         device_memory_gb=torch.cuda.get_device_properties(0).total_memory / 1e9)
+    if not all(np.isfinite(wtrep.stats.losses)) \
+            or len(wtrep.stats.losses) != WHISPER_TRAIN_STEPS:
+        raise SystemExit(f"whisper losses are not {WHISPER_TRAIN_STEPS} finite values")
+    if not all(x < wfirst_loss for x in wtrep.stats.losses):
+        raise SystemExit(f"the whisper loss did not fall from {wfirst_loss}: "
+                         f"{wtrep.stats.losses}")
+    if s["overflow_max"] != 0:
+        raise SystemExit(f"whisper routing overflowed: {s['overflow_max']}")
+    if whisper_train_peak_gb >= 80:
+        raise SystemExit(f"whisper training peaked at {whisper_train_peak_gb} GB")
+    whisper_train_want = {k: 0 for k in KERNELS}
+    whisper_train_want.update(
+        embedding_gather=(1 + 3 * N_MICRO) * WHISPER_TRAIN_STEPS,
+        segment_rowsum=(N_MICRO + 1) * WHISPER_TRAIN_STEPS,
+        buffer_sync=WHISPER_TRAIN_STEPS - 1, embedding_scatter=WHISPER_TRAIN_STEPS,
+        flash_attention_wgmma=WHISPER_FWD_CALLS_PER_STEP * WHISPER_TRAIN_STEPS,
+        flash_attention_bwd_wgmma=WHISPER_BWD_CALLS_PER_STEP * WHISPER_TRAIN_STEPS)
+    if whisper_train_launches != whisper_train_want:
+        raise SystemExit(f"whisper training launches {whisper_train_launches} != "
+                         f"{whisper_train_want}")
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            wtsess.train(2)
+            torch.cuda.synchronize()
+            span = time.perf_counter() - t0
+        emit_profile(prof, "whisper_train_profile", span, steps=2)
+        del prof
+    del wtsess, wtwl, wtrep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def encdec_attention_rows(path, kept, flush):
+        """The captured training calls of each kind (the first forward with
+        its lse and the first backward: encoder, decoder, cross), on the
+        card alone now: the forward and its lse checked at full shape
+        against the plain versions, the backward within the bf16 bound (and
+        the general backward kernel within the f32 one), each the same bits
+        twice; the wgmma forward (with its lse) and backward timed beside the
+        plain versions, SDPA (forward, and ``torch.autograd.grad`` through
+        it; the yardstick, never called by the port) and their bf16 bounds."""
+        rows = {}
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        for kind in ("encoder", "decoder", "cross"):
+            q, k, v, causal = kept[("fwd", kind)]
+            if fa.lse_variant(q, k, v) != "wgmma":
+                raise SystemExit(f"{path}: the {kind} forward is not the wgmma kernel's")
+            check_flash(f"{path} {kind} forward", q, k, v, causal, chunk=8)
+            check_lse(f"{path} {kind} forward", q, k, v, causal)
+            ops, nbytes = flash_work(q, k, causal)
+            nbytes += 4 * q.shape[0] * q.shape[1] * q.shape[2]  # the lse
+            by_ops, by_bytes = ops / bf16_flops(name) * 1e3, nbytes / peak * 1e3
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            row = {"kernel": "flash_attention_wgmma", "call": f"{kind} layer 0 forward "
+                   "(with its lse)", "shape": list(q.shape), "kv_shape": list(k.shape),
+                   "kv_heads": k.shape[2], "causal": causal,
+                   "dtype": str(q.dtype).removeprefix("torch."), "operations": ops,
+                   "bytes": nbytes,
+                   "ms": time_ms(torch, lambda: fa.flash_attention_lse(q, k, v, causal), flush),
+                   "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal),
+                                       flush),
+                   "library_ms": time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal),
+                                         flush),
+                   "library_call": "scaled_dot_product_attention on (B, H, T, hd) views",
+                   "bound_ms": max(by_ops, by_bytes),
+                   "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+            row["achieved_tflops"] = ops / row["ms"] / 1e9
+            rows[("fwd", kind)] = row
+            emit("kernel_shape", path=path, **row)
+            del qt, kt, vt
+
+            q, k, v, o, do, lse, causal = kept[("bwd", kind)]
+            if fa.bwd_variant(q, k, v) != "wgmma":
+                raise SystemExit(f"{path}: the {kind} backward is not the wgmma kernel's")
+            errs = check_flash_bwd(f"{path} {kind} backward", q, k, v, causal, chunk=8,
+                                   given=(o, do, lse))
+            ops, nbytes = flash_bwd_work(q, k, causal)
+            by_ops, by_bytes = ops / bf16_flops(name) * 1e3, nbytes / peak * 1e3
+            leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+            lib_out = sdpa(*leaves, is_causal=causal)
+            do_t = do.transpose(1, 2)
+            row = {"kernel": "flash_attention_bwd_wgmma", "call": f"{kind} layer 5 backward",
+                   "shape": list(q.shape), "kv_shape": list(k.shape), "kv_heads": k.shape[2],
+                   "causal": causal, "dtype": str(q.dtype).removeprefix("torch."),
+                   "operations": ops, "bytes": nbytes,
+                   "ms": time_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, do, lse,
+                                                                       causal), flush),
+                   "plain_ms": time_ms(torch, lambda: ref.flash_attention_bwd_ref(
+                       q, k, v, o, do, lse, causal), flush),
+                   "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+                       lib_out, leaves, do_t, retain_graph=True), flush),
+                   "library_call": "torch.autograd.grad through scaled_dot_product_attention "
+                                   "on (B, H, T, hd) views (its backward alone)",
+                   "max_abs_err": max(errs["wgmma"].values()),
+                   "bound_ms": max(by_ops, by_bytes),
+                   "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+            row["achieved_tflops"] = ops / row["ms"] / 1e9
+            rows[("bwd", kind)] = row
+            emit("kernel_shape", path=path, **row)
+            del leaves, lib_out, do_t
+        return rows
+
+    wattn = encdec_attention_rows("whisper_train", wtkept, flush)
+    del wtkept, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("whisper_train_phase", seconds=time.perf_counter() - t_phase)
+
+    # -- 13m. encoder-decoder consistency -----------------------------------------
+    # whisper-base-reduced nestpipe = serial = the reference, async diverging;
+    # whisper-base at every width, bf16, 2 + 2 layers and all 1,500 frames (2
+    # segments of 32 tokens, N = 2) on the card and on the CPU from one state
+    t_phase = time.perf_counter()
+    whisper_runs = {"adam_eps_1e-6": reduced_gaps(adam_eps=1e-6, arch=WHISPER_ARCH),
+                    "default_step_sizes": reduced_gaps(arch=WHISPER_ARCH)}
+    wfull = get_arch(WHISPER_ARCH).config
+    w2cfg = dataclasses.replace(wfull, name="whisper-base-2-layers", n_layers=2,
+                                encoder=dataclasses.replace(wfull.encoder, n_layers=2))
+    w2arch = ArchSpec(w2cfg.name, "encdec", w2cfg, w2cfg)
+    w2kw = dict(npcfg=NestPipeConfig(fwp_microbatches=2), global_batch=2, seq_len=32,
+                t_chunk=64)
+    w2gpu = Session.from_workload(assemble_workload(w2arch, w2cfg, device=dev, **w2kw), seed=3)
+    w2cpu = Session.from_workload(assemble_workload(w2arch, w2cfg, device="cpu", **w2kw),
+                                  seed=3)
+    w2cpu.state = clone_state(w2gpu.state, "cpu")
+    reset_counts()
+    w2got = w2gpu.train(3)
+    w2_launches = {k: v for k, v in counts().items() if v}
+    t0 = time.perf_counter()
+    w2want = w2cpu.train(3)
+    w2cpu_s = time.perf_counter() - t0
+    w2_gap = [abs(a - b) / abs(b) for a, b in zip(w2got.stats.losses, w2want.stats.losses)]
+    emit("whisper_consistency", arch=f"{WHISPER_ARCH} (reduced)", steps=CONSISTENCY_STEPS,
+         **whisper_runs, two_layers_full_width={
+             "config": "2 + 2 layers at every width, 1,500 frames, f32 params, bf16 compute, "
+                       "2 x 32 tokens, N = 2",
+             "losses_card": w2got.stats.losses, "losses_cpu": w2want.stats.losses,
+             "relative_gap": w2_gap, "bound": LM_BF16_LOSS_RTOL, "launches": w2_launches,
+             "cpu_seconds": w2cpu_s},
+         seconds=time.perf_counter() - t_phase,
+         bounds="rows, dense and accum within 1e-5 at AdamW eps 1e-6 and at the default "
+                "eps; async more than 1e-6 from the reference; the 2 + 2-layer losses within "
+                f"{LM_BF16_LOSS_RTOL} of the CPU's")
+    for label, run in whisper_runs.items():
+        if not run["reference_same_bits_twice"]:
+            raise SystemExit(f"the whisper reference gave other bits on a second run ({label})")
+        wgaps = run["max_diff_to_reference"]
+        for key in ("nestpipe", "serial", "nestpipe_vs_serial"):
+            if wgaps[key]["rows_dense"] > 1e-5 or wgaps[key]["accum_abs"] > 1e-5:
+                raise SystemExit(f"whisper {key} differs from the reference ({label}): {wgaps}")
+        if wgaps["async"]["rows_dense"] <= 1e-6:
+            raise SystemExit(f"whisper async did not diverge ({label}): {wgaps}")
+    # 6 attention calls a micro-batch (2 encoder, 2 decoder, 2 cross) x 2
+    # micro-batches x 3 steps, each forward twice (remat)
+    if w2_launches.get("flash_attention_wgmma", 0) != 6 * 2 * 2 * 3 \
+            or w2_launches.get("flash_attention_bwd_wgmma", 0) != 6 * 2 * 3 \
+            or any(w2_launches.get(k, 0) for k in (
+                "flash_attention_simple", "flash_attention_tf32x3",
+                "flash_attention_bwd_simple", "flash_attention_bwd_tf32x3")):
+        raise SystemExit(f"the 2 + 2-layer whisper launched {w2_launches}")
+    if not all(np.isfinite(w2got.stats.losses)) or max(w2_gap) > LM_BF16_LOSS_RTOL:
+        raise SystemExit(f"the 2 + 2-layer whisper losses on the card are {w2_gap} from the "
+                         "CPU's")
+    del w2gpu, w2cpu, w2got, w2want
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("whisper_consistency_phase", seconds=time.perf_counter() - t_phase)
+
     # -- 14. kernels line and the result -----------------------------------
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
@@ -5129,7 +5649,9 @@ def main() -> int:
                    "moe_ckpt_resume_train": moe_ckpt_launches[kname],
                    "mamba_serve": mamba_serve_launches[kname],
                    "mamba_train": mamba_train_launches[kname],
-                   "jamba_serve": jamba_serve_launches[kname]}
+                   "jamba_serve": jamba_serve_launches[kname],
+                   "whisper_serve": whisper_serve_launches[kname],
+                   "whisper_train": whisper_train_launches[kname]}
         for path in RUNS_ON[kname]:
             if by_path[path] == 0:
                 raise SystemExit(f"{kname} was not launched on the {path} path")
@@ -5166,6 +5688,18 @@ def main() -> int:
                     "shape", "ms", "simple_ms", "plain_ms", "library_ms", "bound_ms",
                     "achieved_tflops")},
                 "calls_per_jamba_serve": jamba_serve_launches[kname],
+                # whisper's hd-64 calls: the prefill's layer 0 encoder (no mask,
+                # T 1,500), decoder (causal) and cross (the prompt against the
+                # frames), and training's, each with its lse
+                "whisper_serve_calls": [{k: row_[k] for k in (
+                    "call", "shape", "kv_shape", "causal", "ms", "simple_ms", "plain_ms",
+                    "library_ms", "bound_ms", "achieved_tflops")} for row_ in wfrows],
+                "calls_per_whisper_serve": whisper_serve_launches[kname],
+                "whisper_train_calls": [{k: wattn[("fwd", kind)][k] for k in (
+                    "call", "shape", "kv_shape", "causal", "ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "achieved_tflops")}
+                    for kind in ("encoder", "decoder", "cross")],
+                "calls_per_whisper_train_step": WHISPER_FWD_CALLS_PER_STEP,
             }
         elif kname == "flash_attention_bwd_wgmma":  # LM training's backward
             row = lm_attn[kname]
@@ -5188,6 +5722,11 @@ def main() -> int:
                     "shape", "ms", "ms_turns", "plain_ms", "library_ms", "bound_ms",
                     "bound_by", "achieved_tflops", "x_faster_than_simple")},
                 "calls_per_moe_train_step": MOE_BWD_CALLS_PER_STEP,
+                "whisper_train_calls": [{k: wattn[("bwd", kind)][k] for k in (
+                    "call", "shape", "kv_shape", "causal", "ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "achieved_tflops", "max_abs_err")}
+                    for kind in ("encoder", "decoder", "cross")],
+                "calls_per_whisper_train_step": WHISPER_BWD_CALLS_PER_STEP,
             }
         elif kname == "flash_attention_bwd_simple":  # no main path since the wgmma backward
             row, frow = lm_attn[kname], fuxi_attn[kname]
@@ -5259,14 +5798,15 @@ def main() -> int:
                     "calls": [x["call"] for x in calls[kname]]}
                    for path, calls in (("hstu_train", hshapes), ("fuxi_train", fshapes),
                                        ("lm_train", tshapes), ("moe_train", mtshapes),
-                                       ("mamba_train", sshapes))},
+                                       ("mamba_train", sshapes), ("whisper_train", wshapes))},
             }
         if kname == "embedding_gather":
             times = ("ms", "plain_ms", "library_ms", "bound_ms")
             entry["serve_window"] = {k: sum(x[k] for x in serve_shapes) for k in times}
             # one serve of each LM path, at its own shapes
             for path, rows_ in (("lm_serve", lm_gathers), ("mamba_serve", mamba_gathers),
-                                ("jamba_serve", jamba_gathers)):
+                                ("jamba_serve", jamba_gathers),
+                                ("whisper_serve", whisper_gathers)):
                 entry[path] = serve_gather_times(rows_, decode_steps)
         if kname in cached_shapes:  # the cached tier's calls (phase 6b)
             calls = cached_shapes[kname]
@@ -5279,7 +5819,8 @@ def main() -> int:
                                 (entry["fuxi_train_step"], fshapes[kname]),
                                 (entry["lm_train_step"], tshapes[kname]),
                                 (entry["moe_train_step"], mtshapes[kname]),
-                                (entry["mamba_train_step"], sshapes[kname])):
+                                (entry["mamba_train_step"], sshapes[kname]),
+                                (entry["whisper_train_step"], wshapes[kname])):
                 step["parts_ms"] = {k: sum(x["parts_ms"][k] for x in calls)
                                     for k in calls[0]["parts_ms"]}
         kernels.append(entry)

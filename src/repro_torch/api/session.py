@@ -14,9 +14,13 @@
     print(lm.serve(batch=8, prompt_len=2048, gen=32).summary)
     lm3 = Session.from_arch("stablelm-3b", global_batch=8, seq_len=4096, lr=3e-5)
     print(lm3.train(4).summary)                        # then .serve() serves it
+    wb = Session.from_arch("whisper-base", global_batch=256, seq_len=448,
+                           bucket_slack=1.5, lr=3e-5)  # an encoder-decoder
+    print(wb.train(4).summary, wb.serve(batch=16, prompt_len=416, gen=32).summary)
 
-Training runs any ported recsys backbone (DLRM, HSTU, FuXi) or dense LM
-and checkpoints it (``ckpt_dir``, ``ckpt_every``; :meth:`Session.save`,
+Training runs any ported recsys backbone (DLRM, HSTU, FuXi), dense LM or
+encoder-decoder (whose windows carry stub audio frames) and checkpoints
+it (``ckpt_dir``, ``ckpt_every``; :meth:`Session.save`,
 :meth:`Session.restore`, :meth:`Session.restore_if_available`,
 ``train(resume=True)``), under the session's fault policy: a preemption
 guard (``preemption_signals``) the driver polls at step boundaries, saving
@@ -282,7 +286,9 @@ class Session:
 
     @property
     def is_lm(self) -> bool:
-        return self.workload.arch.kind == "lm"
+        """An LM or an encoder-decoder: trained on token windows, served by
+        prefill and KV-cache decode."""
+        return self.workload.arch.kind in ("lm", "encdec")
 
     @property
     def state(self) -> TrainState:
@@ -517,11 +523,13 @@ class Session:
         engine (the LM serving path of ``repro.api.session.Session.serve``).
 
         Draws ``batch`` prompts of ``prompt_len`` tokens from
-        ``np.random.default_rng(seed)``, scrambles them into master rows,
-        looks them up from the master, runs the prefill into a cache of
-        ``prompt_len + gen`` positions and takes the argmax, then ``gen - 1``
-        decode steps, each looking up the scrambled last token. Recsys archs
-        serve through :meth:`serve_embeddings`."""
+        ``np.random.default_rng(seed)`` (an encoder-decoder's stub frames
+        next, from the same rng, as normals times 0.02 in f32, on the device
+        before the timer starts, as in JAX), scrambles them into master
+        rows, looks them up from the master, runs the prefill into a cache
+        of ``prompt_len + gen`` positions and takes the argmax, then ``gen -
+        1`` decode steps, each looking up the scrambled last token. Recsys
+        archs serve through :meth:`serve_embeddings`."""
         if not self.is_lm:
             raise ValueError(
                 f"{self.workload.arch.name} is a recsys arch: no KV-cache "
@@ -536,10 +544,16 @@ class Session:
         rng = np.random.default_rng(seed)
         toks = rng.integers(0, cfg.vocab_size, size=(batch, prompt_len))
         keys = spec.scramble(torch.as_tensor(toks.astype(np.int32), device=self.device))
+        extras = {}
+        if wl.arch.kind == "encdec":
+            shape = wl.batch_shapes["frames"][0][2:]
+            extras["frames"] = torch.as_tensor(
+                rng.normal(size=(batch, *shape)).astype(np.float32) * 0.02,
+                device=self.device)
 
         t0 = time.perf_counter()
         emb, _ = engine.lookup_from_master(table, keys)
-        logits, cache = bundle.prefill(params, emb, cache_len=max_len)
+        logits, cache = bundle.prefill(params, emb, cache_len=max_len, **extras)
         next_tok = logits.argmax(-1).to(torch.int32)
         generated = [next_tok.cpu().numpy()]  # waits for the device
         t_prefill = time.perf_counter() - t0

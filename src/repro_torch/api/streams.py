@@ -7,16 +7,28 @@ one place that maps a workload to a synthetic input iterator.
   default zipf exponent 1.1 (not ``cfg.zipf_a``), as JAX draws them;
 - dense LMs: ``SyntheticLMStream`` over the vocabulary at the workload's
   sequence length, with its next-token ``labels``: the same batches as
-  JAX's stream for a seed.
+  JAX's stream for a seed; an encoder-decoder's windows carry ``frames``
+  too (``draw_frames``, JAX's draw bit for bit).
 
 Streams are deterministic in ``(seed, batch index)``; ``start_step``
 fast-forwards to any batch index exactly.
 """
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Iterator, Tuple
+
+import numpy as np
 
 from ..data.synthetic import SyntheticLMStream, SyntheticRecsysStream
+
+
+def draw_frames(seed: int, step: int, shape: Tuple[int, ...]) -> np.ndarray:
+    """An encoder-decoder window's stub frames: normals times 0.02 in f32
+    from ``np.random.default_rng((seed, step, 7))``, as JAX's stream draws
+    them (one thread: ziggurat normals split across threads would give
+    other bits)."""
+    rng = np.random.default_rng((seed, step, 7))
+    return rng.normal(size=shape).astype(np.float32) * 0.02
 
 
 def resolve_stream(wl, seed: int = 0, *, start_step: int = 0) -> Iterator[dict]:
@@ -27,10 +39,14 @@ def resolve_stream(wl, seed: int = 0, *, start_step: int = 0) -> Iterator[dict]:
         lm = SyntheticLMStream(cfg.vocab_size, wl.spec, wl.global_batch,
                                wl.batch_shapes["keys"][0][2], seed=seed)
 
+        frames = wl.batch_shapes.get("frames")  # ((N, mb, n_frames, enc_d), f32)
+
         def make(step):
             b = lm.make_batch(step)
-            return {"keys": b["keys"], "raw_keys": b["raw_tokens"],
-                    "labels": b["labels"]}
+            out = {"keys": b["keys"], "raw_keys": b["raw_tokens"], "labels": b["labels"]}
+            if frames is not None:
+                out["frames"] = draw_frames(seed, step, (wl.global_batch, *frames[0][2:]))
+            return out
     elif cfg.backbone == "dlrm":
         stream = SyntheticRecsysStream(cfg, wl.spec, wl.global_batch, seed=seed,
                                        zipf_a=cfg.zipf_a)

@@ -1,7 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> full/reduced configs. Ported:
-the recsys archs (DLRM, HSTU, FuXi; training) and the LM archs whose
+the recsys archs (DLRM, HSTU, FuXi; training), the LM archs whose
 (attn | mamba, mlp | moe | none) stacks the port's layers cover
-(``kind="lm"``, training and serving)."""
+(``kind="lm"``, training and serving) and the encoder-decoder whisper-base
+(``kind="encdec"``, training and serving)."""
 from __future__ import annotations
 
 import importlib
@@ -20,6 +21,7 @@ _LM_MODULES = {
     "grok-1-314b": "grok_1_314b",
     "mamba2-370m": "mamba2_370m",
     "jamba-v0.1-52b": "jamba_v01_52b",
+    "whisper-base": "whisper_base",
 }
 
 _RECSYS = {
@@ -39,7 +41,7 @@ RECSYS_ARCHS: Tuple[str, ...] = tuple(_RECSYS)
 @dataclass(frozen=True)
 class ArchSpec:
     name: str
-    kind: str  # "lm" | "recsys"
+    kind: str  # "lm" | "encdec" | "recsys"
     config: Union[ModelConfig, RecsysModelConfig]
     reduced: Union[ModelConfig, RecsysModelConfig]
 
@@ -47,7 +49,8 @@ class ArchSpec:
 def get_arch(name: str) -> ArchSpec:
     if name in _LM_MODULES:
         mod = importlib.import_module(f".{_LM_MODULES[name]}", __package__)
-        return ArchSpec(name, "lm", mod.CONFIG, mod.REDUCED)
+        kind = "encdec" if mod.CONFIG.encoder is not None else "lm"
+        return ArchSpec(name, kind, mod.CONFIG, mod.REDUCED)
     if name in _RECSYS:
         full, red = _RECSYS[name]
         return ArchSpec(name, "recsys", getattr(recsys_archs, full),

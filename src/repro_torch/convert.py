@@ -76,8 +76,9 @@ def dense_params_from_jax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tenso
     """The dense pytree of a ported backbone as a state dict, told apart by
     its keys: a dense LM's ``blocks`` (``lm_params_from_jax``), DLRM's
     ``bottom`` and ``top``, HSTU's layers (``w_uvqk``) or FuXi's
-    (``w_fi0``)."""
-    if "blocks" in params_np:
+    (``w_fi0``); an encoder-decoder's ``encoder`` and ``decoder`` go through
+    ``lm_params_from_jax`` too."""
+    if "blocks" in params_np or "encoder" in params_np:
         return lm_params_from_jax(params_np)
     if "layers" not in params_np:
         return dlrm_params_from_jax(params_np)
@@ -103,7 +104,10 @@ def lm_params_from_jax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX's LM pytree ``{"blocks": [block per pattern position, leaves
     stacked (n_rep, ...)], "final_norm", "head_w"}`` -> the port's params
     (``blocks.{p}.attn.wq``, ..., ``final_norm.scale``, ``head_w``), one to
-    one, stacked axes and dtypes kept."""
+    one, stacked axes and dtypes kept. Any other tree flattens by its keys
+    the same way: the encoder-decoder's ``{"encoder": {"norm1", "attn",
+    ...}, "decoder": {...}, "enc_norm", "final_norm", "head_w"}`` becomes
+    ``encoder.attn.wq`` (n_layers, ...), ..., ``enc_norm.scale``."""
     def flat(tree, prefix):
         if isinstance(tree, Mapping):
             for k, v in tree.items():
@@ -112,12 +116,12 @@ def lm_params_from_jax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             yield prefix, tree
 
     out: Dict[str, torch.Tensor] = {}
-    for pos, block in enumerate(params_np["blocks"]):
-        for name, leaf in flat(block, f"blocks.{pos}"):
-            out[name] = _tensor_keep_dtype(leaf)
-    for name, leaf in flat(params_np["final_norm"], "final_norm"):
-        out[name] = _tensor_keep_dtype(leaf)
-    out["head_w"] = _tensor_keep_dtype(params_np["head_w"])
+    for key, tree in params_np.items():
+        subtrees = ([(f"blocks.{pos}", block) for pos, block in enumerate(tree)]
+                    if key == "blocks" else [(key, tree)])
+        for prefix, sub in subtrees:
+            for name, leaf in flat(sub, prefix):
+                out[name] = _tensor_keep_dtype(leaf)
     return out
 
 

@@ -1,8 +1,9 @@
 """Workload resolution: (arch x shape x mode x device) -> the mega-table
 spec, the engine, the batch shapes, the step functions and the initial
 train state. A recsys dense model is picked by the config's backbone
-(``dlrm``, ``hstu`` or ``fuxi``); a dense LM (``kind == "lm"``) resolves to
-its bundle (training loss, prefill, decode) over a single-vocab table."""
+(``dlrm``, ``hstu`` or ``fuxi``); an LM (``kind == "lm"``) or an
+encoder-decoder (``kind == "encdec"``) resolves to its bundle (training
+loss, prefill, decode) over a single-vocab table."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -22,7 +23,7 @@ from ..core.embedding.table import MegaTableSpec
 from ..models.dlrm import DLRM, LossFn, make_dlrm_loss_fn, num_feature_slots
 from ..models.fuxi import FuXi, make_fuxi_loss_fn
 from ..models.hstu import HSTU, make_hstu_loss_fn
-from ..models.zoo import LMBundle, build_lm_bundle, train_batch_shapes
+from ..models.zoo import LMBundle, build_encdec_bundle, build_lm_bundle, train_batch_shapes
 from ..train import (
     OptimizerPair,
     StepFns,
@@ -161,14 +162,15 @@ def assemble_workload(
 
     A recsys config trains at ``global_batch`` (default
     ``RECSYS_GLOBAL_BATCH``; its sequence length is the config's). A dense
-    LM (``arch.kind == "lm"``) trains at ``global_batch`` x ``seq_len``
-    tokens, with JAX's rule for the shape: ``train_4k`` when neither is
-    given, else 32 for the one left out; its cross-entropy is chunked over
-    ``t_chunk`` positions. Serving takes any batch and prompt whatever the
-    training shape."""
+    LM (``arch.kind == "lm"``) or an encoder-decoder (``"encdec"``, its
+    window carrying the frames too) trains at ``global_batch`` x
+    ``seq_len`` tokens, with JAX's rule for the shape: ``train_4k`` when
+    neither is given, else 32 for the one left out; its cross-entropy is
+    chunked over ``t_chunk`` positions. Serving takes any batch and prompt
+    whatever the training shape."""
     device = torch.device(device)
     npcfg = npcfg or NestPipeConfig()
-    if arch.kind == "lm":
+    if arch.kind in ("lm", "encdec"):
         if global_batch is None and seq_len is None:
             global_batch, seq_len = LM_TRAIN_4K
         return _resolve_lm(arch, cfg, device=device, mode=mode, npcfg=npcfg,
@@ -198,18 +200,19 @@ def _n_micro(npcfg: NestPipeConfig, global_batch: int) -> int:
 def _resolve_lm(arch: ArchSpec, cfg: ModelConfig, *, device: torch.device, mode: str,
                 npcfg: NestPipeConfig, global_batch: int, seq_len: int,
                 t_chunk: int) -> Workload:
-    """JAX ``resolve`` for ``kind == "lm"`` on one device: the vocab as a
-    single-table spec, an engine at the config's compute dtype, and the
-    training window of ``global_batch`` sequences of ``seq_len`` tokens in
-    N micro-batches (N = 1 under the serve strategy, whose batch and prompt
-    the caller gives at ``Session.serve``)."""
+    """JAX ``resolve`` for ``kind == "lm"`` and ``"encdec"`` on one device:
+    the vocab as a single-table spec, an engine at the config's compute
+    dtype, and the training window of ``global_batch`` sequences of
+    ``seq_len`` tokens (and an encoder-decoder's frames) in N micro-batches
+    (N = 1 under the serve strategy, whose batch and prompt the caller
+    gives at ``Session.serve``)."""
     n_micro = _n_micro(npcfg, global_batch)
-    bundle = build_lm_bundle(cfg)
+    bundle = build_encdec_bundle(cfg) if arch.kind == "encdec" else build_lm_bundle(cfg)
     spec = make_mega_table_spec(None, vocab_size=cfg.vocab_size, dim=bundle.emb_dim,
                                 num_shards=1)
     engine = EmbeddingEngine(spec, npcfg, device=device,
                              compute_dtype=getattr(torch, cfg.compute_dtype))
     return Workload(arch=arch, cfg=cfg, mode=mode, npcfg=npcfg, spec=spec,
                     engine=engine, n_micro=n_micro,
-                    batch_shapes=train_batch_shapes(global_batch, seq_len, n_micro),
+                    batch_shapes=train_batch_shapes(global_batch, seq_len, n_micro, cfg),
                     device=device, bundle=bundle, t_chunk=t_chunk)

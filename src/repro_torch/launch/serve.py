@@ -6,11 +6,13 @@ against a lookup straight from the master table:
     python -m repro_torch.launch.serve --arch dlrm-ctr --head dlrm \
         --requests 4096 --max-batch 512
 
-Dense LM archs run a batched prefill and greedy KV-cache decode from a
-fresh seeded init:
+LM and encoder-decoder archs run a batched prefill and greedy KV-cache
+decode from a fresh seeded init (whisper-base on seeded stub frames):
 
     python -m repro_torch.launch.serve --arch stablelm-12b --batch 8 \
         --prompt-len 2048 --gen 32
+    python -m repro_torch.launch.serve --arch whisper-base --batch 16 \
+        --prompt-len 416 --gen 32
 
 Both run on the GPU (``--device cpu`` for the plain PyTorch path).
 """
@@ -51,7 +53,7 @@ def serve(argv=None):
                    choices=("embedding", "dlrm"))
     args = p.parse_args(argv)
 
-    if get_arch(args.arch).kind == "lm":
+    if get_arch(args.arch).kind in ("lm", "encdec"):
         sess = Session.from_arch(args.arch, reduced=args.reduced, seed=args.seed,
                                  device=args.device)
         report = sess.serve(batch=args.batch, prompt_len=args.prompt_len,

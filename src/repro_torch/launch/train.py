@@ -10,11 +10,14 @@
 runs on the GPU (``--device cpu`` for the plain PyTorch path, with
 ``--reduced`` for a CPU-sized model). ``--arch`` takes any ported registry
 arch (``dlrm-*``, ``hstu-industrial``, ``fuxi-kuairand``, whose full
-32.80 GB master fits one card, and the dense LMs, which train on
-``--global-batch`` sequences of ``--seq-len`` tokens):
+32.80 GB master fits one card, and the dense LMs and the encoder-decoder,
+which train on ``--global-batch`` sequences of ``--seq-len`` tokens,
+whisper-base's beside the stream's stub frames):
 
     python -m repro_torch.launch.train --arch stablelm-3b --global-batch 8 \
         --seq-len 4096 --steps 4 --lr 3e-5
+    python -m repro_torch.launch.train --arch whisper-base --global-batch 256 \
+        --seq-len 448 --bucket-slack 1.5 --steps 4 --lr 3e-5
     python -m repro_torch.launch.train --arch stablelm-3b --reduced \
         --device cpu --global-batch 8 --seq-len 16 --steps 4
 

@@ -1,6 +1,6 @@
 """Models: the DLRM dense head, the HSTU and FuXi backbones and their
-losses, and the dense LM (the training backbone, its chunked
-cross-entropy and loss; prefill + KV-cache decode)."""
+losses, the dense LM (the training backbone, its chunked cross-entropy
+and loss; prefill + KV-cache decode) and the encoder-decoder."""
 from .dlrm import (
     DLRM,
     dlrm_forward,
@@ -16,6 +16,15 @@ from .hstu import (
     make_hstu_loss_fn,
     sequence_infonce,
 )
+from .encdec import (
+    EncDecCache,
+    encdec_decode_step,
+    encdec_prefill,
+    init_encdec_params,
+    make_encdec_loss_fn,
+    run_decoder,
+    run_encoder,
+)
 from .layers import apply_norm, init_norm
 from .transformer import (
     LMCache,
@@ -27,7 +36,7 @@ from .transformer import (
     make_lm_loss_fn,
     vocab_parallel_xent,
 )
-from .zoo import LMBundle, build_lm_bundle, train_batch_shapes
+from .zoo import LMBundle, build_encdec_bundle, build_lm_bundle, train_batch_shapes
 
 __all__ = ["DLRM", "dlrm_forward", "make_dlrm_loss_fn", "num_feature_slots",
            "pool_tables", "FuXi", "fuxi_forward", "fuxi_layer",
@@ -35,4 +44,6 @@ __all__ = ["DLRM", "dlrm_forward", "make_dlrm_loss_fn", "num_feature_slots",
            "make_hstu_loss_fn", "sequence_infonce", "apply_norm", "init_norm",
            "LMCache", "init_lm_cache", "init_lm_params", "lm_backbone",
            "lm_decode_step", "lm_prefill", "make_lm_loss_fn", "vocab_parallel_xent",
-           "LMBundle", "build_lm_bundle", "train_batch_shapes"]
+           "EncDecCache", "encdec_decode_step", "encdec_prefill", "init_encdec_params",
+           "make_encdec_loss_fn", "run_decoder", "run_encoder",
+           "LMBundle", "build_encdec_bundle", "build_lm_bundle", "train_batch_shapes"]

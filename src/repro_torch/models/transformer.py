@@ -47,7 +47,9 @@ def _check_ported(cfg: ModelConfig) -> None:
                 f"{cfg.name}: ({mixer}, {ffn}) layers are not ported; the port "
                 f"trains and serves (attn | mamba, mlp | moe | none) stacks")
     if cfg.encoder is not None or cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: encoders and frontends are not ported")
+        raise NotImplementedError(
+            f"{cfg.name}: encoders and frontends are not ported in the decoder-only "
+            "stack (an encoder-decoder goes through models.encdec)")
 
 
 def init_lm_params(cfg: ModelConfig, *, device, generator: torch.Generator
@@ -99,14 +101,15 @@ def _cast_tree(params: Mapping[str, torch.Tensor], dtype: torch.dtype
             for k, v in params.items()}
 
 
-def _layers(params: Mapping[str, torch.Tensor], pos: int
+def _layers(params: Mapping[str, torch.Tensor], prefix: str
             ) -> List[Dict[str, Dict[str, torch.Tensor]]]:
     """Per repeat, the nested ``{"norm1": {...}, "attn": {...}, ...}`` of the
-    layer at pattern position ``pos``: views of the stacked leaves, taken
-    with one ``unbind`` a leaf (its gradient is one stack of the layers'
-    gradients, not a stacked-size gradient per layer)."""
+    stacked layer under ``prefix`` (``"blocks.{pos}."`` for a pattern
+    position; the encoder-decoder's ``"encoder."`` and ``"decoder."``):
+    views of the stacked leaves, taken with one ``unbind`` a leaf (its
+    gradient is one stack of the layers' gradients, not a stacked-size
+    gradient per layer)."""
     out: List[Dict[str, Dict[str, torch.Tensor]]] = []
-    prefix = f"blocks.{pos}."
     for name, v in params.items():
         if name.startswith(prefix):
             part, leaf = name[len(prefix):].split(".", 1)
@@ -150,9 +153,10 @@ def _block(lp: Mapping[str, Mapping[str, torch.Tensor]], cfg: ModelConfig, mixer
     return x, state, aux
 
 
-def _final_norm(params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def _final_norm(params: Mapping[str, torch.Tensor], name: str = "final_norm"
+                ) -> Dict[str, torch.Tensor]:
     return {k.split(".", 1)[1]: v for k, v in params.items()
-            if k.startswith("final_norm.")}
+            if k.startswith(f"{name}.")}
 
 
 # ---------------------------------------------------------------------------
@@ -176,7 +180,7 @@ def lm_backbone(params: Mapping[str, torch.Tensor], cfg: ModelConfig, emb: torch
     positions = torch.arange(t, device=x.device).expand(b, t)
     pattern, n_rep = _pattern_groups(cfg)
     p = _cast_tree(params, cdt)
-    layers = [_layers(p, pos) for pos in range(len(pattern))]
+    layers = [_layers(p, f"blocks.{pos}.") for pos in range(len(pattern))]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for rep in range(n_rep):
         rep_aux = None  # JAX's zero start: 0 + a is a
@@ -304,7 +308,7 @@ def lm_prefill(params: Mapping[str, torch.Tensor], cfg: ModelConfig, emb: torch.
     positions = torch.arange(t, device=emb.device).expand(b, t)
     pattern, n_rep = _pattern_groups(cfg)
     p = _cast_tree(params, cdt)
-    layers = [_layers(p, pos) for pos in range(len(pattern))]
+    layers = [_layers(p, f"blocks.{pos}.") for pos in range(len(pattern))]
     for rep in range(n_rep):
         for pos, (mixer, ffn) in enumerate(pattern):
             x, state, _ = _block(layers[pos][rep], cfg, mixer, ffn, x, positions)
@@ -332,7 +336,7 @@ def lm_decode_step(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
     x = emb.to(cdt)
     pattern, n_rep = _pattern_groups(cfg)
     p = _cast_tree(params, cdt)
-    layers = [_layers(p, pos) for pos in range(len(pattern))]
+    layers = [_layers(p, f"blocks.{pos}.") for pos in range(len(pattern))]
     for rep in range(n_rep):
         for pos, (mixer, ffn) in enumerate(pattern):
             lp = layers[pos][rep]

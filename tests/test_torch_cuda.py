@@ -11,7 +11,9 @@ preemption by a real signal, resumed to the uninterrupted run's bits), and
 the MoE (its layer on the card against the CPU and the same bits twice; a
 bf16 MoE LM's checkpoint resumed bit for bit), and Mamba2 (the chunked SSD
 against the f64 recurrence, a prefill and a decode step against the longer
-prefill, a finite step at the published chunk).
+prefill, a finite step at the published chunk), and the encoder-decoder
+(the wgmma kernels at hd 64 without a mask, Tq != Tk; a bf16 prefill and a
+decode step against the longer prefill).
 
 Every test here needs an NVIDIA GPU, carries the ``cuda`` marker and skips
 without one (the kernels have no CPU mode). The file imports no jax, so it
@@ -1587,3 +1589,83 @@ def test_mamba_step_at_chunk_256_has_a_finite_gradient_on_the_card(cuda_device):
     assert np.isfinite(rep.stats.losses).all()
     assert all(bool(torch.isfinite(v).all()) for v in rep.state.dense.values())
     assert int(rep.state.step) == 2
+
+
+@pytest.mark.parametrize("tq,tk", [(100, 300), (300, 100)])
+def test_flash_attention_wgmma_hd64_non_causal_ragged_forward_and_backward(cuda_device,
+                                                                         tq, tk):
+    """The encoder-decoder's attention at a small size: bf16 at hd 64 without
+    a mask, Tq != Tk, neither a multiple of 128 (the cross attention's 448
+    queries against 1,500 keys, and the reverse). The wgmma forward (with
+    and without its lse) within ``ref.flash_attention_bound`` of the plain
+    version and its lse within ``ref.flash_attention_lse_bound``; the wgmma
+    backward within the bf16 form of ``ref.flash_attention_bwd_bound``
+    (its last key tile partly out of range when Tk is 300); one launch a
+    call of each, and the same bits twice."""
+    q, k, v = _flash_case(cuda_device, 2, tq, tk, 8, 8, 64, torch.bfloat16, seed=tq + 7)
+    assert fa.variant(q, k, v) == fa.lse_variant(q, k, v) == fa.bwd_variant(q, k, v) == "wgmma"
+    before = (fa.launches_wgmma, fa.launches_bwd_wgmma, fa.launches_simple,
+              fa.launches_bwd_simple)
+    out = fa.flash_attention(q, k, v, False)
+    out_lse, lse = fa.flash_attention_lse(q, k, v, False)
+    again, lse_again = fa.flash_attention_lse(q, k, v, False)
+    do = torch.randn(out.shape, device=cuda_device,
+                     generator=torch.Generator(cuda_device).manual_seed(tk)).to(torch.bfloat16)
+    got = fa.flash_attention_bwd(q, k, v, out_lse, do, lse, False)
+    got_again = fa.flash_attention_bwd(q, k, v, out_lse, do, lse, False)
+    torch.cuda.synchronize()
+    assert (fa.launches_wgmma, fa.launches_bwd_wgmma, fa.launches_simple,
+            fa.launches_bwd_simple) == (before[0] + 3, before[1] + 2, before[2], before[3])
+    assert torch.equal(out, out_lse) and torch.equal(out_lse, again)
+    assert torch.equal(lse, lse_again)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, got_again))
+    want = ref.flash_attention_ref(q, k, v, False)
+    err = (out.float() - want.float()).abs()
+    assert bool((err <= ref.flash_attention_bound(q, k, v, want, False)).all())
+    lse_want = ref.flash_attention_lse_ref(q, k, False)
+    assert bool(((lse - lse_want).abs()
+                 <= ref.flash_attention_lse_bound(q, k, lse_want, False)).all())
+    gwant = ref.flash_attention_bwd_ref(q, k, v, out_lse, do, lse, False)
+    bounds = ref.flash_attention_bwd_bound(q, k, v, out_lse, do, lse, gwant, False,
+                                           products="bf16")
+    for name, g_, w, bd in zip(("dq", "dk", "dv"), got, gwant, bounds):
+        assert g_.shape == w.shape and g_.dtype == torch.bfloat16, name
+        err = (g_.float() - w.float()).abs()
+        assert bool((err <= bd).all()), (name, float(err.max()))
+
+
+def test_encdec_prefill_plus_decode_equals_the_longer_prefill_on_the_card(cuda_device):
+    """A small bf16 encoder-decoder at whisper's head dim (2 + 2 layers,
+    d_model 128, 2 heads of 64, 100 frames): its prefill runs every
+    attention through the wgmma forward (2 encoder, 2 decoder self and 2
+    cross calls), and a prefill of 20 tokens and one decode step are
+    within 5e-2 of max |logit| of a prefill of 21 (the self and the memory
+    caches carried; both round to bf16 at every op, the decode step in
+    plain PyTorch: ~1e-2 on the CPU); the prefill within 5e-2 of the
+    CPU's."""
+    from repro_torch.models import encdec as TE
+
+    red = get_arch("whisper-base").reduced
+    cfg = dataclasses.replace(
+        red, d_model=128, d_ff=256, compute_dtype="bfloat16",
+        attention=dataclasses.replace(red.attention, n_heads=2, n_kv_heads=2, head_dim=64),
+        encoder=dataclasses.replace(red.encoder, n_frames=100))
+    g = torch.Generator().manual_seed(2)
+    params = TE.init_encdec_params(cfg, device="cpu", generator=g)
+    emb = torch.randn((2, 21, cfg.d_model), generator=g) * 0.5
+    frames = torch.randn((2, 100, cfg.d_model), generator=g) * 0.5
+    p_card = {k: v.to(cuda_device) for k, v in params.items()}
+    e_card, f_card = emb.to(cuda_device), frames.to(cuda_device)
+    with torch.inference_mode():
+        before = fa.launches_wgmma
+        short, cache = TE.encdec_prefill(p_card, cfg, e_card[:, :20], f_card, cache_len=21)
+        torch.cuda.synchronize()
+        assert fa.launches_wgmma == before + 6
+        assert cache.mem_k.shape == (2, 2, 100, 2, 64) and cache.mem_k.dtype == torch.bfloat16
+        step, cache = TE.encdec_decode_step(p_card, cfg, e_card[:, 20:], cache)
+        whole, _ = TE.encdec_prefill(p_card, cfg, e_card, f_card)
+        cpu, _ = TE.encdec_prefill(params, cfg, emb[:, :20], frames, cache_len=21)
+    scale = float(whole.abs().max())
+    assert torch.isfinite(step).all() and cache.length == 21
+    assert float((step - whole).abs().max()) <= 5e-2 * scale
+    assert float((short.cpu() - cpu).abs().max()) <= 5e-2 * float(cpu.abs().max())
