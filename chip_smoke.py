@@ -409,21 +409,50 @@ hand-written kernel on it against its plain PyTorch version:
    AdamW eps 1e-6 and the default; whisper-base at every width with 2 + 2
    layers, all 1,500 frames, bf16 (2 segments of 32 tokens, N = 2) on the
    card and on the CPU from one state, each loss within 3%;
+13n. full-width ``pixtral-12b`` serving (40 layers, d_model 5,120, 32
+   heads of 160 over 8, d_ff 14,336, vocab 131,072, bf16; a stub vision
+   frontend of 256 patches) through ``Session.from_arch("pixtral-12b")
+   .serve(batch=8, prompt_len=2048, gen=32)``: the prompts behind the
+   patches (a prefill of 2,304 positions, a cache of 2,336), 40 wgmma
+   forwards and 96 gathers a serve, nothing else; the warm-up serve's
+   first two lookups' gathers checked bit for bit and timed as 13's, the
+   same tokens twice, the prefill within 5e-2 of max |logit| of the plain
+   attention's, the prefill-plus-decode check of 13h behind the same
+   patches, the first and the last layer's calls checked and timed as
+   13's; prefill s, decode tokens/s, peak GB (``--profile``: the prefill
+   and 8 decode steps);
+13o. ``pixtral-12b`` trained at every width and 6 of its 40 layers (2.39 B
+   params) at 13b's cell (batch 8 x 4,096 positions: 256 zero patches from
+   the stream, then 3,840 text keys; N = 4, lr 3e-5): one warm-up step, two
+   captured steps (the embedding kernels' calls checked and timed; the
+   first forward and backward attention call kept), ``train(4)`` with
+   every launch counted (48 wgmma forwards with the lse and 24 general
+   backwards a step: hd 160 is not a wgmma backward head dim), finite
+   losses below the warm-up step's, peak under 80 GB (``--profile``: 2
+   more steps); the kept calls checked and timed as 13b's, the backward
+   through the general kernel alone; then ``pixtral-12b-reduced`` nestpipe
+   = serial = the reference within 1e-5, async diverging, at AdamW eps
+   1e-6 and the default, and a narrow bf16 VLM at hd 160 (2 layers, 2
+   heads over 1, d_model 320, 8 patches) on the card and on the CPU from
+   one state, each loss within 3%;
 14. a ``{"kernels": [...]}`` line (the tf32x3 and the general
    ``flash_attention`` forward and backward at FuXi's main-path shape,
    the general one also at the LM's; the wgmma forward's and the wgmma
    backward's LM-training calls; the data-path kernels' LM-training step;
-   the gather's serve of stablelm-12b, mamba2-370m and jamba each as its
-   96 calls, and apart as the prefill's three and one decode step's three; the
-   gather's and the scatter's cached-path calls of 6b as
+   the gather's serve of stablelm-12b, mamba2-370m, jamba, whisper-base
+   and pixtral-12b each as its 96 calls, and apart as the prefill's three
+   and one decode step's three; the gather's and the scatter's cached-path calls of 6b as
    ``dlrm_cached_train_calls``; launches by path, the host and cached
    tiers' training, every run of 6e and 6f, the cached tier's serving
    with and without ``pack``, 6g's resumed steps, 6h's four chaos runs and
    its preempted and resumed run among them, olmoe's serving, training and
    resumed run, mamba2-370m's serving and training, jamba's serving,
-   whisper-base's serving and training; the wgmma forward's and backward's
+   whisper-base's serving and training, pixtral-12b's serving and
+   training; the wgmma forward's and backward's
    olmoe calls at hd 128, the forward's jamba call, whisper's hd-64 calls
-   of the serve and of training, encoder, decoder and cross)
+   of the serve and of training, encoder, decoder and cross, pixtral's
+   hd-160 prefill and training calls; the general backward at pixtral's
+   training call, its main path, and at stablelm-3b's)
    and, last, the ``{"ok": true, ...}`` line.
 
 Every phase prints one JSON line. Nothing is caught: any failure exits
@@ -432,9 +461,9 @@ adds a host breakdown and a ``torch.profiler`` pass over 4 training steps
 and over the serving path, one over 4 more steps of the host and of the
 cached tier (read between a run's first stage after its ingest and its
 release), one over 2 HSTU steps, one over 2 FuXi steps, one over an LM
-prefill and 8 decode steps, and the same for olmoe, mamba2-370m and
-whisper-base with 2 of their training steps). The phases from 11a on print
-their seconds.
+prefill and 8 decode steps, and the same for olmoe, mamba2-370m,
+whisper-base and pixtral-12b with 2 of their training steps). The phases
+from 11a on print their seconds.
 """
 from __future__ import annotations
 
@@ -612,6 +641,19 @@ WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_STEPS = 256, 448, 4
 # wgmma backward's 18 x 4
 WHISPER_FWD_CALLS_PER_SERVE = 18
 WHISPER_FWD_CALLS_PER_STEP, WHISPER_BWD_CALLS_PER_STEP = 144, 72
+# pixtral-12b (40 layers, d_model 5,120, 32 heads of 160 over 8, d_ff
+# 14,336, vocab 131,072, bf16; a stub vision frontend of 256 patches ahead
+# of the text): served whole at the LM serving cell's shape (the prompts
+# behind the patches: 2,304 positions); trained at every width and
+# PIXTRAL_TRAIN_LAYERS of its 40 layers (2.39 B params: 40 layers' f32
+# AdamW moments alone would be 96.8 GB) at stablelm-3b's training cell (256
+# patches + 3,840 text keys a sequence)
+PIXTRAL_ARCH = "pixtral-12b"
+PIXTRAL_TRAIN_LAYERS, PIXTRAL_TRAIN_STEPS = 6, 4
+# the wgmma forward's calls a training step: 6 layers x 4 micro-batches x 2
+# (remat), with the lse; the general backward's (hd 160 is not a wgmma
+# backward head dim): 6 x 4
+PIXTRAL_FWD_CALLS_PER_STEP, PIXTRAL_BWD_CALLS_PER_STEP = 48, 24
 KERNELS = {  # name -> (source, the Pallas kernel it replaces)
     "embedding_gather": ("src/repro_torch/csrc/embedding_gather.cu",
                          "src/repro/kernels/embedding_gather.py:35"),
@@ -660,6 +702,8 @@ MOE_PATHS = ("moe_serve",) + MOE_TRAIN_PATHS
 MAMBA_PATHS = ("mamba_serve", "mamba_train", "jamba_serve")
 # whisper-base's serving and training (13k, 13l)
 WHISPER_PATHS = ("whisper_serve", "whisper_train")
+# pixtral-12b's serving and training (13n, 13o)
+VLM_PATHS = ("vlm_serve", "vlm_train")
 # phase 6g's resumed run (steps 4-5 after a restore) is a path of its own,
 # and so are 6h's preempted run and its resumption together
 RUNS_ON = {
@@ -667,26 +711,27 @@ RUNS_ON = {
                          "dlrm_cached_train", "dlrm_cached_serve", "hstu_train",
                          "fuxi_train", "lm_serve", "lm_train", "dlrm_cached_pack_serve",
                          "dlrm_ckpt_resume_train", "dlrm_preempt_resume_train")
-    + tuple(TIER_PATHS.values()) + MOE_PATHS + MAMBA_PATHS + WHISPER_PATHS,
+    + tuple(TIER_PATHS.values()) + MOE_PATHS + MAMBA_PATHS + WHISPER_PATHS + VLM_PATHS,
     "segment_rowsum": ("dlrm_train", "dlrm_host_train", "dlrm_cached_train",
                        "hstu_train", "fuxi_train", "lm_train", "dlrm_ckpt_resume_train",
                        "dlrm_preempt_resume_train") + tuple(TIER_PATHS.values())
-    + MOE_TRAIN_PATHS + ("mamba_train", "whisper_train"),
+    + MOE_TRAIN_PATHS + ("mamba_train", "whisper_train", "vlm_train"),
     "buffer_sync": ("dlrm_train", "dlrm_host_train", "dlrm_cached_train", "hstu_train",
                     "fuxi_train", "lm_train", "dlrm_ckpt_resume_train",
                     "dlrm_preempt_resume_train")
-    + tuple(TIER_PATHS.values()) + MOE_TRAIN_PATHS + ("mamba_train", "whisper_train"),
+    + tuple(TIER_PATHS.values()) + MOE_TRAIN_PATHS
+    + ("mamba_train", "whisper_train", "vlm_train"),
     # the host tier writes its master back on the host: no device scatter
     "embedding_scatter": ("dlrm_train", "dlrm_cached_train", "dlrm_cached_serve",
                           "hstu_train", "fuxi_train", "lm_train", "dlrm_ckpt_resume_train")
-    + CACHED_PATHS + MOE_TRAIN_PATHS + ("mamba_train", "whisper_train"),
+    + CACHED_PATHS + MOE_TRAIN_PATHS + ("mamba_train", "whisper_train", "vlm_train"),
     "hstu_attention_fwd": ("hstu_train",),
     "hstu_attention_bwd": ("hstu_train",),
-    # the LM prefill (no lse) and LM training (with its lse), at hd 160 and
-    # 80 (stablelm), 128 (olmoe; jamba's attention layer) and 64 (whisper:
-    # non-causal, cross)
+    # the LM prefill (no lse) and LM training (with its lse), at hd 160
+    # (stablelm-12b, pixtral) and 80 (stablelm-3b), 128 (olmoe; jamba's
+    # attention layer) and 64 (whisper: non-causal, cross)
     "flash_attention_wgmma": ("lm_serve", "lm_train") + MOE_PATHS + ("jamba_serve",)
-    + WHISPER_PATHS,
+    + WHISPER_PATHS + VLM_PATHS,
     # f32 above hd 128 and bf16 off the wgmma head dims: no main path sends
     # it inputs; phases 11a-13 hold it against the plain version and time it
     "flash_attention_simple": (),
@@ -696,10 +741,10 @@ RUNS_ON = {
     # bf16 at hd 64, 80 and 128: LM training's backward (phases 13b, 13e-f,
     # 13l)
     "flash_attention_bwd_wgmma": ("lm_train",) + MOE_TRAIN_PATHS + ("whisper_train",),
-    # bf16 at the other head dims and f32 above 128: no main path sends it
-    # inputs; phase 11a holds it against the plain version, 11b and 13b
-    # time it at FuXi's and the LM's calls
-    "flash_attention_bwd_simple": (),
+    # bf16 at the other head dims and f32 above 128: pixtral's training
+    # backward at hd 160 (phase 13o); phase 11a holds it against the plain
+    # version, 11b and 13b time it at FuXi's and stablelm-3b's calls too
+    "flash_attention_bwd_simple": ("vlm_train",),
 }
 
 
@@ -4081,15 +4126,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    def train_attention_rows(path, kept, flush, bwd_layer):
+    def train_attention_rows(path, kept, flush, bwd_layer, bwd="wgmma"):
         """The captured main-path attention calls of LM training (kept: the
         first forward with its lse, the first backward), on the card alone
         now: checked at full shape and timed beside the plain versions, SDPA
         (the yardstick; the port never calls it) and their bf16 bound; the
         wgmma forward with and without its lse in turns (with, without,
-        without, with); the backward through the wgmma kernel (the main
-        path's) and the general one in turns (general, wgmma, wgmma,
-        general), the wgmma one at least 10x faster."""
+        without, with); the backward through the main path's kernel
+        (``bwd``). Where that is the wgmma one, the general one is timed in
+        turns with it (general, wgmma, wgmma, general), the wgmma one at
+        least 10x faster; where it is the general one (hd 160), two turns of
+        it alone."""
         attn = {}
         q, k, v, causal = kept["fwd"]
         if fa.lse_variant(q, k, v) != "wgmma":
@@ -4121,8 +4168,10 @@ def main() -> int:
                "simple_ms": time_ms(torch, lambda: fa.flash_attention_simple(q, k, v, causal,
                                                                              lse=True), flush),
                "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal), flush),
-               "library_ms": time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal), flush),
-               "library_call": "scaled_dot_product_attention(is_causal) on (B, H, T, hd) views",
+               "library_ms": time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                                         enable_gqa=True), flush),
+               "library_call": "scaled_dot_product_attention(is_causal, enable_gqa) on "
+                               "(B, H, T, hd) views",
                "bound_ms": max(by_ops, by_bytes),
                "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
         row["achieved_tflops"] = ops / row["ms"] / 1e9
@@ -4134,8 +4183,8 @@ def main() -> int:
         # the backward call through the wgmma kernel (the main path's) and the
         # general one, checked and timed in turns (general, wgmma, wgmma, general)
         q, k, v, o, do, lse, causal = kept["bwd"]
-        if fa.bwd_variant(q, k, v) != "wgmma":
-            raise SystemExit(f"{path}: the main-path backward call is not the wgmma kernel's")
+        if fa.bwd_variant(q, k, v) != bwd:
+            raise SystemExit(f"{path}: the main-path backward call is not the {bwd} kernel's")
         errs = check_flash_bwd(f"{path} backward call", q, k, v, causal, chunk=1,
                                given=(o, do, lse))
         ops, nbytes = flash_bwd_work(q, k, causal)
@@ -4143,18 +4192,21 @@ def main() -> int:
         plain_ms = time_ms(torch, lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal),
                            flush)
         leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
-        lib_out = sdpa(*leaves, is_causal=causal)
+        lib_out = sdpa(*leaves, is_causal=causal, enable_gqa=True)
         do_t = do.transpose(1, 2)
         library_ms = time_ms(torch, lambda: torch.autograd.grad(lib_out, leaves, do_t,
                                                                 retain_graph=True), flush)
         bwd_fns = {
-            "flash_attention_bwd_wgmma": lambda: fa.flash_attention_bwd(q, k, v, o, do, lse,
-                                                                        causal),
             "flash_attention_bwd_simple": lambda: fa.flash_attention_bwd_simple(q, k, v, o, do,
                                                                                 lse, causal)}
+        order = ("flash_attention_bwd_simple",) * 2
+        if bwd == "wgmma":
+            bwd_fns["flash_attention_bwd_wgmma"] = lambda: fa.flash_attention_bwd(
+                q, k, v, o, do, lse, causal)
+            order = ("flash_attention_bwd_simple", "flash_attention_bwd_wgmma",
+                     "flash_attention_bwd_wgmma", "flash_attention_bwd_simple")
         turns = {kname: [] for kname in bwd_fns}
-        for kname in ("flash_attention_bwd_simple", "flash_attention_bwd_wgmma",
-                      "flash_attention_bwd_wgmma", "flash_attention_bwd_simple"):
+        for kname in order:
             turns[kname].append(time_ms(torch, bwd_fns[kname], flush))
         for kname, times in turns.items():
             row = {"kernel": kname, "call": f"{path} layer {bwd_layer} backward",
@@ -4163,7 +4215,8 @@ def main() -> int:
                    "bytes": nbytes, "ms": statistics.mean(times), "ms_turns": times,
                    "plain_ms": plain_ms, "library_ms": library_ms,
                    "library_call": "torch.autograd.grad through scaled_dot_product_attention"
-                                   "(is_causal) on (B, H, T, hd) views (its backward alone)",
+                                   "(is_causal, enable_gqa) on (B, H, T, hd) views (its "
+                                   "backward alone)",
                    "max_abs_err": max(errs[kname.removeprefix("flash_attention_bwd_")].values()),
                    "bound_ms": max(by_ops, by_bytes),
                    "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
@@ -4171,11 +4224,13 @@ def main() -> int:
             row["x_library"] = row["ms"] / library_ms
             attn[kname] = row
             emit("kernel_shape", path=path, **row)
-        attn["flash_attention_bwd_wgmma"]["x_faster_than_simple"] = (
-            attn["flash_attention_bwd_simple"]["ms"] / attn["flash_attention_bwd_wgmma"]["ms"])
-        if attn["flash_attention_bwd_wgmma"]["x_faster_than_simple"] < 10:
-            raise SystemExit(f"the wgmma backward is less than 10x faster than the general one: "
-                             f"{attn['flash_attention_bwd_wgmma']}")
+        if bwd == "wgmma":
+            attn["flash_attention_bwd_wgmma"]["x_faster_than_simple"] = (
+                attn["flash_attention_bwd_simple"]["ms"]
+                / attn["flash_attention_bwd_wgmma"]["ms"])
+            if attn["flash_attention_bwd_wgmma"]["x_faster_than_simple"] < 10:
+                raise SystemExit(f"the wgmma backward is less than 10x faster than the general "
+                                 f"one: {attn['flash_attention_bwd_wgmma']}")
         return attn
 
     lm_attn = train_attention_rows("lm_train", tkept, flush, tcfg.n_layers - 1)
@@ -4820,11 +4875,12 @@ def main() -> int:
         raise SystemExit(f"mamba tokens {srep.tokens.shape} are not vocabulary ids")
 
     def prefill_plus_decode(sess, params, table, label, batch=LM_BATCH, prompt=LM_PROMPT,
-                            extras=None):
+                            extras=None, prefix=None):
         """A prefill of ``prompt`` tokens and one decode step against a
         prefill of ``prompt`` + 1 (the same prompts; an encoder-decoder's
-        same frames in ``extras``): the last-token logits within
-        LM_LOGIT_RTOL of max |logit| (the caches' states carried)."""
+        same frames in ``extras``; a VLM's patches, ``prefix``, ahead of
+        both): the last-token logits within LM_LOGIT_RTOL of max |logit|
+        (the caches' states carried)."""
         cfg_ = sess.workload.cfg
         extras = extras or {}
         toks = np.random.default_rng(sess.seed).integers(0, cfg_.vocab_size,
@@ -4833,9 +4889,12 @@ def main() -> int:
             keys = sess.workload.spec.scramble(torch.as_tensor(toks.astype(np.int32),
                                                                device=dev))
             emb, _ = sess.workload.engine.lookup_from_master(table, keys)
-            _, cache = sess.workload.bundle.prefill(params, emb[:, :prompt],
-                                                   cache_len=prompt + 1, **extras)
-            step, cache = sess.workload.bundle.decode_step(params, emb[:, prompt:], cache)
+            if prefix is not None:
+                emb = torch.cat([prefix.to(emb.dtype), emb], dim=1)
+            t_ = emb.shape[1] - 1
+            _, cache = sess.workload.bundle.prefill(params, emb[:, :t_],
+                                                   cache_len=t_ + 1, **extras)
+            step, cache = sess.workload.bundle.decode_step(params, emb[:, t_:], cache)
             del cache
             whole, cache = sess.workload.bundle.prefill(params, emb, **extras)
             del cache, emb
@@ -5627,6 +5686,358 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit("whisper_consistency_phase", seconds=time.perf_counter() - t_phase)
 
+    # -- 13n. main path: full-width pixtral-12b serving -----------------------
+    # every width and all 40 layers (32 heads of 160 over 8, bf16) through
+    # Session.from_arch at 13's shape, the prompts behind 256 stub patches
+    # (2,304 positions a prefill, a cache of 2,336): 40 wgmma forwards and 96
+    # gathers a serve, the same tokens twice, the prefill against the plain
+    # attention, a prefill and a decode step against the longer prefill, the
+    # first and the last layer's calls checked and timed
+    t_phase = time.perf_counter()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    psess = Session.from_arch(PIXTRAL_ARCH, seed=0)
+    pwl, pcfg = psess.workload, psess.workload.cfg
+    pa_ = pcfg.attention
+    n_patches = pcfg.frontend.n_positions
+    if (pcfg.n_layers, pcfg.d_model, pcfg.d_ff, pcfg.vocab_size, pa_.n_heads, pa_.n_kv_heads,
+            pa_.head_dim, pcfg.frontend.kind, n_patches, pcfg.compute_dtype) != (
+                40, 5120, 14336, 131072, 32, 8, 160, "vision", 256, "bfloat16") \
+            or pwl.arch.kind != "lm":
+        raise SystemExit(f"{PIXTRAL_ARCH} is not at its published widths")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pparams, ptable = psess.lm_weights()
+    torch.cuda.synchronize()
+    pdraw_s = time.perf_counter() - t0
+    pweights_gb = sum(p_.numel() * p_.element_size() for p_ in pparams.values()) / 1e9
+    kept_pflash, pflash_calls = {}, [0]
+
+    def pflash_spy(q, k, v, causal=True):
+        i = pflash_calls[0]
+        pflash_calls[0] += 1
+        if i in (0, pcfg.n_layers - 1):
+            kept_pflash[i] = (q.clone(), k.clone(), v.clone(), causal)
+        return real_flash(q, k, v, causal)
+
+    dispatch.flash_attention = pflash_spy
+    try:
+        t0 = time.perf_counter()
+        pwarm, pkept_gather, pn_gathers = serve_keeping_gathers(
+            ptable, lambda: psess.serve(batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN))
+        torch.cuda.synchronize()
+        pwarm_s = time.perf_counter() - t0
+    finally:
+        dispatch.flash_attention = real_flash
+    if pflash_calls[0] != pcfg.n_layers or kept_pflash[0][0].shape[1] != n_patches + LM_PROMPT:
+        raise SystemExit(f"the warm-up pixtral serve made {pflash_calls[0]} flash calls")
+    # its gathers at their shapes (the master's 5,120-wide f32 rows, then
+    # bf16 rows); the patches are no lookup
+    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)  # evicts the L2 (time_ms)
+    vlm_gathers = check_serve_gathers("vlm_serve", pkept_gather, pn_gathers, 1 + decode_steps,
+                                      ptable)
+    del pkept_gather
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    prep = psess.serve(batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN)
+    torch.cuda.synchronize()
+    vlm_serve_launches = counts()
+    vlm_serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ps_ = prep.summary
+    cache_positions = n_patches + LM_PROMPT + LM_GEN
+    emit("vlm_serve", arch=PIXTRAL_ARCH, batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN,
+         patches=n_patches, prefill_positions=n_patches + LM_PROMPT,
+         cache_positions=cache_positions,
+         reduced="none: every width and 40 layers; batch 8, prompt 2048 behind 256 patches, "
+                 "32 generated (decode_32k: batch 128 x 32,768)",
+         config={k: getattr(pcfg, k) for k in ("n_layers", "d_model", "d_ff", "vocab_size",
+                                               "param_dtype", "compute_dtype")},
+         heads=[pa_.n_heads, pa_.n_kv_heads, pa_.head_dim], params=pcfg.param_count(),
+         weights_gb=pweights_gb, table_gb=ptable.rows.numel() * 4 / 1e9,
+         kv_cache_gb=2 * pcfg.n_layers * LM_BATCH * cache_positions * pa_.n_kv_heads
+         * pa_.head_dim * 2 / 1e9,
+         prefill_s=ps_["prefill_s"],
+         prompt_tokens_per_s=LM_BATCH * LM_PROMPT / ps_["prefill_s"],
+         prefill_positions_per_s=LM_BATCH * (n_patches + LM_PROMPT) / ps_["prefill_s"],
+         decode_s=ps_["decode_s"], decode_step_ms=ps_["decode_s"] / decode_steps * 1e3,
+         generated_tokens_per_s=ps_["tokens_per_s"], weights_draw_s=pdraw_s,
+         warmup_serve_s=pwarm_s, launches=vlm_serve_launches,
+         max_memory_allocated_gb=vlm_serve_peak_gb, start_memory_allocated_gb=start_gb,
+         sample_tokens=ps_["sample_tokens"])
+    vlm_serve_want = {k: 0 for k in KERNELS}
+    vlm_serve_want.update(embedding_gather=3 * (1 + decode_steps),
+                          flash_attention_wgmma=pcfg.n_layers)
+    if vlm_serve_launches != vlm_serve_want:
+        raise SystemExit(f"pixtral serving launches {vlm_serve_launches} != {vlm_serve_want}")
+    if not np.array_equal(prep.tokens, pwarm.tokens):
+        raise SystemExit("two pixtral serves of the same weights generated different tokens")
+    if prep.tokens.shape != (LM_BATCH, LM_GEN) or not (
+            (0 <= prep.tokens) & (prep.tokens < pcfg.vocab_size)).all():
+        raise SystemExit(f"pixtral tokens {prep.tokens.shape} are not vocabulary ids")
+
+    # the prefill with the kernel and with the plain attention, on the
+    # serve's prompts and patches (Session.serve's draw: the prompts, then
+    # the patches, from one rng)
+    prng = np.random.default_rng(psess.seed)
+    toks = prng.integers(0, pcfg.vocab_size, size=(LM_BATCH, LM_PROMPT))
+    ppatches = torch.as_tensor(prng.normal(size=(LM_BATCH, n_patches, pcfg.d_model))
+                               .astype(np.float32) * 0.02, device=dev)
+    with torch.inference_mode():
+        pkeys = pwl.spec.scramble(torch.as_tensor(toks.astype(np.int32), device=dev))
+        emb, _ = pwl.engine.lookup_from_master(ptable, pkeys)
+        emb = torch.cat([ppatches.to(emb.dtype), emb], dim=1)
+        logits_k, cache = pwl.bundle.prefill(pparams, emb, cache_len=cache_positions)
+        del cache
+        dispatch.flash_attention = ref.flash_attention_ref
+        try:
+            logits_p, cache = pwl.bundle.prefill(pparams, emb, cache_len=cache_positions)
+        finally:
+            dispatch.flash_attention = real_flash
+        del cache
+    scale = float(logits_p.abs().max())
+    logit_gap = float((logits_k - logits_p).abs().max())
+    first_tok = logits_k.argmax(-1).cpu().numpy()
+    emit("vlm_prefill_vs_plain", max_abs_logit=scale, max_logit_gap=logit_gap,
+         gap_share=logit_gap / scale, bound_share=LM_LOGIT_RTOL,
+         greedy_tokens_agreeing=float((logits_k.argmax(-1) == logits_p.argmax(-1))
+                                      .float().mean()),
+         first_token_equals_serve=bool(np.array_equal(first_tok, prep.tokens[:, 0])))
+    if not np.isfinite(logits_k.cpu().numpy()).all() or logit_gap > LM_LOGIT_RTOL * scale:
+        raise SystemExit(f"pixtral prefill logits with the kernel are {logit_gap} from the "
+                         f"plain attention's (max |logit| {scale})")
+    if not np.array_equal(first_tok, prep.tokens[:, 0]):
+        raise SystemExit("the pixtral prefill's argmax is not the serve's first token")
+    del logits_k, logits_p
+    prefill_plus_decode(psess, pparams, ptable, "vlm", prefix=ppatches)
+
+    if args.profile:  # the prefill, then 8 decode steps from its cache
+        from torch.profiler import ProfilerActivity, profile
+
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                logits, cache = pwl.bundle.prefill(pparams, emb, cache_len=cache_positions)
+                tok = logits.argmax(-1).to(torch.int32)
+                torch.cuda.synchronize()
+                span = time.perf_counter() - t0
+            emit_profile(prof, "vlm_prefill_profile", span, prefills=1)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(8):
+                    demb, _ = pwl.engine.lookup_from_master(ptable,
+                                                            pwl.spec.scramble(tok[:, None]))
+                    logits, cache = pwl.bundle.decode_step(pparams, demb, cache)
+                    tok = logits.argmax(-1).to(torch.int32)
+                    tok.cpu()  # as serve() reads each token back
+                torch.cuda.synchronize()
+                span = time.perf_counter() - t0
+            emit_profile(prof, "vlm_decode_profile", span, steps=8)
+            del prof, logits, cache, demb
+    del psess, pwl, pparams, ptable, pwarm, prep, ppatches, pkeys, emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    pfrows = prefill_flash_rows("vlm_serve", kept_pflash, flush)
+    del kept_pflash, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("vlm_serve_phase", seconds=time.perf_counter() - t_phase)
+
+    # -- 13o. main path: pixtral-12b training at full width, 6 of 40 layers --
+    # at stablelm-3b's training cell (batch 8 x 4,096 positions: 256 zero
+    # patches from the stream, then 3,840 text keys; N = 4, lr 3e-5): the
+    # wgmma forward with its lse and the general backward at hd 160, the
+    # data-path kernels; then the consistency of pixtral-12b-reduced and a
+    # narrow bf16 VLM at hd 160 on the card against the CPU
+    t_phase = time.perf_counter()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    ptcfg = dataclasses.replace(get_arch(PIXTRAL_ARCH).config, n_layers=PIXTRAL_TRAIN_LAYERS)
+    ptwl = assemble_workload(
+        ArchSpec(PIXTRAL_ARCH, "lm", ptcfg, ptcfg), ptcfg, device=dev, mode="nestpipe",
+        npcfg=NestPipeConfig(fwp_microbatches=N_MICRO, bucket_slack=4.0),
+        global_batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ, t_chunk=64)
+    pts = Session.from_workload(ptwl, opt_cfg=OptimizerConfig(lr=LM_TRAIN_LR), seed=0,
+                                data_seed=0)
+    ptdims = ptwl.engine.dims(ptwl.batch_shapes["keys"][0][1:], N_MICRO)
+    patch_shape = ptwl.batch_shapes["patches"][0]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ptstate = pts.state
+    torch.cuda.synchronize()
+    pt_params = sum(p_.numel() for p_ in ptstate.dense.values())
+    emit("vlm_train_init", arch=PIXTRAL_ARCH, layers=PIXTRAL_TRAIN_LAYERS,
+         seconds=time.perf_counter() - t0,
+         config={k: getattr(ptcfg, k) for k in ("n_layers", "d_model", "d_ff", "vocab_size",
+                                                "param_dtype", "compute_dtype")},
+         heads=[ptcfg.attention.n_heads, ptcfg.attention.n_kv_heads,
+                ptcfg.attention.head_dim],
+         dense_params=pt_params,
+         params_gb=sum(p_.numel() * p_.element_size() for p_ in ptstate.dense.values()) / 1e9,
+         moments_gb=2 * 4 * pt_params / 1e9, table_gb=ptstate.table.rows.numel() * 4 / 1e9,
+         keys_window_shape=list(ptwl.batch_shapes["keys"][0]),
+         patches_window_shape=list(patch_shape),
+         patches_window_gb=int(np.prod(patch_shape)) * 4 / 1e9,
+         dims={"L": ptdims.l_local, "U": ptdims.u_max, "C": ptdims.cap,
+               "K": ptdims.buffer_cap, "N": ptdims.n_micro},
+         start_memory_allocated_gb=start_gb,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if ptstate.dense["blocks.0.attn.wq"].shape != (PIXTRAL_TRAIN_LAYERS, 5120, 5120) \
+            or ptstate.dense["blocks.0.mlp.wi"].shape != (PIXTRAL_TRAIN_LAYERS, 5120, 14336) \
+            or patch_shape != (N_MICRO, LM_TRAIN_BATCH // N_MICRO, 256, 5120) \
+            or ptwl.batch_shapes["keys"][0][2] != LM_TRAIN_SEQ - 256 \
+            or ptstate.table.rows.shape[1] != 5120 or ptstate.table.rows.device.type != "cuda":
+        raise SystemExit(f"{PIXTRAL_ARCH} training is not at full width on the card")
+    del ptstate
+    pfirst_loss = pts.train(1).stats.losses[0]
+    torch.cuda.synchronize()
+
+    # two steps with the first forward (with its lse) and backward kept,
+    # every call counted, and the embedding kernels' calls captured
+    pseen, ptkept = {"fwd": 0, "bwd": 0}, {}
+
+    def vlm_lse_spy(q, k, v, causal=True):
+        pseen["fwd"] += 1
+        if "fwd" not in ptkept:
+            ptkept["fwd"] = (q.clone(), k.clone(), v.clone(), causal)
+        return real_lse(q, k, v, causal)
+
+    def vlm_bwd_spy(q, k, v, o, do, lse, causal=True):
+        pseen["bwd"] += 1
+        if "bwd" not in ptkept:
+            ptkept["bwd"] = (*(x.clone() for x in (q, k, v, o, do, lse)), causal)
+        return real_fbwd(q, k, v, o, do, lse, causal)
+
+    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)  # evicts the L2 (time_ms)
+    fa.flash_attention_lse, fa.flash_attention_bwd = vlm_lse_spy, vlm_bwd_spy
+    try:
+        pcaptured = capture_calls(pts)
+    finally:
+        fa.flash_attention_lse, fa.flash_attention_bwd = real_lse, real_fbwd
+    if pseen != {"fwd": 2 * PIXTRAL_FWD_CALLS_PER_STEP, "bwd": 2 * PIXTRAL_BWD_CALLS_PER_STEP}:
+        raise SystemExit(f"two pixtral steps made {pseen} attention calls")
+    ptshapes = check_and_time("vlm_train", pcaptured, pts.state.table)
+    del pcaptured
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    ptrep = pts.train(PIXTRAL_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    pwall = time.perf_counter() - t0
+    vlm_train_launches = counts()
+    vlm_train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    s = ptrep.summary
+    psamples_per_s = LM_TRAIN_BATCH * PIXTRAL_TRAIN_STEPS / pwall
+    emit("vlm_train", arch=PIXTRAL_ARCH, layers=PIXTRAL_TRAIN_LAYERS, mode="nestpipe",
+         global_batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ, patches=256, n_micro=N_MICRO,
+         steps=PIXTRAL_TRAIN_STEPS, lr=LM_TRAIN_LR,
+         reduced=f"every width, {PIXTRAL_TRAIN_LAYERS} of 40 layers; batch 8 of train_4k's "
+                 "256 (one of 32 workers)",
+         first_loss=pfirst_loss, losses=ptrep.stats.losses, overflow_max=s["overflow_max"],
+         samples_per_s=psamples_per_s, tokens_per_s=psamples_per_s * LM_TRAIN_SEQ,
+         text_tokens_per_s=psamples_per_s * (LM_TRAIN_SEQ - 256),
+         wall_s=pwall, step_ms=[x * 1e3 for x in ptrep.stats.step_times],
+         step_p50_ms=s["p50_step_s"] * 1e3, step_p99_ms=s["p99_step_s"] * 1e3,
+         mean_input_wait_ms=s["mean_input_wait_s"] * 1e3,
+         stage_host_ms={k: s[k] for k in ("plan_ms", "retrieve_ms", "commit_ms")},
+         launches=vlm_train_launches, max_memory_allocated_gb=vlm_train_peak_gb,
+         device_memory_gb=torch.cuda.get_device_properties(0).total_memory / 1e9)
+    if not all(np.isfinite(ptrep.stats.losses)) \
+            or len(ptrep.stats.losses) != PIXTRAL_TRAIN_STEPS:
+        raise SystemExit(f"pixtral losses are not {PIXTRAL_TRAIN_STEPS} finite values")
+    if not all(x < pfirst_loss for x in ptrep.stats.losses):
+        raise SystemExit(f"the pixtral loss did not fall from {pfirst_loss}: "
+                         f"{ptrep.stats.losses}")
+    if s["overflow_max"] != 0:
+        raise SystemExit(f"pixtral routing overflowed: {s['overflow_max']}")
+    if vlm_train_peak_gb >= 80:
+        raise SystemExit(f"pixtral training peaked at {vlm_train_peak_gb} GB")
+    vlm_train_want = {k: 0 for k in KERNELS}
+    vlm_train_want.update(embedding_gather=(1 + 3 * N_MICRO) * PIXTRAL_TRAIN_STEPS,
+                          segment_rowsum=(N_MICRO + 1) * PIXTRAL_TRAIN_STEPS,
+                          buffer_sync=PIXTRAL_TRAIN_STEPS - 1,
+                          embedding_scatter=PIXTRAL_TRAIN_STEPS,
+                          flash_attention_wgmma=PIXTRAL_FWD_CALLS_PER_STEP * PIXTRAL_TRAIN_STEPS,
+                          flash_attention_bwd_simple=PIXTRAL_BWD_CALLS_PER_STEP
+                          * PIXTRAL_TRAIN_STEPS)
+    if vlm_train_launches != vlm_train_want:
+        raise SystemExit(f"pixtral training launches {vlm_train_launches} != {vlm_train_want}")
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pts.train(2)
+            torch.cuda.synchronize()
+            span = time.perf_counter() - t0
+        emit_profile(prof, "vlm_train_profile", span, steps=2)
+        del prof
+    del pts, ptwl, ptrep
+    gc.collect()
+    torch.cuda.empty_cache()
+    vlm_attn = train_attention_rows("vlm_train", ptkept, flush, PIXTRAL_TRAIN_LAYERS - 1,
+                                    bwd="simple")
+    del ptkept, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # consistency: pixtral-12b-reduced nestpipe = serial = the reference,
+    # async diverging; a narrow bf16 VLM at pixtral's head dim (2 layers, 2
+    # heads of 160 over 1, d_model 320, 8 patches) on the card and on the
+    # CPU from one state
+    vlm_runs = {"adam_eps_1e-6": reduced_gaps(adam_eps=1e-6, arch=PIXTRAL_ARCH),
+                "default_step_sizes": reduced_gaps(arch=PIXTRAL_ARCH)}
+    red = get_arch(PIXTRAL_ARCH).reduced
+    vcfg = dataclasses.replace(red, name="pixtral-12b-bf16-hd160", d_model=320, d_ff=512,
+                               param_dtype="bfloat16", compute_dtype="bfloat16",
+                               attention=dataclasses.replace(red.attention, n_heads=2,
+                                                             n_kv_heads=1, head_dim=160))
+    varch = ArchSpec(vcfg.name, "lm", vcfg, vcfg)
+    vkw = dict(global_batch=8, seq_len=200, t_chunk=64)
+    vgpu = Session.from_workload(assemble_workload(varch, vcfg, device=dev, **vkw), seed=3)
+    vcpu = Session.from_workload(assemble_workload(varch, vcfg, device="cpu", **vkw), seed=3)
+    vcpu.state = clone_state(vgpu.state, "cpu")
+    reset_counts()
+    vgot = vgpu.train(3)
+    v_launches = {k: v for k, v in counts().items() if v}
+    vwant = vcpu.train(3)
+    v_gap = [abs(a - b) / abs(b) for a, b in zip(vgot.stats.losses, vwant.stats.losses)]
+    emit("vlm_consistency", arch=f"{PIXTRAL_ARCH} (reduced)", steps=CONSISTENCY_STEPS,
+         **vlm_runs, bf16_hd160={"config": "2 layers, 2 heads of 160 over 1, d_model 320, "
+                                           "8 patches, bf16, 8 x 200 positions",
+                                 "losses_card": vgot.stats.losses,
+                                 "losses_cpu": vwant.stats.losses,
+                                 "relative_gap": v_gap, "bound": LM_BF16_LOSS_RTOL,
+                                 "launches": v_launches},
+         bounds="rows, dense and accum within 1e-5 at AdamW eps 1e-6 and at the default "
+                "eps; async more than 1e-6 from the reference; the bf16 config's losses "
+                f"within {LM_BF16_LOSS_RTOL} of the CPU's")
+    for label, run in vlm_runs.items():
+        if not run["reference_same_bits_twice"]:
+            raise SystemExit(f"the pixtral reference gave other bits on a second run ({label})")
+        vgaps = run["max_diff_to_reference"]
+        for key in ("nestpipe", "serial", "nestpipe_vs_serial"):
+            if vgaps[key]["rows_dense"] > 1e-5 or vgaps[key]["accum_abs"] > 1e-5:
+                raise SystemExit(f"pixtral {key} differs from the reference ({label}): {vgaps}")
+        if vgaps["async"]["rows_dense"] <= 1e-6:
+            raise SystemExit(f"pixtral async did not diverge ({label}): {vgaps}")
+    # 2 layers x N_MICRO micro-batches x 3 steps, each forward twice (remat)
+    if v_launches.get("flash_attention_wgmma", 0) != 2 * 2 * N_MICRO * 3 \
+            or v_launches.get("flash_attention_bwd_simple", 0) != 2 * N_MICRO * 3 \
+            or any(v_launches.get(k, 0) for k in (
+                "flash_attention_simple", "flash_attention_tf32x3",
+                "flash_attention_bwd_wgmma", "flash_attention_bwd_tf32x3")):
+        raise SystemExit(f"the bf16 hd-160 VLM launched {v_launches}")
+    if not all(np.isfinite(vgot.stats.losses)) or max(v_gap) > LM_BF16_LOSS_RTOL:
+        raise SystemExit(f"the bf16 hd-160 VLM losses on the card are {v_gap} from the CPU's")
+    del vgpu, vcpu, vgot, vwant
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("vlm_train_phase", seconds=time.perf_counter() - t_phase)
+
     # -- 14. kernels line and the result -----------------------------------
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
@@ -5651,7 +6062,9 @@ def main() -> int:
                    "mamba_train": mamba_train_launches[kname],
                    "jamba_serve": jamba_serve_launches[kname],
                    "whisper_serve": whisper_serve_launches[kname],
-                   "whisper_train": whisper_train_launches[kname]}
+                   "whisper_train": whisper_train_launches[kname],
+                   "vlm_serve": vlm_serve_launches[kname],
+                   "vlm_train": vlm_train_launches[kname]}
         for path in RUNS_ON[kname]:
             if by_path[path] == 0:
                 raise SystemExit(f"{kname} was not launched on the {path} path")
@@ -5700,6 +6113,17 @@ def main() -> int:
                     "bound_ms", "bound_by", "achieved_tflops")}
                     for kind in ("encoder", "decoder", "cross")],
                 "calls_per_whisper_train_step": WHISPER_FWD_CALLS_PER_STEP,
+                # pixtral's hd-160 calls: its prefill's first and last layer
+                # (2,304 positions: the patches, then the prompt), and its
+                # training's first forward with the lse
+                "vlm_serve_calls": [{k: row_[k] for k in (
+                    "call", "shape", "ms", "simple_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "achieved_tflops")} for row_ in pfrows],
+                "calls_per_vlm_serve": vlm_serve_launches[kname],
+                "vlm_train_call": {k: vlm_attn[kname][k] for k in (
+                    "shape", "ms", "without_lse_ms", "simple_ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "achieved_tflops")},
+                "calls_per_vlm_train_step": PIXTRAL_FWD_CALLS_PER_STEP,
             }
         elif kname == "flash_attention_bwd_wgmma":  # LM training's backward
             row = lm_attn[kname]
@@ -5728,20 +6152,25 @@ def main() -> int:
                     for kind in ("encoder", "decoder", "cross")],
                 "calls_per_whisper_train_step": WHISPER_BWD_CALLS_PER_STEP,
             }
-        elif kname == "flash_attention_bwd_simple":  # no main path since the wgmma backward
-            row, frow = lm_attn[kname], fuxi_attn[kname]
+        elif kname == "flash_attention_bwd_simple":  # pixtral's training backward (hd 160)
+            row, lrow, frow = vlm_attn[kname], lm_attn[kname], fuxi_attn[kname]
             entry = {
                 "name": kname, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
-                "max_abs_err": max([fuxi_err[kname], row["max_abs_err"]] + [
-                    v for k, v in bworst.items() if k.startswith(kname)]),
+                "max_abs_err": max([fuxi_err[kname], row["max_abs_err"], lrow["max_abs_err"]]
+                                   + [v for k, v in bworst.items() if k.startswith(kname)]),
                 "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                "ms_of": f"one call at the LM-training shape {row['shape']} over "
+                "ms_of": f"one call at the main-path shape {row['shape']} over "
                          f"{row['kv_heads']} kv heads, bf16, causal ({row['call']}; the mean "
-                         "of two turns, in turns with the wgmma kernel)",
+                         "of two turns)",
                 "ms_turns": row["ms_turns"],
+                "calls_per_vlm_train_step": PIXTRAL_BWD_CALLS_PER_STEP,
                 "achieved_tflops": row["achieved_tflops"],
+                # stablelm-3b's hd-80 call, in turns with the wgmma backward
+                "lm_train_shape": {k: lrow[k] for k in ("shape", "ms", "ms_turns", "plain_ms",
+                                                        "library_ms", "bound_ms",
+                                                        "achieved_tflops")},
                 "fuxi_shape": {k: frow[k] for k in ("shape", "ms", "plain_ms", "library_ms",
                                                     "bound_ms", "achieved_tflops")},
             }
@@ -5761,10 +6190,12 @@ def main() -> int:
             }
             entry.update({k: row[k] for k in ("ms_turns", "f32_core_bound_ms", "tf32_mma_tflops",
                                               "tf32_peak_share") if k in row})
-            if kname == "flash_attention_simple":  # the LM prefill's shape, bf16
-                entry["lm_serve_shape"] = {
-                    "ms": frows[0]["simple_ms"],
-                    **{k: frows[0][k] for k in ("plain_ms", "library_ms", "bound_ms")}}
+            if kname == "flash_attention_simple":  # the LM prefills' shapes, bf16
+                for key, rows_ in (("lm_serve_shape", frows), ("vlm_serve_shape", pfrows)):
+                    entry[key] = {
+                        "ms": rows_[0]["simple_ms"],
+                        **{k: rows_[0][k] for k in ("shape", "plain_ms", "library_ms",
+                                                    "bound_ms")}}
         elif kname in hrows_out:
             row = hrows_out[kname]
             entry = {
@@ -5798,7 +6229,8 @@ def main() -> int:
                     "calls": [x["call"] for x in calls[kname]]}
                    for path, calls in (("hstu_train", hshapes), ("fuxi_train", fshapes),
                                        ("lm_train", tshapes), ("moe_train", mtshapes),
-                                       ("mamba_train", sshapes), ("whisper_train", wshapes))},
+                                       ("mamba_train", sshapes), ("whisper_train", wshapes),
+                                       ("vlm_train", ptshapes))},
             }
         if kname == "embedding_gather":
             times = ("ms", "plain_ms", "library_ms", "bound_ms")
@@ -5806,7 +6238,8 @@ def main() -> int:
             # one serve of each LM path, at its own shapes
             for path, rows_ in (("lm_serve", lm_gathers), ("mamba_serve", mamba_gathers),
                                 ("jamba_serve", jamba_gathers),
-                                ("whisper_serve", whisper_gathers)):
+                                ("whisper_serve", whisper_gathers),
+                                ("vlm_serve", vlm_gathers)):
                 entry[path] = serve_gather_times(rows_, decode_steps)
         if kname in cached_shapes:  # the cached tier's calls (phase 6b)
             calls = cached_shapes[kname]
@@ -5820,7 +6253,8 @@ def main() -> int:
                                 (entry["lm_train_step"], tshapes[kname]),
                                 (entry["moe_train_step"], mtshapes[kname]),
                                 (entry["mamba_train_step"], sshapes[kname]),
-                                (entry["whisper_train_step"], wshapes[kname])):
+                                (entry["whisper_train_step"], wshapes[kname]),
+                                (entry["vlm_train_step"], ptshapes[kname])):
                 step["parts_ms"] = {k: sum(x["parts_ms"][k] for x in calls)
                                     for k in calls[0]["parts_ms"]}
         kernels.append(entry)

@@ -17,9 +17,12 @@
     wb = Session.from_arch("whisper-base", global_batch=256, seq_len=448,
                            bucket_slack=1.5, lr=3e-5)  # an encoder-decoder
     print(wb.train(4).summary, wb.serve(batch=16, prompt_len=416, gen=32).summary)
+    px = Session.from_arch("pixtral-12b")               # a VLM: patches, then text
+    print(px.serve(batch=8, prompt_len=2048, gen=32).summary)
 
-Training runs any ported recsys backbone (DLRM, HSTU, FuXi), dense LM or
-encoder-decoder (whose windows carry stub audio frames) and checkpoints
+Training runs any ported recsys backbone (DLRM, HSTU, FuXi), dense LM,
+VLM (whose windows carry stub patches) or encoder-decoder (whose windows
+carry stub audio frames) and checkpoints
 it (``ckpt_dir``, ``ckpt_every``; :meth:`Session.save`,
 :meth:`Session.restore`, :meth:`Session.restore_if_available`,
 ``train(resume=True)``), under the session's fault policy: a preemption
@@ -56,6 +59,7 @@ from ..dist.fault import PreemptionGuard, StepWatchdog
 from ..dist.inject import FaultInjector, resolve_fault_inject
 from ..launch.build import Workload, resolve
 from ..models.dlrm import DLRM
+from ..models.frontend import frontend_embed_shape
 from ..train.state import TrainState
 from ..utils import resolve_device, same_device
 from .strategies import get_strategy
@@ -474,7 +478,7 @@ class Session:
             "stragglers_flagged": flagged,
         })
         if self.is_lm:
-            seq_len = self.workload.batch_shapes["keys"][0][2]
+            seq_len = self.workload.batch_shapes["labels"][0][2]  # a VLM's patches too
             summary.update(seq_len=seq_len, tokens_per_s=samples_per_s * seq_len)
         return TrainReport(state=state, stats=stats, wall_s=wall,
                            stragglers=flagged, summary=summary)
@@ -523,13 +527,19 @@ class Session:
         engine (the LM serving path of ``repro.api.session.Session.serve``).
 
         Draws ``batch`` prompts of ``prompt_len`` tokens from
-        ``np.random.default_rng(seed)`` (an encoder-decoder's stub frames
-        next, from the same rng, as normals times 0.02 in f32, on the device
-        before the timer starts, as in JAX), scrambles them into master
-        rows, looks them up from the master, runs the prefill into a cache
-        of ``prompt_len + gen`` positions and takes the argmax, then ``gen -
-        1`` decode steps, each looking up the scrambled last token. Recsys
-        archs serve through :meth:`serve_embeddings`."""
+        ``np.random.default_rng(seed)`` (an encoder-decoder's stub frames or
+        a VLM's stub patches next, from the same rng, as normals times 0.02
+        in f32, on the device before the timer starts, as in JAX), scrambles
+        them into master rows, looks them up from the master, runs the
+        prefill into a cache of ``prompt_len + gen`` positions and takes the
+        argmax, then ``gen - 1`` decode steps, each looking up the scrambled
+        last token. Recsys archs serve through :meth:`serve_embeddings`.
+
+        A VLM's prefill runs over the patches, then the prompt, and its
+        cache holds ``n_positions + prompt_len + gen`` positions. JAX's
+        serve sizes it ``prompt_len + gen``: its prefill then raises when
+        ``gen < n_positions``, and otherwise its decode writes past the
+        cache's end, where the writes clamp onto the last slot."""
         if not self.is_lm:
             raise ValueError(
                 f"{self.workload.arch.name} is a recsys arch: no KV-cache "
@@ -544,15 +554,22 @@ class Session:
         rng = np.random.default_rng(seed)
         toks = rng.integers(0, cfg.vocab_size, size=(batch, prompt_len))
         keys = spec.scramble(torch.as_tensor(toks.astype(np.int32), device=self.device))
-        extras = {}
+        extras, patches = {}, None
         if wl.arch.kind == "encdec":
             shape = wl.batch_shapes["frames"][0][2:]
             extras["frames"] = torch.as_tensor(
                 rng.normal(size=(batch, *shape)).astype(np.float32) * 0.02,
                 device=self.device)
+        elif cfg.frontend is not None:  # a VLM: the patches ahead of the prompt
+            patches = torch.as_tensor(
+                rng.normal(size=frontend_embed_shape(cfg, batch)).astype(np.float32) * 0.02,
+                device=self.device)
+            max_len += cfg.frontend.n_positions
 
         t0 = time.perf_counter()
         emb, _ = engine.lookup_from_master(table, keys)
+        if patches is not None:
+            emb = torch.cat([patches.to(emb.dtype), emb], dim=1)
         logits, cache = bundle.prefill(params, emb, cache_len=max_len, **extras)
         next_tok = logits.argmax(-1).to(torch.int32)
         generated = [next_tok.cpu().numpy()]  # waits for the device

@@ -8,7 +8,8 @@ one place that maps a workload to a synthetic input iterator.
 - dense LMs: ``SyntheticLMStream`` over the vocabulary at the workload's
   sequence length, with its next-token ``labels``: the same batches as
   JAX's stream for a seed; an encoder-decoder's windows carry ``frames``
-  too (``draw_frames``, JAX's draw bit for bit).
+  too (``draw_frames``, JAX's draw bit for bit), a VLM's zero ``patches``
+  and labels padded with -1 over the patch span ahead of the text's.
 
 Streams are deterministic in ``(seed, batch index)``; ``start_step``
 fast-forwards to any batch index exactly.
@@ -40,12 +41,18 @@ def resolve_stream(wl, seed: int = 0, *, start_step: int = 0) -> Iterator[dict]:
                                wl.batch_shapes["keys"][0][2], seed=seed)
 
         frames = wl.batch_shapes.get("frames")  # ((N, mb, n_frames, enc_d), f32)
+        patches = wl.batch_shapes.get("patches")  # ((N, mb, n_positions, d), f32)
 
         def make(step):
             b = lm.make_batch(step)
             out = {"keys": b["keys"], "raw_keys": b["raw_tokens"], "labels": b["labels"]}
             if frames is not None:
                 out["frames"] = draw_frames(seed, step, (wl.global_batch, *frames[0][2:]))
+            if patches is not None:
+                n_p = patches[0][2]
+                out["labels"] = np.concatenate(
+                    [np.full((wl.global_batch, n_p), -1, np.int32), b["labels"]], axis=1)
+                out["patches"] = np.zeros((wl.global_batch, *patches[0][2:]), np.float32)
             return out
     elif cfg.backbone == "dlrm":
         stream = SyntheticRecsysStream(cfg, wl.spec, wl.global_batch, seed=seed,

@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` -> full/reduced configs. Ported:
 the recsys archs (DLRM, HSTU, FuXi; training), the LM archs whose
 (attn | mamba, mlp | moe | none) stacks the port's layers cover
-(``kind="lm"``, training and serving) and the encoder-decoder whisper-base
-(``kind="encdec"``, training and serving)."""
+(``kind="lm"``, training and serving), among them the vision-language
+pixtral-12b (stub patch embeddings ahead of the text), and the
+encoder-decoder whisper-base (``kind="encdec"``, training and serving)."""
 from __future__ import annotations
 
 import importlib
@@ -22,6 +23,7 @@ _LM_MODULES = {
     "mamba2-370m": "mamba2_370m",
     "jamba-v0.1-52b": "jamba_v01_52b",
     "whisper-base": "whisper_base",
+    "pixtral-12b": "pixtral_12b",
 }
 
 _RECSYS = {

@@ -205,7 +205,9 @@ def _resolve_lm(arch: ArchSpec, cfg: ModelConfig, *, device: torch.device, mode:
     dtype, and the training window of ``global_batch`` sequences of
     ``seq_len`` tokens (and an encoder-decoder's frames) in N micro-batches
     (N = 1 under the serve strategy, whose batch and prompt the caller
-    gives at ``Session.serve``)."""
+    gives at ``Session.serve``). A VLM's ``seq_len`` positions are its
+    patches, then ``seq_len - n_positions`` text keys (``seq_len`` must
+    exceed ``n_positions``); its labels cover all ``seq_len``."""
     n_micro = _n_micro(npcfg, global_batch)
     bundle = build_encdec_bundle(cfg) if arch.kind == "encdec" else build_lm_bundle(cfg)
     spec = make_mega_table_spec(None, vocab_size=cfg.vocab_size, dim=bundle.emb_dim,

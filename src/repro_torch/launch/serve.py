@@ -7,12 +7,15 @@ against a lookup straight from the master table:
         --requests 4096 --max-batch 512
 
 LM and encoder-decoder archs run a batched prefill and greedy KV-cache
-decode from a fresh seeded init (whisper-base on seeded stub frames):
+decode from a fresh seeded init (whisper-base on seeded stub frames,
+pixtral-12b's prompts behind seeded stub patches):
 
     python -m repro_torch.launch.serve --arch stablelm-12b --batch 8 \
         --prompt-len 2048 --gen 32
     python -m repro_torch.launch.serve --arch whisper-base --batch 16 \
         --prompt-len 416 --gen 32
+    python -m repro_torch.launch.serve --arch pixtral-12b --batch 8 \
+        --prompt-len 2048 --gen 32
 
 Both run on the GPU (``--device cpu`` for the plain PyTorch path).
 """

@@ -12,7 +12,8 @@ runs on the GPU (``--device cpu`` for the plain PyTorch path, with
 arch (``dlrm-*``, ``hstu-industrial``, ``fuxi-kuairand``, whose full
 32.80 GB master fits one card, and the dense LMs and the encoder-decoder,
 which train on ``--global-batch`` sequences of ``--seq-len`` tokens,
-whisper-base's beside the stream's stub frames):
+whisper-base's beside the stream's stub frames, pixtral-12b's first
+n_positions of them the stream's stub patches):
 
     python -m repro_torch.launch.train --arch stablelm-3b --global-batch 8 \
         --seq-len 4096 --steps 4 --lr 3e-5
@@ -20,6 +21,8 @@ whisper-base's beside the stream's stub frames):
         --seq-len 448 --bucket-slack 1.5 --steps 4 --lr 3e-5
     python -m repro_torch.launch.train --arch stablelm-3b --reduced \
         --device cpu --global-batch 8 --seq-len 16 --steps 4
+    python -m repro_torch.launch.train --arch pixtral-12b --reduced \
+        --device cpu --global-batch 8 --seq-len 24 --steps 4
 
 ``--store`` picks the embedding
 tier (``device``, ``host``: the master in host memory, ``cached``: a

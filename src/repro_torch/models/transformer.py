@@ -46,10 +46,10 @@ def _check_ported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: ({mixer}, {ffn}) layers are not ported; the port "
                 f"trains and serves (attn | mamba, mlp | moe | none) stacks")
-    if cfg.encoder is not None or cfg.frontend is not None:
+    if cfg.encoder is not None or (cfg.frontend is not None and cfg.frontend.kind != "vision"):
         raise NotImplementedError(
-            f"{cfg.name}: encoders and frontends are not ported in the decoder-only "
-            "stack (an encoder-decoder goes through models.encdec)")
+            f"{cfg.name}: encoders and non-vision frontends are not ported in the "
+            "decoder-only stack (an encoder-decoder goes through models.encdec)")
 
 
 def init_lm_params(cfg: ModelConfig, *, device, generator: torch.Generator

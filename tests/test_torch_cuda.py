@@ -13,7 +13,8 @@ bf16 MoE LM's checkpoint resumed bit for bit), and Mamba2 (the chunked SSD
 against the f64 recurrence, a prefill and a decode step against the longer
 prefill, a finite step at the published chunk), and the encoder-decoder
 (the wgmma kernels at hd 64 without a mask, Tq != Tk; a bf16 prefill and a
-decode step against the longer prefill).
+decode step against the longer prefill), and the VLM (a narrow bf16 pixtral
+at hd 160 served and trained against the CPU).
 
 Every test here needs an NVIDIA GPU, carries the ``cuda`` marker and skips
 without one (the kernels have no CPU mode). The file imports no jax, so it
@@ -1669,3 +1670,64 @@ def test_encdec_prefill_plus_decode_equals_the_longer_prefill_on_the_card(cuda_d
     assert torch.isfinite(step).all() and cache.length == 21
     assert float((step - whole).abs().max()) <= 5e-2 * scale
     assert float((short.cpu() - cpu).abs().max()) <= 5e-2 * float(cpu.abs().max())
+
+
+def _vlm_bf16_hd160():
+    """A narrow pixtral-12b at its own head dim and types: 2 layers of 2
+    heads of 160 over 1 kv head (d_model 320), bf16 params and compute, 8
+    patches, the reduced vocabulary: its attention goes through the wgmma
+    forward (with its lse when training) and the general bf16 backward."""
+    red = get_arch("pixtral-12b").reduced
+    cfg = dataclasses.replace(red, name="pixtral-12b-bf16-hd160", d_model=320, d_ff=512,
+                              param_dtype="bfloat16", compute_dtype="bfloat16",
+                              attention=dataclasses.replace(red.attention, n_heads=2,
+                                                            n_kv_heads=1, head_dim=160))
+    return ArchSpec(cfg.name, "lm", cfg, cfg), cfg
+
+
+def test_vlm_hd160_serving_and_training_on_the_card_match_cpu(cuda_device):
+    """The narrow bf16 VLM at hd 160. Served (batch 2, 8 patches and a
+    prompt of 40, 5 generated): one wgmma forward a layer (the prefill over
+    the patches and the prompt), three gathers a lookup, vocabulary ids;
+    its prefill logits within 5e-2 of max |logit| of the CPU's on the same
+    weights, patches and prompt. Trained (4 x (8 patches + 192 text), N =
+    4, 3 steps): 2 x 4 x 2 wgmma forwards with the lse and 2 x 4 general
+    backwards a step (none of the wgmma or tf32x3 backward), finite losses
+    within 3% of the CPU's (both round to bf16 at every op, in other
+    orders)."""
+    arch, cfg = _vlm_bf16_hd160()
+    kw = dict(global_batch=4, seq_len=200, t_chunk=64)
+    gpu = Session.from_workload(assemble_workload(arch, cfg, device=cuda_device, **kw), seed=3)
+    cpu = Session.from_workload(assemble_workload(arch, cfg, device="cpu", **kw), seed=3)
+    params, table = gpu.lm_weights()
+    cpu.ingest({k: v.cpu() for k, v in params.items()},
+               type(table)(table.rows.cpu(), table.accum.cpu()))
+    before = (fa.launches_wgmma, eg.launches)
+    rep = gpu.serve(batch=2, prompt_len=40, gen=5)
+    torch.cuda.synchronize()
+    assert (fa.launches_wgmma - before[0], eg.launches - before[1]) == (2, 3 * 5)
+    assert rep.tokens.shape == (2, 5) and ((0 <= rep.tokens) & (rep.tokens < 512)).all()
+    g = torch.Generator().manual_seed(4)
+    patches = torch.randn((2, 8, 320), generator=g) * 0.02
+    keys = torch.randint(0, 512, (2, 40), generator=g, dtype=torch.int32)
+    logits = []
+    for sess in (gpu, cpu):
+        wl, (p_, t_) = sess.workload, sess.lm_weights()
+        with torch.inference_mode():
+            emb, _ = wl.engine.lookup_from_master(t_, keys.to(sess.device))
+            full = torch.cat([patches.to(sess.device, emb.dtype), emb], dim=1)
+            logits.append(wl.bundle.prefill(p_, full, cache_len=50)[0].cpu())
+    assert torch.isfinite(logits[0]).all()
+    assert float((logits[0] - logits[1]).abs().max()) <= 5e-2 * float(logits[1].abs().max())
+
+    steps = 3
+    cpu.state = clone_state(gpu.state, "cpu")
+    before = (fa.launches_wgmma, fa.launches_bwd_simple, fa.launches_bwd_wgmma,
+              fa.launches_tf32x3, fa.launches_bwd_tf32x3, fa.launches_simple)
+    got, want = gpu.train(steps), cpu.train(steps)
+    assert (fa.launches_wgmma - before[0], fa.launches_bwd_simple - before[1],
+            fa.launches_bwd_wgmma - before[2], fa.launches_tf32x3 - before[3],
+            fa.launches_bwd_tf32x3 - before[4], fa.launches_simple - before[5]) == (
+        16 * steps, 8 * steps, 0, 0, 0, 0)
+    assert np.isfinite(got.stats.losses).all()
+    np.testing.assert_allclose(got.stats.losses, want.stats.losses, rtol=0.03, atol=0)

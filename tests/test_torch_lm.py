@@ -348,7 +348,7 @@ def test_lm_session_refuses_to_train_and_recsys_serving():
     with pytest.raises(ValueError, match="do not match"):
         sess.ingest({"head_w": torch.zeros(3)}, sess.lm_weights()[1])
     with pytest.raises(KeyError, match="ported"):
-        get_arch("pixtral-12b")
+        get_arch("no-such-arch")
 
 
 def test_lm_cli_serves_on_cpu(capsys):

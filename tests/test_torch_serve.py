@@ -321,7 +321,8 @@ def test_port_imports_neither_jax_nor_repro():
         "        'repro_torch.configs.yi_34b', 'repro_torch.models.mamba',\n"
         "        'repro_torch.configs.mamba2_370m', 'repro_torch.configs.jamba_v01_52b',\n"
         "        'repro_torch.configs.nemotron_4_340b', 'repro_torch.models.encdec',\n"
-        "        'repro_torch.configs.whisper_base',\n"
+        "        'repro_torch.configs.whisper_base', 'repro_torch.configs.pixtral_12b',\n"
+        "        'repro_torch.models.frontend',\n"
         "        'repro_torch.core.store.host', 'repro_torch.core.store.cached',\n"
         "        'repro_torch.core.store.policy', 'repro_torch.core.store.comm',\n"
         "        'repro_torch.dist.checkpoint', 'repro_torch.dist.fault',\n"

@@ -225,7 +225,7 @@ def test_lm_configs_equal_field_for_field(arch):
         assert a.param_count() == b.param_count()
     assert set(LM_ARCHS) == {"stablelm-12b", "stablelm-3b", "yi-34b", "nemotron-4-340b",
                              "olmoe-1b-7b", "grok-1-314b", "mamba2-370m", "jamba-v0.1-52b",
-                             "whisper-base"}
+                             "whisper-base", "pixtral-12b"}
 
 
 def test_olmoe_1b_7b_is_full_width():
