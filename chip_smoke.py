@@ -186,25 +186,30 @@ hand-written kernel on it against its plain PyTorch version:
 11a. ``flash_attention`` backward edges: the backward kernel that
    ``flash_attention.bwd_variant`` picks (``csrc/flash_attention_bwd_tf32.cu``
    for f32 at hd <= 128, ``csrc/flash_attention_bwd_wgmma.cu`` for bf16 at
-   hd 64, 80 and 128, ``csrc/flash_attention_bwd.cu`` for the rest) and,
-   for every f32 case at hd <= 128 and every bf16 case at hd 64, 80 and
-   128, the general one too (``flash_attention_bwd_simple``), each checked
-   by its counter, on the forward's output and row logsumexp (the tf32x3
-   kernel's in f32 at hd <= 128, the wgmma kernel's in bf16 at hd 64, 80
-   and 128, the general kernel's otherwise; its counter checked) and a
+   hd 64, 80, 128 and 160, ``csrc/flash_attention_bwd.cu`` for the rest)
+   and, for every f32 case at hd <= 128 and every bf16 case at hd 64, 80,
+   128 and 160, the general one too (``flash_attention_bwd_simple``), each
+   checked by its counter, on the forward's output and row logsumexp (the
+   tf32x3 kernel's in f32 at hd <= 128, the wgmma kernel's in bf16 at hd
+   64, 80, 128 and 160, the general kernel's otherwise; its counter
+   checked) and a
    random output gradient, against ``ref.flash_attention_bwd_ref`` within
    ``ref.flash_attention_bwd_bound`` (1e-5 of each gradient's sum of
    magnitudes + 1e-7, plus one bf16 ulp in bf16; for the wgmma kernel its
    ``products="bf16"`` form, 2**-8 of the terms' magnitudes more; the
    general kernel on the same bf16 inputs held to the f32 form) at T in
    {1, 33, 64, 257, 512}, hd in {16, 64, 80, 128, 160}, H/KV in {1, 4},
-   causal and full, f32, and bf16 at hd 16, 64, 80 and 128; Tq 33 against
+   causal and full, f32, and bf16 at hd 16, 64, 80, 128 and 160; Tq 33 against
    Tk 100 and the reverse, f32 and bf16, and strided views off 16-byte
    alignment, f32 and bf16; the same values off alignment and with heads
    outside positions give the contiguous layout's bits through the tf32x3
    backward and the wgmma one (its views copied); bf16 values of one sign
    (q and k times 1, 2 and 3) at hd 80 through the wgmma kernel within its
-   bound; values of one sign at FuXi's shape (v and do plus
+   bound; at hd 160 (1 x 512 x 8 heads over 2; q and k of one sign times
+   1, 2 and 3, v and do plus 2) both kernels within their bounds of the
+   plain version, their shares of it against the plain version and an f64
+   evaluation printed (``flash_bwd_same_sign_bf16``); values of one sign at
+   FuXi's shape (v and do plus
    2; q and k times 1, 2 and 3, three draws each) through both backward
    kernels, their shares of the bound against an f64 evaluation and the
    plain version printed (``flash_bwd_same_sign``), the tf32x3 kernel held
@@ -426,11 +431,12 @@ hand-written kernel on it against its plain PyTorch version:
    the stream, then 3,840 text keys; N = 4, lr 3e-5): one warm-up step, two
    captured steps (the embedding kernels' calls checked and timed; the
    first forward and backward attention call kept), ``train(4)`` with
-   every launch counted (48 wgmma forwards with the lse and 24 general
-   backwards a step: hd 160 is not a wgmma backward head dim), finite
-   losses below the warm-up step's, peak under 80 GB (``--profile``: 2
-   more steps); the kept calls checked and timed as 13b's, the backward
-   through the general kernel alone; then ``pixtral-12b-reduced`` nestpipe
+   every launch counted (48 wgmma forwards with the lse and 24 wgmma
+   backwards a step, none of the general backward), finite losses below
+   the warm-up step's, peak under 80 GB (``--profile``: 2 more steps); the
+   kept calls checked and timed as 13b's, the backward through the wgmma
+   and the general kernel in turns (wgmma, general, general, wgmma; the
+   wgmma one at least 10x faster); then ``pixtral-12b-reduced`` nestpipe
    = serial = the reference within 1e-5, async diverging, at AdamW eps
    1e-6 and the default, and a narrow bf16 VLM at hd 160 (2 layers, 2
    heads over 1, d_model 320, 8 patches) on the card and on the CPU from
@@ -451,8 +457,9 @@ hand-written kernel on it against its plain PyTorch version:
    training; the wgmma forward's and backward's
    olmoe calls at hd 128, the forward's jamba call, whisper's hd-64 calls
    of the serve and of training, encoder, decoder and cross, pixtral's
-   hd-160 prefill and training calls; the general backward at pixtral's
-   training call, its main path, and at stablelm-3b's)
+   hd-160 prefill and training calls, the wgmma backward's pixtral call;
+   the general backward, on no main path, at pixtral's and stablelm-3b's
+   training calls)
    and, last, the ``{"ok": true, ...}`` line.
 
 Every phase prints one JSON line. Nothing is caught: any failure exits
@@ -651,8 +658,7 @@ WHISPER_FWD_CALLS_PER_STEP, WHISPER_BWD_CALLS_PER_STEP = 144, 72
 PIXTRAL_ARCH = "pixtral-12b"
 PIXTRAL_TRAIN_LAYERS, PIXTRAL_TRAIN_STEPS = 6, 4
 # the wgmma forward's calls a training step: 6 layers x 4 micro-batches x 2
-# (remat), with the lse; the general backward's (hd 160 is not a wgmma
-# backward head dim): 6 x 4
+# (remat), with the lse; the wgmma backward's at hd 160: 6 x 4
 PIXTRAL_FWD_CALLS_PER_STEP, PIXTRAL_BWD_CALLS_PER_STEP = 48, 24
 KERNELS = {  # name -> (source, the Pallas kernel it replaces)
     "embedding_gather": ("src/repro_torch/csrc/embedding_gather.cu",
@@ -678,7 +684,7 @@ KERNELS = {  # name -> (source, the Pallas kernel it replaces)
     "flash_attention_tf32x3": ("src/repro_torch/csrc/flash_attention_tf32.cu",
                                "src/repro/kernels/flash_attention.py:70"),
     # the TPU kernel is forward only; JAX differentiates chunked_attention
-    # (src/repro/models/layers.py:160): bf16 at hd 64, 80, 128 (LM
+    # (src/repro/models/layers.py:160): bf16 at hd 64, 80, 128, 160 (LM
     # training's backward), f32 at head dims up to 128 (FuXi's backward),
     # and the general backward (bf16 at other head dims, f32 above 128)
     "flash_attention_bwd_wgmma": ("src/repro_torch/csrc/flash_attention_bwd_wgmma.cu",
@@ -738,13 +744,14 @@ RUNS_ON = {
     # FuXi's f32 attention, forward and backward
     "flash_attention_tf32x3": ("fuxi_train",),
     "flash_attention_bwd_tf32x3": ("fuxi_train",),
-    # bf16 at hd 64, 80 and 128: LM training's backward (phases 13b, 13e-f,
-    # 13l)
-    "flash_attention_bwd_wgmma": ("lm_train",) + MOE_TRAIN_PATHS + ("whisper_train",),
-    # bf16 at the other head dims and f32 above 128: pixtral's training
-    # backward at hd 160 (phase 13o); phase 11a holds it against the plain
-    # version, 11b and 13b time it at FuXi's and stablelm-3b's calls too
-    "flash_attention_bwd_simple": ("vlm_train",),
+    # bf16 at hd 64, 80, 128 and 160: LM training's backward (phases 13b,
+    # 13e-f, 13l, 13o)
+    "flash_attention_bwd_wgmma": ("lm_train",) + MOE_TRAIN_PATHS
+    + ("whisper_train", "vlm_train"),
+    # bf16 at the other head dims and f32 above 128: no main path sends it
+    # inputs; phase 11a holds it against the plain version, 11b, 13b and 13o
+    # time it at FuXi's, stablelm-3b's and pixtral's calls
+    "flash_attention_bwd_simple": (),
 }
 
 
@@ -3176,7 +3183,7 @@ def main() -> int:
 
     bedge = []
     for dtype, dims in ((torch.float32, (16, 64, 80, 128, 160)),
-                        (torch.bfloat16, (16, 64, 80, 128))):
+                        (torch.bfloat16, (16, 64, 80, 128, 160))):
         dname = str(dtype).removeprefix("torch.")
         for t in (1, 33, 64, 257, 512):
             for hd in dims:
@@ -3188,8 +3195,8 @@ def main() -> int:
         bedge.append(f"{dname} T in {{1,33,64,257,512}} hd in {dims} H/KV in {{1,4}} "
                      "causal and not" + (" (tf32x3 at hd <= 128, and the general kernel too)"
                                          if dtype == torch.float32 else
-                                         " (wgmma at hd 64, 80, 128, and the general kernel "
-                                         "too; general at 16)"))
+                                         " (wgmma at hd 64, 80, 128, 160, and the general "
+                                         "kernel too; general at 16)"))
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).removeprefix("torch.")
         for causal in (True, False):
@@ -3255,19 +3262,24 @@ def main() -> int:
     # every scale where the general (f32 FFMA) kernel holds it in all three
     # draws; the rest is printed
     def exact_bwd(q, k, v, o, do, lse):
-        """dq, dk, dv of causal attention of (B, T, H, hd) inputs (H = KV)
-        in f64, from the forward's o and lse."""
-        qd, kd, vd, od, dod = (x.double() for x in (q, k, v, o, do))
+        """dq, dk, dv of causal attention of q (B, T, H, hd) over k, v (B, T,
+        KV, hd) in f64, from the forward's o and lse; query head h reads kv
+        head h // (H / KV), and each kv head's dk, dv sum over its group."""
+        group = q.shape[2] // k.shape[2]
+        qd, od, dod = (x.double() for x in (q, o, do))
+        kd, vd = (x.double().repeat_interleave(group, dim=2) for x in (k, v))
         scale = q.shape[-1] ** -0.5
-        t = q.shape[1]
+        b, t, h, hd = q.shape
         keep = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
         s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) * scale
         p = torch.exp(s - lse.double()[..., None]).masked_fill(~keep, 0.0)
         delta = (dod * od).sum(-1).transpose(1, 2)
         ds = p * (torch.einsum("bqhd,bkhd->bhqk", dod, vd) - delta[..., None])
+        dk = torch.einsum("bhqk,bqhd->bkhd", ds, qd) * scale
+        dv = torch.einsum("bhqk,bqhd->bkhd", p, dod)
         return (torch.einsum("bhqk,bkhd->bqhd", ds, kd) * scale,
-                torch.einsum("bhqk,bqhd->bkhd", ds, qd) * scale,
-                torch.einsum("bhqk,bqhd->bkhd", p, dod))
+                dk.reshape(b, t, h // group, group, hd).sum(3),
+                dv.reshape(b, t, h // group, group, hd).sum(3))
 
     bwd_same_sign = []
     for scale in (1, 2, 3):
@@ -3318,10 +3330,42 @@ def main() -> int:
         if case["held"] and case["share_of_bound_vs_f64"] > 1:
             raise SystemExit(f"{case['kernel']} beyond its bound of the f64 evaluation on "
                              f"values of one sign: {case}")
+    # bf16 values of one sign at pixtral's head dim (q and k of one sign
+    # times 1, 2 and 3; v and do plus 2), 8 query heads over 2, through the
+    # wgmma backward (its dk/dv kernel 32 queries a tile) and the general
+    # one, each within its bound of the plain version (check_flash_bwd:
+    # the bf16 form for the wgmma kernel, the f32 form for the general);
+    # each kernel's share of its bound against the plain version and an f64
+    # evaluation of the same formulas on the same inputs printed
+    bf16_same_sign = []
+    for mul in (1, 2, 3):
+        q, k, v = flash_inputs(1, 512, 512, 8, 2, 160, torch.float32)
+        q, k, v = ((mul * q.abs()).to(torch.bfloat16), (mul * k.abs()).to(torch.bfloat16),
+                   (v + 2).to(torch.bfloat16))
+        out, lse = fa.flash_attention_lse(q, k, v, True)
+        do = (torch.empty(out.shape, device=dev).normal_(generator=g) + 2).to(torch.bfloat16)
+        check_flash_bwd(f"same-sign bf16 hd 160 x {mul}", q, k, v, True, given=(out, do, lse))
+        want = ref.flash_attention_bwd_ref(q, k, v, out, do, lse, True)
+        exact = exact_bwd(q, k, v, out, do, lse)
+        for kind, products in (("wgmma", "bf16"), ("simple", "f32")):
+            got = run_bwd("same-sign bf16 hd 160", kind, q, k, v, out, do, lse, True)
+            bounds = ref.flash_attention_bwd_bound(q, k, v, out, do, lse, want, True,
+                                                   products=products)
+            bf16_same_sign.append({
+                "kernel": f"flash_attention_bwd_{kind}", "bound": products, "scale": mul,
+                **{f"share_of_bound_vs_{ref_}": max(
+                    float(((g_.double() - w_.double()).abs() / bd).max())
+                    for g_, w_, bd in zip(got, w, bounds))
+                   for ref_, w in (("plain", want), ("f64", exact))}})
+        del q, k, v, out, lse, do, want, exact, got, bounds
+    bedge.append("bfloat16 1 x 512 x 8 x 160 over 2 kv heads causal, q and k of one sign x 1, "
+                 "2, 3, v and do + 2 (both kernels; shares printed)")
+    emit("flash_bwd_same_sign_bf16", shape=[1, 512, 8, 160], kv_heads=2, causal=True,
+         cases=bf16_same_sign)
     torch.cuda.synchronize()
     emit("flash_bwd_edges", cases=bedge, max_abs_err=bworst, max_share_of_bound=bshare,
          forward="the tf32x3 kernel's output and lse for f32 (hd <= 128), the wgmma "
-                 "kernel's for bf16 at hd 64, 80 and 128, the general kernel's for bf16 "
+                 "kernel's for bf16 at hd 64, 80, 128 and 160, the general kernel's for bf16 "
                  "at hd 16 and f32 at hd 160",
          seconds=time.perf_counter() - t_phase,
          tolerance="dq, dk, dv: |kernel - plain| <= 1e-5 M + 1e-7 (+ one bf16 ulp of the "
@@ -4126,17 +4170,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    def train_attention_rows(path, kept, flush, bwd_layer, bwd="wgmma"):
+    def train_attention_rows(path, kept, flush, bwd_layer, wgmma_first=False):
         """The captured main-path attention calls of LM training (kept: the
         first forward with its lse, the first backward), on the card alone
         now: checked at full shape and timed beside the plain versions, SDPA
         (the yardstick; the port never calls it) and their bf16 bound; the
         wgmma forward with and without its lse in turns (with, without,
-        without, with); the backward through the main path's kernel
-        (``bwd``). Where that is the wgmma one, the general one is timed in
-        turns with it (general, wgmma, wgmma, general), the wgmma one at
-        least 10x faster; where it is the general one (hd 160), two turns of
-        it alone."""
+        without, with); the backward through the main path's wgmma kernel
+        and the general one in turns (general, wgmma, wgmma, general, or
+        with ``wgmma_first`` wgmma, general, general, wgmma), the wgmma one
+        at least 10x faster."""
         attn = {}
         q, k, v, causal = kept["fwd"]
         if fa.lse_variant(q, k, v) != "wgmma":
@@ -4181,10 +4224,10 @@ def main() -> int:
         del qt, kt, vt
 
         # the backward call through the wgmma kernel (the main path's) and the
-        # general one, checked and timed in turns (general, wgmma, wgmma, general)
+        # general one, checked and timed in turns
         q, k, v, o, do, lse, causal = kept["bwd"]
-        if fa.bwd_variant(q, k, v) != bwd:
-            raise SystemExit(f"{path}: the main-path backward call is not the {bwd} kernel's")
+        if fa.bwd_variant(q, k, v) != "wgmma":
+            raise SystemExit(f"{path}: the main-path backward call is not the wgmma kernel's")
         errs = check_flash_bwd(f"{path} backward call", q, k, v, causal, chunk=1,
                                given=(o, do, lse))
         ops, nbytes = flash_bwd_work(q, k, causal)
@@ -4198,13 +4241,13 @@ def main() -> int:
                                                                 retain_graph=True), flush)
         bwd_fns = {
             "flash_attention_bwd_simple": lambda: fa.flash_attention_bwd_simple(q, k, v, o, do,
-                                                                                lse, causal)}
-        order = ("flash_attention_bwd_simple",) * 2
-        if bwd == "wgmma":
-            bwd_fns["flash_attention_bwd_wgmma"] = lambda: fa.flash_attention_bwd(
-                q, k, v, o, do, lse, causal)
-            order = ("flash_attention_bwd_simple", "flash_attention_bwd_wgmma",
-                     "flash_attention_bwd_wgmma", "flash_attention_bwd_simple")
+                                                                                lse, causal),
+            "flash_attention_bwd_wgmma": lambda: fa.flash_attention_bwd(q, k, v, o, do, lse,
+                                                                        causal)}
+        outer, inner = "flash_attention_bwd_simple", "flash_attention_bwd_wgmma"
+        if wgmma_first:
+            outer, inner = inner, outer
+        order = (outer, inner, inner, outer)
         turns = {kname: [] for kname in bwd_fns}
         for kname in order:
             turns[kname].append(time_ms(torch, bwd_fns[kname], flush))
@@ -4224,13 +4267,11 @@ def main() -> int:
             row["x_library"] = row["ms"] / library_ms
             attn[kname] = row
             emit("kernel_shape", path=path, **row)
-        if bwd == "wgmma":
-            attn["flash_attention_bwd_wgmma"]["x_faster_than_simple"] = (
-                attn["flash_attention_bwd_simple"]["ms"]
-                / attn["flash_attention_bwd_wgmma"]["ms"])
-            if attn["flash_attention_bwd_wgmma"]["x_faster_than_simple"] < 10:
-                raise SystemExit(f"the wgmma backward is less than 10x faster than the general "
-                                 f"one: {attn['flash_attention_bwd_wgmma']}")
+        attn["flash_attention_bwd_wgmma"]["x_faster_than_simple"] = (
+            attn["flash_attention_bwd_simple"]["ms"] / attn["flash_attention_bwd_wgmma"]["ms"])
+        if attn["flash_attention_bwd_wgmma"]["x_faster_than_simple"] < 10:
+            raise SystemExit(f"the wgmma backward is less than 10x faster than the general "
+                             f"one: {attn['flash_attention_bwd_wgmma']}")
         return attn
 
     lm_attn = train_attention_rows("lm_train", tkept, flush, tcfg.n_layers - 1)
@@ -5846,10 +5887,16 @@ def main() -> int:
     # -- 13o. main path: pixtral-12b training at full width, 6 of 40 layers --
     # at stablelm-3b's training cell (batch 8 x 4,096 positions: 256 zero
     # patches from the stream, then 3,840 text keys; N = 4, lr 3e-5): the
-    # wgmma forward with its lse and the general backward at hd 160, the
+    # wgmma forward with its lse and the wgmma backward at hd 160, the
     # data-path kernels; then the consistency of pixtral-12b-reduced and a
-    # narrow bf16 VLM at hd 160 on the card against the CPU
+    # narrow bf16 VLM at hd 160 on the card against the CPU. The two capture
+    # steps keep copies of a step's buffers on top of the 69 GB training
+    # peak; with the default segments a run has found 5.6 GiB reserved but
+    # split too finely for a 1.25 GiB gradient there. Expandable segments
+    # map freed pages back into one range: on for this phase alone (the
+    # whole script under them ran 10-30% slower a phase)
     t_phase = time.perf_counter()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     start_gb = torch.cuda.memory_allocated() / 1e9
     ptcfg = dataclasses.replace(get_arch(PIXTRAL_ARCH).config, n_layers=PIXTRAL_TRAIN_LAYERS)
     ptwl = assemble_workload(
@@ -5894,6 +5941,7 @@ def main() -> int:
     # two steps with the first forward (with its lse) and backward kept,
     # every call counted, and the embedding kernels' calls captured
     pseen, ptkept = {"fwd": 0, "bwd": 0}, {}
+    torch.cuda.reset_peak_memory_stats()
 
     def vlm_lse_spy(q, k, v, causal=True):
         pseen["fwd"] += 1
@@ -5915,6 +5963,7 @@ def main() -> int:
         fa.flash_attention_lse, fa.flash_attention_bwd = real_lse, real_fbwd
     if pseen != {"fwd": 2 * PIXTRAL_FWD_CALLS_PER_STEP, "bwd": 2 * PIXTRAL_BWD_CALLS_PER_STEP}:
         raise SystemExit(f"two pixtral steps made {pseen} attention calls")
+    capture_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ptshapes = check_and_time("vlm_train", pcaptured, pts.state.table)
     del pcaptured
     gc.collect()
@@ -5944,6 +5993,7 @@ def main() -> int:
          mean_input_wait_ms=s["mean_input_wait_s"] * 1e3,
          stage_host_ms={k: s[k] for k in ("plan_ms", "retrieve_ms", "commit_ms")},
          launches=vlm_train_launches, max_memory_allocated_gb=vlm_train_peak_gb,
+         capture_max_memory_allocated_gb=capture_peak_gb,
          device_memory_gb=torch.cuda.get_device_properties(0).total_memory / 1e9)
     if not all(np.isfinite(ptrep.stats.losses)) \
             or len(ptrep.stats.losses) != PIXTRAL_TRAIN_STEPS:
@@ -5961,7 +6011,7 @@ def main() -> int:
                           buffer_sync=PIXTRAL_TRAIN_STEPS - 1,
                           embedding_scatter=PIXTRAL_TRAIN_STEPS,
                           flash_attention_wgmma=PIXTRAL_FWD_CALLS_PER_STEP * PIXTRAL_TRAIN_STEPS,
-                          flash_attention_bwd_simple=PIXTRAL_BWD_CALLS_PER_STEP
+                          flash_attention_bwd_wgmma=PIXTRAL_BWD_CALLS_PER_STEP
                           * PIXTRAL_TRAIN_STEPS)
     if vlm_train_launches != vlm_train_want:
         raise SystemExit(f"pixtral training launches {vlm_train_launches} != {vlm_train_want}")
@@ -5979,7 +6029,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     vlm_attn = train_attention_rows("vlm_train", ptkept, flush, PIXTRAL_TRAIN_LAYERS - 1,
-                                    bwd="simple")
+                                    wgmma_first=True)
     del ptkept, flush
     gc.collect()
     torch.cuda.empty_cache()
@@ -6026,16 +6076,17 @@ def main() -> int:
             raise SystemExit(f"pixtral async did not diverge ({label}): {vgaps}")
     # 2 layers x N_MICRO micro-batches x 3 steps, each forward twice (remat)
     if v_launches.get("flash_attention_wgmma", 0) != 2 * 2 * N_MICRO * 3 \
-            or v_launches.get("flash_attention_bwd_simple", 0) != 2 * N_MICRO * 3 \
+            or v_launches.get("flash_attention_bwd_wgmma", 0) != 2 * N_MICRO * 3 \
             or any(v_launches.get(k, 0) for k in (
                 "flash_attention_simple", "flash_attention_tf32x3",
-                "flash_attention_bwd_wgmma", "flash_attention_bwd_tf32x3")):
+                "flash_attention_bwd_simple", "flash_attention_bwd_tf32x3")):
         raise SystemExit(f"the bf16 hd-160 VLM launched {v_launches}")
     if not all(np.isfinite(vgot.stats.losses)) or max(v_gap) > LM_BF16_LOSS_RTOL:
         raise SystemExit(f"the bf16 hd-160 VLM losses on the card are {v_gap} from the CPU's")
     del vgpu, vcpu, vgot, vwant
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:False")
     emit("vlm_train_phase", seconds=time.perf_counter() - t_phase)
 
     # -- 14. kernels line and the result -----------------------------------
@@ -6151,8 +6202,13 @@ def main() -> int:
                     "bound_ms", "bound_by", "achieved_tflops", "max_abs_err")}
                     for kind in ("encoder", "decoder", "cross")],
                 "calls_per_whisper_train_step": WHISPER_BWD_CALLS_PER_STEP,
+                # pixtral's hd-160 call (the dk/dv kernel 32 queries a tile)
+                "vlm_train_call": {k: vlm_attn[kname][k] for k in (
+                    "shape", "kv_heads", "ms", "ms_turns", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "achieved_tflops", "x_faster_than_simple", "max_abs_err")},
+                "calls_per_vlm_train_step": PIXTRAL_BWD_CALLS_PER_STEP,
             }
-        elif kname == "flash_attention_bwd_simple":  # pixtral's training backward (hd 160)
+        elif kname == "flash_attention_bwd_simple":  # on no main path; pixtral's call timed
             row, lrow, frow = vlm_attn[kname], lm_attn[kname], fuxi_attn[kname]
             entry = {
                 "name": kname, "route": "cuda", "source": source, "replaces": replaces,
@@ -6161,11 +6217,10 @@ def main() -> int:
                                    + [v for k, v in bworst.items() if k.startswith(kname)]),
                 "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                "ms_of": f"one call at the main-path shape {row['shape']} over "
+                "ms_of": f"one call at pixtral-12b training's shape {row['shape']} over "
                          f"{row['kv_heads']} kv heads, bf16, causal ({row['call']}; the mean "
-                         "of two turns)",
+                         "of two turns, in turns with the wgmma backward)",
                 "ms_turns": row["ms_turns"],
-                "calls_per_vlm_train_step": PIXTRAL_BWD_CALLS_PER_STEP,
                 "achieved_tflops": row["achieved_tflops"],
                 # stablelm-3b's hd-80 call, in turns with the wgmma backward
                 "lm_train_shape": {k: lrow[k] for k in ("shape", "ms", "ms_turns", "plain_ms",

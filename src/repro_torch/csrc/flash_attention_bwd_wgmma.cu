@@ -23,9 +23,11 @@
 // H = KV = 32, hd 80, causal) the function does 429.6 GFLOP (10 hd a kept
 // (query, key) pair: S, dP, dv, dq and dk), 0.434 ms at the 989 TFLOP/s
 // dense bf16 tensor-core peak, against 0.10 ms for its 0.34 GB of bytes at
-// 3.35 TB/s. Only wgmma reaches that rate, so every product runs there,
-// with the forward's pieces (csrc/wgmma.cuh), in three launches, no
-// atomics, every sum in a fixed order (two runs give the same bits):
+// 3.35 TB/s; at pixtral-12b's (B 2, T 4096, 32 heads of 160 over 8) 859.2
+// GFLOP, 0.869 ms, against 0.13 ms for 0.42 GB. Only wgmma reaches that
+// rate, so every product runs there, with the forward's pieces
+// (csrc/wgmma.cuh), in three launches, no atomics, every sum in a fixed
+// order (two runs give the same bits):
 //   1. delta: one warp a (b, h, query) row, do . o over 16-byte loads (8
 //      columns a lane, added in order) and a fixed shuffle tree, into an
 //      f32 (B, H, Tq) scratch.
@@ -45,8 +47,9 @@
 //   3. dk/dv: one block a (b, kv head, 128-key tile), the first key tiles
 //      (the most queries, causal) first; the same three warpgroups, 64 keys
 //      a consumer. K and V are loaded once; the block walks the group's
-//      query heads in head order and in each the 64-query tiles from the
-//      diagonal on, Q and dO by TMA through the ring and the tile's lse
+//      query heads in head order and in each the query tiles (64 rows, 32
+//      above hd 128: QStep) from the diagonal on, Q and dO by TMA through
+//      the ring (2 stages, 4 above hd 128) and the tile's lse
 //      (times log2(e)) and delta written into the stage by a producer warp
 //      with plain loads (it arrives at the stage's full barrier with the
 //      copy). It computes the transposed scores S^T = K Q^T and dP^T = V dO^T
@@ -63,11 +66,17 @@
 // Masking: tiles wholly above the diagonal are skipped (a warpgroup whose
 // 64 rows a tile masks wholly only releases the stage); on the others P = 0
 // where the pair is masked or past T. Rows past T come back from TMA as
-// zeros, and the stores clip them. Registers at hd 128 (dk/dv): dK and dV
-// 64 each, S^T and dP^T 32 each at 64 queries a tile.
-// Head dims 64, 80 and 128 (the column blocks of Atom<HD>); anything else
-// goes to the other backward kernels, and views TMA cannot describe are
-// copied first (the wrapper's choice).
+// zeros, and the stores clip them. Registers of a dk/dv consumer: at hd 128
+// dK and dV 64 each, S^T and dP^T 32 each at 64 queries a tile, the bf16
+// P^T and dS^T 16 each (224); at hd 160 dK and dV take 80 each, so the
+// query step is 32: S^T and dP^T are m64n32k16 products (mma_ss<32>) of 16
+// registers each, P^T and dS^T 8 each (208, under setmaxnreg's 232), and
+// dV and dK take two k16 steps of mma_rs<160> a tile. The step changes no
+// sum's order: dK and dV still add their queries 16 at a time, in order. The dq kernel keeps 64-key tiles at every head dim (dQ 80, S and
+// dP 32 each, dS 16 at hd 160).
+// Head dims 64, 80, 128 and 160 (the column blocks of Atom<HD>); anything
+// else goes to the other backward kernels, and views TMA cannot describe
+// are copied first (the wrapper's choice).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -83,8 +92,8 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 128;         // rows a block owns: two consumer warpgroups of 64
-constexpr int kStep = 64;          // rows of the other side a tile
-constexpr int kStages = 2;         // the ring
+constexpr int kStep = 64;          // the dq kernel: keys a tile
+constexpr int kStages = 2;         // the dq kernel's ring
 constexpr int kThreads = 384;      // warpgroups 0 and 1 consume, 2 produces
 constexpr int kDeltaThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -95,12 +104,23 @@ struct View {
   int64_t sb, st, sh;
 };
 
+// The dk/dv kernel's queries a tile and its ring: 64 in 2 stages, as the
+// dq kernel's keys; above hd 128, where dK and dV alone hold HD registers a
+// thread, 32 in 4 stages, so that S^T and dP^T (m64n32) take 16 each.
+template <int HD>
+struct QStep {
+  static constexpr int kRows = HD > 128 ? 32 : 64;
+  static constexpr int kStages = HD > 128 ? 4 : 2;
+};
+
 // Shared-memory layouts, from a 1024-byte aligned base: every tile in the
-// column blocks of Atom<HD>, a 128-row tile (kBig) or a 64-row one (kSmall).
+// column blocks of Atom<HD>, a 128-row tile (kBig), a 64-row one (kSmall)
+// or one of the dk/dv kernel's query step (kQTile).
 template <int HD>
 struct Tiles : Atom<HD> {
   static constexpr uint32_t kBig = kRows * HD * 2;
   static constexpr uint32_t kSmall = kStep * HD * 2;
+  static constexpr uint32_t kQTile = QStep<HD>::kRows * HD * 2;
 };
 
 // dq: Q and dO (128 rows), then the ring of K and V (64 rows); barriers:
@@ -116,20 +136,21 @@ struct DqShape : Tiles<HD> {
   static constexpr uint32_t kSmem = kBar + 8 * (1 + 2 * kStages) + 1024;  // + alignment room
 };
 
-// dk/dv: K and V (128 rows), then the ring of Q and dO (64 rows) and of
+// dk/dv: K and V (128 rows), then the ring of Q and dO (QStep rows) and of
 // the tile's lse (log2 units) and delta; barriers: K/V full, full a stage,
 // empty a stage.
 template <int HD>
 struct DkdvShape : Tiles<HD> {
   using T = Tiles<HD>;
+  static constexpr int kQRows = QStep<HD>::kRows, kQStages = QStep<HD>::kStages;
   static constexpr uint32_t kK = 0;
   static constexpr uint32_t kV = T::kBig;
   static constexpr uint32_t kQ = 2 * T::kBig;
-  static constexpr uint32_t kDO = kQ + kStages * T::kSmall;
-  static constexpr uint32_t kLse = kDO + kStages * T::kSmall;
-  static constexpr uint32_t kDelta = kLse + kStages * kStep * 4;
-  static constexpr uint32_t kBar = kDelta + kStages * kStep * 4;
-  static constexpr uint32_t kSmem = kBar + 8 * (1 + 2 * kStages) + 1024;
+  static constexpr uint32_t kDO = kQ + kQStages * T::kQTile;
+  static constexpr uint32_t kLse = kDO + kQStages * T::kQTile;
+  static constexpr uint32_t kDelta = kLse + kQStages * kQRows * 4;
+  static constexpr uint32_t kBar = kDelta + kQStages * kQRows * 4;
+  static constexpr uint32_t kSmem = kBar + 8 * (1 + 2 * kQStages) + 1024;
 };
 
 // delta[(b H + h) Tq + i] = do[b, i, h] . o[b, i, h], one warp a row: lane
@@ -207,40 +228,40 @@ __device__ __forceinline__ void load_big(uint32_t dst, const CUtensorMap* map, u
                cb * A::kAtom, head, t0 + half * kStep, b);
 }
 
-// A 64-row tile's column blocks from rows t0.. of (head, b).
-template <int HD>
+// An N-row tile's column blocks from rows t0.. of (head, b); the map's
+// boxes are N rows.
+template <int HD, int N>
 __device__ __forceinline__ void load_small(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                            int head, int t0, int b) {
   using A = Atom<HD>;
   for (int cb = 0; cb < A::kBlocks; ++cb)
-    tma_load(dst + cb * kStep * A::kRowBytes, map, bar, cb * A::kAtom, head, t0, b);
+    tma_load(dst + cb * N * A::kRowBytes, map, bar, cb * A::kAtom, head, t0, b);
 }
 
-// D (64 x 64) = A B^T over hd: A the warpgroup's 64 rows of a 128-row tile
-// at `a`, B a 64-row tile at `b`, both K-major; issued, not waited for.
-template <int HD>
-__device__ __forceinline__ void scores(float (&d)[kStep / 2], uint32_t a, uint32_t b) {
+// D (64 x N) = A B^T over hd: A the warpgroup's 64 rows of a 128-row tile
+// at `a`, B an N-row tile at `b`, both K-major; issued, not waited for.
+template <int HD, int N>
+__device__ __forceinline__ void scores(float (&d)[N / 2], uint32_t a, uint32_t b) {
   using A = Atom<HD>;
   constexpr uint32_t kSbo = 8 * A::kRowBytes;  // between 8-row groups
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     const int cb = kk * 16 / A::kAtom, within = kk * 16 % A::kAtom;
-    mma_ss<kStep>(d, make_desc(a + cb * kRows * A::kRowBytes + within * 2, 16, kSbo, A::kLayout),
-                  make_desc(b + cb * kStep * A::kRowBytes + within * 2, 16, kSbo, A::kLayout),
-                  kk > 0);
+    mma_ss<N>(d, make_desc(a + cb * kRows * A::kRowBytes + within * 2, 16, kSbo, A::kLayout),
+              make_desc(b + cb * N * A::kRowBytes + within * 2, 16, kSbo, A::kLayout), kk > 0);
   }
 }
 
-// acc (64 x HD) += A B: A the bf16 fragments of a 64 x 64 product (k-step
-// kb's in a[kb]), B a 64-row tile at `b`, MN-major; issued, not waited for.
-template <int HD>
-__device__ __forceinline__ void accumulate(float (&acc)[HD / 2], uint32_t (&a)[kStep / 16][4],
+// acc (64 x HD) += A B: A the bf16 fragments of a 64 x N product (k-step
+// kb's in a[kb]), B an N-row tile at `b`, MN-major; issued, not waited for.
+template <int HD, int N>
+__device__ __forceinline__ void accumulate(float (&acc)[HD / 2], uint32_t (&a)[N / 16][4],
                                            uint32_t b) {
   using A = Atom<HD>;
 #pragma unroll
-  for (int kb = 0; kb < kStep / 16; ++kb)
+  for (int kb = 0; kb < N / 16; ++kb)
     mma_rs<HD>(acc, a[kb],
-               make_desc(b + kb * 16 * A::kRowBytes, kStep * A::kRowBytes, 8 * A::kRowBytes,
+               make_desc(b + kb * 16 * A::kRowBytes, N * A::kRowBytes, 8 * A::kRowBytes,
                          A::kLayout));
 }
 
@@ -292,8 +313,8 @@ flash_wgmma_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
         const int s = t % kStages;
         mbar_wait(empty(s), ((t / kStages) & 1) ^ 1);  // the first round passes
         mbar_expect_tx(full(s), 2 * S::kSmall);
-        load_small<HD>(base + S::kK + s * S::kSmall, &kmap, full(s), kh, t * kStep, b);
-        load_small<HD>(base + S::kV + s * S::kSmall, &vmap, full(s), kh, t * kStep, b);
+        load_small<HD, kStep>(base + S::kK + s * S::kSmall, &kmap, full(s), kh, t * kStep, b);
+        load_small<HD, kStep>(base + S::kV + s * S::kSmall, &vmap, full(s), kh, t * kStep, b);
       }
     }
   } else {
@@ -339,8 +360,8 @@ flash_wgmma_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int i = 0; i < kStep / 2; ++i) sc[i] = dp[i] = 0.f;  // overwritten: scale_d = 0 first
       wgmma_fence();
-      scores<HD>(sc, q_rows, k_tile);
-      scores<HD>(dp, do_rows, v_tile);
+      scores<HD, kStep>(sc, q_rows, k_tile);
+      scores<HD, kStep>(dp, do_rows, v_tile);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(sc);
@@ -369,7 +390,7 @@ flash_wgmma_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
       // dQ += dS K
       fence_regs(acc);
       wgmma_fence();
-      accumulate<HD>(acc, ds, k_tile);
+      accumulate<HD, kStep>(acc, ds, k_tile);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
@@ -391,26 +412,27 @@ flash_wgmma_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
                             int Tq, int Tk, int H, int KV, int causal, float scale_log2,
                             float scale) {
   using S = DkdvShape<HD>;
+  constexpr int kQRows = S::kQRows, kQStages = S::kQStages;  // queries a tile, the ring
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* smem = smem_raw + (base - raw);
   const uint32_t kv_full = base + S::kBar;
   auto full = [&](int s) { return base + S::kBar + 8u * (1 + s); };
-  auto empty = [&](int s) { return base + S::kBar + 8u * (1 + kStages + s); };
+  auto empty = [&](int s) { return base + S::kBar + 8u * (1 + kQStages + s); };
 
   const int b = blockIdx.x / KV;
   const int kh = blockIdx.x - b * KV;
   const int group = H / KV;
   const int k0 = blockIdx.y * kRows;  // the first key tiles meet the most (causal) queries
-  const int q_tiles = (Tq + kStep - 1) / kStep;
-  const int qt_begin = causal ? k0 / kStep : 0;  // the first tile holding a query i >= k0
+  const int q_tiles = (Tq + kQRows - 1) / kQRows;
+  const int qt_begin = causal ? k0 / kQRows : 0;  // the first tile holding a query i >= k0
   const int per_head = max(q_tiles - qt_begin, 0);
   const int n_tiles = group * per_head;
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kQStages; ++s) {
       mbar_init(full(s), 1 + 32);  // the copy's thread and the lse / delta warp
       mbar_init(empty(s), 2 * 128);
     }
@@ -428,25 +450,25 @@ flash_wgmma_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
       load_big<HD>(base + S::kK, &kmap, kv_full, kh, k0, b);
       load_big<HD>(base + S::kV, &vmap, kv_full, kh, k0, b);
       for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % kStages;
+        const int s = t % kQStages;
         const int hq = kh * group + t / per_head;
-        const int q0 = (qt_begin + t % per_head) * kStep;
-        mbar_wait(empty(s), ((t / kStages) & 1) ^ 1);
-        mbar_expect_tx(full(s), 2 * S::kSmall);
-        load_small<HD>(base + S::kQ + s * S::kSmall, &qmap, full(s), hq, q0, b);
-        load_small<HD>(base + S::kDO + s * S::kSmall, &domap, full(s), hq, q0, b);
+        const int q0 = (qt_begin + t % per_head) * kQRows;
+        mbar_wait(empty(s), ((t / kQStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * S::kQTile);
+        load_small<HD, kQRows>(base + S::kQ + s * S::kQTile, &qmap, full(s), hq, q0, b);
+        load_small<HD, kQRows>(base + S::kDO + s * S::kQTile, &domap, full(s), hq, q0, b);
       }
     } else if (threadIdx.x >= 288 && threadIdx.x < 320) {
       const int lane = threadIdx.x - 288;
       for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % kStages;
+        const int s = t % kQStages;
         const int hq = kh * group + t / per_head;
-        const int q0 = (qt_begin + t % per_head) * kStep;
-        float* ls = reinterpret_cast<float*>(smem + S::kLse) + s * kStep;
-        float* dd = reinterpret_cast<float*>(smem + S::kDelta) + s * kStep;
-        mbar_wait(empty(s), ((t / kStages) & 1) ^ 1);
+        const int q0 = (qt_begin + t % per_head) * kQRows;
+        float* ls = reinterpret_cast<float*>(smem + S::kLse) + s * kQRows;
+        float* dd = reinterpret_cast<float*>(smem + S::kDelta) + s * kQRows;
+        mbar_wait(empty(s), ((t / kQStages) & 1) ^ 1);
 #pragma unroll
-        for (int e = 0; e < kStep / 32; ++e) {
+        for (int e = 0; e < kQRows / 32; ++e) {
           const int i = q0 + lane + 32 * e;
           float l = 0.f, d = 0.f;
           if (i < Tq) {
@@ -478,25 +500,25 @@ flash_wgmma_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
 
     if (n_tiles > 0) mbar_wait(kv_full, 0);
     for (int t = 0; t < n_tiles; ++t) {
-      const int s = t % kStages;
-      const int q0 = (qt_begin + t % per_head) * kStep;
-      mbar_wait(full(s), (t / kStages) & 1);
-      if (causal && q0 + kStep - 1 < w0) {  // every query before this warpgroup's keys
+      const int s = t % kQStages;
+      const int q0 = (qt_begin + t % per_head) * kQRows;
+      mbar_wait(full(s), (t / kQStages) & 1);
+      if (causal && q0 + kQRows - 1 < w0) {  // every query before this warpgroup's keys
         mbar_arrive(empty(s));
         continue;
       }
-      const uint32_t q_tile = base + S::kQ + s * S::kSmall;
-      const uint32_t do_tile = base + S::kDO + s * S::kSmall;
-      const float* ls = reinterpret_cast<const float*>(smem + S::kLse) + s * kStep;
-      const float* dd = reinterpret_cast<const float*>(smem + S::kDelta) + s * kStep;
+      const uint32_t q_tile = base + S::kQ + s * S::kQTile;
+      const uint32_t do_tile = base + S::kDO + s * S::kQTile;
+      const float* ls = reinterpret_cast<const float*>(smem + S::kLse) + s * kQRows;
+      const float* dd = reinterpret_cast<const float*>(smem + S::kDelta) + s * kQRows;
 
       // S^T = K Q^T and dP^T = V dO^T, one commit group
-      float st[kStep / 2], dpt[kStep / 2];
+      float st[kQRows / 2], dpt[kQRows / 2];
 #pragma unroll
-      for (int i = 0; i < kStep / 2; ++i) st[i] = dpt[i] = 0.f;
+      for (int i = 0; i < kQRows / 2; ++i) st[i] = dpt[i] = 0.f;
       wgmma_fence();
-      scores<HD>(st, k_rows, q_tile);
-      scores<HD>(dpt, v_rows, do_tile);
+      scores<HD, kQRows>(st, k_rows, q_tile);
+      scores<HD, kQRows>(dpt, v_rows, do_tile);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(st);
@@ -504,10 +526,10 @@ flash_wgmma_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
 
       // P^T and dS^T in the accumulator layout: register i holds key
       // key + 8 ((i >> 1) & 1), query q0 + 8 (i >> 2) + col + (i & 1)
-      const bool edge = q0 + kStep > Tq || (causal && q0 < w0 + 63);
-      uint32_t pt[kStep / 16][4], dst[kStep / 16][4];
+      const bool edge = q0 + kQRows > Tq || (causal && q0 < w0 + 63);
+      uint32_t pt[kQRows / 16][4], dst[kQRows / 16][4];
 #pragma unroll
-      for (int i = 0; i < kStep / 2; i += 2) {
+      for (int i = 0; i < kQRows / 2; i += 2) {
         const int r = (i >> 1) & 1;
         const int c = 8 * (i >> 2) + col;
         const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
@@ -531,8 +553,8 @@ flash_wgmma_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
       fence_regs(dv);
       fence_regs(dk);
       wgmma_fence();
-      accumulate<HD>(dv, pt, do_tile);
-      accumulate<HD>(dk, dst, q_tile);
+      accumulate<HD, kQRows>(dv, pt, do_tile);
+      accumulate<HD, kQRows>(dk, dst, q_tile);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(dv);
@@ -554,8 +576,12 @@ int launch(View q, View k, View v, View o, View dout, const float* lse, float* d
     return static_cast<int>(cudaErrorInvalidValue);
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  CUtensorMap qm, km, vm, dom, dqm, dkm, dvm;
+  // q and do twice: 64-row boxes for the dq kernel, the query step's for dk/dv
+  constexpr int kQRows = QStep<HD>::kRows;
+  CUtensorMap qm, km, vm, dom, dqm, dkm, dvm, qsm, dosm;
   if (!make_map<HD>(encode, &qm, q.p, H, Tq, B, q.sh, q.st, q.sb, kStep) ||
+      !make_map<HD>(encode, &qsm, q.p, H, Tq, B, q.sh, q.st, q.sb, kQRows) ||
+      !make_map<HD>(encode, &dosm, dout.p, H, Tq, B, dout.sh, dout.st, dout.sb, kQRows) ||
       !make_map<HD>(encode, &km, k.p, KV, Tk, B, k.sh, k.st, k.sb, kStep) ||
       !make_map<HD>(encode, &vm, v.p, KV, Tk, B, v.sh, v.st, v.sb, kStep) ||
       !make_map<HD>(encode, &dom, dout.p, H, Tq, B, dout.sh, dout.st, dout.sb, kStep) ||
@@ -593,7 +619,7 @@ int launch(View q, View k, View v, View o, View dout, const float* lse, float* d
   const dim3 kv_grid(static_cast<unsigned>(B * KV),
                      static_cast<unsigned>((Tk + kRows - 1) / kRows));
   flash_wgmma_bwd_dkdv_kernel<HD><<<kv_grid, kThreads, DkdvShape<HD>::kSmem, stream>>>(
-      qm, km, vm, dom, dkm, dvm, lse, delta, tq, tk, h, kvh, causal, scale_log2, scale);
+      qsm, km, vm, dosm, dkm, dvm, lse, delta, tq, tk, h, kvh, causal, scale_log2, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -605,7 +631,7 @@ int launch(View q, View k, View v, View o, View dout, const float* lse, float* d
 // is the forward's contiguous f32 (B, H, Tq) row logsumexp; delta is a
 // contiguous f32 (B, H, Tq) scratch the call overwrites; dq (B, Tq, H, hd)
 // and dk, dv (B, Tk, KV, hd) are contiguous bf16 outputs, every element of
-// which is written. hd in {64, 80, 128}, H % KV == 0. Launches three
+// which is written. hd in {64, 80, 128, 160}, H % KV == 0. Launches three
 // kernels on `stream` and returns the first CUDA error (0 on success). The
 // caller checks shapes, types, devices and alignment.
 extern "C" int repro_flash_attention_bwd_wgmma(
@@ -625,6 +651,7 @@ extern "C" int repro_flash_attention_bwd_wgmma(
     REPRO_FLASH_BWD_HD(64)
     REPRO_FLASH_BWD_HD(80)
     REPRO_FLASH_BWD_HD(128)
+    REPRO_FLASH_BWD_HD(160)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

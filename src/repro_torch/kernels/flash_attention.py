@@ -46,11 +46,13 @@ kernels chosen by ``bwd_variant`` from the type and head dim alone (never
 from the layout, nor from which forward wrote the lse):
 
 - ``csrc/flash_attention_bwd_wgmma.cu`` (``"wgmma"``), the LM training
-  path: bf16 at hd in ``WGMMA_BWD_HEAD_DIMS``. A delta pass, a dq kernel
-  over 128-row query tiles and a dk/dv kernel over 128-row key tiles (the
-  transposed scores, so both gradients take their A operand from
-  registers), every product on wgmma with TMA loads into a two-stage ring
-  and a producer warpgroup; P and dS rounded to bf16 only as A operands.
+  path: bf16 at hd in ``WGMMA_BWD_HEAD_DIMS`` (64, 80, 128 and 160). A
+  delta pass, a dq kernel over 128-row query tiles and a dk/dv kernel over
+  128-row key tiles (the transposed scores, so both gradients take their A
+  operand from registers), every product on wgmma with TMA loads into a
+  ring and a producer warpgroup; P and dS rounded to bf16 only as A
+  operands. At hd 160 the dk/dv kernel walks the queries 32 at a time (64
+  below), so that dK and dV (80 registers each) fit beside the scores.
   Views TMA cannot describe (q, k, v, o or do) are copied first, as for
   the wgmma forward.
 - ``csrc/flash_attention_bwd_tf32.cu`` (``"tf32x3"``), FuXi's training
@@ -91,7 +93,7 @@ _bwd_lock = threading.Lock()
 
 MAX_HEAD_DIM = 256
 WGMMA_HEAD_DIMS = (64, 80, 128, 160, 192, 256)
-WGMMA_BWD_HEAD_DIMS = (64, 80, 128)
+WGMMA_BWD_HEAD_DIMS = (64, 80, 128, 160)
 TF32X3_MAX_HEAD_DIM = 128
 _SYMBOLS = {("tf32x3", torch.float32): ("flash_attention_tf32",
                                         "repro_flash_attention_fwd_tf32x3"),
@@ -349,9 +351,9 @@ class FlashAttention(torch.autograd.Function):
     logsumexp, saving q, k, v, the output and the lse; the backward through
     ``flash_attention_bwd``, the kernel ``bwd_variant`` picks: FuXi's f32 at
     hd 64 goes through the tf32x3 forward and backward, an LM's bf16 at hd
-    64, 80 or 128 (``WGMMA_BWD_HEAD_DIMS``) through the wgmma forward and
-    the wgmma backward, and at the forward's other wgmma head dims (160,
-    192, 256) through the wgmma forward and the general backward."""
+    64, 80, 128 or 160 (``WGMMA_BWD_HEAD_DIMS``) through the wgmma forward
+    and the wgmma backward, and at the forward's other wgmma head dims (192,
+    256) through the wgmma forward and the general backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool = True):

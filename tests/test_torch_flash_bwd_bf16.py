@@ -5,9 +5,11 @@
   to bf16 only as dV's factor and dS only as dq's and dk's) holds
   ``ref.flash_attention_bwd_bound(..., products="bf16")`` against the
   plain backward and against ``jax.vjp`` of JAX's ``chunked_attention``
-  (in f32 on the same bf16 values), at hd 64, 80 and 128 with H/KV 1, 4
-  and 2, causal and full, and on values of one sign (q and k times 1, 2
-  and 3);
+  (in f32 on the same bf16 values), at hd 64, 80, 128 and 160 with H/KV
+  1, 4, 2 and 4, causal and full, and on values of one sign (q and k times
+  1, 2 and 3); the kernel's query step at hd 160 (32 rows in its dk/dv
+  kernel, 64 below) changes no sum's order the model takes, so one model
+  serves every head dim;
 - the rejected form, the scores rounded to bf16 before the exp, misses
   that bound on values of one sign;
 - the bf16 term is what admits the model: the model misses the f32 bound,
@@ -42,7 +44,8 @@ def _one_thread():
     torch.set_num_threads(threads)
 
 
-CASES = {"hd 64, H/KV 1": (64, 4), "hd 80, H/KV 4": (80, 1), "hd 128, H/KV 2": (128, 2)}
+CASES = {"hd 64, H/KV 1": (64, 4), "hd 80, H/KV 4": (80, 1), "hd 128, H/KV 2": (128, 2),
+         "hd 160, H/KV 4": (160, 1)}
 
 
 @functools.lru_cache(maxsize=None)

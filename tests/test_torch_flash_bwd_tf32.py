@@ -177,7 +177,7 @@ def _view(shape, dtype, offset=0, pad=0):
                        (129, "simple"), (160, "simple"), (256, "simple"))],
     *[(_view((2, 9, 4, hd), torch.bfloat16), _view((2, 9, 1, hd), torch.bfloat16), want)
       for hd, want in ((16, "simple"), (64, "wgmma"), (80, "wgmma"), (128, "wgmma"),
-                       (160, "simple"), (192, "simple"), (256, "simple"))],
+                       (160, "wgmma"), (192, "simple"), (256, "simple"))],
     (_view((2, 9, 4, 64), torch.float32, 3, 5), _view((2, 9, 1, 64), torch.float32, 1),
      "tf32x3"),                                           # off 16-byte alignment
     (_view((2, 9, 4, 80), torch.bfloat16, 3, 5), _view((2, 9, 1, 80), torch.bfloat16, 1),
@@ -188,7 +188,7 @@ def _view(shape, dtype, offset=0, pad=0):
 def test_backward_kernel_choice(q, k, want):
     """The backward kernel is chosen by type and head dim alone, never by
     the layout: f32 at hd up to 128 goes to the tf32x3 kernel, bf16 at hd
-    64, 80 and 128 to the wgmma one, bf16 at other head dims and f32 above
+    64, 80, 128 and 160 to the wgmma one, bf16 at other head dims and f32 above
     128 to the general one."""
     assert fa.bwd_variant(q, k, k) == want
     assert fa.bwd_variant(q.contiguous(), k.contiguous(), k.contiguous()) == want

@@ -94,13 +94,15 @@ def _max_diff(a, b):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch,bwd", [("stablelm-3b", "wgmma"), ("stablelm-12b", "simple")])
+@pytest.mark.parametrize("arch,bwd", [("stablelm-3b", "wgmma"), ("stablelm-12b", "wgmma"),
+                                      ("nemotron-4-340b", "simple")])
 def test_full_width_lm_attention_goes_to_the_wgmma_kernels_by_head_dim(arch, bwd):
     """bf16 at the full configs' head dims: the wgmma forward, with its lse
-    too, at both (80, 160); the wgmma backward at 80 (stablelm-3b's, LM
-    training's main path) and the general one at 160. The choice is made
-    from the type and head dim alone, so CPU tensors of those shapes name
-    the kernels."""
+    too, at all three (80, 160, 192); the wgmma backward at 80
+    (stablelm-3b's, LM training's main path) and 160 (stablelm-12b's and
+    pixtral-12b's), the general one at 192. The choice is made from the
+    type and head dim alone, so CPU tensors of those shapes name the
+    kernels."""
     a = get_arch(arch).config.attention
     q = torch.zeros((1, 4, a.n_heads, a.head_dim), dtype=torch.bfloat16)
     k = torch.zeros((1, 4, a.n_kv_heads, a.head_dim), dtype=torch.bfloat16)
